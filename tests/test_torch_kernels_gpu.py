@@ -1,0 +1,138 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Flagship shapes (26 layers, CFG batch 2, 32 query heads, 8 KV heads, head
+dim 64), bf16. Run on a machine with an NVIDIA GPU:
+
+    python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q
+
+(``--noconftest``: the repository's conftest sets up JAX, which that machine
+does not need.) Without a card every test here skips.
+"""
+
+import pytest
+import torch
+
+from zonos_vibes_tpu_torch.ops.cuda import build
+from zonos_vibes_tpu_torch.ops.cuda.decode_attention import (
+    decode_attention_layered,
+    decode_attention_layered_plain,
+)
+from zonos_vibes_tpu_torch.ops.cuda.prefill_attention import (
+    prefill_attention,
+    prefill_attention_plain,
+)
+from zonos_vibes_tpu_torch.ops.cuda.stage_write import stage_splice, stage_splice_plain
+
+pytestmark = pytest.mark.gpu
+
+L, B, HQ, HKV, D, STAGE = 26, 2, 32, 8, 64, 128
+W = HKV * D
+# bf16 output rounding (2^-8 relative) plus the kernel keeping p in fp32
+# where the plain version rounds it to bf16 before the value product.
+TOL = dict(rtol=2e-2, atol=2e-2)
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(gen, *shape, dev):
+    return torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32).to(torch.bfloat16)
+
+
+@pytest.fixture(scope="module")
+def decode_inputs(dev):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    T = 3072
+    return dict(
+        q=_randn(gen, B, 1, HQ, D, dev=dev),
+        k_cache=_randn(gen, L, B, T, W, dev=dev),
+        v_cache=_randn(gen, L, B, T, W, dev=dev),
+        k_stage=_randn(gen, L, B, STAGE, W, dev=dev),
+        v_stage=_randn(gen, L, B, STAGE, W, dev=dev),
+        k_cur=_randn(gen, B, W, dev=dev),
+        v_cur=_randn(gen, B, W, dev=dev),
+    )
+
+
+@pytest.mark.parametrize("flushed_end", [0, 1, 500, 2944])
+@pytest.mark.parametrize("stage_len", [0, 5, 127])
+@pytest.mark.parametrize("layer", [0, 25])
+def test_decode_attention_kernel(dev, decode_inputs, flushed_end, stage_len, layer):
+    scalars = torch.tensor([flushed_end, stage_len, layer], dtype=torch.int32, device=dev)
+    before = build.LAUNCHES["decode_attention"]
+    got = decode_attention_layered(**decode_inputs, scalars=scalars)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["decode_attention"] == before + 1
+    want = decode_attention_layered_plain(**decode_inputs, scalars=scalars)
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+
+
+@pytest.mark.parametrize("flushed_end,stage_len", [(1000, 0), (744, 127), (255, 3)])
+def test_decode_attention_kernel_ragged_cache(dev, flushed_end, stage_len):
+    """A cache length (1000) that is not a multiple of the 256-position split."""
+    gen = torch.Generator(device=dev).manual_seed(flushed_end)
+    T = 1000
+    x = dict(q=_randn(gen, B, 1, HQ, D, dev=dev), k_cache=_randn(gen, L, B, T, W, dev=dev),
+             v_cache=_randn(gen, L, B, T, W, dev=dev),
+             k_stage=_randn(gen, L, B, STAGE, W, dev=dev),
+             v_stage=_randn(gen, L, B, STAGE, W, dev=dev),
+             k_cur=_randn(gen, B, W, dev=dev), v_cur=_randn(gen, B, W, dev=dev))
+    scalars = torch.tensor([flushed_end, stage_len, 7], dtype=torch.int32, device=dev)
+    got = decode_attention_layered(**x, scalars=scalars)
+    torch.cuda.synchronize()
+    want = decode_attention_layered_plain(**x, scalars=scalars)
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+
+
+def test_decode_attention_ignores_padded_tail(dev, decode_inputs):
+    """Positions at or past flushed_end must not change the result."""
+    scalars = torch.tensor([500, 5, 3], dtype=torch.int32, device=dev)
+    a = decode_attention_layered(**decode_inputs, scalars=scalars)
+    poisoned = dict(decode_inputs)
+    poisoned["k_cache"] = decode_inputs["k_cache"].clone()
+    poisoned["k_cache"][3, :, 500:] = float("nan")
+    poisoned["k_stage"] = decode_inputs["k_stage"].clone()
+    poisoned["k_stage"][3, :, 5:] = float("nan")
+    b = decode_attention_layered(**poisoned, scalars=scalars)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("slot", [0, 1, 63, 127])
+def test_stage_splice_kernel(dev, slot):
+    gen = torch.Generator(device=dev).manual_seed(slot)
+    stage = _randn(gen, L, B, STAGE, W, dev=dev)
+    cols = _randn(gen, L, B, W, dev=dev)
+    want = stage_splice_plain(stage.clone(), cols, torch.tensor([slot]))
+    got = stage_splice(stage, cols, torch.tensor([slot], dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    assert got.data_ptr() == stage.data_ptr()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("S", [7, 97, 600])
+@pytest.mark.parametrize("offset", [0, 64])
+def test_prefill_attention_kernel(dev, S, offset):
+    gen = torch.Generator(device=dev).manual_seed(S + offset)
+    T = 768
+    q = _randn(gen, B, S, HQ, D, dev=dev)
+    k = _randn(gen, B, T, W, dev=dev)
+    v = _randn(gen, B, T, W, dev=dev)
+    got = prefill_attention(q, k, v, offset)
+    torch.cuda.synchronize()
+    want = prefill_attention_plain(q, k, v, offset)
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+
+
+def test_wrappers_raise_on_fp32_cuda(dev):
+    q = torch.zeros(1, 4, HQ, D, device=dev)
+    kv = torch.zeros(1, 16, W, device=dev)
+    before = build.LAUNCHES["prefill_attention"]
+    with pytest.raises(ValueError):
+        prefill_attention(q, kv, kv, 0)
+    assert build.LAUNCHES["prefill_attention"] == before

@@ -1,0 +1,130 @@
+"""The port's plain ops against the JAX package's, on the same numpy inputs.
+
+fp32 on the CPU, JAX at ``highest`` matmul precision (tests/conftest.py).
+Tolerances: 1e-6 for elementwise math (the same fp32 operations), 1e-5 where
+a reduction or a matmul sums in another order.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from zonos_vibes_tpu.ops import delay_pattern as jdp
+from zonos_vibes_tpu.ops import mlp as jmlp
+from zonos_vibes_tpu.ops import norms as jnorms
+from zonos_vibes_tpu.ops import rope as jrope
+from zonos_vibes_tpu.ops import sampling as jsamp
+from zonos_vibes_tpu.ops.attention import NEG_INF as JAX_NEG_INF
+from zonos_vibes_tpu_torch.ops import delay_pattern, mlp, norms, rope, sampling
+from zonos_vibes_tpu_torch.ops.attention import NEG_INF
+
+
+def test_neg_inf_is_bit_identical():
+    assert NEG_INF == JAX_NEG_INF
+
+
+def test_rope_table_and_apply():
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 5, 4, 16)).astype(np.float32)
+    pos = rng.integers(0, 16384, size=(2, 5))
+    table = rope.rope_table(16)
+    want_table = np.array(jrope.expand_rope_table(jrope.rope_table(16)))
+    np.testing.assert_allclose(table.numpy(), want_table, rtol=1e-5, atol=2e-5)
+    # Same table on both sides: the rotation itself must agree to fp32 rounding.
+    got = rope.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), torch.from_numpy(want_table))
+    want = jrope.apply_rope(jnp.asarray(x), jnp.asarray(pos), jnp.asarray(want_table))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
+
+
+def test_layer_norm():
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((3, 7, 64)).astype(np.float32) * 3 + 1
+    w = rng.standard_normal(64).astype(np.float32)
+    b = rng.standard_normal(64).astype(np.float32)
+    got = norms.layer_norm(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b))
+    want = jnorms.layer_norm(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_swiglu_mid():
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((2, 3, 32)).astype(np.float32)
+    w = (rng.standard_normal((32, 96)) / 6).astype(np.float32)
+    got = mlp.swiglu_mid(torch.from_numpy(x), {"weight": torch.from_numpy(w)})
+    want = jmlp.swiglu_mid(jnp.asarray(x), {"weight": jnp.asarray(w)})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_delay_pattern_apply_and_revert():
+    rng = np.random.default_rng(3)
+    codes = rng.integers(0, 1024, size=(2, 9, 13))
+    got = delay_pattern.apply_delay_pattern(torch.from_numpy(codes), 1025)
+    want = jdp.apply_delay_pattern(jnp.asarray(codes), 1025)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    back = delay_pattern.revert_delay_pattern(got)
+    np.testing.assert_array_equal(back.numpy(), np.asarray(jdp.revert_delay_pattern(want)))
+    np.testing.assert_array_equal(back.numpy(), codes)
+
+
+def _jax_probs(logits, params, gen):
+    """The JAX static pipeline up to (not including) the draw."""
+    if params.repetition_penalty != 1.0 and gen is not None:
+        logits = jsamp.apply_repetition_penalty(logits, gen, params.repetition_penalty,
+                                                params.repetition_penalty_window)
+    logits = logits.astype(jnp.float32)
+    if params.temperature <= 0:
+        return logits
+    probs = jax.nn.softmax(logits / params.temperature, axis=-1)
+    if params.linear > 0.0:
+        probs = jsamp.apply_unified(probs, params.linear, params.conf, params.quad)
+    if params.top_p > 0:
+        probs = jsamp.apply_top_p(probs, params.top_p)
+    if params.top_k > 0:
+        probs = jsamp.apply_top_k(probs, params.top_k)
+    if params.min_p > 0:
+        probs = jsamp.apply_min_p(probs, params.min_p)
+    return probs
+
+
+@pytest.mark.parametrize("knobs", [
+    dict(min_p=0.1),
+    dict(temperature=0.7, top_p=0.9),
+    dict(top_k=20),
+    dict(linear=0.5, conf=0.2, quad=0.1),
+    dict(temperature=1.3, top_p=0.8, top_k=50, min_p=0.05, repetition_penalty_window=4),
+    dict(temperature=0.0),
+])
+def test_sampling_probs_match(knobs):
+    rng = np.random.default_rng(4)
+    V = 1152
+    logits = (rng.standard_normal((2, 9, V)) * 3).astype(np.float32)
+    logits[..., 1025:] = NEG_INF
+    gen = rng.integers(0, V, size=(2, 9, 6))
+    gen[0, 0, -1] = 1025  # MASK lands on the clamped top slot
+    gen[1, 2, -2] = -1  # not yet generated: counts for nothing
+    params_j = jsamp.SamplingParams(**knobs)
+    params_t = sampling.SamplingParams(**knobs)
+    want = np.asarray(_jax_probs(jnp.asarray(logits), params_j, jnp.asarray(gen)))
+    got = sampling.sampling_probs(torch.from_numpy(logits), params_t, torch.from_numpy(gen)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7)
+    if params_t.temperature <= 0:
+        toks = sampling.sample_from_logits(None, torch.from_numpy(logits), params_t,
+                                           torch.from_numpy(gen))
+        jtoks = jsamp.sample_from_logits(jax.random.key(0), jnp.asarray(logits), params_j,
+                                         jnp.asarray(gen))
+        np.testing.assert_array_equal(toks.numpy(), np.asarray(jtoks))
+
+
+def test_exponential_race_samples_the_distribution():
+    """The draw (a torch.Generator's stream, unlike JAX's) follows the
+    probabilities: 20,000 draws from a 4-token distribution land within 3%
+    of each probability."""
+    probs = torch.tensor([[[0.5, 0.3, 0.2, 0.0]]]).expand(20000, 1, 4)
+    logits = torch.log(probs.clamp(min=1e-30))
+    g = torch.Generator().manual_seed(0)
+    toks = sampling.sample_from_logits(
+        g, logits, sampling.SamplingParams(repetition_penalty=1.0))
+    freq = torch.bincount(toks.flatten(), minlength=4).float() / toks.numel()
+    np.testing.assert_allclose(freq.numpy(), [0.5, 0.3, 0.2, 0.0], atol=0.03)

@@ -1,0 +1,297 @@
+// Staged single-query GQA flash-decode for one layer of the stacked KV cache.
+//
+// Replaces: zonos_vibes_tpu/ops/pallas/decode_attention.py::
+//   decode_attention_pallas_layered (a TPU grid (B, nT) that walks the
+//   time-minor cache block by block in order, carries the online softmax in
+//   VMEM scratch, and folds the stage and the current column into the last
+//   grid step).
+//
+// What bounds it on the H100: device-memory bytes. One call must read the
+// flushed prefix [0, flushed_end) and the stage rows [0, stage_len) of one
+// layer, K and V, B * Hkv * 64 bf16 values per position, plus the current
+// column. It does 4 * Hq * 64 flops per position, about one flop per byte,
+// far below the ~295 flops per byte where the tensor cores become the limit.
+// At 5 s of audio the bytes are ~1 MB a layer, so the launch itself dominates.
+//
+// What the design does about it (flash-decoding):
+//  * One block per (split, kv head, batch row): the G query heads of a group
+//    share every K/V load. B * Hkv is only 16 at CFG batch 2, so the flushed
+//    prefix is also cut into fixed chunks of CHUNK positions, one block each,
+//    to put enough blocks on the 132 SMs at 30 s depth. The last split takes
+//    the stage rows and the current column.
+//  * The grid depends only on the cache length T, never on flushed_end or
+//    stage_len, which are read from device memory: the launch is fit for
+//    graph capture. Chunks at or past flushed_end return at once, so the
+//    padded tail of the cache is never read.
+//  * Inside a block every warp is four independent 8-lane decoders: a lane
+//    holds 8 of the 64 dims of one position (one 16-byte load of K and of V),
+//    three shuffles finish a dot product, and each decoder keeps its own fp32
+//    running max, sum and accumulator. The 16 decoders of a block merge in
+//    shared memory into one partial (acc, max, sum) per query head; a second
+//    small kernel merges the splits and writes bf16.
+//
+// Layouts (row-major, bf16 unless noted):
+//   q       [B, Hq, 64]              k_cache, v_cache [L, B, T, Hkv * 64]
+//   k_stage, v_stage [L, B, STAGE, Hkv * 64]
+//   k_cur, v_cur [B, Hkv * 64]       scalars int32 [3]: flushed_end, stage_len, layer
+//   part    fp32 [B, Hkv, nsplit, G, 66]   out [B, Hq, 64]
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int HEAD_DIM = 64;
+constexpr int DIMS_PER_LANE = 8;
+constexpr int ROWS_PER_WARP = 32 / (HEAD_DIM / DIMS_PER_LANE);  // 4
+constexpr int WARPS = 4;
+constexpr int THREADS = WARPS * 32;
+constexpr int CHUNK = 256;
+constexpr int PART = HEAD_DIM + 2;
+constexpr int MAX_G = 8;
+// Finite sentinel for an empty running max: exp(NEG_BIG - NEG_BIG) is 1 and
+// multiplies a zero sum, so merging empty states never produces NaN.
+constexpr float NEG_BIG = -1e30f;
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+template <int G>
+__global__ void __launch_bounds__(THREADS) decode_split_kernel(
+    const __nv_bfloat16* __restrict__ q,
+    const __nv_bfloat16* __restrict__ k_cache,
+    const __nv_bfloat16* __restrict__ v_cache,
+    const __nv_bfloat16* __restrict__ k_stage,
+    const __nv_bfloat16* __restrict__ v_stage,
+    const __nv_bfloat16* __restrict__ k_cur,
+    const __nv_bfloat16* __restrict__ v_cur,
+    const int* __restrict__ scalars,
+    float* __restrict__ part,
+    int B, int Hkv, int T, int stage_depth, int nsplit, float scale) {
+  const int split = blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int W = Hkv * HEAD_DIM;
+  const int flushed_end = scalars[0];
+  const int stage_len = scalars[1];
+  const int layer = scalars[2];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int sub = lane / (HEAD_DIM / DIMS_PER_LANE);
+  const int dim0 = (lane % (HEAD_DIM / DIMS_PER_LANE)) * DIMS_PER_LANE;
+
+  // Rows this split attends: a prefix chunk, or the stage plus the current
+  // column (row index n of the last split).
+  const __nv_bfloat16* k_rows;
+  const __nv_bfloat16* v_rows;
+  int n;
+  bool with_cur;
+  if (split < nsplit - 1) {
+    const int start = split * CHUNK;
+    n = max(0, min(CHUNK, flushed_end - start));
+    const size_t off = ((size_t)layer * B + b) * (size_t)T * W + (size_t)start * W;
+    k_rows = k_cache + off;
+    v_rows = v_cache + off;
+    with_cur = false;
+  } else {
+    n = stage_len;
+    const size_t off = ((size_t)layer * B + b) * (size_t)stage_depth * W;
+    k_rows = k_stage + off;
+    v_rows = v_stage + off;
+    with_cur = true;
+  }
+  const int total = n + (with_cur ? 1 : 0);
+  const int col = h * HEAD_DIM + dim0;
+
+  float qr[G][DIMS_PER_LANE];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    load8(q + ((size_t)b * Hkv * G + h * G + g) * HEAD_DIM + dim0, qr[g]);
+#pragma unroll
+    for (int d = 0; d < DIMS_PER_LANE; ++d) qr[g][d] *= scale;
+  }
+
+  float m[G], l[G], acc[G][DIMS_PER_LANE];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    m[g] = NEG_BIG;
+    l[g] = 0.f;
+#pragma unroll
+    for (int d = 0; d < DIMS_PER_LANE; ++d) acc[g][d] = 0.f;
+  }
+
+  // The loop bound is the same for every lane of a warp, so the shuffles
+  // below always run with the full mask; lanes past the end load nothing.
+  for (int base = warp * ROWS_PER_WARP; base < total; base += WARPS * ROWS_PER_WARP) {
+    const int i = base + sub;
+    const bool valid = i < total;
+    float kr[DIMS_PER_LANE], vr[DIMS_PER_LANE];
+    if (valid) {
+      const __nv_bfloat16* kp;
+      const __nv_bfloat16* vp;
+      if (i < n) {
+        kp = k_rows + (size_t)i * W + col;
+        vp = v_rows + (size_t)i * W + col;
+      } else {
+        kp = k_cur + (size_t)b * W + col;
+        vp = v_cur + (size_t)b * W + col;
+      }
+      load8(kp, kr);
+      load8(vp, vr);
+    } else {
+#pragma unroll
+      for (int d = 0; d < DIMS_PER_LANE; ++d) kr[d] = vr[d] = 0.f;
+    }
+    float s[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float acc_s = 0.f;
+#pragma unroll
+      for (int d = 0; d < DIMS_PER_LANE; ++d) acc_s = fmaf(qr[g][d], kr[d], acc_s);
+      s[g] = acc_s;
+    }
+#pragma unroll
+    for (int off = 1; off < HEAD_DIM / DIMS_PER_LANE; off <<= 1) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) s[g] += __shfl_xor_sync(0xffffffffu, s[g], off);
+    }
+    if (valid) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float mn = fmaxf(m[g], s[g]);
+        const float alpha = expf(m[g] - mn);
+        const float p = expf(s[g] - mn);
+        l[g] = l[g] * alpha + p;
+#pragma unroll
+        for (int d = 0; d < DIMS_PER_LANE; ++d) acc[g][d] = fmaf(acc[g][d], alpha, p * vr[d]);
+        m[g] = mn;
+      }
+    }
+  }
+
+  // Merge the four decoders of the warp (lanes with the same dims).
+#pragma unroll
+  for (int off = HEAD_DIM / DIMS_PER_LANE; off < 32; off <<= 1) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[g], off);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[g], off);
+      const float mn = fmaxf(m[g], mo);
+      const float a = expf(m[g] - mn);
+      const float c = expf(mo - mn);
+      l[g] = l[g] * a + lo * c;
+#pragma unroll
+      for (int d = 0; d < DIMS_PER_LANE; ++d) {
+        const float ao = __shfl_xor_sync(0xffffffffu, acc[g][d], off);
+        acc[g][d] = acc[g][d] * a + ao * c;
+      }
+      m[g] = mn;
+    }
+  }
+
+  // Merge the warps in shared memory and write this split's partial.
+  __shared__ float sm_acc[WARPS][MAX_G][HEAD_DIM];
+  __shared__ float sm_m[WARPS][MAX_G];
+  __shared__ float sm_l[WARPS][MAX_G];
+  if (sub == 0) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+#pragma unroll
+      for (int d = 0; d < DIMS_PER_LANE; ++d) sm_acc[warp][g][dim0 + d] = acc[g][d];
+      if (lane == 0) {
+        sm_m[warp][g] = m[g];
+        sm_l[warp][g] = l[g];
+      }
+    }
+  }
+  __syncthreads();
+  float* dst = part + (((size_t)b * Hkv + h) * nsplit + split) * G * PART;
+  for (int e = threadIdx.x; e < G * HEAD_DIM; e += THREADS) {
+    const int g = e / HEAD_DIM;
+    const int d = e % HEAD_DIM;
+    float mx = NEG_BIG;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, sm_m[w][g]);
+    float a = 0.f, sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float f = expf(sm_m[w][g] - mx);
+      a += sm_acc[w][g][d] * f;
+      sum += sm_l[w][g] * f;
+    }
+    dst[g * PART + d] = a;
+    if (d == 0) {
+      dst[g * PART + HEAD_DIM] = mx;
+      dst[g * PART + HEAD_DIM + 1] = sum;
+    }
+  }
+}
+
+// Merges the splits of one (kv head, batch row): thread (g, d) of G * 64.
+__global__ void decode_combine_kernel(const float* __restrict__ part,
+                                      __nv_bfloat16* __restrict__ out,
+                                      int Hkv, int G, int nsplit) {
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int g = threadIdx.x / HEAD_DIM;
+  const int d = threadIdx.x % HEAD_DIM;
+  const float* src = part + ((size_t)b * Hkv + h) * nsplit * G * PART;
+  float mx = NEG_BIG;
+  for (int s = 0; s < nsplit; ++s) mx = fmaxf(mx, src[(s * G + g) * PART + HEAD_DIM]);
+  float a = 0.f, sum = 0.f;
+  for (int s = 0; s < nsplit; ++s) {
+    const float* p = src + (s * G + g) * PART;
+    const float f = expf(p[HEAD_DIM] - mx);
+    a += p[d] * f;
+    sum += p[HEAD_DIM + 1] * f;
+  }
+  out[((size_t)b * Hkv * G + h * G + g) * HEAD_DIM + d] = __float2bfloat16(a / sum);
+}
+
+}  // namespace
+
+extern "C" int zvt_decode_attention_nsplit(int T) { return (T + CHUNK - 1) / CHUNK + 1; }
+
+extern "C" int zvt_decode_attention_layered(
+    const void* q, const void* k_cache, const void* v_cache, const void* k_stage,
+    const void* v_stage, const void* k_cur, const void* v_cur, const void* scalars,
+    void* part, void* out, int B, int Hq, int Hkv, int T, int stage_depth,
+    int head_dim, void* stream) {
+  if (head_dim != HEAD_DIM || Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
+  const int G = Hq / Hkv;
+  const int nsplit = zvt_decode_attention_nsplit(T);
+  const float scale = 1.0f / sqrtf((float)HEAD_DIM);
+  const dim3 grid(nsplit, Hkv, B);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define ZVT_SPLIT(GV)                                                                   \
+  decode_split_kernel<GV><<<grid, THREADS, 0, s>>>(                                     \
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_cache), \
+      static_cast<const __nv_bfloat16*>(v_cache),                                       \
+      static_cast<const __nv_bfloat16*>(k_stage),                                       \
+      static_cast<const __nv_bfloat16*>(v_stage),                                       \
+      static_cast<const __nv_bfloat16*>(k_cur), static_cast<const __nv_bfloat16*>(v_cur), \
+      static_cast<const int*>(scalars), static_cast<float*>(part), B, Hkv, T,           \
+      stage_depth, nsplit, scale)
+  switch (G) {
+    case 1: ZVT_SPLIT(1); break;
+    case 2: ZVT_SPLIT(2); break;
+    case 4: ZVT_SPLIT(4); break;
+    case 8: ZVT_SPLIT(8); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef ZVT_SPLIT
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  decode_combine_kernel<<<dim3(Hkv, B), G * HEAD_DIM, 0, s>>>(
+      static_cast<const float*>(part), static_cast<__nv_bfloat16*>(out), Hkv, G, nsplit);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,100 @@
+"""Zonos model core (the JAX package's ``models/zonos.py``): code embeddings,
+output heads, the CFG mix and conditioning.
+
+The 9 per-codebook embedding tables (1026 rows) and output heads are stacked
+on a leading codebook axis. Heads are padded from 1025 to 1152 columns and
+every logit at or above 1025 is forced to ``NEG_INF``, so MASK and the pad
+slots are never sampled. Head logits are fp32: the bf16 hidden state and
+weights are widened before the product (exact), as JAX contracts them with
+an fp32 result type; a bf16 product would round the logits and move the
+sampled tokens.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..config import ZonosConfig
+from ..ops.attention import NEG_INF
+from .conditioners import PrefixConditioner
+from .registry import backbone_for_config
+
+
+@dataclass(frozen=True)
+class ZonosModel:
+    """Config wrapper; parameters travel separately as a dict of tensors."""
+
+    config: ZonosConfig
+
+    @property
+    def backbone(self):
+        return backbone_for_config(self.config.backbone)
+
+    @property
+    def prefix_conditioner(self) -> PrefixConditioner:
+        return PrefixConditioner(self.config.prefix_conditioner, self.config.backbone.d_model)
+
+    @property
+    def head_out_dim(self) -> int:
+        """Head vocab (1025) padded to ``head_pad_to_multiple`` (1152)."""
+        m = self.config.head_pad_to_multiple
+        n = self.config.head_vocab_size
+        return n if n % m == 0 else n + m - (n % m)
+
+    def init(self, gen: torch.Generator, dtype=torch.bfloat16, device="cpu") -> dict:
+        """Random parameters at the shapes of the JAX ``init``, from ``gen``."""
+        cfg = self.config
+        D, K = cfg.backbone.d_model, cfg.num_codebooks
+
+        def normal(shape):
+            return torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+
+        return {
+            "embeddings": {"weight": normal((K, cfg.vocab_size, D)).to(dtype)},
+            "heads": {"weight": (normal((K, D, self.head_out_dim)) / D ** 0.5).to(dtype)},
+            "backbone": self.backbone.init(gen, dtype, device),
+            "prefix_conditioner": self.prefix_conditioner.init(gen, dtype, device),
+        }
+
+    def embed_codes(self, params: dict, codes: torch.Tensor) -> torch.Tensor:
+        """``[B, K, S]`` codes -> ``[B, S, D]``: the sum over codebooks."""
+        w = params["embeddings"]["weight"]  # [K, V, D]
+        K = w.shape[0]
+        idx = torch.arange(K, device=codes.device)[None, :, None]
+        return w[idx, codes.long()].sum(dim=1)
+
+    def apply_heads(self, params: dict, hidden: torch.Tensor) -> torch.Tensor:
+        """``[B, S, D] -> [B, K, S, V]`` fp32 logits."""
+        w = params["heads"]["weight"]
+        return torch.einsum("bsd,kdv->bksv", hidden.float(), w.float())
+
+    def allocate_cache(self, batch_size: int, max_seqlen: int, dtype, device) -> dict:
+        return self.backbone.allocate_cache(batch_size, max_seqlen, dtype, device)
+
+    def compute_logits(self, params: dict, hidden, cache: dict, offset: int, cfg_scale: float,
+                       rope, stage_base: int | None = None):
+        """Backbone -> last position -> heads -> CFG mix -> pad mask.
+        ``hidden`` is the CFG-doubled ``[2B, S, D]``; returns ``[B, K, V]``
+        fp32 logits (the cache is updated in place)."""
+        out = self.backbone.forward(params["backbone"], hidden, cache, offset, rope, stage_base)
+        logits = self.apply_heads(params, out[:, -1:, :])[:, :, 0, :]
+        if cfg_scale != 1.0:
+            cond, uncond = logits.chunk(2, dim=0)
+            logits = uncond + (cond - uncond) * cfg_scale
+        mask_from = self.config.head_vocab_size
+        logits[..., mask_from:] = NEG_INF
+        return logits
+
+    def prepare_conditioning(self, params: dict, cond_dict: dict,
+                             uncond_dict: dict | None = None) -> torch.Tensor:
+        """``[cond; uncond]`` stacked on the batch: CFG doubling."""
+        pc = self.prefix_conditioner
+        missing = pc.required_keys - set(cond_dict)
+        if missing:
+            raise ValueError(f"Missing required keys: {missing}")
+        if uncond_dict is None:
+            uncond_dict = {k: cond_dict[k] for k in pc.required_keys}
+        p = params["prefix_conditioner"]
+        return torch.cat([pc.apply(p, cond_dict), pc.apply(p, uncond_dict)], dim=0)

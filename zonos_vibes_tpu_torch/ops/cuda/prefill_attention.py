@@ -1,0 +1,46 @@
+"""Causal prefill attention: the CUDA kernel's wrapper and its plain version.
+
+Counterpart of ``zonos_vibes_tpu/ops/pallas/prefill_attention.py::
+prefill_attention_pallas``: causal GQA flash-attention of a chunk of ``S``
+queries at ``offset`` in one layer of the time-major cache. The JAX package
+takes its kernel only for chunks of 512 or more on a TPU; the port sends
+every prefill on the card through ``csrc/prefill_attention.cu``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..attention import prefill_attention as prefill_attention_plain
+from . import build
+
+__all__ = ["prefill_attention", "prefill_attention_plain"]
+
+
+def prefill_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                      offset: int) -> torch.Tensor:
+    """Query ``i`` (absolute ``offset + i``) attends ``[0, offset + i]``.
+
+    ``q [B, S, Hq, D]``, caches ``[B, T, Hkv*D]`` holding the chunk at
+    ``[offset, offset + S)``. Returns ``[B, S, Hq, D]``. CPU tensors take
+    the plain version; CUDA tensors launch the kernel (bf16, D = 64) or raise.
+    """
+    B, S, Hq, D = q.shape
+    Bc, T, W = k_cache.shape
+    if (Bc != B or W % D or Hq % (W // D) or v_cache.shape != k_cache.shape
+            or S < 1 or offset < 0 or offset + S > T):
+        raise ValueError("prefill_attention: inconsistent shapes or offset")
+    if q.device.type == "cpu":
+        return prefill_attention_plain(q, k_cache, v_cache, offset)
+    dev = build.require_cuda("prefill_attention", q, k_cache, v_cache)
+    for t in (q, k_cache, v_cache):
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"prefill_attention: kernel takes bf16, got {t.dtype}")
+    out = torch.empty_like(q)
+    rc = build.load().zvt_prefill_attention(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
+        B, S, Hq, W // D, T, D, int(offset), build.stream_handle(dev),
+    )
+    build.check_status("prefill_attention", rc)
+    build.LAUNCHES["prefill_attention"] += 1
+    return out

@@ -1,0 +1,14 @@
+"""Gated-SiLU ("SwiGLU") feed-forward, as in the JAX package's ``ops/mlp.py``:
+``fc1: d_model -> 2*d_ff`` without bias, split into ``(y, gate)``, then
+``y * silu(gate)`` feeds ``fc2``. Weights are stored ``[in, out]``."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def swiglu_mid(x: torch.Tensor, fc1: dict) -> torch.Tensor:
+    """fc1 and the gate: the fc2 input ``y * silu(gate)``."""
+    y, gate = torch.matmul(x, fc1["weight"]).chunk(2, dim=-1)
+    return y * F.silu(gate)

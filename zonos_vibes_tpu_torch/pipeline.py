@@ -1,0 +1,169 @@
+"""User-facing pipeline (the JAX package's ``pipeline.py``): text ->
+phonemes -> conditioning -> prefill -> staged decode -> codes -> DAC decode.
+
+    pipe = ZonosPipeline.from_config(ZONOS_V01_TRANSFORMER)    # on "cuda"
+    cond = pipe.make_cond_dict(text="Hello!", language="en-us")
+    result = pipe.generate(cond, generator=torch.Generator("cuda").manual_seed(421))
+    wav44k = pipe.decode_audio(result)                          # [B, samples]
+
+Text normalization, phonemization and tokenization run on the host
+(``frontend/``); everything numeric runs on ``pipe.device``. Entry points
+run on CUDA unless the caller passes ``device="cpu"``, and raise without a
+GPU otherwise.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any
+
+import numpy as np
+import torch
+
+from .config import ZonosConfig
+from .engine.generate import DecodeEngine, GenerateResult
+from .frontend.phonemize import phonemize
+from .frontend.text import tokenize_phonemes
+from .models.autoencoder import DACAutoencoder
+from .models.dac import DACConfig
+from .models.zonos import ZonosModel
+from .ops.sampling import SamplingParams
+from .utils.device import resolve_device
+
+# 108 eSpeak language codes, in the order of the language-id conditioner.
+supported_language_codes = [
+    'af', 'am', 'an', 'ar', 'as', 'az', 'ba', 'bg', 'bn', 'bpy', 'bs', 'ca', 'cmn',
+    'cs', 'cy', 'da', 'de', 'el', 'en-029', 'en-gb', 'en-gb-scotland', 'en-gb-x-gbclan',
+    'en-gb-x-gbcwmd', 'en-gb-x-rp', 'en-us', 'eo', 'es', 'es-419', 'et', 'eu', 'fa',
+    'fa-latn', 'fi', 'fr-be', 'fr-ch', 'fr-fr', 'ga', 'gd', 'gn', 'grc', 'gu', 'hak',
+    'hi', 'hr', 'ht', 'hu', 'hy', 'hyw', 'ia', 'id', 'is', 'it', 'ja', 'jbo', 'ka',
+    'kk', 'kl', 'kn', 'ko', 'kok', 'ku', 'ky', 'la', 'lfn', 'lt', 'lv', 'mi', 'mk',
+    'ml', 'mr', 'ms', 'mt', 'my', 'nb', 'nci', 'ne', 'nl', 'om', 'or', 'pa', 'pap',
+    'pl', 'pt', 'pt-br', 'py', 'quc', 'ro', 'ru', 'ru-lv', 'sd', 'shn', 'si', 'sk',
+    'sl', 'sq', 'sr', 'sv', 'sw', 'ta', 'te', 'tn', 'tr', 'tt', 'ur', 'uz', 'vi',
+    'vi-vn-x-central', 'vi-vn-x-south', 'yue',
+]
+_LANGUAGE_TO_ID = {lang: i for i, lang in enumerate(supported_language_codes)}
+
+DEFAULT_EMOTION = [0.3077, 0.0256, 0.0256, 0.0256, 0.0256, 0.0256, 0.2564, 0.3077]
+
+
+@dataclass
+class ZonosPipeline:
+    model: ZonosModel
+    params: dict
+    device: torch.device
+    dac: DACAutoencoder = field(default_factory=DACAutoencoder)
+    dac_params: dict | None = None
+
+    def __post_init__(self):
+        self.engine = DecodeEngine(self.model)
+
+    @classmethod
+    def from_config(cls, config: ZonosConfig, device=None,
+                    generator: torch.Generator | None = None, dtype=torch.bfloat16,
+                    dac_config: DACConfig | None = None) -> "ZonosPipeline":
+        """Random weights at ``config``'s shapes (no checkpoint needed),
+        drawn from ``generator`` (default: seed 0 on ``device``); the DAC is
+        fp32."""
+        dev = resolve_device(device)
+        gen = generator if generator is not None else torch.Generator(dev).manual_seed(0)
+        model = ZonosModel(config)
+        dac = DACAutoencoder(dac_config)
+        return cls(model=model, params=model.init(gen, dtype, dev), device=dev, dac=dac,
+                   dac_params=dac.init(gen, dev))
+
+    @classmethod
+    def from_params(cls, config: ZonosConfig, params: dict, dac_params: dict | None = None,
+                    device=None, dac_config: DACConfig | None = None) -> "ZonosPipeline":
+        """Wrap existing port parameters (for example from
+        ``utils.checkpoint.params_from_jax``), moved to ``device``."""
+        dev = resolve_device(device)
+
+        def to_dev(tree):
+            if isinstance(tree, dict):
+                return {k: to_dev(v) for k, v in tree.items()}
+            if isinstance(tree, (list, tuple)):
+                return [to_dev(v) for v in tree]
+            return tree.to(dev)
+
+        return cls(model=ZonosModel(config), params=to_dev(params), device=dev,
+                   dac=DACAutoencoder(dac_config),
+                   dac_params=None if dac_params is None else to_dev(dac_params))
+
+    def make_cond_dict(
+        self,
+        text: str = "It would be nice to have time for testing, indeed.",
+        language: str = "en-us",
+        speaker: torch.Tensor | None = None,
+        emotion: list[float] | None = None,
+        fmax: float = 22050.0,
+        pitch_std: float = 20.0,
+        speaking_rate: float = 15.0,
+        vqscore_8: list[float] | None = None,
+        ctc_loss: float = 0.0,
+        dnsmos_ovrl: float = 4.0,
+        speaker_noised: bool = False,
+        unconditional_keys: Any = frozenset({"vqscore_8", "dnsmos_ovrl"}),
+    ) -> dict:
+        """The numeric cond dict, phonemized on the host. A ``speaker``
+        embedding is ``[1, 1, 128]``; without one the learned
+        unconditional vector stands in."""
+        language = language.lower()
+        if language not in _LANGUAGE_TO_ID:
+            raise ValueError(f"Unsupported language: {language}")
+        emotion = emotion if emotion is not None else list(DEFAULT_EMOTION)
+        vqscore_8 = vqscore_8 if vqscore_8 is not None else [0.78] * 8
+        phoneme_ids, _ = tokenize_phonemes(phonemize([text], [language]))
+        cond: dict[str, Any] = {
+            "espeak": phoneme_ids, "speaker": speaker, "emotion": emotion, "fmax": fmax,
+            "pitch_std": pitch_std, "speaking_rate": speaking_rate,
+            "language_id": _LANGUAGE_TO_ID[language], "vqscore_8": vqscore_8,
+            "ctc_loss": ctc_loss, "dnsmos_ovrl": dnsmos_ovrl,
+            "speaker_noised": int(speaker_noised),
+        }
+        for k in unconditional_keys:
+            cond.pop(k, None)
+        present = {s.name for s in self.model.prefix_conditioner.specs}
+        out = {}
+        for k, v in cond.items():
+            if v is None:
+                continue
+            if k == "espeak":
+                out[k] = torch.tensor(v, dtype=torch.long, device=self.device)
+            elif k == "speaker":
+                out[k] = v.to(self.device)
+            elif k in present:
+                arr = torch.tensor(v, dtype=torch.float32, device=self.device).reshape(1, 1, -1)
+                if k == "emotion":
+                    arr = arr / arr.sum(dim=-1, keepdim=True)
+                out[k] = arr
+        return out
+
+    def prepare_conditioning(self, cond_dict: dict, uncond_dict: dict | None = None):
+        with torch.inference_mode():
+            return self.model.prepare_conditioning(self.params, cond_dict, uncond_dict)
+
+    def generate(self, cond_dict: dict, audio_prefix_codes: torch.Tensor | None = None, *,
+                 generator: torch.Generator, max_new_tokens: int = 86 * 30,
+                 cfg_scale: float = 2.0, sampling_params: SamplingParams | dict | None = None,
+                 disable_eos: bool = False) -> GenerateResult:
+        """DAC codes for ``cond_dict``; ``generator`` lies on ``self.device``."""
+        prefix = self.prepare_conditioning(cond_dict)
+        return self.engine.generate(
+            self.params, prefix, audio_prefix_codes, generator=generator,
+            max_new_tokens=max_new_tokens, cfg_scale=cfg_scale,
+            sampling_params=sampling_params, disable_eos=disable_eos)
+
+    def decode_audio(self, result: GenerateResult | torch.Tensor) -> np.ndarray:
+        """Codes -> ``[B, samples]`` float32 waveform at 44.1 kHz (trimmed
+        to the valid frames for a :class:`GenerateResult`)."""
+        if self.dac_params is None:
+            raise RuntimeError("DAC params not loaded")
+        codes = result.codes if isinstance(result, GenerateResult) else result
+        with torch.inference_mode():
+            wav = self.dac.decode(self.dac_params, codes.to(self.device))
+        wav = wav[:, 0, :].float().cpu().numpy()
+        if isinstance(result, GenerateResult):
+            wav = wav[:, : result.valid_length * self.dac.hop]
+        return wav
