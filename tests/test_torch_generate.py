@@ -17,6 +17,7 @@ from zonos_vibes_tpu.config import BackboneConfig, PrefixConditionerConfig, Zono
 from zonos_vibes_tpu.engine import generate as jgen
 from zonos_vibes_tpu.models.zonos import ZonosModel as JModel
 from zonos_vibes_tpu.ops.delay_pattern import apply_delay_pattern as japply_delay
+from zonos_vibes_tpu.ops.quant import quantize_zonos_params as jquantize
 from zonos_vibes_tpu.ops.sampling import SamplingParams as JSampling
 from zonos_vibes_tpu_torch import config as tcfg
 from zonos_vibes_tpu_torch.engine import generate as tgen
@@ -80,6 +81,32 @@ def test_greedy_codes_equal_jax_across_a_stage_flush():
     np.testing.assert_array_equal(tres.codes.numpy(), np.asarray(jres.codes))
     assert tres.valid_length == int(jres.valid_length) == 140
     np.testing.assert_array_equal(tres.valid_lengths.numpy(), np.asarray(jres.valid_lengths))
+
+
+def test_int8_greedy_codes_equal_jax_across_a_stage_flush():
+    """The int8 serving configuration: int8 projections and heads
+    (``quantize_int8``, JAX's ``quantize_zonos_params(heads=True)``) and an
+    int8 KV cache (``DecodeEngine(kv_int8=True)``), 140 greedy steps across
+    the stage flush, whose quantized rows are read by the steps after it."""
+    np_params = _weights(False)
+    jparams = jquantize(jax.tree_util.tree_map(jnp.asarray, np_params), heads=True)
+    jmodel = JModel(JTINY)
+    jcond = jmodel.prepare_conditioning(jparams, {"espeak": jnp.asarray(PHONEMES)})
+    jres = jgen.DecodeEngine(jmodel, kv_int8=True).generate(
+        jparams, jcond, key=jax.random.key(1), max_new_tokens=140,
+        sampling_params=JSampling(temperature=0.0), disable_eos=True)
+
+    pipe = ZonosPipeline.from_params(TTINY, params_from_jax(np_params), device="cpu")
+    assert pipe.quantize_int8() is pipe
+    assert pipe.params["heads"]["weight_int8"].dtype == torch.int8
+    assert not pipe.engine.kv_int8  # the pipeline's own engine keeps an exact cache
+    cond = {"espeak": torch.tensor(PHONEMES)}
+    tres = tgen.DecodeEngine(pipe.model, kv_int8=True).generate(
+        pipe.params, pipe.prepare_conditioning(cond), generator=torch.Generator().manual_seed(1),
+        max_new_tokens=140, sampling_params=SamplingParams(temperature=0.0), disable_eos=True)
+    assert tres.steps == 140 + 9 - 1 > 128
+    np.testing.assert_array_equal(tres.codes.numpy(), np.asarray(jres.codes))
+    assert tres.valid_length == int(jres.valid_length) == 140
 
 
 @pytest.mark.parametrize("sampling", [dict(temperature=0.0), dict(min_p=0.1)])

@@ -12,15 +12,19 @@ does not need.) Without a card every test here skips.
 import pytest
 import torch
 
+from zonos_vibes_tpu_torch.ops import quant
 from zonos_vibes_tpu_torch.ops.cuda import build
 from zonos_vibes_tpu_torch.ops.cuda.decode_attention import (
     decode_attention_layered,
     decode_attention_layered_plain,
+    decode_attention_layered_q,
+    decode_attention_layered_q_plain,
 )
 from zonos_vibes_tpu_torch.ops.cuda.prefill_attention import (
     prefill_attention,
     prefill_attention_plain,
 )
+from zonos_vibes_tpu_torch.ops.cuda.qmm import qmm_int8, qmm_int8_plain
 from zonos_vibes_tpu_torch.ops.cuda.stage_write import stage_splice, stage_splice_plain
 
 pytestmark = pytest.mark.gpu
@@ -30,6 +34,11 @@ W = HKV * D
 # bf16 output rounding (2^-8 relative) plus the kernel keeping p in fp32
 # where the plain version rounds it to bf16 before the value product.
 TOL = dict(rtol=2e-2, atol=2e-2)
+# The int8 kernels run their plain versions' fp32 arithmetic in another
+# summation order; the output rounds once, possibly to the neighbouring
+# bf16 step.
+QMM_TOL = {torch.bfloat16: dict(rtol=8e-3, atol=1e-2), torch.float32: dict(rtol=1e-5, atol=1e-4)}
+Q_TOL = dict(rtol=1e-2, atol=1e-2)
 
 
 @pytest.fixture(scope="module")
@@ -136,3 +145,69 @@ def test_wrappers_raise_on_fp32_cuda(dev):
     with pytest.raises(ValueError):
         prefill_attention(q, kv, kv, 0)
     assert build.LAUNCHES["prefill_attention"] == before
+
+
+@pytest.mark.parametrize("M", [1, 2, 176])
+@pytest.mark.parametrize("G,K,N,out_dtype", [
+    (1, 2048, 3072, torch.bfloat16), (1, 2048, 2048, torch.bfloat16),
+    (1, 2048, 16384, torch.bfloat16), (1, 8192, 2048, torch.bfloat16),
+    (9, 2048, 1152, torch.float32),  # the 9 heads, fp32 logits
+    (2, 1000, 144, torch.bfloat16),  # ragged: K not a multiple of 256, N of 128
+])
+def test_qmm_int8_kernel(dev, M, G, K, N, out_dtype):
+    gen = torch.Generator(device=dev).manual_seed(M + N)
+    wq = quant.quantize_weight(_randn(gen, G, K, N, dev=dev) / K ** 0.5)
+    x = _randn(gen, M, K, dev=dev)
+    before = build.LAUNCHES["qmm_int8"]
+    got = qmm_int8(x, wq["weight_int8"], wq["scale"], out_dtype)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["qmm_int8"] == before + 1
+    assert got.shape == (M, G, N) and got.dtype == out_dtype
+    want = qmm_int8_plain(x, wq["weight_int8"], wq["scale"], out_dtype)
+    torch.testing.assert_close(got.float(), want.float(), **QMM_TOL[out_dtype])
+    # The split rows meet in a fixed order and the tile counters reset: a
+    # second launch gives the same bits.
+    assert torch.equal(qmm_int8(x, wq["weight_int8"], wq["scale"], out_dtype), got)
+
+
+@pytest.fixture(scope="module")
+def q_decode_inputs(dev, decode_inputs):
+    x = dict(decode_inputs)
+    for name in ("k", "v"):
+        x[name + "_cache"], x[name + "_scale"] = quant.quantize_rows(x.pop(name + "_cache"), HKV)
+    return x
+
+
+@pytest.mark.parametrize("flushed_end", [0, 1, 500, 2944])
+@pytest.mark.parametrize("stage_len", [0, 5, 127])
+@pytest.mark.parametrize("layer", [0, 25])
+def test_decode_attention_q_kernel(dev, q_decode_inputs, flushed_end, stage_len, layer):
+    """Scales at or past flushed_end are poisoned with NaN: never read."""
+    x = dict(q_decode_inputs)
+    for name in ("k_scale", "v_scale"):
+        x[name] = x[name].clone()
+        x[name][:, :, flushed_end:] = float("nan")
+    scalars = torch.tensor([flushed_end, stage_len, layer], dtype=torch.int32, device=dev)
+    before = build.LAUNCHES["decode_attention_q"]
+    got = decode_attention_layered_q(**x, scalars=scalars)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["decode_attention_q"] == before + 1
+    want = decode_attention_layered_q_plain(**x, scalars=scalars)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), **Q_TOL)
+
+
+def test_int8_wrappers_raise_on_wrong_dtypes_on_cuda(dev, q_decode_inputs):
+    x = torch.zeros(2, 64, device=dev)  # fp32 activations: the kernel takes bf16
+    w = torch.zeros(1, 64, 32, dtype=torch.int8, device=dev)
+    s = torch.ones(1, 1, 32, device=dev)
+    before = dict(build.LAUNCHES)
+    with pytest.raises(ValueError):
+        qmm_int8(x, w, s, torch.float32)
+    with pytest.raises(ValueError):  # N not a multiple of 16
+        qmm_int8(x.bfloat16()[:, :64], w[..., :24].contiguous(), s[..., :24].contiguous())
+    sc = torch.tensor([4, 1, 0], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        decode_attention_layered_q(**{**q_decode_inputs, "q": q_decode_inputs["q"].float()},
+                                   scalars=sc)
+    assert build.LAUNCHES == before

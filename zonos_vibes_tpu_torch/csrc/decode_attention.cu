@@ -1,10 +1,14 @@
-// Staged single-query GQA flash-decode for one layer of the stacked KV cache.
+// Staged single-query GQA flash-decode for one layer of the stacked KV cache,
+// with a bf16 or an int8 flushed prefix.
 //
 // Replaces: zonos_vibes_tpu/ops/pallas/decode_attention.py::
 //   decode_attention_pallas_layered (a TPU grid (B, nT) that walks the
 //   time-minor cache block by block in order, carries the online softmax in
 //   VMEM scratch, and folds the stage and the current column into the last
-//   grid step).
+//   grid step), and decode_attention_pallas_layered_q, the same kernel over
+//   an int8 prefix with fp32 per-(position, kv head) scales: key scales
+//   multiply the scores after q.k, value scales the probabilities before
+//   p.v. The stage and the current column stay exact bf16 in both.
 //
 // What bounds it on the H100: device-memory bytes. One call must read the
 // flushed prefix [0, flushed_end) and the stage rows [0, stage_len) of one
@@ -12,6 +16,8 @@
 // column. It does 4 * Hq * 64 flops per position, about one flop per byte,
 // far below the ~295 flops per byte where the tensor cores become the limit.
 // At 5 s of audio the bytes are ~1 MB a layer, so the launch itself dominates.
+// The int8 prefix halves the prefix bytes and adds 8 bytes of scales per
+// position and kv head.
 //
 // What the design does about it (flash-decoding):
 //  * One block per (split, kv head, batch row): the G query heads of a group
@@ -29,16 +35,24 @@
 //    running max, sum and accumulator. The 16 decoders of a block merge in
 //    shared memory into one partial (acc, max, sum) per query head; a second
 //    small kernel merges the splits and writes bf16.
+//  * The int8 variant (template flag QUANT) differs only in the prefix
+//    splits: a lane loads 8 int8 values (8 bytes) of K and of V, and its
+//    decoder loads the position's two fp32 scales; all math stays fp32.
+//    Scales are read only for positions below flushed_end.
 //
 // Layouts (row-major, bf16 unless noted):
 //   q       [B, Hq, 64]              k_cache, v_cache [L, B, T, Hkv * 64]
 //   k_stage, v_stage [L, B, STAGE, Hkv * 64]
+//   int8 variant: k_cache, v_cache int8 [L, B, T, Hkv * 64],
+//                 k_scale, v_scale fp32 [L, B, T, Hkv]
 //   k_cur, v_cur [B, Hkv * 64]       scalars int32 [3]: flushed_end, stage_len, layer
 //   part    fp32 [B, Hkv, nsplit, G, 66]   out [B, Hq, 64]
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -65,11 +79,22 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
   }
 }
 
-template <int G>
+__device__ __forceinline__ void load8(const int8_t* p, float* out) {
+  const int2 u = *reinterpret_cast<const int2*>(p);
+  const int8_t* c = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) out[i] = static_cast<float>(c[i]);
+}
+
+// PrefixT is __nv_bfloat16 for the exact cache and int8_t for the int8 one
+// (then k_scale and v_scale are read; otherwise they may be null).
+template <int G, typename PrefixT>
 __global__ void __launch_bounds__(THREADS) decode_split_kernel(
     const __nv_bfloat16* __restrict__ q,
-    const __nv_bfloat16* __restrict__ k_cache,
-    const __nv_bfloat16* __restrict__ v_cache,
+    const PrefixT* __restrict__ k_cache,
+    const PrefixT* __restrict__ v_cache,
+    const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale,
     const __nv_bfloat16* __restrict__ k_stage,
     const __nv_bfloat16* __restrict__ v_stage,
     const __nv_bfloat16* __restrict__ k_cur,
@@ -77,6 +102,7 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
     const int* __restrict__ scalars,
     float* __restrict__ part,
     int B, int Hkv, int T, int stage_depth, int nsplit, float scale) {
+  constexpr bool QUANT = std::is_same<PrefixT, int8_t>::value;
   const int split = blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -91,25 +117,21 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
 
   // Rows this split attends: a prefix chunk, or the stage plus the current
   // column (row index n of the last split).
-  const __nv_bfloat16* k_rows;
-  const __nv_bfloat16* v_rows;
+  const bool prefix = split < nsplit - 1;
   int n;
-  bool with_cur;
-  if (split < nsplit - 1) {
+  size_t row0;  // element offset of the split's first row (prefix or stage)
+  size_t srow0 = 0;  // scale index of the first prefix row, this kv head
+  if (prefix) {
     const int start = split * CHUNK;
     n = max(0, min(CHUNK, flushed_end - start));
-    const size_t off = ((size_t)layer * B + b) * (size_t)T * W + (size_t)start * W;
-    k_rows = k_cache + off;
-    v_rows = v_cache + off;
-    with_cur = false;
+    const size_t pos0 = ((size_t)layer * B + b) * (size_t)T + start;
+    row0 = pos0 * W;
+    srow0 = pos0 * Hkv + h;
   } else {
     n = stage_len;
-    const size_t off = ((size_t)layer * B + b) * (size_t)stage_depth * W;
-    k_rows = k_stage + off;
-    v_rows = v_stage + off;
-    with_cur = true;
+    row0 = ((size_t)layer * B + b) * (size_t)stage_depth * W;
   }
-  const int total = n + (with_cur ? 1 : 0);
+  const int total = n + (prefix ? 0 : 1);
   const int col = h * HEAD_DIM + dim0;
 
   float qr[G][DIMS_PER_LANE];
@@ -135,18 +157,23 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
     const int i = base + sub;
     const bool valid = i < total;
     float kr[DIMS_PER_LANE], vr[DIMS_PER_LANE];
+    float ks = 1.f, vs = 1.f;
     if (valid) {
-      const __nv_bfloat16* kp;
-      const __nv_bfloat16* vp;
-      if (i < n) {
-        kp = k_rows + (size_t)i * W + col;
-        vp = v_rows + (size_t)i * W + col;
+      const size_t off = row0 + (size_t)i * W + col;
+      if (prefix) {
+        load8(k_cache + off, kr);
+        load8(v_cache + off, vr);
+        if constexpr (QUANT) {
+          ks = k_scale[srow0 + (size_t)i * Hkv];
+          vs = v_scale[srow0 + (size_t)i * Hkv];
+        }
+      } else if (i < n) {
+        load8(k_stage + off, kr);
+        load8(v_stage + off, vr);
       } else {
-        kp = k_cur + (size_t)b * W + col;
-        vp = v_cur + (size_t)b * W + col;
+        load8(k_cur + (size_t)b * W + col, kr);
+        load8(v_cur + (size_t)b * W + col, vr);
       }
-      load8(kp, kr);
-      load8(vp, vr);
     } else {
 #pragma unroll
       for (int d = 0; d < DIMS_PER_LANE; ++d) kr[d] = vr[d] = 0.f;
@@ -167,12 +194,14 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
     if (valid) {
 #pragma unroll
       for (int g = 0; g < G; ++g) {
-        const float mn = fmaxf(m[g], s[g]);
+        const float sg = s[g] * ks;
+        const float mn = fmaxf(m[g], sg);
         const float alpha = expf(m[g] - mn);
-        const float p = expf(s[g] - mn);
+        const float p = expf(sg - mn);
+        const float pv = p * vs;
         l[g] = l[g] * alpha + p;
 #pragma unroll
-        for (int d = 0; d < DIMS_PER_LANE; ++d) acc[g][d] = fmaf(acc[g][d], alpha, p * vr[d]);
+        for (int d = 0; d < DIMS_PER_LANE; ++d) acc[g][d] = fmaf(acc[g][d], alpha, pv * vr[d]);
         m[g] = mn;
       }
     }
@@ -261,26 +290,27 @@ __global__ void decode_combine_kernel(const float* __restrict__ part,
 
 extern "C" int zvt_decode_attention_nsplit(int T) { return (T + CHUNK - 1) / CHUNK + 1; }
 
-extern "C" int zvt_decode_attention_layered(
-    const void* q, const void* k_cache, const void* v_cache, const void* k_stage,
-    const void* v_stage, const void* k_cur, const void* v_cur, const void* scalars,
-    void* part, void* out, int B, int Hq, int Hkv, int T, int stage_depth,
-    int head_dim, void* stream) {
+namespace {
+
+template <typename PrefixT>
+int launch(const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
+           const void* v_scale, const void* k_stage, const void* v_stage, const void* k_cur,
+           const void* v_cur, const void* scalars, void* part, void* out, int B, int Hq,
+           int Hkv, int T, int stage_depth, int head_dim, void* stream) {
   if (head_dim != HEAD_DIM || Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
   const int G = Hq / Hkv;
   const int nsplit = zvt_decode_attention_nsplit(T);
   const float scale = 1.0f / sqrtf((float)HEAD_DIM);
   const dim3 grid(nsplit, Hkv, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define ZVT_SPLIT(GV)                                                                   \
-  decode_split_kernel<GV><<<grid, THREADS, 0, s>>>(                                     \
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_cache), \
-      static_cast<const __nv_bfloat16*>(v_cache),                                       \
-      static_cast<const __nv_bfloat16*>(k_stage),                                       \
-      static_cast<const __nv_bfloat16*>(v_stage),                                       \
-      static_cast<const __nv_bfloat16*>(k_cur), static_cast<const __nv_bfloat16*>(v_cur), \
-      static_cast<const int*>(scalars), static_cast<float*>(part), B, Hkv, T,           \
-      stage_depth, nsplit, scale)
+#define ZVT_SPLIT(GV)                                                                       \
+  decode_split_kernel<GV, PrefixT><<<grid, THREADS, 0, s>>>(                                \
+      static_cast<const __nv_bfloat16*>(q), static_cast<const PrefixT*>(k_cache),           \
+      static_cast<const PrefixT*>(v_cache), static_cast<const float*>(k_scale),             \
+      static_cast<const float*>(v_scale), static_cast<const __nv_bfloat16*>(k_stage),       \
+      static_cast<const __nv_bfloat16*>(v_stage), static_cast<const __nv_bfloat16*>(k_cur), \
+      static_cast<const __nv_bfloat16*>(v_cur), static_cast<const int*>(scalars),           \
+      static_cast<float*>(part), B, Hkv, T, stage_depth, nsplit, scale)
   switch (G) {
     case 1: ZVT_SPLIT(1); break;
     case 2: ZVT_SPLIT(2); break;
@@ -294,4 +324,25 @@ extern "C" int zvt_decode_attention_layered(
   decode_combine_kernel<<<dim3(Hkv, B), G * HEAD_DIM, 0, s>>>(
       static_cast<const float*>(part), static_cast<__nv_bfloat16*>(out), Hkv, G, nsplit);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int zvt_decode_attention_layered(
+    const void* q, const void* k_cache, const void* v_cache, const void* k_stage,
+    const void* v_stage, const void* k_cur, const void* v_cur, const void* scalars,
+    void* part, void* out, int B, int Hq, int Hkv, int T, int stage_depth,
+    int head_dim, void* stream) {
+  return launch<__nv_bfloat16>(q, k_cache, v_cache, nullptr, nullptr, k_stage, v_stage, k_cur,
+                               v_cur, scalars, part, out, B, Hq, Hkv, T, stage_depth, head_dim,
+                               stream);
+}
+
+extern "C" int zvt_decode_attention_layered_q(
+    const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
+    const void* v_scale, const void* k_stage, const void* v_stage, const void* k_cur,
+    const void* v_cur, const void* scalars, void* part, void* out, int B, int Hq, int Hkv,
+    int T, int stage_depth, int head_dim, void* stream) {
+  return launch<int8_t>(q, k_cache, v_cache, k_scale, v_scale, k_stage, v_stage, k_cur, v_cur,
+                        scalars, part, out, B, Hq, Hkv, T, stage_depth, head_dim, stream);
 }

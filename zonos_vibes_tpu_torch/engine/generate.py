@@ -69,7 +69,7 @@ def _sync(device: torch.device) -> None:
 def _prefill_state(model: ZonosModel, params: dict, prefix_conditioning: torch.Tensor,
                    audio_prefix_codes: torch.Tensor, generator: torch.Generator,
                    max_new_tokens: int, cfg_scale: float, sampling: SamplingParams,
-                   disable_eos: bool) -> DecodeState:
+                   disable_eos: bool, kv_int8: bool) -> DecodeState:
     """Cache, delay pattern, prefill, and the first frame. As in JAX the
     first frame is sampled without the EOS bias unless ``disable_eos``."""
     cfg = model.config
@@ -83,7 +83,7 @@ def _prefill_state(model: ZonosModel, params: dict, prefix_conditioning: torch.T
     dev = prefix_conditioning.device
 
     rope = rope_table(cfg.backbone.head_dim, device=dev)
-    cache = model.allocate_cache(two_b, seq_len, prefix_conditioning.dtype, dev)
+    cache = model.allocate_cache(two_b, seq_len, prefix_conditioning.dtype, dev, kv_int8)
     codes = torch.full((batch, K, audio_seq_len), UNKNOWN_TOKEN, dtype=torch.long, device=dev)
     codes[..., :lp] = audio_prefix_codes
     delayed = apply_delay_pattern(codes, cfg.masked_token_id)
@@ -180,10 +180,16 @@ def _finalize(model: ZonosModel, s: DecodeState):
 
 
 class DecodeEngine:
-    """User-facing generate API over a :class:`ZonosModel`."""
+    """User-facing generate API over a :class:`ZonosModel`.
 
-    def __init__(self, model: ZonosModel):
+    ``kv_int8`` stores the flushed KV prefix as int8 with per-(position, kv
+    head) scales (half the cache bytes); the stage and the current token stay
+    exact. Paired with ``ops/quant.quantize_zonos_params`` weights it is the
+    int8 serving configuration."""
+
+    def __init__(self, model: ZonosModel, kv_int8: bool = False):
         self.model = model
+        self.kv_int8 = kv_int8
 
     def generate(self, params: dict, prefix_conditioning: torch.Tensor,
                  audio_prefix_codes: torch.Tensor | None = None, *,
@@ -206,7 +212,7 @@ class DecodeEngine:
             t0 = time.perf_counter()
             state = _prefill_state(self.model, params, prefix_conditioning, audio_prefix_codes,
                                    generator, max_new_tokens, cfg_scale, sampling_params,
-                                   disable_eos)
+                                   disable_eos, self.kv_int8)
             _sync(dev)
             t1 = time.perf_counter()
             steps = _decode_loop(self.model, params, state, cond_len, cfg_scale,

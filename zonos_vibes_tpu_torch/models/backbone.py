@@ -14,10 +14,17 @@ canonical absolute boundaries. Its buffers are time-major:
 * ``k``, ``v``: ``[L, B, T, Hkv*Dh]`` flushed prefix (and the prefill);
 * ``k_stage``, ``v_stage``: ``[L, B, STAGE, Hkv*Dh]`` unflushed tail.
 
-A flush is then one contiguous copy per (layer, row). On a CUDA device the
-decode step runs ``ops/cuda``'s decode-attention kernel per layer and two
-stage splices per step, and prefill runs the prefill-attention kernel per
-layer; on the CPU the same wrappers run their plain versions.
+A flush is then one contiguous copy per (layer, row). With ``kv_int8`` the
+flushed prefix is int8 with fp32 per-(position, kv head) scales ``k_scale``,
+``v_scale`` ``[L, B, T, Hkv]`` (JAX keeps ``[L, B, Hkv, T]``), quantized once
+per flush and once per prefill; the stage and the current column stay
+exact. The projections take float or int8 weights (``ops/quant``).
+
+On a CUDA device the decode step runs ``ops/cuda``'s decode-attention kernel
+(or its int8-prefix variant) per layer and two stage splices per step,
+prefill runs the prefill-attention kernel per layer, and int8 projections
+run the int8 matmul kernel; on the CPU the same wrappers run their plain
+versions.
 """
 
 from __future__ import annotations
@@ -26,11 +33,12 @@ import torch
 
 from ..config import BackboneConfig
 from ..ops.attention import update_kv_cache
-from ..ops.cuda.decode_attention import decode_attention_layered
+from ..ops.cuda.decode_attention import decode_attention_layered, decode_attention_layered_q
 from ..ops.cuda.prefill_attention import prefill_attention
 from ..ops.cuda.stage_write import stage_splice
 from ..ops.mlp import swiglu_mid
 from ..ops.norms import layer_norm
+from ..ops.quant import dequantize_rows, proj_matmul, quantize_rows
 from ..ops.rope import apply_rope
 
 # Decode-tail stage depth (the JAX package's KV_STAGE).
@@ -67,27 +75,54 @@ def init_transformer_backbone(gen: torch.Generator, cfg: BackboneConfig, dtype, 
 
 
 def allocate_kv_cache(cfg: BackboneConfig, batch_size: int, max_seqlen: int, dtype,
-                      device) -> dict:
+                      device, kv_int8: bool = False) -> dict:
     """Zeroed time-major cache ``[L, B, T, Hkv*Dh]`` and stage
-    ``[L, B, min(KV_STAGE, T), Hkv*Dh]``."""
-    L, W = cfg.n_layer, cfg.num_heads_kv * cfg.head_dim
+    ``[L, B, min(KV_STAGE, T), Hkv*Dh]`` of ``dtype``. With ``kv_int8`` the
+    cache is int8 and ``k_scale``/``v_scale`` ``[L, B, T, Hkv]`` fp32 start
+    at 1, as in JAX; the stage keeps ``dtype``."""
+    L, Hkv = cfg.n_layer, cfg.num_heads_kv
+    W = Hkv * cfg.head_dim
     stage = min(KV_STAGE, max_seqlen)
 
-    def zeros(t):
-        return torch.zeros((L, batch_size, t, W), dtype=dtype, device=device)
+    def zeros(t, dt):
+        return torch.zeros((L, batch_size, t, W), dtype=dt, device=device)
 
-    return {"k": zeros(max_seqlen), "v": zeros(max_seqlen),
-            "k_stage": zeros(stage), "v_stage": zeros(stage)}
+    cache_dtype = torch.int8 if kv_int8 else dtype
+    out = {"k": zeros(max_seqlen, cache_dtype), "v": zeros(max_seqlen, cache_dtype),
+           "k_stage": zeros(stage, dtype), "v_stage": zeros(stage, dtype)}
+    if kv_int8:
+        for name in ("k_scale", "v_scale"):
+            out[name] = torch.ones((L, batch_size, max_seqlen, Hkv), dtype=torch.float32,
+                                   device=device)
+    return out
 
 
 def flush_kv_stage(cache: dict, stage_base: int) -> dict:
     """Copy the full stage into the cache at ``[stage_base, stage_base +
-    STAGE)``, in place. The decode loop calls it only when the stage is
-    exactly full."""
+    STAGE)``, in place, quantizing it first for an int8 cache. The decode
+    loop calls it only when the stage is exactly full."""
     depth = cache["k_stage"].shape[2]
-    cache["k"][:, :, stage_base: stage_base + depth] = cache["k_stage"]
-    cache["v"][:, :, stage_base: stage_base + depth] = cache["v_stage"]
+    window = slice(stage_base, stage_base + depth)
+    for name in ("k", "v"):
+        stage = cache[name + "_stage"]
+        if name + "_scale" in cache:
+            q, scale = quantize_rows(stage, cache[name + "_scale"].shape[-1])
+            cache[name][:, :, window] = q
+            cache[name + "_scale"][:, :, window] = scale
+        else:
+            cache[name][:, :, window] = stage
     return cache
+
+
+def _dequantized_layer(cache: dict, name: str, layer: int, offset: int,
+                       length: int) -> torch.Tensor:
+    """A ``[B, length, Hkv*Dh]`` scratch of the stage's dtype holding layer
+    ``layer``'s int8 positions ``[0, offset)`` dequantized (the rest unset)."""
+    q = cache[name][layer, :, :offset]
+    B, _, W = q.shape
+    out = torch.empty((B, length, W), dtype=cache[name + "_stage"].dtype, device=q.device)
+    out[:, :offset] = dequantize_rows(q, cache[name + "_scale"][layer, :, :offset])
+    return out
 
 
 def _block(lp: dict, cfg: BackboneConfig, x, attend, positions, table):
@@ -96,14 +131,13 @@ def _block(lp: dict, cfg: BackboneConfig, x, attend, positions, table):
     B, S, _ = x.shape
     Hq, Hkv, Dh = cfg.num_heads, cfg.num_heads_kv, cfg.head_dim
     h = layer_norm(x, lp["norm1"]["weight"], lp["norm1"]["bias"], cfg.norm_epsilon)
-    q, k, v = torch.matmul(h, lp["in_proj"]["weight"]).split(
-        [Hq * Dh, Hkv * Dh, Hkv * Dh], dim=-1)
+    q, k, v = proj_matmul(h, lp["in_proj"]).split([Hq * Dh, Hkv * Dh, Hkv * Dh], dim=-1)
     q = apply_rope(q.reshape(B, S, Hq, Dh), positions, table)
     k = apply_rope(k.reshape(B, S, Hkv, Dh), positions, table)
     y = attend(q, k, v.reshape(B, S, Hkv, Dh))
-    x = x + torch.matmul(y.reshape(B, S, Hq * Dh), lp["out_proj"]["weight"])
+    x = x + proj_matmul(y.reshape(B, S, Hq * Dh), lp["out_proj"])
     h = layer_norm(x, lp["norm2"]["weight"], lp["norm2"]["bias"], cfg.norm_epsilon)
-    return x + torch.matmul(swiglu_mid(h, lp["fc1"]), lp["fc2"]["weight"])
+    return x + proj_matmul(swiglu_mid(h, lp["fc1"]), lp["fc2"])
 
 
 def transformer_forward(params: dict, cfg: BackboneConfig, hidden: torch.Tensor, cache: dict,
@@ -117,15 +151,33 @@ def transformer_forward(params: dict, cfg: BackboneConfig, hidden: torch.Tensor,
     prefix ``[0, stage_base)``, stage rows ``[0, offset - stage_base)`` and
     itself, and its columns land in stage slot ``offset - stage_base``.
     RoPE positions are ``offset + arange(S)`` for every row.
+
+    With an int8 cache a prefill attends over a scratch holding the layer's
+    dequantized positions ``[0, offset)`` and the exact chunk; the chunk is
+    quantized into the cache after.
     """
     B, S, _ = hidden.shape
     layers = params["layers"]
-    L = cfg.n_layer
-    W = cfg.num_heads_kv * cfg.head_dim
+    L, Hkv = cfg.n_layer, cfg.num_heads_kv
+    W = Hkv * cfg.head_dim
     dev = hidden.device
     positions = (offset + torch.arange(S, device=dev))[None, :].expand(B, S)
+    kv_int8 = "k_scale" in cache
 
-    if S > 1:
+    if S > 1 and kv_int8:
+        def attend_for(l):
+            def attend(q, k, v):
+                kc, vc = (_dequantized_layer(cache, name, l, offset, offset + S)
+                          for name in ("k", "v"))
+                update_kv_cache(kc, vc, k, v, offset)
+                y = prefill_attention(q, kc, vc, offset)
+                for name, exact in (("k", kc), ("v", vc)):
+                    qrows, scale = quantize_rows(exact[:, offset:], Hkv)
+                    cache[name][l, :, offset: offset + S] = qrows
+                    cache[name + "_scale"][l, :, offset: offset + S] = scale
+                return y
+            return attend
+    elif S > 1:
         def attend_for(l):
             def attend(q, k, v):
                 kc, vc = update_kv_cache(cache["k"][l], cache["v"][l], k, v, offset)
@@ -145,6 +197,10 @@ def transformer_forward(params: dict, cfg: BackboneConfig, hidden: torch.Tensor,
             def attend(q, k, v):
                 k_cols[l] = k.reshape(B, W)
                 v_cols[l] = v.reshape(B, W)
+                if kv_int8:
+                    return decode_attention_layered_q(
+                        q, cache["k"], cache["v"], cache["k_scale"], cache["v_scale"],
+                        cache["k_stage"], cache["v_stage"], k_cols[l], v_cols[l], scalars[l])
                 return decode_attention_layered(
                     q, cache["k"], cache["v"], cache["k_stage"], cache["v_stage"],
                     k_cols[l], v_cols[l], scalars[l])
@@ -174,8 +230,9 @@ class TransformerBackbone:
     def init(self, gen, dtype, device) -> dict:
         return init_transformer_backbone(gen, self.cfg, dtype, device)
 
-    def allocate_cache(self, batch: int, max_seqlen: int, dtype, device) -> dict:
-        return allocate_kv_cache(self.cfg, batch, max_seqlen, dtype, device)
+    def allocate_cache(self, batch: int, max_seqlen: int, dtype, device,
+                       kv_int8: bool = False) -> dict:
+        return allocate_kv_cache(self.cfg, batch, max_seqlen, dtype, device, kv_int8)
 
     def forward(self, params, hidden, cache, offset, rope, stage_base=None):
         return transformer_forward(params, self.cfg, hidden, cache, offset, rope, stage_base)

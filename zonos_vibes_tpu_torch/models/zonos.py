@@ -7,7 +7,9 @@ every logit at or above 1025 is forced to ``NEG_INF``, so MASK and the pad
 slots are never sampled. Head logits are fp32: the bf16 hidden state and
 weights are widened before the product (exact), as JAX contracts them with
 an fp32 result type; a bf16 product would round the logits and move the
-sampled tokens.
+sampled tokens. int8 heads (``ops/quant``) run the int8 matmul kernel, all
+9 in one launch, with the scale on the fp32 logits; int8 embedding tables
+dequantize only the gathered rows.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 
 from ..config import ZonosConfig
 from ..ops.attention import NEG_INF
+from ..ops.cuda.qmm import qmm_int8
 from .conditioners import PrefixConditioner
 from .registry import backbone_for_config
 
@@ -59,19 +62,31 @@ class ZonosModel:
         }
 
     def embed_codes(self, params: dict, codes: torch.Tensor) -> torch.Tensor:
-        """``[B, K, S]`` codes -> ``[B, S, D]``: the sum over codebooks."""
-        w = params["embeddings"]["weight"]  # [K, V, D]
-        K = w.shape[0]
-        idx = torch.arange(K, device=codes.device)[None, :, None]
-        return w[idx, codes.long()].sum(dim=1)
+        """``[B, K, S]`` codes -> ``[B, S, D]``: the sum over codebooks. An
+        int8 table (scale ``[K, 1, D]``) sums the dequantized rows in fp32 and
+        returns its ``act_dtype`` marker's dtype."""
+        e = params["embeddings"]
+        w = e.get("weight_int8", e.get("weight"))  # [K, V, D]
+        idx = torch.arange(w.shape[0], device=codes.device)[None, :, None]
+        rows = w[idx, codes.long()]  # [B, K, S, D]
+        if "weight_int8" in e:
+            return (rows.float() * e["scale"][None]).sum(dim=1).to(e["act_dtype"].dtype)
+        return rows.sum(dim=1)
 
     def apply_heads(self, params: dict, hidden: torch.Tensor) -> torch.Tensor:
         """``[B, S, D] -> [B, K, S, V]`` fp32 logits."""
-        w = params["heads"]["weight"]
-        return torch.einsum("bsd,kdv->bksv", hidden.float(), w.float())
+        h = params["heads"]
+        if "weight_int8" in h:
+            B, S, D = hidden.shape
+            K, _, V = h["weight_int8"].shape
+            y = qmm_int8(hidden.reshape(B * S, D).contiguous(), h["weight_int8"], h["scale"],
+                         torch.float32)  # [B*S, K, V]
+            return y.reshape(B, S, K, V).permute(0, 2, 1, 3)
+        return torch.einsum("bsd,kdv->bksv", hidden.float(), h["weight"].float())
 
-    def allocate_cache(self, batch_size: int, max_seqlen: int, dtype, device) -> dict:
-        return self.backbone.allocate_cache(batch_size, max_seqlen, dtype, device)
+    def allocate_cache(self, batch_size: int, max_seqlen: int, dtype, device,
+                       kv_int8: bool = False) -> dict:
+        return self.backbone.allocate_cache(batch_size, max_seqlen, dtype, device, kv_int8)
 
     def compute_logits(self, params: dict, hidden, cache: dict, offset: int, cfg_scale: float,
                        rope, stage_base: int | None = None):

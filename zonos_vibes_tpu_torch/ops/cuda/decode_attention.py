@@ -1,13 +1,14 @@
-"""Staged single-query decode attention: the CUDA kernel's wrapper and its
-plain version.
+"""Staged single-query decode attention: the CUDA kernels' wrappers and their
+plain versions.
 
-Counterpart of ``zonos_vibes_tpu/ops/pallas/decode_attention.py::
-decode_attention_pallas_layered``. For layer ``layer`` of the stacked cache
-it attends over three parts: the flushed prefix ``[0, flushed_end)`` of the
-time-major cache, the first ``stage_len`` rows of the time-major stage, and
-the current token's column. The kernel (``csrc/decode_attention.cu``) reads
-the three scalars from a device int32 tensor, so the launch does not depend
-on host values.
+Counterparts of ``zonos_vibes_tpu/ops/pallas/decode_attention.py::
+decode_attention_pallas_layered`` and ``decode_attention_pallas_layered_q``.
+For layer ``layer`` of the stacked cache they attend over three parts: the
+flushed prefix ``[0, flushed_end)`` of the time-major cache (bf16, or int8
+with per-(position, kv head) scales), the first ``stage_len`` rows of the
+time-major stage, and the current token's column. The kernels
+(``csrc/decode_attention.cu``) read the three scalars from a device int32
+tensor, so the launch does not depend on host values.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from ..attention import decode_attention
+from ..quant import dequantize_rows
 from . import build
 
 
@@ -73,4 +75,71 @@ def decode_attention_layered(q, k_cache, v_cache, k_stage, v_stage, k_cur, v_cur
     )
     build.check_status("decode_attention_layered", rc)
     build.LAUNCHES["decode_attention"] += 1
+    return out
+
+
+def decode_attention_layered_q_plain(q, k_cache, v_cache, k_scale, v_scale, k_stage, v_stage,
+                                     k_cur, v_cur, scalars) -> torch.Tensor:
+    """Dense reference: the layer's prefix dequantized to fp32, the stage
+    rows and the current column widened to fp32, attention in fp32 with the
+    probabilities kept fp32 (as the Pallas ``_kernel_layered_q`` does)."""
+    flushed_end, stage_len, layer = (int(x) for x in scalars.tolist())
+    k = torch.cat([dequantize_rows(k_cache[layer, :, :flushed_end],
+                                   k_scale[layer, :, :flushed_end]),
+                   k_stage[layer, :, :stage_len].float(), k_cur.float()[:, None]], dim=1)
+    v = torch.cat([dequantize_rows(v_cache[layer, :, :flushed_end],
+                                   v_scale[layer, :, :flushed_end]),
+                   v_stage[layer, :, :stage_len].float(), v_cur.float()[:, None]], dim=1)
+    return decode_attention(q, k, v, flushed_end + stage_len + 1)
+
+
+def decode_attention_layered_q(q, k_cache, v_cache, k_scale, v_scale, k_stage, v_stage,
+                               k_cur, v_cur, scalars) -> torch.Tensor:
+    """Decode attention for one layer of the stacked int8 cache.
+
+    Counterpart of ``decode_attention_pallas_layered_q``. As
+    :func:`decode_attention_layered`, but ``k_cache``/``v_cache`` are int8
+    ``[L, B, T, Hkv*D]`` with fp32 per-(position, kv head) scales
+    ``k_scale``/``v_scale`` ``[L, B, T, Hkv]``; key scales multiply the
+    scores after q.k, value scales the probabilities before p.v. The stage
+    and the current column are exact (bf16 on the card). Only positions below
+    ``flushed_end`` of the prefix and its scales are read. CPU tensors take
+    the plain version; CUDA tensors launch the kernel or raise.
+    """
+    B, S, Hq, D = q.shape
+    L, Bc, T, W = k_cache.shape
+    STAGE = k_stage.shape[2]
+    Hkv = max(W // D, 1)
+    if (S != 1 or Bc != B or W != Hkv * D or Hq % Hkv or v_cache.shape != k_cache.shape
+            or k_scale.shape != (L, B, T, Hkv) or v_scale.shape != k_scale.shape
+            or k_stage.shape != (L, B, STAGE, W) or v_stage.shape != k_stage.shape
+            or k_cur.shape != (B, W) or v_cur.shape != k_cur.shape
+            or scalars.shape != (3,) or scalars.dtype != torch.int32):
+        raise ValueError("decode_attention_layered_q: inconsistent shapes")
+    if (k_cache.dtype != torch.int8 or v_cache.dtype != torch.int8
+            or k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32):
+        raise ValueError("decode_attention_layered_q: int8 cache and fp32 scales expected")
+    if q.device.type == "cpu":
+        return decode_attention_layered_q_plain(q, k_cache, v_cache, k_scale, v_scale,
+                                                k_stage, v_stage, k_cur, v_cur, scalars)
+    dev = build.require_cuda("decode_attention_layered_q", q, k_cache, v_cache, k_scale,
+                             v_scale, k_stage, v_stage, k_cur, v_cur)
+    if scalars.device != dev or not scalars.is_contiguous():
+        raise ValueError("decode_attention_layered_q: scalars must be contiguous on the card")
+    for t in (q, k_stage, v_stage, k_cur, v_cur):
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"decode_attention_layered_q: kernel takes a bf16 query and "
+                             f"stage, got {t.dtype}")
+    lib = build.load()
+    nsplit = lib.zvt_decode_attention_nsplit(T)
+    part = torch.empty((B, Hkv, nsplit, Hq // Hkv, D + 2), dtype=torch.float32, device=dev)
+    out = torch.empty((B, 1, Hq, D), dtype=q.dtype, device=dev)
+    rc = lib.zvt_decode_attention_layered_q(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
+        v_scale.data_ptr(), k_stage.data_ptr(), v_stage.data_ptr(), k_cur.data_ptr(),
+        v_cur.data_ptr(), scalars.data_ptr(), part.data_ptr(), out.data_ptr(),
+        B, Hq, Hkv, T, STAGE, D, build.stream_handle(dev),
+    )
+    build.check_status("decode_attention_layered_q", rc)
+    build.LAUNCHES["decode_attention_q"] += 1
     return out

@@ -6,6 +6,10 @@ phonemes -> conditioning -> prefill -> staged decode -> codes -> DAC decode.
     result = pipe.generate(cond, generator=torch.Generator("cuda").manual_seed(421))
     wav44k = pipe.decode_audio(result)                          # [B, samples]
 
+The int8 serving configuration: ``pipe.quantize_int8()`` (int8 projections
+and heads), then ``DecodeEngine(pipe.model, kv_int8=True).generate(
+pipe.params, pipe.prepare_conditioning(cond), ...)`` for the int8 KV cache.
+
 Text normalization, phonemization and tokenization run on the host
 (``frontend/``); everything numeric runs on ``pipe.device``. Entry points
 run on CUDA unless the caller passes ``device="cpu"``, and raise without a
@@ -27,6 +31,7 @@ from .frontend.text import tokenize_phonemes
 from .models.autoencoder import DACAutoencoder
 from .models.dac import DACConfig
 from .models.zonos import ZonosModel
+from .ops.quant import quantize_zonos_params
 from .ops.sampling import SamplingParams
 from .utils.device import resolve_device
 
@@ -90,6 +95,14 @@ class ZonosPipeline:
         return cls(model=ZonosModel(config), params=to_dev(params), device=dev,
                    dac=DACAutoencoder(dac_config),
                    dac_params=None if dac_params is None else to_dev(dac_params))
+
+    def quantize_int8(self) -> "ZonosPipeline":
+        """Backbone projections and the 9 heads to int8 weight-only storage
+        (``ops/quant.quantize_zonos_params``), as the JAX pipeline's
+        ``quantize_int8``. The pipeline's own engine keeps an exact KV cache.
+        Returns self."""
+        self.params = quantize_zonos_params(self.params)
+        return self
 
     def make_cond_dict(
         self,

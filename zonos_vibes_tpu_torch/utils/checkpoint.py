@@ -15,6 +15,10 @@
   bf16 entries stored as a uint16 view under an ``@bf16`` suffix, empty
   nodes marked ``@emptydict`` / ``@emptylist``. An ``@s4`` (int4) entry
   raises ``NotImplementedError`` until the int4 slice is ported.
+
+Both carry the JAX package's int8 leaves (``ops/quant``) as they are:
+``weight_int8`` int8, ``scale`` fp32, and the 0-d ``act_dtype`` marker of
+an int8 embedding table in its bf16 (or fp32) dtype.
 """
 
 from __future__ import annotations
