@@ -13,7 +13,11 @@ Phases, each of which fails the run loudly:
    2048 -> 16384, 8192 -> 2048 and the 9 heads 2048 -> 1152), bf16, over
    the edge cases of its interface; then the backbone on the card against
    the CPU path on a small input, with bf16 weights and cache and with int8
-   weights and an int8 cache.
+   weights and an int8 cache. The pool's kernels (pooled decode attention
+   with a bf16 and an int8 prefix, the per-row ring splice) at the 8-slot
+   pool's shapes (16 CFG rows, cache length 3584), rows at their own
+   depths with NaN past each row's base, and the pooled backbone step on
+   the card against the CPU path, bf16 and int8.
 3. End to end: ``ZonosPipeline.from_config(ZONOS_V01_TRANSFORMER)`` with
    random bf16 weights from a seeded generator, text -> about 5 s of codes
    -> DAC -> WAV (written to ``build/chip_smoke.wav``). The launch
@@ -24,13 +28,26 @@ Phases, each of which fails the run loudly:
    (mean total-variation distance at most 0.05), and
    ``DecodeEngine(model, kv_int8=True)`` for the same 5 s -> DAC -> WAV
    (``build/chip_smoke_int8.wav``) with its own exact launch counts.
+   After each of the two, the continuous-batching pool on the same weights
+   (``engine/pool.py``; bf16 KV after the bf16 path, int8 KV after the int8
+   path): ``PoolConfig(slots=8)``, 8 requests of 431 frames joining one per
+   43-step segment, run until every row finishes, each row decoded to
+   ``build/chip_smoke_pool{,_int8}_row{s}.wav``; row 0's codes alone in a
+   pool equal its codes in the full pool for 86 frames, and the launch
+   counts are exact.
 4. Timing: each kernel, its plain version and the one PyTorch call that
    computes the same function, at the shapes the main path gave it, beside
-   the least time the card could take for the same work.
+   the least time the card could take for the same work; ``qmm_int8`` at
+   the solo step's 2 rows and the pooled step's 16; the pool's kernels at
+   16 rows over a 3584-position cache, at the main path's spread of depths
+   and at spreads near 1800 and near 3000 positions.
 
 The second-to-last line is ``{"kernels": [...]}``, the line before it the
 card's name and power limit, and the last line
-``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
+``{"ok": true, "device": {...}}``. Each kernel's ``launches`` in the
+kernels line is one path's count: the pool kernels' that of their own pool
+run (``stage_splice_rows``: the bf16 pool's), ``qmm_int8``'s the solo int8
+path's. Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints no
 result. It imports nothing of JAX.
 """
@@ -56,12 +73,40 @@ TOL = 2e-2  # bf16 output rounding and the kernel's fp32 probabilities
 # bf16 step when the fp32 sums differ in their last bits.
 QMM_TOL = {"bf16": (8e-3, 1e-2), "fp32": (1e-5, 1e-4)}  # (rtol, atol)
 Q_TOL = 1e-2  # int8-KV attention, bf16 output of magnitude < 1
+# The pooled attention kernels are also held row by row: each row's largest
+# |error| over that row's largest |output|. A deep row's outputs are ~0.06
+# at most (randn values over ~3000 positions), so an absolute limit set by
+# the shallow rows (outputs up to ~4) would pass a deep row that lost a
+# 256-position split (~25% of its largest output); the legitimate error is
+# the bf16 rounding of the output and, for row 6's plain version, of its
+# probabilities: under 1% of the row's largest output.
+POOL_ROW_TOL = {"decode_attention_pooled": 2e-2, "decode_attention_pooled_q": 1e-2}
 TVD_LIMIT = 0.05
 PROJECTIONS = {"in_proj": (2048, 3072), "out_proj": (2048, 2048), "fc1": (2048, 16384),
                "fc2": (8192, 2048)}
 HEADS_SHAPE = (9, 2048, 1152)
 AUDIO_FRAMES = 431  # ~5 s at 86.13 frames/s
+FRAME_RATE = 86.13
 TEXT = "It would be nice to have time for testing, indeed. The port runs on the card now."
+# The continuous-batching pool: 8 slots (16 CFG rows, cache length 3584),
+# one join per 43-step segment (the server's segment_steps).
+POOL_SLOTS, POOL_SEGMENT, POOL_T, POOL_SEED = 8, 43, 3584, 421
+POOL_M = 2 * POOL_SLOTS  # rows of every pooled projection and of the heads
+POOL_TEXTS = [TEXT, "Hello there. This is the second request in the pool.",
+              "A third voice joins a little later, at its own position.",
+              "Continuous batching shares every weight read between requests.",
+              "The fifth request arrives while four others are still speaking.",
+              "Six requests now decode together, each at its own depth.",
+              "Seven rows, one step, and no row waits for another.",
+              "The last request fills the pool; the first is almost done."]
+ISOLATION_FRAMES = 86
+# The solo paths launch none of the pool's kernels.
+NO_POOL_LAUNCHES = {"decode_attention_pooled": 0, "decode_attention_pooled_q": 0,
+                    "stage_splice_rows": 0}
+# Per-row (base, ring length) pairs for the pooled kernels' checks: empty,
+# one-position and chunk-edge prefixes, mid and deep rows, empty to full-but-one rings.
+POOL_BASES = [0, 1, 255, 256, 500, 1800, 3000, 3456] * 2
+POOL_LENS = [0, 1, 5, 127, 1, 5, 127, 0, 127, 0, 1, 5, 5, 127, 0, 1]
 
 
 def log(msg: str) -> None:
@@ -187,7 +232,7 @@ def check_int8_kernels() -> dict:
     for name, G, K, N, out_dtype in shapes:
         wq = quant.quantize_weight(randn(gen, G, K, N) / K ** 0.5)
         rtol, atol = QMM_TOL["fp32" if out_dtype == torch.float32 else "bf16"]
-        for M in (1, 2, 176):
+        for M in (1, 2, POOL_M, 176):
             x = randn(gen, M, K)
             got = qmm_int8(x, wq["weight_int8"], wq["scale"], out_dtype)
             want = qmm_int8_plain(x, wq["weight_int8"], wq["scale"], out_dtype)
@@ -198,7 +243,7 @@ def check_int8_kernels() -> dict:
             worst, cases = max(worst, diff.max().item()), cases + 1
     err["qmm_int8"] = worst
     log(f"kernel qmm_int8: {cases} cases (in_proj/out_proj/fc1/fc2 bf16 out, 9 heads fp32 out; "
-        f"M 1/2/176) max_abs_err {worst:.3e} within |err| <= atol + rtol |y| {QMM_TOL}")
+        f"M 1/2/{POOL_M}/176) max_abs_err {worst:.3e} within |err| <= atol + rtol |y| {QMM_TOL}")
 
     x = decode_inputs(gen, 3072)
     kq, kscale = quant.quantize_rows(x.pop("k_cache"), HKV)
@@ -223,6 +268,162 @@ def check_int8_kernels() -> dict:
     log(f"kernel decode_attention_q: 24 cases (flushed_end 0/1/500/2944, stage_len 0/5/127, "
         f"layer 0/25, T=3072, NaN scales past flushed_end) max_abs_err {worst:.3e} <= {Q_TOL}")
     return err
+
+
+def pool_decode_inputs(gen, T, bases, lens):
+    """Pooled attention inputs for 16 rows; each row's prefix at or past its
+    base is NaN (never read)."""
+    import torch
+
+    Bp = len(bases)
+    x = dict(q=randn(gen, Bp, 1, HQ, D), k_cache=randn(gen, L, Bp, T, W),
+             v_cache=randn(gen, L, Bp, T, W), k_stage=randn(gen, L, Bp, STAGE, W),
+             v_stage=randn(gen, L, Bp, STAGE, W), k_cur=randn(gen, Bp, W),
+             v_cur=randn(gen, Bp, W),
+             bases=torch.tensor(bases, dtype=torch.int32, device="cuda"),
+             lens=torch.tensor(lens, dtype=torch.int32, device="cuda"))
+    for b, base in enumerate(bases):
+        x["k_cache"][:, b, base:] = float("nan")
+        x["v_cache"][:, b, base:] = float("nan")
+    return x
+
+
+def quantized(x):
+    """The same inputs with an int8 prefix (NaN positions give NaN scales)."""
+    from zonos_vibes_tpu_torch.ops import quant
+
+    xq = dict(x)
+    for name in ("k", "v"):
+        xq[name + "_cache"], xq[name + "_scale"] = quant.quantize_rows(x[name + "_cache"], HKV)
+    return xq
+
+
+def row_rel_err(got, want) -> float:
+    """The largest, over rows (dim 0), of a row's largest |got - want| over
+    its largest |want|."""
+    g, w = got.float().flatten(1), want.float().flatten(1)
+    return ((g - w).abs().amax(1) / w.abs().amax(1)).max().item()
+
+
+def check_pool_kernels() -> dict:
+    """Phase 2, the pool's kernels against their plain versions at the
+    8-slot pool's shapes."""
+    import torch
+
+    from zonos_vibes_tpu_torch.ops.cuda.decode_attention import (
+        decode_attention_pooled_staged, decode_attention_pooled_staged_plain,
+        decode_attention_pooled_staged_q, decode_attention_pooled_staged_q_plain)
+    from zonos_vibes_tpu_torch.ops.cuda.stage_write import (
+        stage_splice_rows, stage_splice_rows_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    err = {}
+    for name, kernel, plain, tol, quant in (
+            ("decode_attention_pooled", decode_attention_pooled_staged,
+             decode_attention_pooled_staged_plain, TOL, False),
+            ("decode_attention_pooled_q", decode_attention_pooled_staged_q,
+             decode_attention_pooled_staged_q_plain, Q_TOL, True)):
+        worst = worst_rel = 0.0
+        row_tol = POOL_ROW_TOL[name]
+        for shift in (0, 5):  # two pairings of bases with ring lengths
+            lens = POOL_LENS[shift:] + POOL_LENS[:shift]
+            x = pool_decode_inputs(gen, POOL_T, POOL_BASES, lens)
+            if quant:
+                x = quantized(x)
+            for layer in (0, 25):
+                got = kernel(**x, layer=layer).float()
+                want = plain(**x, layer=layer).float()
+                e = (got - want).abs().max().item()
+                rel = row_rel_err(got, want)
+                if not torch.isfinite(got).all() or e > tol or rel > row_tol:
+                    raise AssertionError(f"{name} shift={shift} layer={layer}: err {e}, "
+                                         f"per-row relative err {rel}")
+                worst, worst_rel = max(worst, e), max(worst_rel, rel)
+            del x
+        err[name] = worst
+        log(f"kernel {name}: B=16 T={POOL_T}, bases {sorted(set(POOL_BASES))}, lens 0/1/5/127 "
+            f"in two pairings, layers 0/25, NaN past each base: max_abs_err {worst:.3e} <= {tol}; "
+            f"per row, max |err| / max |out| {worst_rel:.3e} <= {row_tol}")
+
+    for shift in range(4):
+        stage = randn(gen, L, 16, STAGE, W)
+        cols = randn(gen, L, 16, W)
+        order = [0, 7, 8, 127]
+        slots = torch.tensor([order[(b + shift) % 4] for b in range(16)], dtype=torch.int32,
+                             device="cuda")
+        want = stage_splice_rows_plain(stage.clone(), cols, slots)
+        got = stage_splice_rows(stage, cols, slots)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"stage_splice_rows shift={shift}: differs from the plain version")
+    err["stage_splice_rows"] = 0.0
+    log("kernel stage_splice_rows: B=16, slots 0/7/8/127 mixed over rows (4 pairings) "
+        "bit-exact, other slots untouched")
+    return err
+
+
+def check_pooled_backbone_against_cpu(int8: bool = False) -> float:
+    """The pooled backbone step on the card (pooled kernels) against the
+    CPU path (plain versions) on a small input: 2 layers at the flagship's
+    head geometry, 2 slots (4 CFG rows) at positions 20 and 9 over a random
+    flushed prefix, 14 pooled steps with a ring flush every 6; with
+    ``int8``, int8 projections and an int8 KV cache. Returns the largest
+    |difference| of the hidden states."""
+    import torch
+
+    from zonos_vibes_tpu_torch.config import BackboneConfig, _freeze
+    from zonos_vibes_tpu_torch.engine.pool import flush_pool_rings
+    from zonos_vibes_tpu_torch.models import backbone
+    from zonos_vibes_tpu_torch.ops.quant import quantize_backbone_params, quantize_rows
+    from zonos_vibes_tpu_torch.ops.rope import rope_table
+
+    cfg = BackboneConfig(d_model=256, n_layer=2, attn_mlp_d_intermediate=512,
+                         attn_cfg=_freeze({"num_heads": 4, "num_heads_kv": 2}))
+    gen = torch.Generator().manual_seed(4)
+    params = backbone.init_transformer_backbone(gen, cfg, torch.bfloat16, "cpu")
+    if int8:
+        params = quantize_backbone_params(params)
+    Lt, Bt, Tt, St, Wt = cfg.n_layer, 4, 64, 8, 2 * 64
+    prefix = {n: torch.randn(Lt, Bt, Tt, Wt, generator=gen).to(torch.bfloat16) for n in "kv"}
+
+    def setup(dev):
+        p = {"layers": {n: {k: t.to(dev) for k, t in leaf.items()}
+                        for n, leaf in params["layers"].items()},
+             "norm_f": {k: t.to(dev) for k, t in params["norm_f"].items()}}
+        cache = backbone.allocate_kv_cache(cfg, Bt, Tt, torch.bfloat16, dev, kv_int8=int8)
+        for n in "kv":
+            if int8:
+                cache[n], cache[n + "_scale"] = (t.to(dev) for t in quantize_rows(prefix[n], 2))
+            else:
+                cache[n] = prefix[n].to(dev)
+            cache[n + "_stage"] = torch.zeros(Lt, Bt, St, Wt, dtype=torch.bfloat16, device=dev)
+        pos = torch.tensor([20, 9], device=dev)
+        return {"p": p, "pool": {"cache": cache, "pos": pos, "flush_base": pos.clone()},
+                "rope": rope_table(64, device=dev)}
+
+    sides = {dev: setup(dev) for dev in ("cpu", "cuda")}
+    inputs = [torch.randn(Bt, 1, 256, generator=gen).to(torch.bfloat16) for _ in range(14)]
+    worst = 0.0
+    with torch.inference_mode():
+        for i, x in enumerate(inputs):
+            outs = {}
+            for dev, side in sides.items():
+                pool = side["pool"]
+                outs[dev] = backbone.transformer_forward(
+                    side["p"], cfg, x.to(dev), pool["cache"], 0, side["rope"],
+                    positions=torch.cat([pool["pos"], pool["pos"]]),
+                    pool_base=torch.cat([pool["flush_base"], pool["flush_base"]]))
+                pool["pos"] = pool["pos"] + 1
+                if i % 6 == 5:
+                    flush_pool_rings(pool)
+            diff = (outs["cuda"].float().cpu() - outs["cpu"].float()).abs().max().item()
+            if diff > 0.1:
+                raise AssertionError(f"pooled backbone card vs CPU, step {i}: max |diff| {diff}")
+            worst = max(worst, diff)
+    kind = "int8 weights and KV cache" if int8 else "bf16"
+    log(f"reference: pooled backbone on the card vs the CPU plain path, {kind}, 4 rows at "
+        f"positions 20/9, 14 steps across two ring flushes: max |hidden diff| {worst:.3e} <= 0.1")
+    return worst
 
 
 def check_backbone_against_cpu(int8: bool = False) -> float:
@@ -330,7 +531,7 @@ def run_main_path(card: str):
     if wav.size == 0 or not np.isfinite(wav).all():
         raise AssertionError("waveform empty or not finite")
     want = {"decode_attention": L * steps, "decode_attention_q": 0, "stage_splice": 2 * steps,
-            "prefill_attention": L, "qmm_int8": 0}
+            "prefill_attention": L, "qmm_int8": 0, **NO_POOL_LAUNCHES}
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
     out_dir = ROOT / "build"
@@ -439,7 +640,7 @@ def run_int8_path(pipe, cond, card: str) -> dict:
         raise AssertionError("int8 waveform empty or not finite")
     # 4 projections per layer and one launch for the 9 heads per forward.
     want = {"decode_attention": 0, "decode_attention_q": L * steps, "stage_splice": 2 * steps,
-            "prefill_attention": L, "qmm_int8": (4 * L + 1) * (steps + 1)}
+            "prefill_attention": L, "qmm_int8": (4 * L + 1) * (steps + 1), **NO_POOL_LAUNCHES}
     if launches != want:
         raise AssertionError(f"int8 launch counts {launches}, expected {want}")
     out_dir = ROOT / "build"
@@ -458,6 +659,122 @@ def run_int8_path(pipe, cond, card: str) -> dict:
         f"{steps} decode steps; prefill {e2e['prefill_ms']:.2f} ms, decode "
         f"{e2e['decode_ms_per_step']:.3f} ms/step, DAC {e2e['dac_ms']:.1f} ms, "
         f"RTF {e2e['rtf']:.3f}; launches {launches}")
+    return e2e
+
+
+def run_pool(pipe, card: str, kv_int8: bool) -> dict:
+    """Phase 3, the continuous-batching pool at flagship width on the
+    pipeline's current weights: row 0 alone for 3 segments (the isolation
+    reference), then the counted staggered pool of 8 requests, one joining
+    per segment, until every row finishes."""
+    import numpy as np
+    import torch
+
+    from zonos_vibes_tpu_torch.engine import pool as plib
+    from zonos_vibes_tpu_torch.ops.cuda import build
+    from zonos_vibes_tpu_torch.ops.sampling import SamplingParams
+    from zonos_vibes_tpu_torch.serve.sample import wav_bytes
+
+    label = "pool int8 KV, int8 weights" if kv_int8 else "pool bf16"
+    model, params = pipe.model, pipe.params
+    pc = plib.PoolConfig(slots=POOL_SLOTS)
+    conds = [pipe.prepare_conditioning(pipe.make_cond_dict(text=t, language="en-us"))
+             for t in POOL_TEXTS]
+
+    def join(pool, s):
+        req, knobs = plib.prefill_request(
+            model, params, conds[s], torch.Generator("cuda").manual_seed(100 + s), AUDIO_FRAMES,
+            2.0, SamplingParams(min_p=0.1), kv_int8=kv_int8)
+        plib.join(pool, req, s, conds[s].shape[1], 1000 + s, knobs)
+
+    def new_pool():
+        pool = plib.make_pool(model, pc, conds[0].dtype, kv_int8=kv_int8, device="cuda")
+        if pool["cache"]["k"].shape[2] != POOL_T:
+            raise AssertionError(f"pool cache length {pool['cache']['k'].shape[2]} != {POOL_T}")
+        return pool
+
+    # Row 0 alone (this also warms the pooled step's kernels and handles).
+    pool = new_pool()
+    join(pool, 0)
+    for _ in range(3):
+        plib.pool_steps(model, params, pool, POOL_SEED, POOL_SEGMENT)
+    alone, alone_valid = plib.extract_row(model, pool, 0)
+    del pool
+    torch.cuda.empty_cache()
+
+    pool = new_pool()
+    kv_bytes = sum(t.numel() * t.element_size() for t in pool["cache"].values())
+    torch.cuda.synchronize()
+    build.reset_launches()
+    joins = steps = 0
+    t_join = t_steps = 0.0
+    t_window = time.perf_counter()
+    for seg in range(POOL_SLOTS + AUDIO_FRAMES // POOL_SEGMENT + 4):
+        if seg < POOL_SLOTS:
+            t0 = time.perf_counter()
+            join(pool, seg)
+            torch.cuda.synchronize()
+            t_join += time.perf_counter() - t0
+            joins += 1
+        elif all(plib.row_finished(pool, s) for s in range(POOL_SLOTS)):
+            break
+        t0 = time.perf_counter()
+        steps += plib.pool_steps(model, params, pool, POOL_SEED, POOL_SEGMENT)
+        torch.cuda.synchronize()
+        t_steps += time.perf_counter() - t0
+        if seg == POOL_SLOTS - 1:  # every row joined: the spread the kernels are timed at
+            bases_mid = pool["flush_base"].tolist()
+    launches = dict(build.LAUNCHES)
+    t_window = time.perf_counter() - t_window
+    if not all(plib.row_finished(pool, s) for s in range(POOL_SLOTS)):
+        raise AssertionError(f"{label}: rows still running after {steps} steps")
+    alloc = torch.cuda.memory_allocated()
+
+    want = {"decode_attention": 0, "decode_attention_q": 0, "stage_splice": 0,
+            "prefill_attention": L * joins, "qmm_int8": (4 * L + 1) * (joins + steps) * kv_int8,
+            "decode_attention_pooled": 0 if kv_int8 else L * steps,
+            "decode_attention_pooled_q": L * steps if kv_int8 else 0,
+            "stage_splice_rows": 2 * steps}
+    if launches != want:
+        raise AssertionError(f"{label} launch counts {launches}, expected {want}")
+
+    out_dir = ROOT / "build"
+    out_dir.mkdir(exist_ok=True)
+    frames = []
+    for s in range(POOL_SLOTS):
+        codes, valid = plib.extract_row(model, pool, s)
+        if valid <= 0 or valid > AUDIO_FRAMES or int(codes.min()) < 0 or int(codes.max()) >= 1024:
+            raise AssertionError(f"{label} row {s}: {valid} frames, codes out of range")
+        if s == 0:
+            n = min(ISOLATION_FRAMES, valid, alone_valid)
+            if (n < ISOLATION_FRAMES and valid != alone_valid) or not torch.equal(
+                    codes[:, :n], alone[:, :n]):
+                raise AssertionError(f"{label}: row 0 alone differs from row 0 in the full pool "
+                                     f"within its first {n} frames")
+        wav = pipe.decode_audio(codes[None])[0]
+        if wav.size == 0 or not np.isfinite(wav).all():
+            raise AssertionError(f"{label} row {s}: waveform empty or not finite")
+        suffix = "_int8" if kv_int8 else ""
+        (out_dir / f"chip_smoke_pool{suffix}_row{s}.wav").write_bytes(
+            wav_bytes(wav, pipe.dac.sampling_rate))
+        frames.append(valid)
+    del pool
+    torch.cuda.empty_cache()
+
+    e2e = {"joins": joins, "steps": steps, "frames": frames,
+           "ms_per_step": t_steps * 1e3 / steps,
+           "audio_s_per_s": sum(frames) / FRAME_RATE / t_steps,
+           "audio_s_per_s_window": sum(frames) / FRAME_RATE / t_window,
+           "prefill_join_ms": t_join * 1e3 / joins, "kv_cache_bytes": kv_bytes,
+           "memory_allocated": alloc, "bases_mid": bases_mid, "launches": launches}
+    log(f"e2e {label} ({card}): {joins} requests x {AUDIO_FRAMES} frames max, one join per "
+        f"{POOL_SEGMENT}-step segment; {steps} pooled steps at {e2e['ms_per_step']:.3f} ms/step; "
+        f"valid frames {frames}; aggregate {e2e['audio_s_per_s']:.3f} audio-s/s over the pooled "
+        f"segments' {t_steps:.3f} s, {e2e['audio_s_per_s_window']:.3f} over the whole "
+        f"{t_window:.3f} s window (joins included); prefill+join "
+        f"{e2e['prefill_join_ms']:.2f} ms/request; KV cache {kv_bytes / 1e9:.3f} GB; "
+        f"memory_allocated {alloc / 2**30:.3f} GiB; row 0 alone == row 0 pooled for "
+        f"{min(ISOLATION_FRAMES, frames[0], alone_valid)} frames; launches {launches}")
     return e2e
 
 
@@ -570,7 +887,8 @@ def time_int8_kernels(e2e: dict, errors: dict, card: str) -> list[dict]:
     # The weights of all 26 layers, cycled through, so that each launch reads
     # its weight from device memory as a decode step does (one layer's fc1 is
     # 33.5 MB, within the 50 MB L2).
-    def qmm_time(G, K, N, out_dtype, layers, M):
+    def qmm_time(G, K, N, out_dtype, layers, Ms):
+        """{M: (kernel, plain, library, bound ms, bound_by)} for each M."""
         w = torch.randint(-127, 128, (layers, G, K, N), dtype=torch.int8, device="cuda",
                           generator=gen)
         scale = torch.rand((layers, G, 1, N), device="cuda", generator=gen) * 1e-3 + 1e-4
@@ -578,39 +896,48 @@ def time_int8_kernels(e2e: dict, errors: dict, card: str) -> list[dict]:
         for l in range(layers):
             w_bf16[l] = (w[l].float() * scale[l]).to(torch.bfloat16)
         lib_w = w_bf16[:, 0] if G == 1 else w_bf16
-        x = randn(gen, M, K)
         idx = itertools.cycle(range(layers))
+        out = {}
+        for M in Ms:
+            x = randn(gen, M, K)
 
-        def kernel():
-            l = next(idx)
-            return qmm_int8(x, w[l], scale[l], out_dtype)
+            def kernel():
+                l = next(idx)
+                return qmm_int8(x, w[l], scale[l], out_dtype)
 
-        def plain_version():
-            l = next(idx)
-            return qmm_int8_plain(x, w[l], scale[l], out_dtype)
+            def plain_version():
+                l = next(idx)
+                return qmm_int8_plain(x, w[l], scale[l], out_dtype)
 
-        ms = device_ms(kernel, 26 * 8)
-        plain = device_ms(plain_version, 26)
-        lib = device_ms(lambda: torch.matmul(x, lib_w[next(idx)]), 26 * 8)
-        out_bytes = 4 if out_dtype == torch.float32 else 2
-        b, by = bound(M * K * 2 + G * K * N + G * N * 4 + M * G * N * out_bytes, 2 * M * G * K * N)
-        return ms, plain, lib, b, by
+            ms = device_ms(kernel, 26 * 8)
+            plain = device_ms(plain_version, 26)
+            lib = device_ms(lambda: torch.matmul(x, lib_w[next(idx)]), 26 * 8)
+            out_bytes = 4 if out_dtype == torch.float32 else 2
+            out[M] = (ms, plain, lib, *bound(M * K * 2 + G * K * N + G * N * 4
+                                             + M * G * N * out_bytes, 2 * M * G * K * N))
+        return out
 
-    step = dict(ms=0.0, plain=0.0, lib=0.0, bound=0.0)
+    # One forward's 105 launches: M = 2 on the solo decode step, M = 16 on
+    # the 8-slot pool's step.
+    step = {M: dict(ms=0.0, plain=0.0, lib=0.0, bound=0.0) for M in (2, POOL_M)}
     shapes = [(name, 1, k, n, torch.bfloat16, L) for name, (k, n) in PROJECTIONS.items()]
     shapes.append(("heads", *HEADS_SHAPE, torch.float32, 1))
     for name, G, K, N, out_dtype, count in shapes:
-        ms, plain, lib, b, by = qmm_time(G, K, N, out_dtype, count, 2)
-        for key, v in zip(("ms", "plain", "lib", "bound"), (ms, plain, lib, b)):
-            step[key] += count * v
-        log(f"time qmm_int8 {name} M=2 G={G} {K}x{N} ({card}): kernel_ms {ms:.5f} plain_ms "
-            f"{plain:.4f} library_ms {lib:.5f} (matmul, bf16 weight) bound_ms {b:.5f} ({by})")
+        times = qmm_time(G, K, N, out_dtype, count, tuple(step))
+        for M, (ms, plain, lib, b, by) in times.items():
+            for key, v in zip(("ms", "plain", "lib", "bound"), (ms, plain, lib, b)):
+                step[M][key] += count * v
+            log(f"time qmm_int8 {name} M={M} G={G} {K}x{N} ({card}): kernel_ms {ms:.5f} "
+                f"plain_ms {plain:.4f} library_ms {lib:.5f} (matmul, bf16 weight) bound_ms "
+                f"{b:.5f} ({by})")
         if name == "fc1":
-            fc1 = (ms, plain, lib, b, by)
-    log(f"time qmm_int8 one decode step, 105 launches ({card}): kernel_ms {step['ms']:.4f} "
-        f"plain_ms {step['plain']:.3f} library_ms {step['lib']:.4f} bound_ms {step['bound']:.4f}")
+            fc1 = times[2]
+    for M, label in ((2, "one decode step"), (POOL_M, "one pooled step")):
+        t = step[M]
+        log(f"time qmm_int8 {label} (M={M}), 105 launches ({card}): kernel_ms {t['ms']:.4f} "
+            f"plain_ms {t['plain']:.3f} library_ms {t['lib']:.4f} bound_ms {t['bound']:.4f}")
     M = 2 * (cond_len + 1)
-    ms, plain, lib, b, by = qmm_time(1, *PROJECTIONS["fc1"], torch.bfloat16, L, M)
+    ms, plain, lib, b, by = qmm_time(1, *PROJECTIONS["fc1"], torch.bfloat16, L, (M,))[M]
     log(f"time qmm_int8 fc1 prefill M={M} ({card}): kernel_ms {ms:.4f} plain_ms {plain:.4f} "
         f"library_ms {lib:.4f} bound_ms {b:.5f} ({by})")
     ms, plain, lib, b, by = fc1
@@ -659,6 +986,112 @@ def time_int8_kernels(e2e: dict, errors: dict, card: str) -> list[dict]:
     return rows
 
 
+def time_pool_kernels(pool_bf16: dict, pool_int8: dict, errors: dict, card: str) -> list[dict]:
+    """Phase 4, the pool's kernels at its shapes (16 CFG rows, T = 3584):
+    the main path's spread of bases once every row has joined, and spreads
+    near 1800 and near 3000 positions."""
+    import torch
+    import torch.nn.functional as F
+
+    from zonos_vibes_tpu_torch.ops.cuda.decode_attention import (
+        decode_attention_pooled_staged, decode_attention_pooled_staged_plain,
+        decode_attention_pooled_staged_q, decode_attention_pooled_staged_q_plain)
+    from zonos_vibes_tpu_torch.ops.cuda.stage_write import (
+        stage_splice_rows, stage_splice_rows_plain)
+    from zonos_vibes_tpu_torch.ops.quant import dequantize_rows
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    Bp = 2 * POOL_SLOTS
+    lens = [(23 * b) % STAGE for b in range(Bp)]
+    spreads = [("main path, all rows joined", pool_bf16["bases_mid"] * 2, [POOL_SEGMENT - 1] * Bp),
+               ("near 1800", [1800 + 37 * (b - 8) for b in range(Bp)], lens),
+               ("near 3000", [3000 + 37 * (b - 8) for b in range(Bp)], lens)]
+
+    def library_inputs(x, bases, lens, quant):
+        """Each row's prefix, ring rows and column gathered into [B, Hkv,
+        n_max, D] (dequantized to bf16 for an int8 prefix) and a [B, 1, 1,
+        n_max] mask, for one SDPA call (layer 5)."""
+        n = [b + s + 1 for b, s in zip(bases, lens)]
+        kg = torch.zeros(Bp, max(n), W, dtype=torch.bfloat16, device="cuda")
+        vg = torch.zeros_like(kg)
+        for b in range(Bp):
+            for dst, name in ((kg, "k"), (vg, "v")):
+                prefix = x[name + "_cache"][5, b, :bases[b]]
+                if quant:
+                    prefix = dequantize_rows(prefix, x[name + "_scale"][5, b, :bases[b]])
+                dst[b, :n[b]] = torch.cat([prefix.to(torch.bfloat16),
+                                           x[name + "_stage"][5, b, :lens[b]],
+                                           x[name + "_cur"][b, None]])
+        mask = (torch.arange(max(n), device="cuda")[None, :]
+                < torch.tensor(n, device="cuda")[:, None])[:, None, None, :]
+
+        def heads(t):
+            return t.view(Bp, max(n), HKV, D).transpose(1, 2).contiguous()
+
+        return x["q"].transpose(1, 2).contiguous(), heads(kg), heads(vg), mask, sum(n)
+
+    rows = []
+    for name, kernel, plain, quant, pallas_line, stats in (
+            ("decode_attention_pooled", decode_attention_pooled_staged,
+             decode_attention_pooled_staged_plain, False, 790, pool_bf16),
+            ("decode_attention_pooled_q", decode_attention_pooled_staged_q,
+             decode_attention_pooled_staged_q_plain, True, 1011, pool_int8)):
+        first = None
+        for label, bases, lns in spreads:
+            x = pool_decode_inputs(gen, POOL_T, bases, lns)
+            if quant:
+                x = quantized(x)
+            qg, kg, vg, mask, n_total = library_inputs(x, bases, lns, quant)
+            ms = device_ms(lambda: kernel(**x, layer=5), 200)
+            plain_ms = device_ms(lambda: plain(**x, layer=5), 10)
+            lib = device_ms(lambda: F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                                                   enable_gqa=True), 200)
+            prefix = sum(bases)
+            ring = n_total - prefix  # ring rows and current columns
+            per_prefix = W + HKV * 4 if quant else W * 2
+            nbytes = 2 * prefix * per_prefix + 2 * ring * W * 2 + 2 * Bp * HQ * D * 2 + 2 * Bp * 4
+            b, by = bound(nbytes, 4 * HQ * D * n_total)
+            log(f"time {name} B={Bp} T={POOL_T} {label} (bases {min(bases)}-{max(bases)}, "
+                f"{ring} ring+current positions) ({card}): kernel_ms {ms:.4f} plain_ms "
+                f"{plain_ms:.4f} library_ms {lib:.4f} (SDPA, per-row mask over gathered"
+                f"{' dequantized' if quant else ''} K/V) bound_ms {b:.5f} ({by})")
+            if first is None:
+                first = (ms, plain_ms, lib, b, by)
+            del x, kg, vg
+        ms, plain_ms, lib, b, by = first
+        rows.append(dict(name=name, route="cuda",
+                         source="zonos_vibes_tpu_torch/csrc/decode_attention.cu",
+                         replaces=f"zonos_vibes_tpu/ops/pallas/decode_attention.py:{pallas_line}",
+                         launches=stats["launches"][name], max_abs_err=errors[name], ms=ms,
+                         plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=lib))
+        torch.cuda.empty_cache()
+
+    stage = randn(gen, L, Bp, STAGE, W)
+    cols = randn(gen, L, Bp, W)
+    slots = torch.tensor([(7 * b) % STAGE for b in range(Bp)], dtype=torch.int32, device="cuda")
+    rows_idx = torch.arange(Bp, device="cuda")
+    slots_long = slots.long()
+    ms = device_ms(lambda: stage_splice_rows(stage, cols, slots), 500)
+    plain_ms = device_ms(lambda: stage_splice_rows_plain(stage, cols, slots), 100)
+
+    def index_assign():
+        stage[:, rows_idx, slots_long] = cols
+
+    lib = device_ms(index_assign, 500)
+    b, by = bound(2 * L * Bp * W * 2 + Bp * 4, 0)
+    log(f"time stage_splice_rows L={L} B={Bp} W={W} ({card}): kernel_ms {ms:.4f} plain_ms "
+        f"{plain_ms:.4f} library_ms {lib:.4f} (advanced-index assignment) bound_ms {b:.6f} ({by}); "
+        f"launches {pool_bf16['launches']['stage_splice_rows']} in the bf16 pool run, "
+        f"{pool_int8['launches']['stage_splice_rows']} in the int8 one")
+    rows.append(dict(name="stage_splice_rows", route="cuda",
+                     source="zonos_vibes_tpu_torch/csrc/stage_write.cu",
+                     replaces="zonos_vibes_tpu/ops/pallas/stage_write.py:105",
+                     launches=pool_bf16["launches"]["stage_splice_rows"],
+                     max_abs_err=errors["stage_splice_rows"], ms=ms, plain_ms=plain_ms,
+                     bound_ms=b, bound_by=by, library_ms=lib))
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -680,13 +1113,19 @@ def main() -> int:
 
     errors = check_kernels()
     errors.update(check_int8_kernels())
+    errors.update(check_pool_kernels())
     check_backbone_against_cpu()
     check_backbone_against_cpu(int8=True)
+    check_pooled_backbone_against_cpu()
+    check_pooled_backbone_against_cpu(int8=True)
     pipe, cond, e2e = run_main_path(card)
+    pool_bf16 = run_pool(pipe, card, kv_int8=False)
     e2e_int8 = run_int8_path(pipe, cond, card)
+    pool_int8 = run_pool(pipe, card, kv_int8=True)
     del pipe
     torch.cuda.empty_cache()
-    rows = time_kernels(e2e, errors, card) + time_int8_kernels(e2e_int8, errors, card)
+    rows = (time_kernels(e2e, errors, card) + time_int8_kernels(e2e_int8, errors, card)
+            + time_pool_kernels(pool_bf16, pool_int8, errors, card))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -8,6 +8,12 @@ cache: an empty and a one-position flushed prefix, an empty and a full
 stage, the first and last layer, a cache length that is not a multiple of
 the kernel's 256-position chunk, chunks of 7, 97 and 600 queries, offsets 0
 and 64. Everything runs in fp32; tolerance 2e-4 (summation order only).
+
+The pool's kernels (pooled decode attention, bf16 and int8 prefix, and the
+per-row ring splice) are held to 1e-5 and bit-exactness, at the inputs of
+the JAX package's own tests (``tests/test_pallas_decode.py``,
+``tests/test_stage_write.py``) plus a row with a full-but-one ring; the
+port's prefix positions at or past each row's base are poisoned with NaN.
 """
 
 import jax.numpy as jnp
@@ -15,13 +21,23 @@ import numpy as np
 import pytest
 import torch
 
-from zonos_vibes_tpu.ops.pallas.decode_attention import decode_attention_pallas_layered
+from zonos_vibes_tpu.ops.pallas.decode_attention import (
+    decode_attention_pallas_layered,
+    decode_attention_pallas_pooled_staged,
+    decode_attention_pallas_pooled_staged_q,
+)
 from zonos_vibes_tpu.ops.pallas.prefill_attention import prefill_attention_pallas
-from zonos_vibes_tpu.ops.pallas.stage_write import stage_splice_pallas
+from zonos_vibes_tpu.ops.pallas.stage_write import stage_splice_pallas, stage_splice_rows_pallas
+from zonos_vibes_tpu.ops.quant import quantize_kv
 from zonos_vibes_tpu_torch.ops.cuda import build
-from zonos_vibes_tpu_torch.ops.cuda.decode_attention import decode_attention_layered
+from zonos_vibes_tpu_torch.ops.cuda.decode_attention import (
+    decode_attention_layered,
+    decode_attention_pooled_staged,
+    decode_attention_pooled_staged_q,
+)
 from zonos_vibes_tpu_torch.ops.cuda.prefill_attention import prefill_attention
-from zonos_vibes_tpu_torch.ops.cuda.stage_write import stage_splice
+from zonos_vibes_tpu_torch.ops.cuda.stage_write import stage_splice, stage_splice_rows
+from zonos_vibes_tpu_torch.ops.quant import quantize_rows
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 L, B, HQ, HKV, D, STAGE, T = 2, 2, 8, 2, 64, 128, 640
@@ -102,3 +118,128 @@ def test_wrappers_reject_inconsistent_shapes():
     with pytest.raises(ValueError):
         stage_splice(torch.zeros(L, B, STAGE, W), torch.zeros(L, B, 1, W),
                      torch.tensor([0], dtype=torch.int32))
+
+
+# The pool's kernels at tests/test_pallas_decode.py's pooled shapes, plus a
+# fourth row whose ring holds STAGE - 1 rows.
+P_B, P_T, P_STAGE = 4, 256, 16
+P_BASES = np.array([40, 0, 201, 100], np.int32)
+P_LENS = np.array([5, 0, 14, P_STAGE - 1], np.int32)
+P_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def pooled_inputs():
+    rng = np.random.default_rng(13)
+
+    def f(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    return dict(q=f(P_B, 1, HQ, D), k_cache=f(L, P_B, P_T, W), v_cache=f(L, P_B, P_T, W),
+                k_stage=f(L, P_B, P_STAGE, W), v_stage=f(L, P_B, P_STAGE, W),
+                k_cur=f(P_B, W), v_cur=f(P_B, W))
+
+
+def _poison_past_bases(x):
+    """A copy with every prefix position at or past its row's base NaN."""
+    x = x.copy()
+    for b, base in enumerate(P_BASES):
+        x[:, b, base:] = np.nan
+    return x
+
+
+def _jax_pooled_args(x):
+    return (jnp.asarray(x["q"]), jnp.asarray(x["k_stage"]), jnp.asarray(x["v_stage"]),
+            jnp.asarray(x["k_cur"].reshape(P_B, HKV, D, 1)),
+            jnp.asarray(x["v_cur"].reshape(P_B, HKV, D, 1)),
+            jnp.asarray(P_BASES), jnp.asarray(P_LENS))
+
+
+@pytest.mark.parametrize("layer", [0, L - 1])
+def test_decode_attention_pooled_plain_matches_pallas(pooled_inputs, layer):
+    x = pooled_inputs
+    q, ks, vs, kc, vc, bases, lens = _jax_pooled_args(x)
+    want = decode_attention_pallas_pooled_staged(
+        q, jnp.asarray(_time_minor(x["k_cache"])), jnp.asarray(_time_minor(x["v_cache"])),
+        ks, vs, kc, vc, bases, lens, jnp.int32(layer), block=128, interpret=True)
+    args = {k: torch.from_numpy(v) for k, v in x.items()}
+    for name in ("k_cache", "v_cache"):
+        args[name] = torch.from_numpy(_poison_past_bases(x[name]))
+    before = dict(build.LAUNCHES)
+    got = decode_attention_pooled_staged(**args, bases=torch.from_numpy(P_BASES),
+                                         lens=torch.from_numpy(P_LENS), layer=layer)
+    assert build.LAUNCHES == before  # the CPU path launches nothing
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **P_TOL)
+
+
+@pytest.mark.parametrize("layer", [0, L - 1])
+def test_decode_attention_pooled_q_plain_matches_pallas(pooled_inputs, layer):
+    """int8 prefix: the port's int8 values and scales come from the same
+    fp32 cache (bit-equal to JAX's ``quantize_kv``); its scales past each
+    row's base are NaN."""
+    x = pooled_inputs
+    q, ks, vs, kc, vc, bases, lens = _jax_pooled_args(x)
+    jq = {n: quantize_kv(jnp.asarray(_time_minor(x[n + "_cache"])), dh_axis=3) for n in "kv"}
+    want = decode_attention_pallas_pooled_staged_q(
+        q, jq["k"][0], jq["v"][0], jq["k"][1], jq["v"][1], ks, vs, kc, vc, bases, lens,
+        jnp.int32(layer), block=128, interpret=True)
+    args = {k: torch.from_numpy(v) for k, v in x.items() if "cache" not in k}
+    for n in "kv":
+        qrows, scale = quantize_rows(torch.from_numpy(x[n + "_cache"]), HKV)
+        np.testing.assert_array_equal(qrows.numpy(), _port_layout(np.asarray(jq[n][0])))
+        args[n + "_cache"] = qrows
+        args[n + "_scale"] = torch.from_numpy(_poison_past_bases(scale.numpy()))
+    got = decode_attention_pooled_staged_q(**args, bases=torch.from_numpy(P_BASES),
+                                           lens=torch.from_numpy(P_LENS), layer=layer)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **P_TOL)
+
+
+def _port_layout(x):
+    """JAX ``[L, B, Hkv, D, T]`` -> the port's ``[L, B, T, Hkv*D]``."""
+    Lx, Bx, H, Dx, T = x.shape
+    return np.moveaxis(x, -1, 2).reshape(Lx, Bx, T, H * Dx)
+
+
+def test_stage_splice_rows_plain_matches_pallas():
+    rng = np.random.default_rng(3)
+    Br = 3
+    stage = rng.standard_normal((L, Br, STAGE, W)).astype(np.float32)
+    cols = rng.standard_normal((L, Br, W)).astype(np.float32)
+    slots = np.array([0, 127, 8], np.int32)
+    want = np.asarray(stage_splice_rows_pallas(jnp.asarray(stage), jnp.asarray(cols[:, :, None]),
+                                               jnp.asarray(slots), interpret=True))
+    st = torch.from_numpy(stage.copy())
+    before = dict(build.LAUNCHES)
+    got = stage_splice_rows(st, torch.from_numpy(cols), torch.from_numpy(slots))
+    assert build.LAUNCHES == before
+    assert got.data_ptr() == st.data_ptr()  # in place
+    np.testing.assert_array_equal(got.numpy(), want)
+    # A slot outside the stage writes nothing.
+    st2 = torch.from_numpy(stage.copy())
+    stage_splice_rows(st2, torch.from_numpy(cols), torch.tensor([-1, 128, 8], dtype=torch.int32))
+    np.testing.assert_array_equal(st2[:, :2].numpy(), stage[:, :2])
+    np.testing.assert_array_equal(st2[:, 2, 8].numpy(), cols[:, 2])
+
+
+def test_pooled_wrappers_reject_wrong_inputs(pooled_inputs):
+    x = {k: torch.from_numpy(v) for k, v in pooled_inputs.items()}
+    bases, lens = torch.from_numpy(P_BASES), torch.from_numpy(P_LENS)
+    with pytest.raises(ValueError):  # int64 bases
+        decode_attention_pooled_staged(**x, bases=bases.long(), lens=lens, layer=0)
+    with pytest.raises(ValueError):  # one length too few
+        decode_attention_pooled_staged(**x, bases=bases, lens=lens[:3], layer=0)
+    with pytest.raises(ValueError):  # layer out of range
+        decode_attention_pooled_staged(**x, bases=bases, lens=lens, layer=L)
+    with pytest.raises(ValueError):  # a bf16 cache where int8 is expected
+        decode_attention_pooled_staged_q(
+            **x, k_scale=torch.ones(L, P_B, P_T, HKV), v_scale=torch.ones(L, P_B, P_T, HKV),
+            bases=bases, lens=lens, layer=0)
+    stage = torch.zeros(L, P_B, P_STAGE, W)
+    with pytest.raises(ValueError):  # cols with a slot axis
+        stage_splice_rows(stage, torch.zeros(L, P_B, 1, W), lens)
+    with pytest.raises(ValueError):  # cols of another dtype
+        stage_splice_rows(stage, torch.zeros(L, P_B, W, dtype=torch.float64), lens)
+    with pytest.raises(ValueError):  # int64 slots
+        stage_splice_rows(stage, torch.zeros(L, P_B, W), lens.long())

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Flagship shapes (26 layers, CFG batch 2, 32 query heads, 8 KV heads, head
-dim 64), bf16. Run on a machine with an NVIDIA GPU:
+dim 64), bf16; the pool's kernels at the 8-slot pool's (16 CFG rows, cache
+length 3584). Run on a machine with an NVIDIA GPU:
 
     python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q
 
@@ -19,13 +20,22 @@ from zonos_vibes_tpu_torch.ops.cuda.decode_attention import (
     decode_attention_layered_plain,
     decode_attention_layered_q,
     decode_attention_layered_q_plain,
+    decode_attention_pooled_staged,
+    decode_attention_pooled_staged_plain,
+    decode_attention_pooled_staged_q,
+    decode_attention_pooled_staged_q_plain,
 )
 from zonos_vibes_tpu_torch.ops.cuda.prefill_attention import (
     prefill_attention,
     prefill_attention_plain,
 )
 from zonos_vibes_tpu_torch.ops.cuda.qmm import qmm_int8, qmm_int8_plain
-from zonos_vibes_tpu_torch.ops.cuda.stage_write import stage_splice, stage_splice_plain
+from zonos_vibes_tpu_torch.ops.cuda.stage_write import (
+    stage_splice,
+    stage_splice_plain,
+    stage_splice_rows,
+    stage_splice_rows_plain,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -39,6 +49,12 @@ TOL = dict(rtol=2e-2, atol=2e-2)
 # bf16 step.
 QMM_TOL = {torch.bfloat16: dict(rtol=8e-3, atol=1e-2), torch.float32: dict(rtol=1e-5, atol=1e-4)}
 Q_TOL = dict(rtol=1e-2, atol=1e-2)
+# The pooled attention kernels are also held row by row, each row's largest
+# |error| against its own largest |output|: a deep row's outputs are ~0.06 at
+# most, so an absolute limit set by the shallow rows (outputs up to ~4)
+# would pass a deep row that lost a 256-position split (~25% of its largest
+# output). The legitimate error is under 1%.
+POOL_ROW_TOL = {"bf16": 2e-2, "int8": 1e-2}
 
 
 @pytest.fixture(scope="module")
@@ -147,7 +163,7 @@ def test_wrappers_raise_on_fp32_cuda(dev):
     assert build.LAUNCHES["prefill_attention"] == before
 
 
-@pytest.mark.parametrize("M", [1, 2, 176])
+@pytest.mark.parametrize("M", [1, 2, 16, 176])  # solo step, pooled step (8 slots), prefill
 @pytest.mark.parametrize("G,K,N,out_dtype", [
     (1, 2048, 3072, torch.bfloat16), (1, 2048, 2048, torch.bfloat16),
     (1, 2048, 16384, torch.bfloat16), (1, 8192, 2048, torch.bfloat16),
@@ -210,4 +226,87 @@ def test_int8_wrappers_raise_on_wrong_dtypes_on_cuda(dev, q_decode_inputs):
     with pytest.raises(ValueError):
         decode_attention_layered_q(**{**q_decode_inputs, "q": q_decode_inputs["q"].float()},
                                    scalars=sc)
+    assert build.LAUNCHES == before
+
+
+# The 8-slot pool: 16 CFG rows at their own depths over a 3584-position cache.
+POOL_B, POOL_T = 16, 3584
+POOL_BASES = [0, 1, 255, 256, 500, 1800, 3000, 3456, 0, 1, 255, 256, 500, 1800, 3000, 3456]
+POOL_LENS = [0, 1, 5, 127, 1, 5, 127, 0, 127, 0, 1, 5, 5, 127, 0, 1]
+
+
+def _assert_rows_close(got, want, rtol):
+    g, w = got.float().flatten(1), want.float().flatten(1)
+    rel = (g - w).abs().amax(1) / w.abs().amax(1)
+    assert (rel <= rtol).all(), f"per-row relative error {rel.tolist()}"
+
+
+@pytest.fixture(scope="module")
+def pooled_inputs(dev):
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = dict(q=_randn(gen, POOL_B, 1, HQ, D, dev=dev),
+             k_cache=_randn(gen, L, POOL_B, POOL_T, W, dev=dev),
+             v_cache=_randn(gen, L, POOL_B, POOL_T, W, dev=dev),
+             k_stage=_randn(gen, L, POOL_B, STAGE, W, dev=dev),
+             v_stage=_randn(gen, L, POOL_B, STAGE, W, dev=dev),
+             k_cur=_randn(gen, POOL_B, W, dev=dev), v_cur=_randn(gen, POOL_B, W, dev=dev),
+             bases=torch.tensor(POOL_BASES, dtype=torch.int32, device=dev),
+             lens=torch.tensor(POOL_LENS, dtype=torch.int32, device=dev))
+    for b, base in enumerate(POOL_BASES):  # never read: poison
+        x["k_cache"][:, b, base:] = float("nan")
+        x["v_cache"][:, b, base:] = float("nan")
+    return x
+
+
+@pytest.mark.parametrize("layer", [0, 25])
+def test_decode_attention_pooled_kernel(dev, pooled_inputs, layer):
+    before = build.LAUNCHES["decode_attention_pooled"]
+    got = decode_attention_pooled_staged(**pooled_inputs, layer=layer)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["decode_attention_pooled"] == before + 1
+    want = decode_attention_pooled_staged_plain(**pooled_inputs, layer=layer)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+    _assert_rows_close(got, want, POOL_ROW_TOL["bf16"])
+
+
+@pytest.mark.parametrize("layer", [0, 25])
+def test_decode_attention_pooled_q_kernel(dev, pooled_inputs, layer):
+    """int8 prefix, with NaN scales (and int8 values quantized from NaN) at
+    or past each row's base."""
+    x = dict(pooled_inputs)
+    for name in ("k", "v"):
+        x[name + "_cache"], x[name + "_scale"] = quant.quantize_rows(x[name + "_cache"], HKV)
+    before = build.LAUNCHES["decode_attention_pooled_q"]
+    got = decode_attention_pooled_staged_q(**x, layer=layer)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["decode_attention_pooled_q"] == before + 1
+    want = decode_attention_pooled_staged_q_plain(**x, layer=layer)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), **Q_TOL)
+    _assert_rows_close(got, want, POOL_ROW_TOL["int8"])
+
+
+def test_stage_splice_rows_kernel(dev):
+    gen = torch.Generator(device=dev).manual_seed(9)
+    stage = _randn(gen, L, POOL_B, STAGE, W, dev=dev)
+    cols = _randn(gen, L, POOL_B, W, dev=dev)
+    slots = torch.tensor([0, 7, 8, 127] * 4, dtype=torch.int32, device=dev)
+    want = stage_splice_rows_plain(stage.clone(), cols, slots)
+    before = build.LAUNCHES["stage_splice_rows"]
+    got = stage_splice_rows(stage, cols, slots)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["stage_splice_rows"] == before + 1
+    assert got.data_ptr() == stage.data_ptr()
+    assert torch.equal(got, want)
+
+
+def test_pooled_wrappers_raise_on_wrong_dtypes_on_cuda(dev, pooled_inputs):
+    before = dict(build.LAUNCHES)
+    with pytest.raises(ValueError):
+        decode_attention_pooled_staged(**{**pooled_inputs, "q": pooled_inputs["q"].float()},
+                                       layer=0)
+    with pytest.raises(ValueError):
+        stage_splice_rows(pooled_inputs["k_stage"], pooled_inputs["k_stage"][:, :, 0].contiguous(),
+                          pooled_inputs["lens"].long())
     assert build.LAUNCHES == before

@@ -128,3 +128,111 @@ def test_exponential_race_samples_the_distribution():
         g, logits, sampling.SamplingParams(repetition_penalty=1.0))
     freq = torch.bincount(toks.flatten(), minlength=4).float() / toks.numel()
     np.testing.assert_allclose(freq.numpy(), [0.5, 0.3, 0.2, 0.0], atol=0.03)
+
+
+# Rows of one batch with different knobs, as the pool runs them.
+DYN_ROWS = [
+    dict(temperature=0.0),
+    dict(min_p=0.1),
+    dict(temperature=0.7, top_p=0.9, repetition_penalty_window=1),
+    dict(top_k=20, repetition_penalty_window=8),
+    dict(linear=0.5, conf=0.2, quad=0.1, repetition_penalty_window=5),
+    dict(temperature=1.3, top_p=0.8, top_k=50, min_p=0.05, repetition_penalty_window=4),
+    dict(repetition_penalty=1.0, top_k=3, repetition_penalty_window=3),
+    dict(temperature=0.0, repetition_penalty=2.0, repetition_penalty_window=6),
+]
+WMAX = 8
+
+
+def _dyn_inputs(seed):
+    rng = np.random.default_rng(seed)
+    V = 1152
+    logits = (rng.standard_normal((len(DYN_ROWS), 9, V)) * 3).astype(np.float32)
+    logits[..., 1025:] = NEG_INF
+    gen = rng.integers(0, 1026, size=(len(DYN_ROWS), 9, WMAX))
+    gen[1, 0, -1] = 1025  # MASK lands on the clamped top slot
+    gen[:, 3, -2] = logits[:, 3].argmax(-1)  # a penalised winner
+    knobs = {f: torch.stack([sampling.knobs_from_params(sampling.SamplingParams(**r), 2.0)[f]
+                             for r in DYN_ROWS]) for f in sampling.KNOB_FIELDS}
+    return logits, gen, knobs
+
+
+def test_dyn_sampler_distribution_matches_jax_and_static(monkeypatch):
+    """Per-row knobs, one batch: each row's distribution before the draw
+    equals JAX's ``sample_from_logits_dyn`` (captured at its draw) and the
+    port's static ``sampling_probs`` for that row's ``SamplingParams`` over
+    the row's last ``window`` frames; greedy rows take JAX's argmax."""
+    logits, gen, knobs = _dyn_inputs(5)
+    probs, lf = sampling.sampling_probs_dyn(torch.from_numpy(logits), knobs,
+                                            torch.from_numpy(gen))
+    captured = {}
+
+    def capture(key, p):
+        captured["probs"] = np.asarray(p)
+        return jnp.argmax(p, axis=-1).astype(jnp.int32)
+
+    monkeypatch.setattr(jsamp, "gumbel_multinomial", capture)
+    for b, row in enumerate(DYN_ROWS):
+        jknobs = jsamp.knobs_from_params(jsamp.SamplingParams(**row), 2.0)
+        jtok = jsamp.sample_from_logits_dyn(jax.random.key(0), jnp.asarray(logits[b: b + 1]),
+                                            jknobs, jnp.asarray(gen[b: b + 1]))
+        np.testing.assert_allclose(probs[b].numpy(), captured["probs"][0], rtol=1e-6, atol=1e-6)
+        params = sampling.SamplingParams(**row)
+        w = params.repetition_penalty_window
+        static = sampling.sampling_probs(torch.from_numpy(logits[b: b + 1]), params,
+                                         torch.from_numpy(gen[b: b + 1, :, WMAX - w:]))
+        if params.temperature > 0:
+            np.testing.assert_allclose(probs[b: b + 1].numpy(), static.numpy(), rtol=1e-6,
+                                       atol=1e-6)
+        else:
+            np.testing.assert_array_equal(lf[b: b + 1].numpy(), static.numpy())
+            tok = sampling.sample_from_logits_dyn(
+                torch.from_numpy(logits), knobs, torch.ones(logits.shape),
+                torch.from_numpy(gen))[b]
+            np.testing.assert_array_equal(tok.numpy(), np.asarray(jtok)[0])
+
+
+def test_dyn_sampler_without_sorted_stages_matches_when_top_p_k_are_off():
+    logits, gen, knobs = _dyn_inputs(6)
+    off = [b for b, r in enumerate(DYN_ROWS) if not r.get("top_p") and not r.get("top_k")]
+    full, _ = sampling.sampling_probs_dyn(torch.from_numpy(logits), knobs,
+                                          torch.from_numpy(gen))
+    short, _ = sampling.sampling_probs_dyn(torch.from_numpy(logits), knobs,
+                                           torch.from_numpy(gen), sorted_stages=False)
+    np.testing.assert_array_equal(short[off].numpy(), full[off].numpy())
+
+
+def test_pool_draws_are_composition_invariant():
+    """The same (row seed, step) gives the same noise and token whatever the
+    other rows hold."""
+    logits, gen, knobs = _dyn_inputs(7)
+    seeds, steps = torch.tensor([11, 12, 13, 14, 15, 16, 17, 18]), torch.arange(8) + 3
+    noise = sampling.pool_noise(42, seeds, steps, 9, logits.shape[-1])
+    toks = sampling.sample_from_logits_dyn(torch.from_numpy(logits), knobs, noise,
+                                           torch.from_numpy(gen))
+    # Row 1 alone (a batch of one), and row 1 beside other rows and seeds.
+    alone = sampling.pool_noise(42, seeds[1:2], steps[1:2], 9, logits.shape[-1])
+    np.testing.assert_array_equal(alone[0].numpy(), noise[1].numpy())
+    k1 = {f: v[1:2] for f, v in knobs.items()}
+    tok1 = sampling.sample_from_logits_dyn(torch.from_numpy(logits[1:2]), k1, alone,
+                                           torch.from_numpy(gen[1:2]))
+    np.testing.assert_array_equal(tok1[0].numpy(), toks[1].numpy())
+    # Neighbours with other seeds, steps and logits.
+    other_seeds, other_steps = torch.tensor([99, 12, 7, 0, 1, 2, 3, 4]), torch.arange(8) + 50
+    other_steps[1] = steps[1]
+    moved = sampling.pool_noise(42, other_seeds, other_steps, 9, logits.shape[-1])
+    assert not torch.equal(moved[0], noise[0])
+    other_logits = torch.from_numpy(logits).roll(1, dims=0)
+    other_logits[1] = torch.from_numpy(logits[1])
+    toks2 = sampling.sample_from_logits_dyn(other_logits, knobs, moved, torch.from_numpy(gen))
+    np.testing.assert_array_equal(toks2[1].numpy(), toks[1].numpy())
+
+
+def test_pool_noise_is_exp1():
+    """10^5 draws have mean 1 within 0.02 and the Exp(1) tail:
+    P(e > 3) = e^-3 within 0.005."""
+    e = sampling.pool_noise(7, torch.arange(10), torch.full((10,), 3), 10, 1000)
+    assert e.shape == (10, 10, 1000) and e.dtype == torch.float32
+    assert (e > 0).all() and torch.isfinite(e).all()
+    assert abs(e.mean().item() - 1.0) < 0.02
+    assert abs((e > 3).float().mean().item() - np.exp(-3.0)) < 0.005

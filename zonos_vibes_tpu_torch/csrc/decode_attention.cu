@@ -1,5 +1,6 @@
 // Staged single-query GQA flash-decode for one layer of the stacked KV cache,
-// with a bf16 or an int8 flushed prefix.
+// with a bf16 or an int8 flushed prefix, for one sequence position shared by
+// every row or for per-row positions (the continuous-batching pool).
 //
 // Replaces: zonos_vibes_tpu/ops/pallas/decode_attention.py::
 //   decode_attention_pallas_layered (a TPU grid (B, nT) that walks the
@@ -9,6 +10,12 @@
 //   an int8 prefix with fp32 per-(position, kv head) scales: key scales
 //   multiply the scores after q.k, value scales the probabilities before
 //   p.v. The stage and the current column stay exact bf16 in both.
+//   Also decode_attention_pallas_pooled_staged and
+//   decode_attention_pallas_pooled_staged_q, the pool's versions: row b
+//   attends its own flushed prefix [0, base_b), the first len_b rows of its
+//   own ring stage and its current column. The pool's ring stage is the
+//   same [L, B, STAGE, W] buffer as the solo stage (ring slot pos - base),
+//   so they are the same kernels with per-row (flushed_end, stage_len).
 //
 // What bounds it on the H100: device-memory bytes. One call must read the
 // flushed prefix [0, flushed_end) and the stage rows [0, stage_len) of one
@@ -17,7 +24,9 @@
 // far below the ~295 flops per byte where the tensor cores become the limit.
 // At 5 s of audio the bytes are ~1 MB a layer, so the launch itself dominates.
 // The int8 prefix halves the prefix bytes and adds 8 bytes of scales per
-// position and kv head.
+// position and kv head. In the 8-slot pool (B = 16 CFG rows) near a
+// 3000-position prefix one layer's call reads ~98 MB (bf16) or ~52 MB
+// (int8 and scales): 29 us or 16 us at 3.35 TB/s.
 //
 // What the design does about it (flash-decoding):
 //  * One block per (split, kv head, batch row): the G query heads of a group
@@ -28,7 +37,11 @@
 //  * The grid depends only on the cache length T, never on flushed_end or
 //    stage_len, which are read from device memory: the launch is fit for
 //    graph capture. Chunks at or past flushed_end return at once, so the
-//    padded tail of the cache is never read.
+//    padded tail of the cache is never read. With per-row positions
+//    (template flag POOLED) a block reads its row's (base_b, len_b) from two
+//    device int32 [B] tensors and the layer is a launch argument; a chunk at
+//    or past base_b writes a neutral partial (the empty max, sum 0) and
+//    reads nothing, so rows at different depths share one launch.
 //  * Inside a block every warp is four independent 8-lane decoders: a lane
 //    holds 8 of the 64 dims of one position (one 16-byte load of K and of V),
 //    three shuffles finish a dot product, and each decoder keeps its own fp32
@@ -45,7 +58,9 @@
 //   k_stage, v_stage [L, B, STAGE, Hkv * 64]
 //   int8 variant: k_cache, v_cache int8 [L, B, T, Hkv * 64],
 //                 k_scale, v_scale fp32 [L, B, T, Hkv]
-//   k_cur, v_cur [B, Hkv * 64]       scalars int32 [3]: flushed_end, stage_len, layer
+//   k_cur, v_cur [B, Hkv * 64]
+//   one position for every row: scalars int32 [3]: flushed_end, stage_len, layer
+//   per-row positions: bases, lens int32 [B]; layer a launch argument
 //   part    fp32 [B, Hkv, nsplit, G, 66]   out [B, Hq, 64]
 
 #include <cuda_bf16.h>
@@ -87,8 +102,11 @@ __device__ __forceinline__ void load8(const int8_t* p, float* out) {
 }
 
 // PrefixT is __nv_bfloat16 for the exact cache and int8_t for the int8 one
-// (then k_scale and v_scale are read; otherwise they may be null).
-template <int G, typename PrefixT>
+// (then k_scale and v_scale are read; otherwise they may be null). Without
+// POOLED, scalars holds (flushed_end, stage_len, layer) for every row and
+// lens and layer_arg are unused; with POOLED, scalars holds the per-row
+// bases and lens the per-row stage lengths, clamped to the buffers.
+template <int G, typename PrefixT, bool POOLED>
 __global__ void __launch_bounds__(THREADS) decode_split_kernel(
     const __nv_bfloat16* __restrict__ q,
     const PrefixT* __restrict__ k_cache,
@@ -100,16 +118,24 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
     const __nv_bfloat16* __restrict__ k_cur,
     const __nv_bfloat16* __restrict__ v_cur,
     const int* __restrict__ scalars,
+    const int* __restrict__ lens,
     float* __restrict__ part,
-    int B, int Hkv, int T, int stage_depth, int nsplit, float scale) {
+    int B, int Hkv, int T, int stage_depth, int nsplit, float scale, int layer_arg) {
   constexpr bool QUANT = std::is_same<PrefixT, int8_t>::value;
   const int split = blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int W = Hkv * HEAD_DIM;
-  const int flushed_end = scalars[0];
-  const int stage_len = scalars[1];
-  const int layer = scalars[2];
+  int flushed_end, stage_len, layer;
+  if constexpr (POOLED) {
+    flushed_end = min(max(scalars[b], 0), T);
+    stage_len = min(max(lens[b], 0), stage_depth);
+    layer = layer_arg;
+  } else {
+    flushed_end = scalars[0];
+    stage_len = scalars[1];
+    layer = scalars[2];
+  }
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int sub = lane / (HEAD_DIM / DIMS_PER_LANE);
@@ -292,11 +318,12 @@ extern "C" int zvt_decode_attention_nsplit(int T) { return (T + CHUNK - 1) / CHU
 
 namespace {
 
-template <typename PrefixT>
+template <typename PrefixT, bool POOLED>
 int launch(const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
            const void* v_scale, const void* k_stage, const void* v_stage, const void* k_cur,
-           const void* v_cur, const void* scalars, void* part, void* out, int B, int Hq,
-           int Hkv, int T, int stage_depth, int head_dim, void* stream) {
+           const void* v_cur, const void* scalars, const void* lens, void* part, void* out,
+           int B, int Hq, int Hkv, int T, int stage_depth, int head_dim, int layer,
+           void* stream) {
   if (head_dim != HEAD_DIM || Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
   const int G = Hq / Hkv;
   const int nsplit = zvt_decode_attention_nsplit(T);
@@ -304,13 +331,14 @@ int launch(const void* q, const void* k_cache, const void* v_cache, const void* 
   const dim3 grid(nsplit, Hkv, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ZVT_SPLIT(GV)                                                                       \
-  decode_split_kernel<GV, PrefixT><<<grid, THREADS, 0, s>>>(                                \
+  decode_split_kernel<GV, PrefixT, POOLED><<<grid, THREADS, 0, s>>>(                        \
       static_cast<const __nv_bfloat16*>(q), static_cast<const PrefixT*>(k_cache),           \
       static_cast<const PrefixT*>(v_cache), static_cast<const float*>(k_scale),             \
       static_cast<const float*>(v_scale), static_cast<const __nv_bfloat16*>(k_stage),       \
       static_cast<const __nv_bfloat16*>(v_stage), static_cast<const __nv_bfloat16*>(k_cur), \
       static_cast<const __nv_bfloat16*>(v_cur), static_cast<const int*>(scalars),           \
-      static_cast<float*>(part), B, Hkv, T, stage_depth, nsplit, scale)
+      static_cast<const int*>(lens), static_cast<float*>(part), B, Hkv, T, stage_depth,     \
+      nsplit, scale, layer)
   switch (G) {
     case 1: ZVT_SPLIT(1); break;
     case 2: ZVT_SPLIT(2); break;
@@ -333,9 +361,9 @@ extern "C" int zvt_decode_attention_layered(
     const void* v_stage, const void* k_cur, const void* v_cur, const void* scalars,
     void* part, void* out, int B, int Hq, int Hkv, int T, int stage_depth,
     int head_dim, void* stream) {
-  return launch<__nv_bfloat16>(q, k_cache, v_cache, nullptr, nullptr, k_stage, v_stage, k_cur,
-                               v_cur, scalars, part, out, B, Hq, Hkv, T, stage_depth, head_dim,
-                               stream);
+  return launch<__nv_bfloat16, false>(q, k_cache, v_cache, nullptr, nullptr, k_stage, v_stage,
+                                      k_cur, v_cur, scalars, nullptr, part, out, B, Hq, Hkv, T,
+                                      stage_depth, head_dim, 0, stream);
 }
 
 extern "C" int zvt_decode_attention_layered_q(
@@ -343,6 +371,29 @@ extern "C" int zvt_decode_attention_layered_q(
     const void* v_scale, const void* k_stage, const void* v_stage, const void* k_cur,
     const void* v_cur, const void* scalars, void* part, void* out, int B, int Hq, int Hkv,
     int T, int stage_depth, int head_dim, void* stream) {
-  return launch<int8_t>(q, k_cache, v_cache, k_scale, v_scale, k_stage, v_stage, k_cur, v_cur,
-                        scalars, part, out, B, Hq, Hkv, T, stage_depth, head_dim, stream);
+  return launch<int8_t, false>(q, k_cache, v_cache, k_scale, v_scale, k_stage, v_stage, k_cur,
+                               v_cur, scalars, nullptr, part, out, B, Hq, Hkv, T, stage_depth,
+                               head_dim, 0, stream);
+}
+
+// Per-row positions: bases and lens are device int32 [B]; layer must lie in
+// [0, L) (the wrapper checks it).
+extern "C" int zvt_decode_attention_pooled(
+    const void* q, const void* k_cache, const void* v_cache, const void* k_stage,
+    const void* v_stage, const void* k_cur, const void* v_cur, const void* bases,
+    const void* lens, void* part, void* out, int B, int Hq, int Hkv, int T, int stage_depth,
+    int head_dim, int layer, void* stream) {
+  return launch<__nv_bfloat16, true>(q, k_cache, v_cache, nullptr, nullptr, k_stage, v_stage,
+                                     k_cur, v_cur, bases, lens, part, out, B, Hq, Hkv, T,
+                                     stage_depth, head_dim, layer, stream);
+}
+
+extern "C" int zvt_decode_attention_pooled_q(
+    const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
+    const void* v_scale, const void* k_stage, const void* v_stage, const void* k_cur,
+    const void* v_cur, const void* bases, const void* lens, void* part, void* out, int B,
+    int Hq, int Hkv, int T, int stage_depth, int head_dim, int layer, void* stream) {
+  return launch<int8_t, true>(q, k_cache, v_cache, k_scale, v_scale, k_stage, v_stage, k_cur,
+                              v_cur, bases, lens, part, out, B, Hq, Hkv, T, stage_depth,
+                              head_dim, layer, stream);
 }

@@ -21,7 +21,7 @@ from ..models.zonos import ZonosModel
 from ..ops.attention import NEG_INF
 from ..ops.delay_pattern import apply_delay_pattern, revert_delay_pattern
 from ..ops.rope import rope_table
-from ..ops.sampling import SamplingParams, sample_from_logits
+from ..ops.sampling import SamplingParams, sample_from_logits, sample_from_logits_dyn
 
 UNKNOWN_TOKEN = -1
 
@@ -68,10 +68,15 @@ def _sync(device: torch.device) -> None:
 
 def _prefill_state(model: ZonosModel, params: dict, prefix_conditioning: torch.Tensor,
                    audio_prefix_codes: torch.Tensor, generator: torch.Generator,
-                   max_new_tokens: int, cfg_scale: float, sampling: SamplingParams,
-                   disable_eos: bool, kv_int8: bool) -> DecodeState:
+                   max_new_tokens: int, cfg_scale: float, sampling: SamplingParams | None,
+                   disable_eos: bool, kv_int8: bool, knobs: dict | None = None) -> DecodeState:
     """Cache, delay pattern, prefill, and the first frame. As in JAX the
-    first frame is sampled without the EOS bias unless ``disable_eos``."""
+    first frame is sampled without the EOS bias unless ``disable_eos``.
+
+    ``knobs`` (pool joins, ``ops/sampling.knobs_from_params``) replace
+    ``cfg_scale`` and ``sampling``: the CFG mix takes the knob's scale per
+    row and the first frame is drawn by the runtime-knob sampler, its Exp(1)
+    noise from ``generator``."""
     cfg = model.config
     K = cfg.num_codebooks
     two_b, cond_len, _ = prefix_conditioning.shape
@@ -91,10 +96,16 @@ def _prefill_state(model: ZonosModel, params: dict, prefix_conditioning: torch.T
     emb = model.embed_codes(params, delayed[..., : lp + 1])
     emb = torch.cat([emb, emb], dim=0)  # CFG doubling
     hidden = torch.cat([prefix_conditioning.to(emb.dtype), emb], dim=1)
+    if knobs is not None:
+        cfg_scale = knobs["cfg_scale"].reshape(1).expand(batch)
     logits = model.compute_logits(params, hidden, cache, 0, cfg_scale, rope)
     if disable_eos:
         logits[:, :, cfg.eos_token_id] = NEG_INF
-    next_token = sample_from_logits(generator, logits, sampling)
+    if knobs is not None:
+        noise = torch.empty_like(logits).exponential_(generator=generator)
+        next_token = sample_from_logits_dyn(logits, knobs, noise)
+    else:
+        next_token = sample_from_logits(generator, logits, sampling)
 
     offset0 = lp + 1
     delayed[..., offset0] = _masked_scatter_frame(delayed[..., offset0], next_token)

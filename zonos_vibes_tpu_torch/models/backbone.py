@@ -20,11 +20,19 @@ flushed prefix is int8 with fp32 per-(position, kv head) scales ``k_scale``,
 per flush and once per prefill; the stage and the current column stay
 exact. The projections take float or int8 weights (``ops/quant``).
 
+The continuous-batching pool's decode (``pool_base`` given) gives every
+row its own position: the stage is each row's ring, row ``b`` attends its
+flushed prefix ``[0, pool_base[b])``, ring rows ``[0, positions[b] -
+pool_base[b])`` and itself, and its columns land in ring slot
+``positions[b] - pool_base[b]``;
+``engine/pool.flush_pool_rings`` copies the rings into the cache once per
+segment.
+
 On a CUDA device the decode step runs ``ops/cuda``'s decode-attention kernel
-(or its int8-prefix variant) per layer and two stage splices per step,
-prefill runs the prefill-attention kernel per layer, and int8 projections
-run the int8 matmul kernel; on the CPU the same wrappers run their plain
-versions.
+(or its int8-prefix variant, or their pooled versions) per layer and two
+stage splices per step, prefill runs the prefill-attention kernel per layer,
+and int8 projections run the int8 matmul kernel; on the CPU the same
+wrappers run their plain versions.
 """
 
 from __future__ import annotations
@@ -33,9 +41,14 @@ import torch
 
 from ..config import BackboneConfig
 from ..ops.attention import update_kv_cache
-from ..ops.cuda.decode_attention import decode_attention_layered, decode_attention_layered_q
+from ..ops.cuda.decode_attention import (
+    decode_attention_layered,
+    decode_attention_layered_q,
+    decode_attention_pooled_staged,
+    decode_attention_pooled_staged_q,
+)
 from ..ops.cuda.prefill_attention import prefill_attention
-from ..ops.cuda.stage_write import stage_splice
+from ..ops.cuda.stage_write import stage_splice, stage_splice_rows
 from ..ops.mlp import swiglu_mid
 from ..ops.norms import layer_norm
 from ..ops.quant import dequantize_rows, proj_matmul, quantize_rows
@@ -141,7 +154,9 @@ def _block(lp: dict, cfg: BackboneConfig, x, attend, positions, table):
 
 
 def transformer_forward(params: dict, cfg: BackboneConfig, hidden: torch.Tensor, cache: dict,
-                        offset: int, rope: torch.Tensor, stage_base: int | None = None):
+                        offset: int, rope: torch.Tensor, stage_base: int | None = None, *,
+                        positions: torch.Tensor | None = None,
+                        pool_base: torch.Tensor | None = None):
     """Layer stack and final LayerNorm; updates ``cache`` in place.
 
     ``hidden [B, S, D]``. With ``S > 1`` (prefill) the chunk is written at
@@ -152,6 +167,11 @@ def transformer_forward(params: dict, cfg: BackboneConfig, hidden: torch.Tensor,
     itself, and its columns land in stage slot ``offset - stage_base``.
     RoPE positions are ``offset + arange(S)`` for every row.
 
+    With ``pool_base`` (``S == 1``, the pool's ring decode) ``offset`` is
+    unused: ``positions [B]`` are the rows' absolute positions (RoPE and
+    attention bounds) and ``pool_base [B]`` their flushed watermarks, both
+    on the device.
+
     With an int8 cache a prefill attends over a scratch holding the layer's
     dequantized positions ``[0, offset)`` and the exact chunk; the chunk is
     quantized into the cache after.
@@ -161,8 +181,18 @@ def transformer_forward(params: dict, cfg: BackboneConfig, hidden: torch.Tensor,
     L, Hkv = cfg.n_layer, cfg.num_heads_kv
     W = Hkv * cfg.head_dim
     dev = hidden.device
-    positions = (offset + torch.arange(S, device=dev))[None, :].expand(B, S)
     kv_int8 = "k_scale" in cache
+    pooled = pool_base is not None
+    if pooled:
+        if S != 1 or positions is None:
+            raise NotImplementedError("pooled decode runs one token per row on the ring stage: "
+                                      "pass positions with pool_base (the stage-less pooled "
+                                      "branch belongs to the hybrid pool, not ported yet)")
+        bases = pool_base.to(torch.int32).contiguous()
+        ring_len = (positions - pool_base).to(torch.int32).contiguous()
+        positions = positions.long()[:, None]
+    else:
+        positions = (offset + torch.arange(S, device=dev))[None, :].expand(B, S)
 
     if S > 1 and kv_int8:
         def attend_for(l):
@@ -182,6 +212,23 @@ def transformer_forward(params: dict, cfg: BackboneConfig, hidden: torch.Tensor,
             def attend(q, k, v):
                 kc, vc = update_kv_cache(cache["k"][l], cache["v"][l], k, v, offset)
                 return prefill_attention(q, kc, vc, offset)
+            return attend
+    elif pooled:
+        k_cols = torch.empty((L, B, W), dtype=cache["k_stage"].dtype, device=dev)
+        v_cols = torch.empty_like(k_cols)
+
+        def attend_for(l):
+            def attend(q, k, v):
+                k_cols[l] = k.reshape(B, W)
+                v_cols[l] = v.reshape(B, W)
+                if kv_int8:
+                    return decode_attention_pooled_staged_q(
+                        q, cache["k"], cache["v"], cache["k_scale"], cache["v_scale"],
+                        cache["k_stage"], cache["v_stage"], k_cols[l], v_cols[l], bases,
+                        ring_len, l)
+                return decode_attention_pooled_staged(
+                    q, cache["k"], cache["v"], cache["k_stage"], cache["v_stage"],
+                    k_cols[l], v_cols[l], bases, ring_len, l)
             return attend
     else:
         if stage_base is None:
@@ -210,7 +257,10 @@ def transformer_forward(params: dict, cfg: BackboneConfig, hidden: torch.Tensor,
         lp = {name: {k: t[l] for k, t in leaf.items()} for name, leaf in layers.items()}
         hidden = _block(lp, cfg, hidden, attend_for(l), positions, rope)
 
-    if S == 1:
+    if pooled:
+        stage_splice_rows(cache["k_stage"], k_cols, ring_len)
+        stage_splice_rows(cache["v_stage"], v_cols, ring_len)
+    elif S == 1:
         slot = scalars[0, 1:2]
         stage_splice(cache["k_stage"], k_cols, slot)
         stage_splice(cache["v_stage"], v_cols, slot)
@@ -234,5 +284,7 @@ class TransformerBackbone:
                        kv_int8: bool = False) -> dict:
         return allocate_kv_cache(self.cfg, batch, max_seqlen, dtype, device, kv_int8)
 
-    def forward(self, params, hidden, cache, offset, rope, stage_base=None):
-        return transformer_forward(params, self.cfg, hidden, cache, offset, rope, stage_base)
+    def forward(self, params, hidden, cache, offset, rope, stage_base=None, *, positions=None,
+                pool_base=None):
+        return transformer_forward(params, self.cfg, hidden, cache, offset, rope, stage_base,
+                                   positions=positions, pool_base=pool_base)

@@ -88,14 +88,22 @@ class ZonosModel:
                        kv_int8: bool = False) -> dict:
         return self.backbone.allocate_cache(batch_size, max_seqlen, dtype, device, kv_int8)
 
-    def compute_logits(self, params: dict, hidden, cache: dict, offset: int, cfg_scale: float,
-                       rope, stage_base: int | None = None):
+    def compute_logits(self, params: dict, hidden, cache: dict, offset: int, cfg_scale,
+                       rope, stage_base: int | None = None, *, positions=None,
+                       pool_base=None):
         """Backbone -> last position -> heads -> CFG mix -> pad mask.
         ``hidden`` is the CFG-doubled ``[2B, S, D]``; returns ``[B, K, V]``
-        fp32 logits (the cache is updated in place)."""
-        out = self.backbone.forward(params["backbone"], hidden, cache, offset, rope, stage_base)
+        fp32 logits (the cache is updated in place). ``cfg_scale`` is a
+        float, or a ``[B]`` tensor of per-row scales (the pool's runtime
+        knob, mixed even where it is 1). ``positions`` and ``pool_base`` go
+        to the backbone's pooled decode."""
+        out = self.backbone.forward(params["backbone"], hidden, cache, offset, rope, stage_base,
+                                    positions=positions, pool_base=pool_base)
         logits = self.apply_heads(params, out[:, -1:, :])[:, :, 0, :]
-        if cfg_scale != 1.0:
+        if isinstance(cfg_scale, torch.Tensor):
+            cond, uncond = logits.chunk(2, dim=0)
+            logits = uncond + (cond - uncond) * cfg_scale.float()[:, None, None]
+        elif cfg_scale != 1.0:
             cond, uncond = logits.chunk(2, dim=0)
             logits = uncond + (cond - uncond) * cfg_scale
         mask_from = self.config.head_vocab_size

@@ -36,7 +36,8 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES = {"decode_attention": 0, "decode_attention_q": 0, "stage_splice": 0,
-            "prefill_attention": 0, "qmm_int8": 0}
+            "prefill_attention": 0, "qmm_int8": 0, "decode_attention_pooled": 0,
+            "decode_attention_pooled_q": 0, "stage_splice_rows": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,7 +45,10 @@ _SIGNATURES = {
     "zvt_decode_attention_nsplit": (_I,),
     "zvt_decode_attention_layered": (_P,) * 10 + (_I,) * 6 + (_P,),
     "zvt_decode_attention_layered_q": (_P,) * 12 + (_I,) * 6 + (_P,),
+    "zvt_decode_attention_pooled": (_P,) * 11 + (_I,) * 7 + (_P,),
+    "zvt_decode_attention_pooled_q": (_P,) * 13 + (_I,) * 7 + (_P,),
     "zvt_stage_splice": (_P, _P, _P, _I, _I, _I, _P),
+    "zvt_stage_splice_rows": (_P, _P, _P, _I, _I, _I, _I, _P),
     "zvt_prefill_attention": (_P,) * 4 + (_I,) * 7 + (_P,),
     "zvt_qmm_int8": (_P,) * 6 + (_I,) * 5 + (_P,),
     "zvt_qmm_int8_tiles": (_I,) * 4,

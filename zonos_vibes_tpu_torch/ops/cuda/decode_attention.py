@@ -9,6 +9,11 @@ with per-(position, kv head) scales), the first ``stage_len`` rows of the
 time-major stage, and the current token's column. The kernels
 (``csrc/decode_attention.cu``) read the three scalars from a device int32
 tensor, so the launch does not depend on host values.
+
+The pool's counterparts, ``decode_attention_pallas_pooled_staged`` and
+``decode_attention_pallas_pooled_staged_q``, are the same kernels with a
+``(flushed_end, stage_len)`` pair per row: row ``b`` attends its prefix
+``[0, bases[b])``, its ring stage rows ``[0, lens[b])`` and its column.
 """
 
 from __future__ import annotations
@@ -143,3 +148,143 @@ def decode_attention_layered_q(q, k_cache, v_cache, k_scale, v_scale, k_stage, v
     build.check_status("decode_attention_layered_q", rc)
     build.LAUNCHES["decode_attention_q"] += 1
     return out
+
+
+def _pooled_bounds(bases, lens, T: int, STAGE: int):
+    """Per-row ``(flushed_end, stage_len)`` on the host, clamped to the
+    buffers as the kernel clamps them."""
+    return [(min(max(int(b), 0), T), min(max(int(n), 0), STAGE))
+            for b, n in zip(bases.tolist(), lens.tolist())]
+
+
+def decode_attention_pooled_staged_plain(q, k_cache, v_cache, k_stage, v_stage, k_cur, v_cur,
+                                         bases, lens, layer: int) -> torch.Tensor:
+    """Dense reference: for each row gather its prefix, ring rows and column
+    and attend over them (as :func:`decode_attention_layered_plain`)."""
+    outs = []
+    for b, (fe, sl) in enumerate(_pooled_bounds(bases, lens, k_cache.shape[2],
+                                                k_stage.shape[2])):
+        k = torch.cat([k_cache[layer, b, :fe], k_stage[layer, b, :sl], k_cur[b, None]])
+        v = torch.cat([v_cache[layer, b, :fe], v_stage[layer, b, :sl], v_cur[b, None]])
+        outs.append(decode_attention(q[b, None], k[None], v[None], fe + sl + 1))
+    return torch.cat(outs)
+
+
+def decode_attention_pooled_staged_q_plain(q, k_cache, v_cache, k_scale, v_scale, k_stage,
+                                           v_stage, k_cur, v_cur, bases, lens,
+                                           layer: int) -> torch.Tensor:
+    """Dense reference per row: the prefix dequantized to fp32, ring rows and
+    column widened to fp32, attention in fp32 with the probabilities kept
+    fp32 (as the Pallas ``_kernel_pooled_staged_q`` does)."""
+    outs = []
+    for b, (fe, sl) in enumerate(_pooled_bounds(bases, lens, k_cache.shape[2],
+                                                k_stage.shape[2])):
+        k = torch.cat([dequantize_rows(k_cache[layer, b, :fe], k_scale[layer, b, :fe]),
+                       k_stage[layer, b, :sl].float(), k_cur[b, None].float()])
+        v = torch.cat([dequantize_rows(v_cache[layer, b, :fe], v_scale[layer, b, :fe]),
+                       v_stage[layer, b, :sl].float(), v_cur[b, None].float()])
+        outs.append(decode_attention(q[b, None], k[None], v[None], fe + sl + 1))
+    return torch.cat(outs)
+
+
+def _check_pooled(name, q, k_cache, v_cache, k_stage, v_stage, k_cur, v_cur, bases, lens,
+                  layer):
+    B, S, Hq, D = q.shape
+    L, Bc, T, W = k_cache.shape
+    STAGE = k_stage.shape[2]
+    Hkv = max(W // D, 1)
+    if (S != 1 or Bc != B or W != Hkv * D or Hq % Hkv or v_cache.shape != k_cache.shape
+            or k_stage.shape != (L, B, STAGE, W) or v_stage.shape != k_stage.shape
+            or k_cur.shape != (B, W) or v_cur.shape != k_cur.shape
+            or bases.shape != (B,) or lens.shape != (B,)
+            or bases.dtype != torch.int32 or lens.dtype != torch.int32):
+        raise ValueError(f"{name}: inconsistent shapes")
+    if not 0 <= layer < L:
+        raise ValueError(f"{name}: layer {layer} outside [0, {L})")
+    return B, Hq, Hkv, T, STAGE, D
+
+
+def _launch_pooled(name, entry, launch_key, q, tensors, bases, lens, dims, layer):
+    """Allocates the split partials and the output, launches ``entry`` on
+    ``q``'s device and counts the launch."""
+    B, Hq, Hkv, T, STAGE, D = dims
+    dev = build.require_cuda(name, q, *tensors)
+    for t in (bases, lens):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name}: bases and lens must be contiguous on the card")
+    lib = build.load()
+    nsplit = lib.zvt_decode_attention_nsplit(T)
+    part = torch.empty((B, Hkv, nsplit, Hq // Hkv, D + 2), dtype=torch.float32, device=dev)
+    out = torch.empty((B, 1, Hq, D), dtype=q.dtype, device=dev)
+    rc = getattr(lib, entry)(
+        q.data_ptr(), *(t.data_ptr() for t in tensors), bases.data_ptr(), lens.data_ptr(),
+        part.data_ptr(), out.data_ptr(), B, Hq, Hkv, T, STAGE, D, layer,
+        build.stream_handle(dev),
+    )
+    build.check_status(name, rc)
+    build.LAUNCHES[launch_key] += 1
+    return out
+
+
+def decode_attention_pooled_staged(q, k_cache, v_cache, k_stage, v_stage, k_cur, v_cur,
+                                   bases, lens, layer: int) -> torch.Tensor:
+    """Pooled decode attention for layer ``layer`` of the stacked cache.
+
+    Args:
+      q: ``[B, 1, Hq, D]``.
+      k_cache, v_cache: ``[L, B, T, Hkv*D]`` flushed prefixes (read only).
+      k_stage, v_stage: ``[L, B, STAGE, Hkv*D]`` per-row ring stages.
+      k_cur, v_cur: ``[B, Hkv*D]`` this step's columns.
+      bases: int32 ``[B]``, row ``b``'s flushed watermark: it attends prefix
+        positions ``[0, bases[b])`` and nothing of the prefix past them.
+      lens: int32 ``[B]``, row ``b``'s valid ring rows ``[0, lens[b])``.
+      layer: host int in ``[0, L)``.
+    Returns ``[B, 1, Hq, D]``. CPU tensors take the plain version; CUDA
+    tensors launch the kernel (bf16, D = 64) or raise.
+    """
+    dims = _check_pooled("decode_attention_pooled_staged", q, k_cache, v_cache, k_stage,
+                         v_stage, k_cur, v_cur, bases, lens, layer)
+    if q.device.type == "cpu":
+        return decode_attention_pooled_staged_plain(q, k_cache, v_cache, k_stage, v_stage,
+                                                    k_cur, v_cur, bases, lens, layer)
+    tensors = (k_cache, v_cache, k_stage, v_stage, k_cur, v_cur)
+    for t in (q, *tensors):
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"decode_attention_pooled_staged: kernel takes bf16, got {t.dtype}")
+    return _launch_pooled("decode_attention_pooled_staged", "zvt_decode_attention_pooled",
+                          "decode_attention_pooled", q, tensors, bases, lens, dims, layer)
+
+
+def decode_attention_pooled_staged_q(q, k_cache, v_cache, k_scale, v_scale, k_stage, v_stage,
+                                     k_cur, v_cur, bases, lens, layer: int) -> torch.Tensor:
+    """Pooled decode attention over an int8 prefix.
+
+    Counterpart of ``decode_attention_pallas_pooled_staged_q``. As
+    :func:`decode_attention_pooled_staged`, but ``k_cache``/``v_cache`` are
+    int8 ``[L, B, T, Hkv*D]`` with fp32 per-(position, kv head) scales
+    ``k_scale``/``v_scale`` ``[L, B, T, Hkv]`` (key scales multiply the
+    scores after q.k, value scales the probabilities before p.v); the ring
+    stages and the columns are exact (bf16 on the card). Nothing of the
+    prefix or its scales at or past ``bases[b]`` is read. CPU tensors take
+    the plain version; CUDA tensors launch the kernel or raise.
+    """
+    dims = _check_pooled("decode_attention_pooled_staged_q", q, k_cache, v_cache, k_stage,
+                         v_stage, k_cur, v_cur, bases, lens, layer)
+    B, _, Hkv, T, _, _ = dims
+    L = k_cache.shape[0]
+    if (k_scale.shape != (L, B, T, Hkv) or v_scale.shape != k_scale.shape
+            or k_cache.dtype != torch.int8 or v_cache.dtype != torch.int8
+            or k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32):
+        raise ValueError("decode_attention_pooled_staged_q: int8 cache and fp32 scales "
+                         "[L, B, T, Hkv] expected")
+    if q.device.type == "cpu":
+        return decode_attention_pooled_staged_q_plain(q, k_cache, v_cache, k_scale, v_scale,
+                                                      k_stage, v_stage, k_cur, v_cur, bases,
+                                                      lens, layer)
+    for t in (q, k_stage, v_stage, k_cur, v_cur):
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"decode_attention_pooled_staged_q: kernel takes a bf16 query "
+                             f"and stage, got {t.dtype}")
+    tensors = (k_cache, v_cache, k_scale, v_scale, k_stage, v_stage, k_cur, v_cur)
+    return _launch_pooled("decode_attention_pooled_staged_q", "zvt_decode_attention_pooled_q",
+                          "decode_attention_pooled_q", q, tensors, bases, lens, dims, layer)
