@@ -17,7 +17,14 @@ Phases, each of which fails the run loudly:
    with a bf16 and an int8 prefix, the per-row ring splice) at the 8-slot
    pool's shapes (16 CFG rows, cache length 3584), rows at their own
    depths with NaN past each row's base, and the pooled backbone step on
-   the card against the CPU path, bf16 and int8.
+   the card against the CPU path, bf16 and int8, with a ring and without
+   one (the stage-less pooled decode, row 12 at head dim 64). The hybrid's
+   kernels at its shapes: the fused Mamba-2 step (rows 9 and 10) at 2 and
+   16 rows with an fp32 and a bf16 state, in place on one plane of a
+   42-plane stack whose other planes are NaN and must stay so; rows 11 and
+   12 and the head-dim-128 variants of rows 3 and 6, NaN past every bound;
+   and the hybrid backbone on the card against the CPU path on a small
+   input: solo decode, pooled ring (fp32 and bf16 state) and stage-less.
 3. End to end: ``ZonosPipeline.from_config(ZONOS_V01_TRANSFORMER)`` with
    random bf16 weights from a seeded generator, text -> about 5 s of codes
    -> DAC -> WAV (written to ``build/chip_smoke.wav``). The launch
@@ -35,19 +42,36 @@ Phases, each of which fails the run loudly:
    ``build/chip_smoke_pool{,_int8}_row{s}.wav``; row 0's codes alone in a
    pool equal its codes in the full pool for 86 frames, and the launch
    counts are exact.
+   Then the hybrid (``ZONOS_V01_HYBRID``: 42 Mamba-2 and 6 attention
+   layers, random bf16 weights from seed 422): text -> 5 s WAV
+   (``build/chip_smoke_hybrid.wav``) with exact counts (42 fused Mamba
+   steps and 6 row-11 launches per decode step, 6 prefill launches, every
+   transformer-only kernel 0); its pool, as above with fp32 SSM state
+   (``build/chip_smoke_pool_hybrid_row{s}.wav``; 42 Mamba steps, 6 row-6
+   launches and 2 ring splices per pooled step, 6 prefill launches per
+   join); then 43 stage-less pooled steps (row 12, 6 per step) from a copy
+   of the pool's state after its last join, each step's logits held
+   against the ring mode's from the same state; with plain attention the
+   two modes must agree exactly, and with each stage-less column written
+   one position off they must differ by more than the limit.
 4. Timing: each kernel, its plain version and the one PyTorch call that
    computes the same function, at the shapes the main path gave it, beside
    the least time the card could take for the same work; ``qmm_int8`` at
    the solo step's 2 rows and the pooled step's 16; the pool's kernels at
    16 rows over a 3584-position cache, at the main path's spread of depths
-   and at spreads near 1800 and near 3000 positions.
+   and at spreads near 1800 and near 3000 positions; the hybrid's kernels
+   at its paths' shapes (the fused Mamba step with its 42 planes cycled,
+   so each launch reads its state from device memory; no single PyTorch
+   call computes it, so it has no library time).
 
 The second-to-last line is ``{"kernels": [...]}``, the line before it the
 card's name and power limit, and the last line
 ``{"ok": true, "device": {...}}``. Each kernel's ``launches`` in the
 kernels line is one path's count: the pool kernels' that of their own pool
 run (``stage_splice_rows``: the bf16 pool's), ``qmm_int8``'s the solo int8
-path's. Without a CUDA device, or without the
+path's, the hybrid's those of the hybrid's paths (the fused Mamba step is
+one kernel with two entries, counted under ``ssd_gate_step``: row 9 lists
+the solo path's launches, row 10 the pool's). Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints no
 result. It imports nothing of JAX.
 """
@@ -100,9 +124,12 @@ POOL_TEXTS = [TEXT, "Hello there. This is the second request in the pool.",
               "Seven rows, one step, and no row waits for another.",
               "The last request fills the pool; the first is almost done."]
 ISOLATION_FRAMES = 86
-# The solo paths launch none of the pool's kernels.
+# The transformer's paths launch none of the hybrid's kernels, and its solo
+# paths none of the pool's.
+NO_HYBRID_LAUNCHES = {"decode_attention_unstaged": 0, "decode_attention_pooled_unstaged": 0,
+                      "ssd_gate_step": 0}
 NO_POOL_LAUNCHES = {"decode_attention_pooled": 0, "decode_attention_pooled_q": 0,
-                    "stage_splice_rows": 0}
+                    "stage_splice_rows": 0, **NO_HYBRID_LAUNCHES}
 # Per-row (base, ring length) pairs for the pooled kernels' checks: empty,
 # one-position and chunk-edge prefixes, mid and deep rows, empty to full-but-one rings.
 POOL_BASES = [0, 1, 255, 256, 500, 1800, 3000, 3456] * 2
@@ -362,13 +389,15 @@ def check_pool_kernels() -> dict:
     return err
 
 
-def check_pooled_backbone_against_cpu(int8: bool = False) -> float:
+def check_pooled_backbone_against_cpu(int8: bool = False, ring: bool = True) -> float:
     """The pooled backbone step on the card (pooled kernels) against the
     CPU path (plain versions) on a small input: 2 layers at the flagship's
     head geometry, 2 slots (4 CFG rows) at positions 20 and 9 over a random
     flushed prefix, 14 pooled steps with a ring flush every 6; with
-    ``int8``, int8 projections and an int8 KV cache. Returns the largest
-    |difference| of the hidden states."""
+    ``int8``, int8 projections and an int8 KV cache. Without ``ring`` the
+    stage-less pooled decode (row 12): no ring, each step's columns written
+    at the rows' positions. Returns the largest |difference| of the hidden
+    states."""
     import torch
 
     from zonos_vibes_tpu_torch.config import BackboneConfig, _freeze
@@ -412,17 +441,19 @@ def check_pooled_backbone_against_cpu(int8: bool = False) -> float:
                 outs[dev] = backbone.transformer_forward(
                     side["p"], cfg, x.to(dev), pool["cache"], 0, side["rope"],
                     positions=torch.cat([pool["pos"], pool["pos"]]),
-                    pool_base=torch.cat([pool["flush_base"], pool["flush_base"]]))
+                    pool_base=torch.cat([pool["flush_base"], pool["flush_base"]]) if ring
+                    else None)
                 pool["pos"] = pool["pos"] + 1
-                if i % 6 == 5:
+                if ring and i % 6 == 5:
                     flush_pool_rings(pool)
             diff = (outs["cuda"].float().cpu() - outs["cpu"].float()).abs().max().item()
             if diff > 0.1:
                 raise AssertionError(f"pooled backbone card vs CPU, step {i}: max |diff| {diff}")
             worst = max(worst, diff)
     kind = "int8 weights and KV cache" if int8 else "bf16"
+    mode = "14 steps across two ring flushes" if ring else "14 stage-less steps (row 12)"
     log(f"reference: pooled backbone on the card vs the CPU plain path, {kind}, 4 rows at "
-        f"positions 20/9, 14 steps across two ring flushes: max |hidden diff| {worst:.3e} <= 0.1")
+        f"positions 20/9, {mode}: max |hidden diff| {worst:.3e} <= 0.1")
     return worst
 
 
@@ -662,11 +693,13 @@ def run_int8_path(pipe, cond, card: str) -> dict:
     return e2e
 
 
-def run_pool(pipe, card: str, kv_int8: bool) -> dict:
+def run_pool(pipe, card: str, kv_int8: bool, hybrid: bool = False) -> dict:
     """Phase 3, the continuous-batching pool at flagship width on the
     pipeline's current weights: row 0 alone for 3 segments (the isolation
     reference), then the counted staggered pool of 8 requests, one joining
-    per segment, until every row finishes."""
+    per segment, until every row finishes. With ``hybrid`` (the hybrid
+    pipeline) the result also holds a copy of the pool's state right after
+    the last join (``snapshot``), for the stage-less pooled phase."""
     import numpy as np
     import torch
 
@@ -675,8 +708,11 @@ def run_pool(pipe, card: str, kv_int8: bool) -> dict:
     from zonos_vibes_tpu_torch.ops.sampling import SamplingParams
     from zonos_vibes_tpu_torch.serve.sample import wav_bytes
 
-    label = "pool int8 KV, int8 weights" if kv_int8 else "pool bf16"
+    label = ("hybrid pool bf16" if hybrid else
+             "pool int8 KV, int8 weights" if kv_int8 else "pool bf16")
     model, params = pipe.model, pipe.params
+    bcfg = model.config.backbone
+    n_attn = len(bcfg.attn_layer_idx) if hybrid else bcfg.n_layer
     pc = plib.PoolConfig(slots=POOL_SLOTS)
     conds = [pipe.prepare_conditioning(pipe.make_cond_dict(text=t, language="en-us"))
              for t in POOL_TEXTS]
@@ -716,6 +752,9 @@ def run_pool(pipe, card: str, kv_int8: bool) -> dict:
             torch.cuda.synchronize()
             t_join += time.perf_counter() - t0
             joins += 1
+            if hybrid and seg == POOL_SLOTS - 1:
+                snapshot = {k: v.clone() for k, v in pool["cache"].items()}
+                snapshot.update(pos=pool["pos"].clone(), cfg_scale=pool["knobs"]["cfg_scale"])
         elif all(plib.row_finished(pool, s) for s in range(POOL_SLOTS)):
             break
         t0 = time.perf_counter()
@@ -731,10 +770,13 @@ def run_pool(pipe, card: str, kv_int8: bool) -> dict:
     alloc = torch.cuda.memory_allocated()
 
     want = {"decode_attention": 0, "decode_attention_q": 0, "stage_splice": 0,
-            "prefill_attention": L * joins, "qmm_int8": (4 * L + 1) * (joins + steps) * kv_int8,
-            "decode_attention_pooled": 0 if kv_int8 else L * steps,
+            "prefill_attention": n_attn * joins,
+            "qmm_int8": (4 * L + 1) * (joins + steps) * kv_int8,
+            "decode_attention_pooled": 0 if kv_int8 else n_attn * steps,
             "decode_attention_pooled_q": L * steps if kv_int8 else 0,
-            "stage_splice_rows": 2 * steps}
+            "stage_splice_rows": 2 * steps, **NO_HYBRID_LAUNCHES}
+    if hybrid:
+        want["ssd_gate_step"] = (bcfg.n_layer - n_attn) * steps
     if launches != want:
         raise AssertionError(f"{label} launch counts {launches}, expected {want}")
 
@@ -754,7 +796,7 @@ def run_pool(pipe, card: str, kv_int8: bool) -> dict:
         wav = pipe.decode_audio(codes[None])[0]
         if wav.size == 0 or not np.isfinite(wav).all():
             raise AssertionError(f"{label} row {s}: waveform empty or not finite")
-        suffix = "_int8" if kv_int8 else ""
+        suffix = "_hybrid" if hybrid else "_int8" if kv_int8 else ""
         (out_dir / f"chip_smoke_pool{suffix}_row{s}.wav").write_bytes(
             wav_bytes(wav, pipe.dac.sampling_rate))
         frames.append(valid)
@@ -767,15 +809,679 @@ def run_pool(pipe, card: str, kv_int8: bool) -> dict:
            "audio_s_per_s_window": sum(frames) / FRAME_RATE / t_window,
            "prefill_join_ms": t_join * 1e3 / joins, "kv_cache_bytes": kv_bytes,
            "memory_allocated": alloc, "bases_mid": bases_mid, "launches": launches}
+    if hybrid:
+        e2e["snapshot"] = snapshot
     log(f"e2e {label} ({card}): {joins} requests x {AUDIO_FRAMES} frames max, one join per "
         f"{POOL_SEGMENT}-step segment; {steps} pooled steps at {e2e['ms_per_step']:.3f} ms/step; "
         f"valid frames {frames}; aggregate {e2e['audio_s_per_s']:.3f} audio-s/s over the pooled "
         f"segments' {t_steps:.3f} s, {e2e['audio_s_per_s_window']:.3f} over the whole "
         f"{t_window:.3f} s window (joins included); prefill+join "
-        f"{e2e['prefill_join_ms']:.2f} ms/request; KV cache {kv_bytes / 1e9:.3f} GB; "
+        f"{e2e['prefill_join_ms']:.2f} ms/request; cache {kv_bytes / 1e9:.3f} GB; "
         f"memory_allocated {alloc / 2**30:.3f} GiB; row 0 alone == row 0 pooled for "
         f"{min(ISOLATION_FRAMES, frames[0], alone_valid)} frames; launches {launches}")
     return e2e
+
+
+# The hybrid (ZONOS_V01_HYBRID): 48 layers, 6 attention layers (16 query
+# and 4 KV heads, head dim 128) and 42 Mamba-2 layers (d_state 128, d_inner
+# 4096 in 64 heads of 64).
+H_LA, H_M, H_HQ, H_HKV, H_D = 6, 42, 16, 4, 128
+H_W = H_HKV * H_D
+M_N, M_HP, M_H = 128, 4096, 64
+PEAK_FP32_FLOPS = 67e12  # CUDA cores, no tensor cores (the Mamba step's fp32 math)
+# The fused Mamba step's bf16 output against its plain version, |err| <=
+# atol + rtol |want|: both run the same fp32 chain in another order and
+# round once to bf16 (outputs up to ~5).
+SSM_TOL = (1e-2, 1e-2)
+SSM_STATE_TOL = {"fp32": (1e-5, 1e-5), "bf16": (8e-3, 1e-2)}  # (rtol, atol); bf16: one step
+# The stage-less pooled steps against the ring steps from the same state:
+# the same keys in another split order, so bf16 roundings of attention
+# outputs may differ, carried through the 48 layers into fp32 logits of
+# magnitude up to ~9 (CFG scale 2 triples a difference). With plain
+# attention the two modes agree exactly (run_stage_less checks it), so the
+# kernels' arithmetic is the only cause. On an H100 the sound steps gave a
+# max |diff| of 0.076 (0.085 with argmax frames) and steps with each
+# stage-less column written one position off gave 0.313; the limit sits
+# about 2x from each.
+STAGELESS_LOGIT_TOL = 0.15
+NO_TRANSFORMER_LAUNCHES = {"decode_attention": 0, "decode_attention_q": 0, "stage_splice": 0,
+                           "qmm_int8": 0, "decode_attention_pooled_q": 0}
+
+
+def within(got, want, rtol: float, atol: float) -> bool:
+    """Finite, and |got - want| <= atol + rtol |want| everywhere."""
+    import torch
+
+    g, w = got.float(), want.float()
+    return bool(torch.isfinite(g).all() and ((g - w).abs() <= atol + rtol * w.abs()).all())
+
+
+def ssd_inputs(gen, B: int, planes: int, state_dtype):
+    """Per-head Mamba step inputs at the hybrid's widths and a stacked state
+    whose planes are NaN (the caller fills the plane it updates)."""
+    import torch
+    import torch.nn.functional as F
+
+    def f(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    states = torch.full((planes, B, M_N, M_HP), float("nan"), device="cuda", dtype=state_dtype)
+    dt = F.softplus(f(B, M_H))
+    return states, dict(xs=f(B, M_HP).bfloat16(), dt=dt, decay=torch.exp(-dt * torch.rand(
+        M_H, generator=gen, device="cuda")), bm=f(B, M_N) * 0.3, cm=f(B, M_N) * 0.3,
+        z=f(B, M_HP).bfloat16(), d_skip=f(M_H), norm_w=(1.0 + 0.1 * f(M_HP)).bfloat16())
+
+
+def check_hybrid_kernels(solo_T: int) -> dict:
+    """Phase 2, the hybrid's kernels against their plain versions at its
+    shapes: the fused Mamba step (rows 9 and 10) at 2 and 16 rows with an
+    fp32 and a bf16 state, in place on one plane of a 42-plane stack whose
+    other planes are NaN; rows 11 and 12 and the head-dim-128 variants of
+    rows 3 and 6, NaN past every bound; row 12 at the transformer's head
+    dim 64 too."""
+    import torch
+
+    from zonos_vibes_tpu_torch.ops.cuda.decode_attention import (
+        decode_attention_pooled_staged, decode_attention_pooled_staged_plain,
+        decode_attention_pooled_unstaged, decode_attention_pooled_unstaged_plain,
+        decode_attention_unstaged, decode_attention_unstaged_plain)
+    from zonos_vibes_tpu_torch.ops.cuda.mamba_step import (
+        ssd_gate_step, ssd_gate_step_layered, ssd_gate_step_layered_plain)
+    from zonos_vibes_tpu_torch.ops.cuda.prefill_attention import (
+        prefill_attention, prefill_attention_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    err = {}
+    worst = 0.0
+    for Bs in (B, POOL_M):
+        for sdt, name in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+            for layer in (0, H_M - 1):
+                states, x = ssd_inputs(gen, Bs, H_M, sdt)
+                states[layer] = torch.randn(Bs, M_N, M_HP, generator=gen, device="cuda").to(sdt)
+                ref = states[layer:layer + 1].clone()
+                want = ssd_gate_step_layered_plain(ref, 0, **x)
+                ptr = states.data_ptr()
+                got = ssd_gate_step_layered(states, layer, **x)
+                torch.cuda.synchronize()
+                e = (got.float() - want.float()).abs().max().item()
+                others = torch.cat([states[:layer], states[layer + 1:]])
+                if (not within(got, want, *SSM_TOL) or states.data_ptr() != ptr
+                        or not within(states[layer], ref[0], *SSM_STATE_TOL[name])
+                        or not torch.isnan(others).all()):
+                    raise AssertionError(f"ssd_gate_step_layered B={Bs} {name} layer={layer}: "
+                                         f"err {e}, or the state not in place, or another "
+                                         f"plane touched")
+                worst = max(worst, e)
+                del states, others, ref
+        state = torch.randn(Bs, M_N, M_HP, generator=gen, device="cuda")
+        _, x = ssd_inputs(gen, Bs, 1, torch.float32)
+        ref = state.clone()[None]
+        want = ssd_gate_step_layered_plain(ref, 0, **x)
+        got = ssd_gate_step(state, **x)
+        torch.cuda.synchronize()
+        if not within(got, want, *SSM_TOL) or not within(state, ref[0], *SSM_STATE_TOL["fp32"]):
+            raise AssertionError(f"ssd_gate_step B={Bs}: differs from the plain version")
+        worst = max(worst, (got.float() - want.float()).abs().max().item())
+    err["ssd_gate_step"] = err["ssd_gate_step_layered"] = worst
+    log(f"kernel ssd_gate_step (rows 9/10): B 2/16, fp32 and bf16 state, planes 0/{H_M - 1} of "
+        f"[{H_M}, B, {M_N}, {M_HP}] with the other planes NaN and untouched, in place; "
+        f"max_abs_err {worst:.3e} within |err| <= {SSM_TOL[1]} + {SSM_TOL[0]} |out|; state "
+        f"within {SSM_STATE_TOL}")
+
+    def inputs(Bx, T, L_, Hq, Hkv, D):
+        W_ = Hkv * D
+        return dict(q=randn(gen, Bx, 1, Hq, D), k_cache=randn(gen, L_, Bx, T, W_),
+                    v_cache=randn(gen, L_, Bx, T, W_), k_cur=randn(gen, Bx, W_),
+                    v_cur=randn(gen, Bx, W_))
+
+    worst = 0.0
+    x = inputs(2, solo_T, H_LA, H_HQ, H_HKV, H_D)
+    for seq_end in (1, 255, 256, solo_T // 2, solo_T):
+        k, v = x["k_cache"].clone(), x["v_cache"].clone()
+        k[:, :, seq_end:] = float("nan")
+        v[:, :, seq_end:] = float("nan")
+        sc = torch.tensor([seq_end], dtype=torch.int32, device="cuda")
+        for layer in (0, H_LA - 1):
+            got = decode_attention_unstaged(x["q"], k, v, sc, layer).float()
+            want = decode_attention_unstaged_plain(x["q"], k, v, sc, layer).float()
+            e = (got - want).abs().max().item()
+            if not torch.isfinite(got).all() or e > TOL:
+                raise AssertionError(f"decode_attention_unstaged seq_end={seq_end}: err {e}")
+            worst = max(worst, e)
+    err["decode_attention_unstaged"] = worst
+    log(f"kernel decode_attention_unstaged (row 11): B=2 T={solo_T} L={H_LA} Hq={H_HQ} "
+        f"Hkv={H_HKV} D={H_D}, seq_end 1/255/256/{solo_T // 2}/{solo_T}, layers 0/{H_LA - 1}, NaN "
+        f"past seq_end: max_abs_err {worst:.3e} <= {TOL}")
+    del x, k, v
+
+    worst = worst_rel = 0.0
+    ends = torch.tensor(POOL_BASES, dtype=torch.int32, device="cuda")
+    for L_, Hq, Hkv, D_ in ((H_LA, H_HQ, H_HKV, H_D), (L, HQ, HKV, D)):
+        x = inputs(16, POOL_T, L_, Hq, Hkv, D_)
+        for b, e in enumerate(POOL_BASES):
+            x["k_cache"][:, b, e:] = float("nan")
+            x["v_cache"][:, b, e:] = float("nan")
+        for layer in (0, L_ - 1):
+            got = decode_attention_pooled_unstaged(**x, prefix_ends=ends, layer=layer)
+            want = decode_attention_pooled_unstaged_plain(**x, prefix_ends=ends, layer=layer)
+            e = (got.float() - want.float()).abs().max().item()
+            rel = row_rel_err(got, want)
+            if not torch.isfinite(got).all() or e > TOL or rel > POOL_ROW_TOL[
+                    "decode_attention_pooled"]:
+                raise AssertionError(f"decode_attention_pooled_unstaged D={D_} layer={layer}: "
+                                     f"err {e}, per-row relative err {rel}")
+            worst, worst_rel = max(worst, e), max(worst_rel, rel)
+        del x
+    err["decode_attention_pooled_unstaged"] = worst
+    log(f"kernel decode_attention_pooled_unstaged (row 12): B=16 T={POOL_T}, prefix ends "
+        f"{sorted(set(POOL_BASES))}, hybrid (L 6, D 128) and transformer (L 26, D 64) heads, "
+        f"first and last layer, NaN past each end: max_abs_err {worst:.3e} <= {TOL}; per row "
+        f"{worst_rel:.3e} <= {POOL_ROW_TOL['decode_attention_pooled']}")
+
+    worst = worst_rel = 0.0
+    x = inputs(16, POOL_T, H_LA, H_HQ, H_HKV, H_D)
+    x["k_stage"], x["v_stage"] = (randn(gen, H_LA, 16, STAGE, H_W) for _ in range(2))
+    for b, e in enumerate(POOL_BASES):
+        x["k_cache"][:, b, e:] = float("nan")
+        x["v_cache"][:, b, e:] = float("nan")
+    bases = torch.tensor(POOL_BASES, dtype=torch.int32, device="cuda")
+    lens = torch.tensor(POOL_LENS, dtype=torch.int32, device="cuda")
+    for layer in (0, H_LA - 1):
+        got = decode_attention_pooled_staged(**x, bases=bases, lens=lens, layer=layer)
+        want = decode_attention_pooled_staged_plain(**x, bases=bases, lens=lens, layer=layer)
+        e = (got.float() - want.float()).abs().max().item()
+        rel = row_rel_err(got, want)
+        if not torch.isfinite(got).all() or e > TOL or rel > POOL_ROW_TOL["decode_attention_pooled"]:
+            raise AssertionError(f"decode_attention_pooled D=128 layer={layer}: err {e}, {rel}")
+        worst, worst_rel = max(worst, e), max(worst_rel, rel)
+    err["decode_attention_pooled_hd128"] = worst
+    log(f"kernel decode_attention_pooled at head dim 128 (row 6): B=16 T={POOL_T} L={H_LA}, bases "
+        f"and ring lengths as above, NaN past each base: max_abs_err {worst:.3e} <= {TOL}; per row "
+        f"{worst_rel:.3e}")
+    del x
+
+    worst = 0.0
+    for S in (7, 97, 600):
+        for offset in (0, 64):
+            q = randn(gen, B, S, H_HQ, H_D)
+            k, v = randn(gen, B, 768, H_W), randn(gen, B, 768, H_W)
+            got = prefill_attention(q, k, v, offset).float()
+            want = prefill_attention_plain(q, k, v, offset).float()
+            e = (got - want).abs().max().item()
+            if not torch.isfinite(got).all() or e > TOL:
+                raise AssertionError(f"prefill_attention D=128 S={S} offset={offset}: err {e}")
+            worst = max(worst, e)
+    err["prefill_attention_hd128"] = worst
+    log(f"kernel prefill_attention at head dim 128 (row 3): S 7/97/600 x offset 0/64, Hq {H_HQ}, "
+        f"Hkv {H_HKV}: max_abs_err {worst:.3e} <= {TOL}")
+    return err
+
+
+def check_hybrid_backbone_against_cpu() -> dict:
+    """The hybrid backbone on the card (kernels) against the CPU path (plain
+    versions) on a small input: 4 layers (attention at 1 and 3) with the
+    flagship's head dim 128 and d_state 128, d_model 128, bf16 weights: a
+    prefill of 5 positions and 12 solo decode steps; 4 rows at their own
+    positions for 14 pooled ring steps (a flush every 6), with an fp32 and
+    a bf16 SSM state; 14 stage-less pooled steps. Returns the largest
+    |difference| of the hidden states per mode."""
+    import torch
+
+    from zonos_vibes_tpu_torch.config import BackboneConfig, _freeze
+    from zonos_vibes_tpu_torch.engine.pool import flush_pool_rings
+    from zonos_vibes_tpu_torch.models.mamba_backbone import HybridBackbone
+
+    cfg = BackboneConfig(
+        d_model=128, n_layer=4, d_intermediate=0, attn_mlp_d_intermediate=256,
+        attn_layer_idx=(1, 3), rms_norm=True, residual_in_fp32=True,
+        ssm_cfg=_freeze({"layer": "Mamba2", "d_state": 128, "headdim": 64, "chunk_size": 8}),
+        attn_cfg=_freeze({"num_heads": 2, "num_heads_kv": 1, "head_dim": 128,
+                          "rotary_emb_dim": 64}))
+    bb = HybridBackbone(cfg)
+    gen = torch.Generator().manual_seed(6)
+    params = bb.init(gen, torch.bfloat16, "cpu")
+
+    def to(tree, dev):
+        return {k: to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+    worst = {}
+    with torch.inference_mode():
+        # Solo: prefill, then decode steps.
+        sides = {dev: (to(params, dev), bb.allocate_cache(2, 32, torch.bfloat16, dev))
+                 for dev in ("cpu", "cuda")}
+        xs = [torch.randn(2, 5, 128, generator=gen).to(torch.bfloat16)]
+        xs += [torch.randn(2, 1, 128, generator=gen).to(torch.bfloat16) for _ in range(12)]
+        w = 0.0
+        for i, x in enumerate(xs):
+            off = 0 if i == 0 else 4 + i
+            outs = {dev: bb.forward(p, x.to(dev), c, off) for dev, (p, c) in sides.items()}
+            w = max(w, (outs["cuda"].float().cpu() - outs["cpu"].float()).abs().max().item())
+        worst["solo"] = w
+        # Pooled: ring (fp32 and bf16 state) and stage-less.
+        for mode, state_dtype in (("ring", torch.float32), ("ring_bf16_state", torch.bfloat16),
+                                  ("stage_less", torch.float32)):
+            ring = mode != "stage_less"
+            prefix = [torch.randn(2, 4, 64, 128, generator=gen).to(torch.bfloat16)
+                      for _ in range(2)]
+            state = torch.randn(2, 4, 128, 256, generator=gen) * 0.3
+            sides = {}
+            for dev in ("cpu", "cuda"):
+                c = bb.allocate_cache(4, 64, torch.bfloat16, dev, state_dtype, pool_ring=ring)
+                if ring:  # an 8-row ring, so that flushes land inside the 64 positions
+                    for name in ("k_stage", "v_stage"):
+                        c[name] = torch.zeros(2, 4, 8, 128, dtype=torch.bfloat16, device=dev)
+                c["k"].copy_(prefix[0])
+                c["v"].copy_(prefix[1])
+                c["ssm"].copy_(state)
+                pos = torch.tensor([20, 9], device=dev)  # 2 slots: CFG rows [20, 9, 20, 9]
+                sides[dev] = (to(params, dev), {"cache": c, "pos": pos, "flush_base": pos.clone()})
+            w = 0.0
+            for i in range(14):
+                x = torch.randn(4, 1, 128, generator=gen).to(torch.bfloat16)
+                outs = {}
+                for dev, (p, pool) in sides.items():
+                    outs[dev] = bb.forward(
+                        p, x.to(dev), pool["cache"], 0,
+                        positions=torch.cat([pool["pos"], pool["pos"]]),
+                        pool_base=torch.cat([pool["flush_base"]] * 2) if ring else None)
+                    pool["pos"] = pool["pos"] + 1
+                    if ring and i % 6 == 5:
+                        flush_pool_rings(pool)
+                w = max(w, (outs["cuda"].float().cpu() - outs["cpu"].float()).abs().max().item())
+            worst[mode] = w
+    if max(worst.values()) > 0.1:
+        raise AssertionError(f"hybrid backbone card vs CPU: max |hidden diff| {worst}")
+    log(f"reference: hybrid backbone (4 layers, attention at 1/3, head dim 128, d_state 128, "
+        f"bf16) on the card vs the CPU plain path: max |hidden diff| solo prefill + 12 steps "
+        f"{worst['solo']:.3e}, 2 slots (4 rows) x 14 ring steps across two flushes "
+        f"{worst['ring']:.3e} (fp32 state) / {worst['ring_bf16_state']:.3e} (bf16 state), 14 "
+        f"stage-less steps {worst['stage_less']:.3e}; all <= 0.1")
+    return worst
+
+
+def run_hybrid_path(card: str):
+    """Phase 3, the hybrid: text -> codes -> WAV through
+    ``ZonosPipeline.from_config(ZONOS_V01_HYBRID)``, counted. Returns the
+    pipeline and the numbers."""
+    import numpy as np
+    import torch
+
+    from zonos_vibes_tpu_torch.config import ZONOS_V01_HYBRID
+    from zonos_vibes_tpu_torch.ops.cuda import build
+    from zonos_vibes_tpu_torch.pipeline import ZonosPipeline
+    from zonos_vibes_tpu_torch.serve.sample import wav_bytes
+
+    t0 = time.perf_counter()
+    pipe = ZonosPipeline.from_config(ZONOS_V01_HYBRID, device="cuda",
+                                     generator=torch.Generator("cuda").manual_seed(422))
+    torch.cuda.synchronize()
+    nparams = sum(t.numel() for t in _leaves(pipe.params["backbone"]))
+    log(f"init hybrid: random bf16 weights in {time.perf_counter() - t0:.1f} s; backbone "
+        f"{nparams / 1e9:.3f} G parameters ({param_bytes(pipe.params) / 2**30:.3f} GiB Zonos); "
+        f"memory_allocated {torch.cuda.memory_allocated() / 2**30:.3f} GiB with the DAC")
+    cond = pipe.make_cond_dict(text=TEXT, language="en-us")
+    warm = pipe.generate(cond, generator=torch.Generator("cuda").manual_seed(1),
+                         max_new_tokens=8, disable_eos=True)
+    pipe.decode_audio(warm)
+
+    build.reset_launches()
+    t0 = time.perf_counter()
+    result = pipe.generate(cond, generator=torch.Generator("cuda").manual_seed(421),
+                           max_new_tokens=AUDIO_FRAMES, disable_eos=True)
+    launches = dict(build.LAUNCHES)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wav = pipe.decode_audio(result)
+    torch.cuda.synchronize()
+    t_dac = time.perf_counter() - t0
+
+    codes, steps = result.codes, result.steps
+    cond_len = pipe.prepare_conditioning(cond).shape[1]
+    if codes.shape != (1, 9, AUDIO_FRAMES) or int(codes.min()) < 0 or int(codes.max()) >= 1024:
+        raise AssertionError(f"hybrid codes out of range or misshapen: {tuple(codes.shape)}")
+    if result.valid_length != AUDIO_FRAMES:
+        raise AssertionError(f"hybrid valid length {result.valid_length} != {AUDIO_FRAMES}")
+    if wav.size == 0 or not np.isfinite(wav).all():
+        raise AssertionError("hybrid waveform empty or not finite")
+    want = {**NO_TRANSFORMER_LAUNCHES, "decode_attention_pooled": 0, "stage_splice_rows": 0,
+            "decode_attention_pooled_unstaged": 0, "prefill_attention": H_LA,
+            "decode_attention_unstaged": H_LA * steps, "ssd_gate_step": H_M * steps}
+    if launches != want:
+        raise AssertionError(f"hybrid launch counts {launches}, expected {want}")
+    out_dir = ROOT / "build"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_hybrid.wav").write_bytes(wav_bytes(wav[0], pipe.dac.sampling_rate))
+    audio_s = wav.shape[-1] / pipe.dac.sampling_rate
+    e2e = {
+        "cond_len": cond_len, "steps": steps, "audio_s": audio_s,
+        "T": _solo_cache_len(cond_len),
+        "prefill_ms": result.prefill_seconds * 1e3,
+        "decode_ms_per_step": result.decode_seconds * 1e3 / steps,
+        "generate_s": t_gen, "dac_ms": t_dac * 1e3, "rtf": audio_s / (t_gen + t_dac),
+        "launches": launches,
+    }
+    log(f"e2e hybrid ({card}): text -> {audio_s:.2f} s of audio; cond_len {cond_len}, {steps} "
+        f"decode steps; prefill {e2e['prefill_ms']:.2f} ms, decode "
+        f"{e2e['decode_ms_per_step']:.3f} ms/step, DAC {e2e['dac_ms']:.1f} ms, RTF "
+        f"{e2e['rtf']:.3f}; launches {launches}")
+    return pipe, e2e
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _solo_cache_len(cond_len: int) -> int:
+    from zonos_vibes_tpu_torch.engine.generate import _find_multiple
+
+    T = cond_len + AUDIO_FRAMES + 9
+    return _find_multiple(T, 512 if T >= 1024 else 8)
+
+
+def run_stage_less(pipe, pool_e2e: dict, card: str) -> dict:
+    """Phase 3, the stage-less pooled decode (row 12) on the hybrid pool's
+    state right after its last join: POOL_SEGMENT steps of all 16 rows at
+    their own positions through ``model.compute_logits`` with ``positions``
+    and no ring, each held against the ring mode's step (``pool_base``)
+    from the same state. Both read the same cache prefix; the ring steps
+    keep their columns in the ring while the stage-less steps write theirs
+    at each row's position, which the ring mode never reads. Every step's
+    input frame is drawn in advance from a seed.
+
+    Three passes from the same state back the limit: the kernels (counted
+    and timed); the same steps with both modes' attention in its plain
+    version, which must agree exactly (the modes then gather the same keys
+    in the same order, so a kernel difference is the only cause left); and
+    the kernels with each stage-less column moved one position on after its
+    step (a wrong stage-less step), which must exceed the limit."""
+    import torch
+
+    import zonos_vibes_tpu_torch.models.mamba_backbone as mb
+    from zonos_vibes_tpu_torch.ops.cuda import build
+    from zonos_vibes_tpu_torch.ops.cuda.decode_attention import (
+        decode_attention_pooled_staged_plain, decode_attention_pooled_unstaged_plain)
+
+    model, params = pipe.model, pipe.params
+    snap = pool_e2e.pop("snapshot")
+    start = {k: snap[k].clone() for k in ("k", "v", "k_stage", "v_stage", "conv", "ssm")}
+    pos0 = torch.cat([snap["pos"], snap["pos"]])
+    rows = torch.arange(pos0.numel(), device="cuda")
+    gen = torch.Generator("cuda").manual_seed(7)
+    frames = torch.randint(0, 1024, (POOL_SEGMENT, POOL_SLOTS, 9, 1), generator=gen,
+                           device="cuda")
+    vocab = model.config.head_vocab_size  # the columns past it are masked
+
+    def one_pass(shift_column: bool = False):
+        for k, v in start.items():
+            snap[k].copy_(v)
+        ring_cache = {k: snap[k] for k in start}
+        sl_cache = {k: snap[k] for k in ("k", "v", "conv", "ssm")}
+        pos = pos0.clone()
+        counts = {k: 0 for k in build.LAUNCHES}
+        worst, diff_sum, diff_n, largest, t_sl, logits = 0.0, 0.0, 0, 0.0, 0.0, []
+        with torch.inference_mode():
+            for i in range(POOL_SEGMENT):
+                emb = model.embed_codes(params, frames[i])
+                emb = torch.cat([emb, emb])
+                conv, ssm = snap["conv"].clone(), snap["ssm"].clone()
+                ring = model.compute_logits(params, emb, ring_cache, 0, snap["cfg_scale"], None,
+                                            positions=pos, pool_base=pos0)
+                snap["conv"].copy_(conv)
+                snap["ssm"].copy_(ssm)
+                del conv, ssm
+                torch.cuda.synchronize()
+                before = dict(build.LAUNCHES)
+                t0 = time.perf_counter()
+                sl = model.compute_logits(params, emb, sl_cache, 0, snap["cfg_scale"], None,
+                                          positions=pos)
+                torch.cuda.synchronize()
+                t_sl += time.perf_counter() - t0
+                for k, v in build.LAUNCHES.items():
+                    counts[k] += v - before[k]
+                if shift_column:
+                    at = pos.long()
+                    for name in ("k", "v"):
+                        snap[name][:, rows, at + 1] = snap[name][:, rows, at]
+                        snap[name][:, rows, at] = start[name][:, rows, at]
+                if not torch.isfinite(sl).all():
+                    raise AssertionError(f"stage-less step {i}: logits not finite")
+                diff = (sl - ring)[..., :vocab].abs()
+                worst = max(worst, diff.max().item())
+                diff_sum, diff_n = diff_sum + diff.sum().item(), diff_n + diff.numel()
+                largest = max(largest, ring[..., :vocab].abs().max().item())
+                logits.append(sl[..., :vocab].float())
+                pos = pos + 1
+        return dict(worst=worst, mean=diff_sum / diff_n, largest=largest, counts=counts,
+                    ms_per_step=t_sl * 1e3 / POOL_SEGMENT, logits=logits, prefix_ends=pos - 1)
+
+    kern = one_pass()
+    saved = mb.decode_attention_pooled_staged, mb.decode_attention_pooled_unstaged
+    mb.decode_attention_pooled_staged = decode_attention_pooled_staged_plain
+    mb.decode_attention_pooled_unstaged = decode_attention_pooled_unstaged_plain
+    try:
+        plain = one_pass()
+    finally:
+        mb.decode_attention_pooled_staged, mb.decode_attention_pooled_unstaged = saved
+    wrong = one_pass(shift_column=True)
+    kernel_vs_plain = max((a - b).abs().max().item()
+                          for a, b in zip(kern["logits"], plain["logits"]))
+
+    want = {k: 0 for k in kern["counts"]}
+    want.update(decode_attention_pooled_unstaged=H_LA * POOL_SEGMENT,
+                ssd_gate_step=H_M * POOL_SEGMENT)
+    if kern["counts"] != want:
+        raise AssertionError(f"stage-less launch counts {kern['counts']}, expected {want}")
+    if plain["worst"] != 0.0:
+        raise AssertionError(f"stage-less vs ring logits with plain attention: max |diff| "
+                             f"{plain['worst']}, expected 0 (the modes differ in more than "
+                             f"the attention kernels' arithmetic)")
+    if kern["worst"] > STAGELESS_LOGIT_TOL:
+        raise AssertionError(f"stage-less vs ring logits: max |diff| {kern['worst']}")
+    if wrong["worst"] <= STAGELESS_LOGIT_TOL:
+        raise AssertionError(f"a stage-less step with its column one position off gives max "
+                             f"|diff| {wrong['worst']} <= {STAGELESS_LOGIT_TOL}: the check "
+                             f"cannot tell it from a sound one")
+    out = {"steps": POOL_SEGMENT, "max_logit_diff": kern["worst"],
+           "mean_logit_diff": kern["mean"], "max_logit": kern["largest"],
+           "plain_max_logit_diff": plain["worst"], "kernel_vs_plain": kernel_vs_plain,
+           "wrong_max_logit_diff": wrong["worst"], "wrong_mean_logit_diff": wrong["mean"],
+           "launches": kern["counts"], "ms_per_step": kern["ms_per_step"],
+           "prefix_ends": kern["prefix_ends"].tolist()}
+    log(f"e2e hybrid stage-less pooled ({card}): {POOL_SEGMENT} steps of 16 rows from the pool's "
+        f"state after its last join (positions {int(pos0.min())}-{int(pos0.max())} at the "
+        f"start), {out['ms_per_step']:.3f} ms/step; logits vs the ring mode's from the same "
+        f"state: max |diff| {kern['worst']:.4e} <= {STAGELESS_LOGIT_TOL} (mean |diff| "
+        f"{kern['mean']:.4e}, largest |logit| {kern['largest']:.3f}); with plain attention in "
+        f"both modes {plain['worst']:.4e} (must be 0); stage-less kernels vs stage-less plain "
+        f"{kernel_vs_plain:.4e}; with each stage-less column one position off "
+        f"{wrong['worst']:.4e} (mean {wrong['mean']:.4e}) > {STAGELESS_LOGIT_TOL}; launches "
+        f"{kern['counts']}")
+    return out
+
+
+def time_hybrid_kernels(solo: dict, pool: dict, stage_less: dict, errors: dict,
+                        card: str) -> list[dict]:
+    """Phase 4, the hybrid's kernels at the shapes its paths gave them."""
+    import itertools
+
+    import torch
+    import torch.nn.functional as F
+
+    from zonos_vibes_tpu_torch.ops.cuda.decode_attention import (
+        decode_attention_pooled_staged, decode_attention_pooled_staged_plain,
+        decode_attention_pooled_unstaged, decode_attention_pooled_unstaged_plain,
+        decode_attention_unstaged, decode_attention_unstaged_plain)
+    from zonos_vibes_tpu_torch.ops.cuda.mamba_step import (
+        ssd_gate_step, ssd_gate_step_layered, ssd_gate_step_layered_plain)
+    from zonos_vibes_tpu_torch.ops.cuda.prefill_attention import (
+        prefill_attention, prefill_attention_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rows = []
+
+    def ssd_bound(B, sdt_bytes):
+        nbytes = 2 * B * M_N * M_HP * sdt_bytes + 3 * B * M_HP * 2 + 4 * B * (2 * M_H + 2 * M_N)
+        flops = 6 * B * M_N * M_HP + 12 * B * M_HP
+        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+    # Rows 9 and 10: 42 planes cycled through, so that every launch reads
+    # its plane from device memory as a decode step does.
+    ssd = {}
+    for Bs, name in ((B, "ssd_gate_step"), (POOL_M, "ssd_gate_step_layered")):
+        for sdt, label, nb in ((torch.float32, "fp32", 4), (torch.bfloat16, "bf16", 2)):
+            states, x = ssd_inputs(gen, Bs, H_M, sdt)
+            states.normal_(generator=gen)
+            idx = itertools.cycle(range(H_M))
+            if Bs == B:
+                def kernel():
+                    return ssd_gate_step(states[next(idx)], **x)
+            else:
+                def kernel():
+                    return ssd_gate_step_layered(states, next(idx), **x)
+            ms = device_ms(kernel, H_M * 10)
+            plain = device_ms(lambda: ssd_gate_step_layered_plain(states, next(idx), **x), H_M)
+            b, by = ssd_bound(Bs, nb)
+            ssd[(Bs, label)] = (ms, plain, b, by)
+            log(f"time {name} B={Bs} state {label} [{H_M} planes cycled] ({card}): kernel_ms "
+                f"{ms:.5f} plain_ms {plain:.4f} library_ms none (no single PyTorch call computes "
+                f"the fused update, readout, gate and norm) bound_ms {b:.5f} ({by}); per "
+                f"decode step ({H_M} launches) {H_M * ms:.4f} ms against {H_M * b:.4f}")
+            del states
+    for Bs, name, line, count in ((B, "ssd_gate_step", 178, solo["launches"]["ssd_gate_step"]),
+                                  (POOL_M, "ssd_gate_step_layered", 116,
+                                   pool["launches"]["ssd_gate_step"])):
+        ms, plain, b, by = ssd[(Bs, "fp32")]
+        rows.append(dict(name=name, route="cuda", source="zonos_vibes_tpu_torch/csrc/mamba_step.cu",
+                         replaces=f"zonos_vibes_tpu/ops/pallas/mamba_step.py:{line}",
+                         launches=count, max_abs_err=errors[name], ms=ms, plain_ms=plain,
+                         bound_ms=b, bound_by=by, library_ms=None))
+
+    # Row 11 at the solo path's last step.
+    T = solo["T"]
+    seq_end = solo["cond_len"] + solo["steps"] + 1
+    q = randn(gen, B, 1, H_HQ, H_D)
+    k, v = randn(gen, H_LA, B, T, H_W), randn(gen, H_LA, B, T, H_W)
+    sc = torch.tensor([seq_end], dtype=torch.int32, device="cuda")
+    kh = k[3, :, :seq_end].view(B, seq_end, H_HKV, H_D).transpose(1, 2).contiguous()
+    vh = v[3, :, :seq_end].view(B, seq_end, H_HKV, H_D).transpose(1, 2).contiguous()
+    qh = q.transpose(1, 2).contiguous()
+    ms = device_ms(lambda: decode_attention_unstaged(q, k, v, sc, 3), 200)
+    plain = device_ms(lambda: decode_attention_unstaged_plain(q, k, v, sc, 3), 20)
+    lib = device_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, enable_gqa=True), 200)
+    b, by = bound(2 * B * seq_end * H_W * 2 + 2 * B * H_HQ * H_D * 2, 4 * B * H_HQ * seq_end * H_D)
+    log(f"time decode_attention_unstaged T={T} seq_end={seq_end} (main-path last step) ({card}): "
+        f"kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms {lib:.4f} (SDPA, gathered K/V) "
+        f"bound_ms {b:.5f} ({by})")
+    rows.append(dict(name="decode_attention_unstaged", route="cuda",
+                     source="zonos_vibes_tpu_torch/csrc/decode_attention.cu",
+                     replaces="zonos_vibes_tpu/ops/pallas/decode_attention.py:1158",
+                     launches=solo["launches"]["decode_attention_unstaged"],
+                     max_abs_err=errors["decode_attention_unstaged"], ms=ms, plain_ms=plain,
+                     bound_ms=b, bound_by=by, library_ms=lib))
+    del k, v, kh, vh
+
+    # Row 3 at head dim 128: the solo path's prefill.
+    S = solo["cond_len"] + 1
+    q = randn(gen, B, S, H_HQ, H_D)
+    k, v = randn(gen, B, T, H_W), randn(gen, B, T, H_W)
+    qh = q.transpose(1, 2).contiguous()
+    kh = k[:, :S].view(B, S, H_HKV, H_D).transpose(1, 2).contiguous()
+    vh = v[:, :S].view(B, S, H_HKV, H_D).transpose(1, 2).contiguous()
+    ms = device_ms(lambda: prefill_attention(q, k, v, 0), 200)
+    plain = device_ms(lambda: prefill_attention_plain(q, k, v, 0), 20)
+    lib = device_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                                           enable_gqa=True), 200)
+    b, by = bound(2 * B * S * H_HQ * H_D * 2 + 2 * B * S * H_W * 2,
+                  4 * B * H_HQ * H_D * S * (S + 1) / 2)
+    log(f"time prefill_attention head dim 128 S={S} T={T} ({card}): kernel_ms {ms:.4f} plain_ms "
+        f"{plain:.4f} library_ms {lib:.4f} (SDPA, causal) bound_ms {b:.6f} ({by})")
+    rows.append(dict(name="prefill_attention_hd128", route="cuda",
+                     source="zonos_vibes_tpu_torch/csrc/prefill_attention.cu",
+                     replaces="zonos_vibes_tpu/ops/pallas/prefill_attention.py:111",
+                     launches=solo["launches"]["prefill_attention"],
+                     max_abs_err=errors["prefill_attention_hd128"], ms=ms, plain_ms=plain,
+                     bound_ms=b, bound_by=by, library_ms=lib))
+
+    # Rows 12 and 6 at 16 rows over the pool's 3584 positions.
+    Bp = 2 * POOL_SLOTS
+
+    def pooled_inputs():
+        return dict(q=randn(gen, Bp, 1, H_HQ, H_D), k_cache=randn(gen, H_LA, Bp, POOL_T, H_W),
+                    v_cache=randn(gen, H_LA, Bp, POOL_T, H_W), k_cur=randn(gen, Bp, H_W),
+                    v_cur=randn(gen, Bp, H_W))
+
+    def sdpa_inputs(x, prefix, ring_rows=None):
+        n = [p + (0 if ring_rows is None else r) + 1
+             for p, r in zip(prefix, ring_rows or [0] * Bp)]
+        kg = torch.zeros(Bp, max(n), H_W, dtype=torch.bfloat16, device="cuda")
+        vg = torch.zeros_like(kg)
+        for b_ in range(Bp):
+            for dst, nm in ((kg, "k"), (vg, "v")):
+                parts = [x[nm + "_cache"][3, b_, :prefix[b_]]]
+                if ring_rows is not None:
+                    parts.append(x[nm + "_stage"][3, b_, :ring_rows[b_]])
+                parts.append(x[nm + "_cur"][b_, None])
+                dst[b_, :n[b_]] = torch.cat(parts)
+        mask = (torch.arange(max(n), device="cuda")[None, :]
+                < torch.tensor(n, device="cuda")[:, None])[:, None, None, :]
+
+        def heads(t):
+            return t.view(Bp, max(n), H_HKV, H_D).transpose(1, 2).contiguous()
+
+        return x["q"].transpose(1, 2).contiguous(), heads(kg), heads(vg), mask, sum(n)
+
+    ends = stage_less["prefix_ends"]
+    x = pooled_inputs()
+    pe = torch.tensor(ends, dtype=torch.int32, device="cuda")
+    qg, kg, vg, mask, n_total = sdpa_inputs(x, ends)
+    ms = device_ms(lambda: decode_attention_pooled_unstaged(**x, prefix_ends=pe, layer=3), 200)
+    plain = device_ms(lambda: decode_attention_pooled_unstaged_plain(**x, prefix_ends=pe,
+                                                                     layer=3), 10)
+    lib = device_ms(lambda: F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                                           enable_gqa=True), 200)
+    b, by = bound(2 * n_total * H_W * 2 + 2 * Bp * H_HQ * H_D * 2 + Bp * 4,
+                  4 * H_HQ * H_D * n_total)
+    log(f"time decode_attention_pooled_unstaged B={Bp} T={POOL_T} prefix ends {min(ends)}-"
+        f"{max(ends)} (the stage-less phase's last step) ({card}): kernel_ms {ms:.4f} plain_ms "
+        f"{plain:.4f} library_ms {lib:.4f} (SDPA, per-row mask over gathered K/V) bound_ms "
+        f"{b:.5f} ({by})")
+    rows.append(dict(name="decode_attention_pooled_unstaged", route="cuda",
+                     source="zonos_vibes_tpu_torch/csrc/decode_attention.cu",
+                     replaces="zonos_vibes_tpu/ops/pallas/decode_attention.py:1092",
+                     launches=stage_less["launches"]["decode_attention_pooled_unstaged"],
+                     max_abs_err=errors["decode_attention_pooled_unstaged"], ms=ms,
+                     plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib))
+    del qg, kg, vg
+
+    bases = pool["bases_mid"] * 2
+    lens = [POOL_SEGMENT - 1] * Bp
+    x["k_stage"] = randn(gen, H_LA, Bp, STAGE, H_W)
+    x["v_stage"] = randn(gen, H_LA, Bp, STAGE, H_W)
+    bt = torch.tensor(bases, dtype=torch.int32, device="cuda")
+    lt = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    qg, kg, vg, mask, n_total = sdpa_inputs(x, bases, lens)
+    ms = device_ms(lambda: decode_attention_pooled_staged(**x, bases=bt, lens=lt, layer=3), 200)
+    plain = device_ms(lambda: decode_attention_pooled_staged_plain(**x, bases=bt, lens=lt,
+                                                                   layer=3), 10)
+    lib = device_ms(lambda: F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                                           enable_gqa=True), 200)
+    b, by = bound(2 * n_total * H_W * 2 + 2 * Bp * H_HQ * H_D * 2 + 2 * Bp * 4,
+                  4 * H_HQ * H_D * n_total)
+    log(f"time decode_attention_pooled head dim 128 B={Bp} T={POOL_T} bases {min(bases)}-"
+        f"{max(bases)} (the hybrid pool, all rows joined) ({card}): kernel_ms {ms:.4f} plain_ms "
+        f"{plain:.4f} library_ms {lib:.4f} (SDPA, masked) bound_ms {b:.5f} ({by})")
+    rows.append(dict(name="decode_attention_pooled_hd128", route="cuda",
+                     source="zonos_vibes_tpu_torch/csrc/decode_attention.cu",
+                     replaces="zonos_vibes_tpu/ops/pallas/decode_attention.py:790",
+                     launches=pool["launches"]["decode_attention_pooled"],
+                     max_abs_err=errors["decode_attention_pooled_hd128"], ms=ms, plain_ms=plain,
+                     bound_ms=b, bound_by=by, library_ms=lib))
+    return rows
 
 
 def time_kernels(e2e: dict, errors: dict, card: str) -> list[dict]:
@@ -1118,14 +1824,23 @@ def main() -> int:
     check_backbone_against_cpu(int8=True)
     check_pooled_backbone_against_cpu()
     check_pooled_backbone_against_cpu(int8=True)
+    check_pooled_backbone_against_cpu(ring=False)
     pipe, cond, e2e = run_main_path(card)
+    errors.update(check_hybrid_kernels(_solo_cache_len(e2e["cond_len"])))
+    check_hybrid_backbone_against_cpu()
     pool_bf16 = run_pool(pipe, card, kv_int8=False)
     e2e_int8 = run_int8_path(pipe, cond, card)
     pool_int8 = run_pool(pipe, card, kv_int8=True)
     del pipe
     torch.cuda.empty_cache()
+    pipe, hybrid = run_hybrid_path(card)
+    pool_hybrid = run_pool(pipe, card, kv_int8=False, hybrid=True)
+    stage_less = run_stage_less(pipe, pool_hybrid, card)
+    del pipe
+    torch.cuda.empty_cache()
     rows = (time_kernels(e2e, errors, card) + time_int8_kernels(e2e_int8, errors, card)
-            + time_pool_kernels(pool_bf16, pool_int8, errors, card))
+            + time_pool_kernels(pool_bf16, pool_int8, errors, card)
+            + time_hybrid_kernels(hybrid, pool_hybrid, stage_less, errors, card))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

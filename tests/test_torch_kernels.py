@@ -14,6 +14,11 @@ per-row ring splice) are held to 1e-5 and bit-exactness, at the inputs of
 the JAX package's own tests (``tests/test_pallas_decode.py``,
 ``tests/test_stage_write.py``) plus a row with a full-but-one ring; the
 port's prefix positions at or past each row's base are poisoned with NaN.
+
+The stage-less kernels (``decode_attention_pallas``, one position for every
+row, and ``decode_attention_pallas_pooled``, per-row prefix ends with the
+current column folded in) are held to 1e-5 at head dims 16 and 128 (the
+hybrid's), NaN past each bound; rows 3 and 6 at head dim 128 too.
 """
 
 import jax.numpy as jnp
@@ -22,7 +27,9 @@ import pytest
 import torch
 
 from zonos_vibes_tpu.ops.pallas.decode_attention import (
+    decode_attention_pallas,
     decode_attention_pallas_layered,
+    decode_attention_pallas_pooled,
     decode_attention_pallas_pooled_staged,
     decode_attention_pallas_pooled_staged_q,
 )
@@ -34,6 +41,8 @@ from zonos_vibes_tpu_torch.ops.cuda.decode_attention import (
     decode_attention_layered,
     decode_attention_pooled_staged,
     decode_attention_pooled_staged_q,
+    decode_attention_pooled_unstaged,
+    decode_attention_unstaged,
 )
 from zonos_vibes_tpu_torch.ops.cuda.prefill_attention import prefill_attention
 from zonos_vibes_tpu_torch.ops.cuda.stage_write import stage_splice, stage_splice_rows
@@ -243,3 +252,102 @@ def test_pooled_wrappers_reject_wrong_inputs(pooled_inputs):
         stage_splice_rows(stage, torch.zeros(L, P_B, W, dtype=torch.float64), lens)
     with pytest.raises(ValueError):  # int64 slots
         stage_splice_rows(stage, torch.zeros(L, P_B, W), lens.long())
+
+
+def _to_time_minor(x, hkv):
+    """Port ``[..., T, Hkv*D]`` -> JAX ``[..., Hkv, D, T]`` at any head dim."""
+    *lead, t, w = x.shape
+    return np.moveaxis(x.reshape(*lead, t, hkv, w // hkv), -3, -1)
+
+
+@pytest.mark.parametrize("head_dim", [16, 128])
+@pytest.mark.parametrize("seq_end,layer", [(1, 0), (100, 1), (129, 0), (256, 1)])
+def test_decode_attention_unstaged_plain_matches_pallas(head_dim, seq_end, layer):
+    """Row 11: every row attends ``[0, seq_end)`` of one layer."""
+    rng = np.random.default_rng(seq_end + head_dim)
+    Hq, Hkv, T, Bq = 4, 2, 256, 2
+    q = rng.standard_normal((Bq, 1, Hq, head_dim)).astype(np.float32)
+    kc = rng.standard_normal((L, Bq, T, Hkv * head_dim)).astype(np.float32)
+    vc = rng.standard_normal((L, Bq, T, Hkv * head_dim)).astype(np.float32)
+    want = decode_attention_pallas(
+        jnp.asarray(q), jnp.asarray(_to_time_minor(kc[layer], Hkv)),
+        jnp.asarray(_to_time_minor(vc[layer], Hkv)), jnp.int32(seq_end), block=128,
+        interpret=True)
+    kp, vp = kc.copy(), vc.copy()
+    kp[:, :, seq_end:] = np.nan
+    vp[:, :, seq_end:] = np.nan
+    before = dict(build.LAUNCHES)
+    got = decode_attention_unstaged(torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
+                                    torch.tensor([seq_end], dtype=torch.int32), layer)
+    assert build.LAUNCHES == before
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **P_TOL)
+
+
+@pytest.mark.parametrize("head_dim", [16, 128])
+@pytest.mark.parametrize("layer", [0, L - 1])
+def test_decode_attention_pooled_unstaged_plain_matches_pallas(head_dim, layer):
+    """Row 12: row ``b`` attends ``[0, prefix_ends[b])`` and its column."""
+    rng = np.random.default_rng(head_dim + layer)
+    Hq, Hkv, T = 4, 2, 256
+    ends = np.array([40, 0, 201, 255], np.int32)
+    Bp, W2 = len(ends), Hkv * head_dim
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    q, kc, vc, kcur, vcur = f(Bp, 1, Hq, head_dim), f(L, Bp, T, W2), f(L, Bp, T, W2), f(Bp, W2), f(Bp, W2)
+    want = decode_attention_pallas_pooled(
+        jnp.asarray(q), jnp.asarray(_to_time_minor(kc, Hkv)), jnp.asarray(_to_time_minor(vc, Hkv)),
+        jnp.asarray(kcur.reshape(Bp, Hkv, head_dim, 1)), jnp.asarray(vcur.reshape(Bp, Hkv, head_dim, 1)),
+        jnp.asarray(ends), jnp.int32(layer), block=128, interpret=True)
+    kp, vp = kc.copy(), vc.copy()
+    for b, e in enumerate(ends):
+        kp[:, b, e:] = np.nan
+        vp[:, b, e:] = np.nan
+    before = dict(build.LAUNCHES)
+    got = decode_attention_pooled_unstaged(
+        torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp), torch.from_numpy(kcur),
+        torch.from_numpy(vcur), torch.from_numpy(ends), layer)
+    assert build.LAUNCHES == before
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **P_TOL)
+
+
+def test_head_dim_128_pooled_staged_and_prefill_plain_match_pallas():
+    """Rows 6 and 3 at the hybrid's head dim (128, 4 query and 2 KV heads)."""
+    rng = np.random.default_rng(21)
+    Hq, Hkv, Dh = 4, 2, 128
+    W2 = Hkv * Dh
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    q, kc, vc = f(P_B, 1, Hq, Dh), f(L, P_B, P_T, W2), f(L, P_B, P_T, W2)
+    ks, vs, kcur, vcur = f(L, P_B, P_STAGE, W2), f(L, P_B, P_STAGE, W2), f(P_B, W2), f(P_B, W2)
+    want = decode_attention_pallas_pooled_staged(
+        jnp.asarray(q), jnp.asarray(_to_time_minor(kc, Hkv)), jnp.asarray(_to_time_minor(vc, Hkv)),
+        jnp.asarray(ks), jnp.asarray(vs), jnp.asarray(kcur.reshape(P_B, Hkv, Dh, 1)),
+        jnp.asarray(vcur.reshape(P_B, Hkv, Dh, 1)), jnp.asarray(P_BASES), jnp.asarray(P_LENS),
+        jnp.int32(1), block=128, interpret=True)
+    got = decode_attention_pooled_staged(
+        *(torch.from_numpy(a) for a in (q, kc, vc, ks, vs, kcur, vcur)),
+        bases=torch.from_numpy(P_BASES), lens=torch.from_numpy(P_LENS), layer=1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **P_TOL)
+
+    S, offset, Tp = 37, 64, 256
+    q, k, v = f(2, S, Hq, Dh), f(2, Tp, W2), f(2, Tp, W2)
+    want = prefill_attention_pallas(
+        jnp.asarray(q), jnp.asarray(_to_time_minor(k, Hkv)), jnp.asarray(_to_time_minor(v, Hkv)),
+        jnp.int32(offset), block_q=64, block_k=128, interpret=True)
+    got = prefill_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), offset)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_unstaged_wrappers_reject_wrong_inputs():
+    q = torch.zeros(2, 1, 4, 16)
+    kv = torch.zeros(2, 2, 64, 32)
+    with pytest.raises(ValueError):  # two scalars where (seq_end,) is expected
+        decode_attention_unstaged(q, kv, kv, torch.tensor([4, 1], dtype=torch.int32), 0)
+    with pytest.raises(ValueError):  # layer out of range
+        decode_attention_unstaged(q, kv, kv, torch.tensor([4], dtype=torch.int32), 2)
+    with pytest.raises(ValueError):  # int64 prefix ends
+        decode_attention_pooled_unstaged(q, kv, kv, torch.zeros(2, 32), torch.zeros(2, 32),
+                                         torch.tensor([3, 4]), 0)
+    with pytest.raises(ValueError):  # layer out of range
+        decode_attention_pooled_unstaged(q, kv, kv, torch.zeros(2, 32), torch.zeros(2, 32),
+                                         torch.tensor([3, 4], dtype=torch.int32), 2)

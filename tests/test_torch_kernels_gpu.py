@@ -2,7 +2,9 @@
 
 Flagship shapes (26 layers, CFG batch 2, 32 query heads, 8 KV heads, head
 dim 64), bf16; the pool's kernels at the 8-slot pool's (16 CFG rows, cache
-length 3584). Run on a machine with an NVIDIA GPU:
+length 3584); the hybrid's (6 attention layers, 16 query and 4 KV heads,
+head dim 128; 42 Mamba-2 layers with a [B, 128, 4096] state). Run on a
+machine with an NVIDIA GPU:
 
     python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q
 
@@ -24,6 +26,15 @@ from zonos_vibes_tpu_torch.ops.cuda.decode_attention import (
     decode_attention_pooled_staged_plain,
     decode_attention_pooled_staged_q,
     decode_attention_pooled_staged_q_plain,
+    decode_attention_pooled_unstaged,
+    decode_attention_pooled_unstaged_plain,
+    decode_attention_unstaged,
+    decode_attention_unstaged_plain,
+)
+from zonos_vibes_tpu_torch.ops.cuda.mamba_step import (
+    ssd_gate_step,
+    ssd_gate_step_layered,
+    ssd_gate_step_layered_plain,
 )
 from zonos_vibes_tpu_torch.ops.cuda.prefill_attention import (
     prefill_attention,
@@ -309,4 +320,156 @@ def test_pooled_wrappers_raise_on_wrong_dtypes_on_cuda(dev, pooled_inputs):
     with pytest.raises(ValueError):
         stage_splice_rows(pooled_inputs["k_stage"], pooled_inputs["k_stage"][:, :, 0].contiguous(),
                           pooled_inputs["lens"].long())
+    assert build.LAUNCHES == before
+
+
+# The hybrid: 6 attention layers of 16 query and 4 KV heads at head dim 128
+# (W = 512), 42 Mamba-2 layers with d_state 128 and d_inner 4096 (64 heads).
+H_L, H_HQ, H_HKV, H_D = 6, 16, 4, 128
+H_W = H_HKV * H_D
+M_LAYERS, M_N, M_HP, M_H = 42, 128, 4096, 64
+# bf16 output of the gated norm (2^-8 relative, outputs up to ~4): the
+# kernel and its plain version run the same fp32 chain in another order.
+SSM_TOL = dict(rtol=2e-2, atol=2e-2)
+
+
+def _ssd_inputs(gen, B, dev, state_dtype, planes=M_LAYERS):
+    f = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    states = torch.full((planes, B, M_N, M_HP), float("nan"), device=dev, dtype=state_dtype)
+    dt = torch.nn.functional.softplus(f(B, M_H))
+    return states, dict(xs=f(B, M_HP).bfloat16(), dt=dt, decay=torch.exp(-dt),
+                        bm=f(B, M_N) * 0.3, cm=f(B, M_N) * 0.3, z=f(B, M_HP).bfloat16(),
+                        d_skip=f(M_H), norm_w=(1.0 + 0.1 * f(M_HP)).bfloat16())
+
+
+@pytest.mark.parametrize("B", [2, 16])
+@pytest.mark.parametrize("state_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layer", [0, 17, M_LAYERS - 1])
+def test_ssd_gate_step_layered_kernel(dev, B, state_dtype, layer):
+    """Plane ``layer`` updated in place against the plain version; every
+    other plane (NaN) untouched."""
+    gen = torch.Generator(device=dev).manual_seed(B + layer)
+    states, x = _ssd_inputs(gen, B, dev, state_dtype)
+    states[layer] = torch.randn(B, M_N, M_HP, generator=gen, device=dev).to(state_dtype)
+    want_states = states[layer:layer + 1].clone()
+    want = ssd_gate_step_layered_plain(want_states, 0, **x)
+    before = build.LAUNCHES["ssd_gate_step"]
+    got = ssd_gate_step_layered(states, layer, **x)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["ssd_gate_step"] == before + 1
+    assert got.shape == (B, M_HP) and got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), **SSM_TOL)
+    # fp32 state: the same update in another rounding order; bf16: one step.
+    stol = dict(rtol=1e-5, atol=1e-5) if state_dtype == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(states[layer].float(), want_states[0].float(), **stol)
+    others = torch.cat([states[:layer], states[layer + 1:]])
+    assert torch.isnan(others).all()
+
+
+def test_ssd_gate_step_single_state_kernel(dev):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    states, x = _ssd_inputs(gen, 2, dev, torch.float32, planes=1)
+    state = torch.randn(2, M_N, M_HP, generator=gen, device=dev)
+    ref = state.clone()[None]
+    want = ssd_gate_step_layered_plain(ref, 0, **x)
+    got = ssd_gate_step(state, **x)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **SSM_TOL)
+    torch.testing.assert_close(state, ref[0], rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def hybrid_cache(dev):
+    gen = torch.Generator(device=dev).manual_seed(12)
+    T = 3584
+    return dict(k_cache=_randn(gen, H_L, POOL_B, T, H_W, dev=dev),
+                v_cache=_randn(gen, H_L, POOL_B, T, H_W, dev=dev),
+                q=_randn(gen, POOL_B, 1, H_HQ, H_D, dev=dev),
+                k_cur=_randn(gen, POOL_B, H_W, dev=dev), v_cur=_randn(gen, POOL_B, H_W, dev=dev))
+
+
+@pytest.mark.parametrize("seq_end", [1, 255, 256, 536, 3584])
+@pytest.mark.parametrize("layer", [0, H_L - 1])
+def test_decode_attention_unstaged_kernel(dev, hybrid_cache, seq_end, layer):
+    """Row 11 at the solo hybrid's shapes (2 rows), NaN past seq_end."""
+    x = hybrid_cache
+    k = x["k_cache"][:, :2].clone()
+    v = x["v_cache"][:, :2].clone()
+    k[:, :, seq_end:] = float("nan")
+    v[:, :, seq_end:] = float("nan")
+    q = x["q"][:2].contiguous()
+    sc = torch.tensor([seq_end], dtype=torch.int32, device=dev)
+    before = build.LAUNCHES["decode_attention_unstaged"]
+    got = decode_attention_unstaged(q, k, v, sc, layer)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["decode_attention_unstaged"] == before + 1
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(),
+                               decode_attention_unstaged_plain(q, k, v, sc, layer).float(), **TOL)
+
+
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("layer", [0, 5])
+def test_decode_attention_pooled_unstaged_kernel(dev, hybrid_cache, head_dim, layer):
+    """Row 12: 16 rows at their own prefix ends, NaN at and past each; head
+    dim 128 (the hybrid's 4 KV heads) and 64 (8 KV heads, the transformer)."""
+    x = {k: v.clone() for k, v in hybrid_cache.items()}
+    if head_dim == 64:
+        x["q"] = x["q"].reshape(POOL_B, 1, 2 * H_HQ, 64)
+    ends = POOL_BASES
+    for b, e in enumerate(ends):
+        x["k_cache"][:, b, e:] = float("nan")
+        x["v_cache"][:, b, e:] = float("nan")
+    pe = torch.tensor(ends, dtype=torch.int32, device=dev)
+    before = build.LAUNCHES["decode_attention_pooled_unstaged"]
+    got = decode_attention_pooled_unstaged(**x, prefix_ends=pe, layer=layer)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["decode_attention_pooled_unstaged"] == before + 1
+    want = decode_attention_pooled_unstaged_plain(**x, prefix_ends=pe, layer=layer)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+    _assert_rows_close(got, want, POOL_ROW_TOL["bf16"])
+
+
+@pytest.mark.parametrize("layer", [0, H_L - 1])
+def test_decode_attention_pooled_kernel_head_dim_128(dev, hybrid_cache, layer):
+    """Row 6 at the hybrid pool's shapes."""
+    gen = torch.Generator(device=dev).manual_seed(layer)
+    x = {k: v.clone() for k, v in hybrid_cache.items()}
+    x["k_stage"] = _randn(gen, H_L, POOL_B, STAGE, H_W, dev=dev)
+    x["v_stage"] = _randn(gen, H_L, POOL_B, STAGE, H_W, dev=dev)
+    for b, base in enumerate(POOL_BASES):
+        x["k_cache"][:, b, base:] = float("nan")
+        x["v_cache"][:, b, base:] = float("nan")
+    bases = torch.tensor(POOL_BASES, dtype=torch.int32, device=dev)
+    lens = torch.tensor(POOL_LENS, dtype=torch.int32, device=dev)
+    got = decode_attention_pooled_staged(**x, bases=bases, lens=lens, layer=layer)
+    torch.cuda.synchronize()
+    want = decode_attention_pooled_staged_plain(**x, bases=bases, lens=lens, layer=layer)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+    _assert_rows_close(got, want, POOL_ROW_TOL["bf16"])
+
+
+@pytest.mark.parametrize("S,offset", [(7, 0), (97, 64), (88, 0), (600, 0)])
+def test_prefill_attention_kernel_head_dim_128(dev, S, offset):
+    gen = torch.Generator(device=dev).manual_seed(S)
+    q = _randn(gen, B, S, H_HQ, H_D, dev=dev)
+    k = _randn(gen, B, 768, H_W, dev=dev)
+    v = _randn(gen, B, 768, H_W, dev=dev)
+    got = prefill_attention(q, k, v, offset)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), prefill_attention_plain(q, k, v, offset).float(), **TOL)
+
+
+def test_hybrid_wrappers_raise_on_wrong_dtypes_on_cuda(dev):
+    gen = torch.Generator(device=dev).manual_seed(1)
+    states, x = _ssd_inputs(gen, 2, dev, torch.float32, planes=2)
+    before = dict(build.LAUNCHES)
+    with pytest.raises(ValueError):  # fp32 activations
+        ssd_gate_step_layered(states, 0, **{**x, "xs": x["xs"].float()})
+    with pytest.raises(ValueError):  # plane out of range
+        ssd_gate_step_layered(states, 2, **x)
+    with pytest.raises(ValueError):  # an fp16 state
+        ssd_gate_step_layered(states.half(), 0, **x)
     assert build.LAUNCHES == before

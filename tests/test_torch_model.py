@@ -184,6 +184,37 @@ def test_backbone_prefill_and_staged_decode(tiny_pair):
                                    np.asarray(jcache[name + "_stage"]), **TOL)
 
 
+def test_stage_less_pooled_decode_matches_jax(tiny_pair):
+    """The transformer's pooled decode without a ring (JAX's
+    ``transformer_forward(pooled=True)`` without ``pool_base``): three rows
+    at their own positions over a shared prefill, 4 steps; hidden states,
+    then the cache, whose columns land at each row's position."""
+    jmodel, jparams, tmodel, tparams = tiny_pair
+    cfg_j, cfg_t = jmodel.config.backbone, tmodel.config.backbone
+    rng = np.random.default_rng(4)
+    B, T = 3, 24
+    jcache = jmodel.allocate_cache(B, T, jnp.float32)
+    tcache = tmodel.allocate_cache(B, T, torch.float32, "cpu")
+    table = rope_table(16)
+    jfwd = jax.jit(functools.partial(jbb.transformer_forward, cfg=cfg_j))
+    jpooled = jax.jit(functools.partial(jbb.transformer_forward, cfg=cfg_j, pooled=True))
+    x = rng.standard_normal((B, 10, 64)).astype(np.float32)
+    _, jcache = jfwd(jparams["backbone"], hidden=jnp.asarray(x), cache=jcache,
+                     offset=jnp.int32(0), lengths_per_sample=jnp.zeros((B,), jnp.int32))
+    tbb.transformer_forward(tparams["backbone"], cfg_t, torch.from_numpy(x), tcache, 0, table)
+    pos = np.array([10, 6, 8], np.int32)
+    for step in range(4):
+        x = rng.standard_normal((B, 1, 64)).astype(np.float32)
+        want, jcache = jpooled(jparams["backbone"], hidden=jnp.asarray(x), cache=jcache,
+                               offset=jnp.int32(0), lengths_per_sample=jnp.asarray(pos))
+        got = tbb.transformer_forward(tparams["backbone"], cfg_t, torch.from_numpy(x), tcache, 0,
+                                      table, positions=torch.from_numpy(pos).long())
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL, err_msg=f"step {step}")
+        pos = pos + 1
+    for name in ("k", "v"):
+        np.testing.assert_allclose(tcache[name].numpy(), _to_port_cache(jcache[name]), **TOL)
+
+
 def test_dac_decode():
     tiny = dict(encoder_hidden_size=16, downsampling_ratios=(2, 4), decoder_hidden_size=64,
                 n_codebooks=3, codebook_size=32, codebook_dim=4)

@@ -374,14 +374,18 @@ def test_pool_emit_matches_jax(staggered, weights):
 
 
 def test_hybrid_and_state_bf16_raise():
+    """``state_bf16`` is hybrid-only (a transformer cache has no SSM state),
+    and the hybrid pool refuses int8 KV, as in JAX; the hybrid pool itself
+    runs (``tests/test_torch_hybrid_pool.py``)."""
     model = ZonosModel(TTINY)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         tpool.make_pool(model, tpool.PoolConfig(**PC), torch.float32, state_bf16=True,
                         device="cpu")
     hybrid = dataclasses.replace(
         TTINY, backbone=dataclasses.replace(TTINY.backbone, ssm_cfg=tcfg._freeze({"d_state": 16})))
     with pytest.raises(NotImplementedError):
-        tpool.make_pool(ZonosModel(hybrid), tpool.PoolConfig(**PC), torch.float32, device="cpu")
+        tpool.make_pool(ZonosModel(hybrid), tpool.PoolConfig(**PC), torch.float32, kv_int8=True,
+                        device="cpu")
 
 
 def test_pool_entry_points_default_to_cuda():

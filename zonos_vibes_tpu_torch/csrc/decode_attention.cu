@@ -1,6 +1,7 @@
-// Staged single-query GQA flash-decode for one layer of the stacked KV cache,
-// with a bf16 or an int8 flushed prefix, for one sequence position shared by
-// every row or for per-row positions (the continuous-batching pool).
+// Single-query GQA flash-decode for one layer of the stacked KV cache, with a
+// bf16 or an int8 flushed prefix, with or without a stage, for one sequence
+// position shared by every row or for per-row positions (the
+// continuous-batching pool), at head dim 64 or 128.
 //
 // Replaces: zonos_vibes_tpu/ops/pallas/decode_attention.py::
 //   decode_attention_pallas_layered (a TPU grid (B, nT) that walks the
@@ -16,11 +17,17 @@
 //   own ring stage and its current column. The pool's ring stage is the
 //   same [L, B, STAGE, W] buffer as the solo stage (ring slot pos - base),
 //   so they are the same kernels with per-row (flushed_end, stage_len).
+//   And the two kernels without a stage: decode_attention_pallas (plain
+//   flash-decode over [0, seq_end) of one layer, the current column already
+//   written: the hybrid backbone's solo decode) and
+//   decode_attention_pallas_pooled (row b attends [0, prefix_end_b) and its
+//   current column, folded in at the end: the stage-less pooled decode of
+//   either backbone). They are the same kernels with no stage rows.
 //
 // What bounds it on the H100: device-memory bytes. One call must read the
 // flushed prefix [0, flushed_end) and the stage rows [0, stage_len) of one
-// layer, K and V, B * Hkv * 64 bf16 values per position, plus the current
-// column. It does 4 * Hq * 64 flops per position, about one flop per byte,
+// layer, K and V, B * Hkv * D bf16 values per position, plus the current
+// column. It does 4 * Hq * D flops per position, about one flop per byte,
 // far below the ~295 flops per byte where the tensor cores become the limit.
 // At 5 s of audio the bytes are ~1 MB a layer, so the launch itself dominates.
 // The int8 prefix halves the prefix bytes and adds 8 bytes of scales per
@@ -33,7 +40,8 @@
 //    share every K/V load. B * Hkv is only 16 at CFG batch 2, so the flushed
 //    prefix is also cut into fixed chunks of CHUNK positions, one block each,
 //    to put enough blocks on the 132 SMs at 30 s depth. The last split takes
-//    the stage rows and the current column.
+//    the stage rows and the current column (nothing, for the plain
+//    stage-less kernel, whose current column is in the prefix).
 //  * The grid depends only on the cache length T, never on flushed_end or
 //    stage_len, which are read from device memory: the launch is fit for
 //    graph capture. Chunks at or past flushed_end return at once, so the
@@ -42,26 +50,29 @@
 //    device int32 [B] tensors and the layer is a launch argument; a chunk at
 //    or past base_b writes a neutral partial (the empty max, sum 0) and
 //    reads nothing, so rows at different depths share one launch.
-//  * Inside a block every warp is four independent 8-lane decoders: a lane
-//    holds 8 of the 64 dims of one position (one 16-byte load of K and of V),
-//    three shuffles finish a dot product, and each decoder keeps its own fp32
-//    running max, sum and accumulator. The 16 decoders of a block merge in
-//    shared memory into one partial (acc, max, sum) per query head; a second
-//    small kernel merges the splits and writes bf16.
+//  * Inside a block every warp holds 32 / (D / 8) independent decoders
+//    (4 at D = 64, 2 at D = 128): a lane holds 8 of the D dims of one
+//    position (one 16-byte load of K and of V), a few shuffles finish a dot
+//    product, and each decoder keeps its own fp32 running max, sum and
+//    accumulator. The decoders of a block merge in shared memory into one
+//    partial (acc, max, sum) per query head; a second small kernel merges
+//    the splits and writes bf16.
 //  * The int8 variant (template flag QUANT) differs only in the prefix
 //    splits: a lane loads 8 int8 values (8 bytes) of K and of V, and its
 //    decoder loads the position's two fp32 scales; all math stays fp32.
 //    Scales are read only for positions below flushed_end.
 //
 // Layouts (row-major, bf16 unless noted):
-//   q       [B, Hq, 64]              k_cache, v_cache [L, B, T, Hkv * 64]
-//   k_stage, v_stage [L, B, STAGE, Hkv * 64]
-//   int8 variant: k_cache, v_cache int8 [L, B, T, Hkv * 64],
+//   q       [B, Hq, D]               k_cache, v_cache [L, B, T, Hkv * D]
+//   k_stage, v_stage [L, B, STAGE, Hkv * D]
+//   int8 variant: k_cache, v_cache int8 [L, B, T, Hkv * D],
 //                 k_scale, v_scale fp32 [L, B, T, Hkv]
-//   k_cur, v_cur [B, Hkv * 64]
-//   one position for every row: scalars int32 [3]: flushed_end, stage_len, layer
-//   per-row positions: bases, lens int32 [B]; layer a launch argument
-//   part    fp32 [B, Hkv, nsplit, G, 66]   out [B, Hq, 64]
+//   k_cur, v_cur [B, Hkv * D]
+//   one position for every row: scalars int32 [3]: flushed_end, stage_len,
+//     layer (without a stage: [2]: seq_end, layer)
+//   per-row positions: bases (prefix ends), lens int32 [B]; layer a launch
+//     argument
+//   part    fp32 [B, Hkv, nsplit, G, D + 2]   out [B, Hq, D]
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,13 +82,10 @@
 
 namespace {
 
-constexpr int HEAD_DIM = 64;
 constexpr int DIMS_PER_LANE = 8;
-constexpr int ROWS_PER_WARP = 32 / (HEAD_DIM / DIMS_PER_LANE);  // 4
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 constexpr int CHUNK = 256;
-constexpr int PART = HEAD_DIM + 2;
 constexpr int MAX_G = 8;
 // Finite sentinel for an empty running max: exp(NEG_BIG - NEG_BIG) is 1 and
 // multiplies a zero sum, so merging empty states never produces NaN.
@@ -101,12 +109,17 @@ __device__ __forceinline__ void load8(const int8_t* p, float* out) {
   for (int i = 0; i < 8; ++i) out[i] = static_cast<float>(c[i]);
 }
 
-// PrefixT is __nv_bfloat16 for the exact cache and int8_t for the int8 one
-// (then k_scale and v_scale are read; otherwise they may be null). Without
-// POOLED, scalars holds (flushed_end, stage_len, layer) for every row and
-// lens and layer_arg are unused; with POOLED, scalars holds the per-row
-// bases and lens the per-row stage lengths, clamped to the buffers.
-template <int G, typename PrefixT, bool POOLED>
+// D is the head dim (64 or 128). PrefixT is __nv_bfloat16 for the exact
+// cache and int8_t for the int8 one (then k_scale and v_scale are read;
+// otherwise they may be null). STAGED kernels attend stage rows and the
+// current column in their last split; without a stage the pooled kernel
+// attends only the current column there and the one-position kernel nothing
+// (its scalars are (seq_end)). Without POOLED, scalars holds the position
+// shared by every row and lens is unused; with POOLED, scalars holds the
+// per-row bases and lens the per-row stage lengths (unused without a stage),
+// clamped to the buffers. Every kernel but the staged one-position kernels
+// (whose scalars carry the layer) takes the layer as layer_arg.
+template <int D, int G, typename PrefixT, bool POOLED, bool STAGED>
 __global__ void __launch_bounds__(THREADS) decode_split_kernel(
     const __nv_bfloat16* __restrict__ q,
     const PrefixT* __restrict__ k_cache,
@@ -122,24 +135,31 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
     float* __restrict__ part,
     int B, int Hkv, int T, int stage_depth, int nsplit, float scale, int layer_arg) {
   constexpr bool QUANT = std::is_same<PrefixT, int8_t>::value;
+  constexpr bool HAS_CUR = STAGED || POOLED;
+  constexpr int LANES = D / DIMS_PER_LANE;  // lanes per position
+  constexpr int ROWS_PER_WARP = 32 / LANES;
+  constexpr int PART = D + 2;
   const int split = blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int W = Hkv * HEAD_DIM;
-  int flushed_end, stage_len, layer;
+  const int W = Hkv * D;
+  int flushed_end, stage_len = 0, layer;
   if constexpr (POOLED) {
     flushed_end = min(max(scalars[b], 0), T);
-    stage_len = min(max(lens[b], 0), stage_depth);
+    if constexpr (STAGED) stage_len = min(max(lens[b], 0), stage_depth);
     layer = layer_arg;
-  } else {
+  } else if constexpr (STAGED) {
     flushed_end = scalars[0];
     stage_len = scalars[1];
     layer = scalars[2];
+  } else {
+    flushed_end = min(max(scalars[0], 0), T);
+    layer = layer_arg;
   }
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int sub = lane / (HEAD_DIM / DIMS_PER_LANE);
-  const int dim0 = (lane % (HEAD_DIM / DIMS_PER_LANE)) * DIMS_PER_LANE;
+  const int sub = lane / LANES;
+  const int dim0 = (lane % LANES) * DIMS_PER_LANE;
 
   // Rows this split attends: a prefix chunk, or the stage plus the current
   // column (row index n of the last split).
@@ -157,13 +177,13 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
     n = stage_len;
     row0 = ((size_t)layer * B + b) * (size_t)stage_depth * W;
   }
-  const int total = n + (prefix ? 0 : 1);
-  const int col = h * HEAD_DIM + dim0;
+  const int total = n + ((prefix || !HAS_CUR) ? 0 : 1);
+  const int col = h * D + dim0;
 
   float qr[G][DIMS_PER_LANE];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    load8(q + ((size_t)b * Hkv * G + h * G + g) * HEAD_DIM + dim0, qr[g]);
+    load8(q + ((size_t)b * Hkv * G + h * G + g) * D + dim0, qr[g]);
 #pragma unroll
     for (int d = 0; d < DIMS_PER_LANE; ++d) qr[g][d] *= scale;
   }
@@ -193,7 +213,7 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
           ks = k_scale[srow0 + (size_t)i * Hkv];
           vs = v_scale[srow0 + (size_t)i * Hkv];
         }
-      } else if (i < n) {
+      } else if (STAGED && i < n) {
         load8(k_stage + off, kr);
         load8(v_stage + off, vr);
       } else {
@@ -213,7 +233,7 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
       s[g] = acc_s;
     }
 #pragma unroll
-    for (int off = 1; off < HEAD_DIM / DIMS_PER_LANE; off <<= 1) {
+    for (int off = 1; off < LANES; off <<= 1) {
 #pragma unroll
       for (int g = 0; g < G; ++g) s[g] += __shfl_xor_sync(0xffffffffu, s[g], off);
     }
@@ -233,9 +253,9 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
     }
   }
 
-  // Merge the four decoders of the warp (lanes with the same dims).
+  // Merge the decoders of the warp (lanes with the same dims).
 #pragma unroll
-  for (int off = HEAD_DIM / DIMS_PER_LANE; off < 32; off <<= 1) {
+  for (int off = LANES; off < 32; off <<= 1) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       const float mo = __shfl_xor_sync(0xffffffffu, m[g], off);
@@ -254,7 +274,7 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
   }
 
   // Merge the warps in shared memory and write this split's partial.
-  __shared__ float sm_acc[WARPS][MAX_G][HEAD_DIM];
+  __shared__ float sm_acc[WARPS][MAX_G][D];
   __shared__ float sm_m[WARPS][MAX_G];
   __shared__ float sm_l[WARPS][MAX_G];
   if (sub == 0) {
@@ -270,9 +290,9 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
   }
   __syncthreads();
   float* dst = part + (((size_t)b * Hkv + h) * nsplit + split) * G * PART;
-  for (int e = threadIdx.x; e < G * HEAD_DIM; e += THREADS) {
-    const int g = e / HEAD_DIM;
-    const int d = e % HEAD_DIM;
+  for (int e = threadIdx.x; e < G * D; e += THREADS) {
+    const int g = e / D;
+    const int d = e % D;
     float mx = NEG_BIG;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, sm_m[w][g]);
@@ -285,31 +305,33 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
     }
     dst[g * PART + d] = a;
     if (d == 0) {
-      dst[g * PART + HEAD_DIM] = mx;
-      dst[g * PART + HEAD_DIM + 1] = sum;
+      dst[g * PART + D] = mx;
+      dst[g * PART + D + 1] = sum;
     }
   }
 }
 
-// Merges the splits of one (kv head, batch row): thread (g, d) of G * 64.
+// Merges the splits of one (kv head, batch row): thread (g, d) of G * D.
+template <int D>
 __global__ void decode_combine_kernel(const float* __restrict__ part,
                                       __nv_bfloat16* __restrict__ out,
                                       int Hkv, int G, int nsplit) {
+  constexpr int PART = D + 2;
   const int h = blockIdx.x;
   const int b = blockIdx.y;
-  const int g = threadIdx.x / HEAD_DIM;
-  const int d = threadIdx.x % HEAD_DIM;
+  const int g = threadIdx.x / D;
+  const int d = threadIdx.x % D;
   const float* src = part + ((size_t)b * Hkv + h) * nsplit * G * PART;
   float mx = NEG_BIG;
-  for (int s = 0; s < nsplit; ++s) mx = fmaxf(mx, src[(s * G + g) * PART + HEAD_DIM]);
+  for (int s = 0; s < nsplit; ++s) mx = fmaxf(mx, src[(s * G + g) * PART + D]);
   float a = 0.f, sum = 0.f;
   for (int s = 0; s < nsplit; ++s) {
     const float* p = src + (s * G + g) * PART;
-    const float f = expf(p[HEAD_DIM] - mx);
+    const float f = expf(p[D] - mx);
     a += p[d] * f;
-    sum += p[HEAD_DIM + 1] * f;
+    sum += p[D + 1] * f;
   }
-  out[((size_t)b * Hkv * G + h * G + g) * HEAD_DIM + d] = __float2bfloat16(a / sum);
+  out[((size_t)b * Hkv * G + h * G + g) * D + d] = __float2bfloat16(a / sum);
 }
 
 }  // namespace
@@ -318,20 +340,17 @@ extern "C" int zvt_decode_attention_nsplit(int T) { return (T + CHUNK - 1) / CHU
 
 namespace {
 
-template <typename PrefixT, bool POOLED>
+template <int D, typename PrefixT, bool POOLED, bool STAGED>
 int launch(const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
            const void* v_scale, const void* k_stage, const void* v_stage, const void* k_cur,
            const void* v_cur, const void* scalars, const void* lens, void* part, void* out,
-           int B, int Hq, int Hkv, int T, int stage_depth, int head_dim, int layer,
-           void* stream) {
-  if (head_dim != HEAD_DIM || Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
+           int B, int Hq, int Hkv, int T, int stage_depth, int layer, cudaStream_t s) {
   const int G = Hq / Hkv;
   const int nsplit = zvt_decode_attention_nsplit(T);
-  const float scale = 1.0f / sqrtf((float)HEAD_DIM);
+  const float scale = 1.0f / sqrtf((float)D);
   const dim3 grid(nsplit, Hkv, B);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ZVT_SPLIT(GV)                                                                       \
-  decode_split_kernel<GV, PrefixT, POOLED><<<grid, THREADS, 0, s>>>(                        \
+  decode_split_kernel<D, GV, PrefixT, POOLED, STAGED><<<grid, THREADS, 0, s>>>(             \
       static_cast<const __nv_bfloat16*>(q), static_cast<const PrefixT*>(k_cache),           \
       static_cast<const PrefixT*>(v_cache), static_cast<const float*>(k_scale),             \
       static_cast<const float*>(v_scale), static_cast<const __nv_bfloat16*>(k_stage),       \
@@ -349,9 +368,29 @@ int launch(const void* q, const void* k_cache, const void* v_cache, const void* 
 #undef ZVT_SPLIT
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  decode_combine_kernel<<<dim3(Hkv, B), G * HEAD_DIM, 0, s>>>(
+  decode_combine_kernel<D><<<dim3(Hkv, B), G * D, 0, s>>>(
       static_cast<const float*>(part), static_cast<__nv_bfloat16*>(out), Hkv, G, nsplit);
   return (int)cudaGetLastError();
+}
+
+// Dispatch on the head dim (64 or 128).
+template <typename PrefixT, bool POOLED, bool STAGED>
+int launch_any(const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
+               const void* v_scale, const void* k_stage, const void* v_stage, const void* k_cur,
+               const void* v_cur, const void* scalars, const void* lens, void* part, void* out,
+               int B, int Hq, int Hkv, int T, int stage_depth, int head_dim, int layer,
+               void* stream) {
+  if (Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim == 64)
+    return launch<64, PrefixT, POOLED, STAGED>(q, k_cache, v_cache, k_scale, v_scale, k_stage,
+                                               v_stage, k_cur, v_cur, scalars, lens, part, out,
+                                               B, Hq, Hkv, T, stage_depth, layer, s);
+  if (head_dim == 128)
+    return launch<128, PrefixT, POOLED, STAGED>(q, k_cache, v_cache, k_scale, v_scale, k_stage,
+                                                v_stage, k_cur, v_cur, scalars, lens, part, out,
+                                                B, Hq, Hkv, T, stage_depth, layer, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -361,9 +400,9 @@ extern "C" int zvt_decode_attention_layered(
     const void* v_stage, const void* k_cur, const void* v_cur, const void* scalars,
     void* part, void* out, int B, int Hq, int Hkv, int T, int stage_depth,
     int head_dim, void* stream) {
-  return launch<__nv_bfloat16, false>(q, k_cache, v_cache, nullptr, nullptr, k_stage, v_stage,
-                                      k_cur, v_cur, scalars, nullptr, part, out, B, Hq, Hkv, T,
-                                      stage_depth, head_dim, 0, stream);
+  return launch_any<__nv_bfloat16, false, true>(
+      q, k_cache, v_cache, nullptr, nullptr, k_stage, v_stage, k_cur, v_cur, scalars, nullptr,
+      part, out, B, Hq, Hkv, T, stage_depth, head_dim, 0, stream);
 }
 
 extern "C" int zvt_decode_attention_layered_q(
@@ -371,9 +410,9 @@ extern "C" int zvt_decode_attention_layered_q(
     const void* v_scale, const void* k_stage, const void* v_stage, const void* k_cur,
     const void* v_cur, const void* scalars, void* part, void* out, int B, int Hq, int Hkv,
     int T, int stage_depth, int head_dim, void* stream) {
-  return launch<int8_t, false>(q, k_cache, v_cache, k_scale, v_scale, k_stage, v_stage, k_cur,
-                               v_cur, scalars, nullptr, part, out, B, Hq, Hkv, T, stage_depth,
-                               head_dim, 0, stream);
+  return launch_any<int8_t, false, true>(q, k_cache, v_cache, k_scale, v_scale, k_stage,
+                                         v_stage, k_cur, v_cur, scalars, nullptr, part, out, B,
+                                         Hq, Hkv, T, stage_depth, head_dim, 0, stream);
 }
 
 // Per-row positions: bases and lens are device int32 [B]; layer must lie in
@@ -383,9 +422,9 @@ extern "C" int zvt_decode_attention_pooled(
     const void* v_stage, const void* k_cur, const void* v_cur, const void* bases,
     const void* lens, void* part, void* out, int B, int Hq, int Hkv, int T, int stage_depth,
     int head_dim, int layer, void* stream) {
-  return launch<__nv_bfloat16, true>(q, k_cache, v_cache, nullptr, nullptr, k_stage, v_stage,
-                                     k_cur, v_cur, bases, lens, part, out, B, Hq, Hkv, T,
-                                     stage_depth, head_dim, layer, stream);
+  return launch_any<__nv_bfloat16, true, true>(
+      q, k_cache, v_cache, nullptr, nullptr, k_stage, v_stage, k_cur, v_cur, bases, lens, part,
+      out, B, Hq, Hkv, T, stage_depth, head_dim, layer, stream);
 }
 
 extern "C" int zvt_decode_attention_pooled_q(
@@ -393,7 +432,29 @@ extern "C" int zvt_decode_attention_pooled_q(
     const void* v_scale, const void* k_stage, const void* v_stage, const void* k_cur,
     const void* v_cur, const void* bases, const void* lens, void* part, void* out, int B,
     int Hq, int Hkv, int T, int stage_depth, int head_dim, int layer, void* stream) {
-  return launch<int8_t, true>(q, k_cache, v_cache, k_scale, v_scale, k_stage, v_stage, k_cur,
-                              v_cur, bases, lens, part, out, B, Hq, Hkv, T, stage_depth,
-                              head_dim, layer, stream);
+  return launch_any<int8_t, true, true>(q, k_cache, v_cache, k_scale, v_scale, k_stage, v_stage,
+                                        k_cur, v_cur, bases, lens, part, out, B, Hq, Hkv, T,
+                                        stage_depth, head_dim, layer, stream);
+}
+
+// No stage, one position: every row attends [0, seq_end) of layer `layer`,
+// the current column already written there; seq_end is device int32 [1];
+// layer must lie in [0, L) (the wrapper checks it).
+extern "C" int zvt_decode_attention_unstaged(
+    const void* q, const void* k_cache, const void* v_cache, const void* seq_end, void* part,
+    void* out, int B, int Hq, int Hkv, int T, int head_dim, int layer, void* stream) {
+  return launch_any<__nv_bfloat16, false, false>(
+      q, k_cache, v_cache, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, seq_end,
+      nullptr, part, out, B, Hq, Hkv, T, 1, head_dim, layer, stream);
+}
+
+// No stage, per-row positions: row b attends [0, prefix_ends[b]) of layer
+// `layer` and its current column; prefix_ends is device int32 [B].
+extern "C" int zvt_decode_attention_pooled_unstaged(
+    const void* q, const void* k_cache, const void* v_cache, const void* k_cur,
+    const void* v_cur, const void* prefix_ends, void* part, void* out, int B, int Hq, int Hkv,
+    int T, int head_dim, int layer, void* stream) {
+  return launch_any<__nv_bfloat16, true, false>(
+      q, k_cache, v_cache, nullptr, nullptr, nullptr, nullptr, k_cur, v_cur, prefix_ends,
+      nullptr, part, out, B, Hq, Hkv, T, 1, head_dim, layer, stream);
 }

@@ -9,25 +9,29 @@
 // What bounds it on the H100: at the lengths the text path gives it (tens
 // to a few hundred positions) neither bytes nor flops are near the card's
 // limits; the work is small and the launch and the serial key loop set the
-// time. At long chunks the score and value products (4 * S * T * 64 flops
+// time. At long chunks the score and value products (4 * S * T * D flops
 // per query head, half of them pruned) would be the limit.
 //
 // What the design does about it:
-//  * One block per (tile of 32 query rows, kv head, batch row). A query row
-//    is one (position, head of the group) pair, so the G query heads of a
-//    group share every K/V tile loaded into shared memory.
+//  * One block per (tile of ROWS query rows, kv head, batch row): 32 rows at
+//    head dim 64, 16 at head dim 128, so the three fp32 shared tiles (q, K
+//    padded by one column, V) stay under the 48 KB of static shared memory
+//    (24.3 KB and 40.5 KB). A query row is one (position, head of the group)
+//    pair, so the G query heads of a group share every K/V tile loaded into
+//    shared memory.
 //  * Key tiles of 32 positions are walked in order up to the last one the
 //    tile's highest position may attend; rows skip tiles wholly above their
 //    own diagonal.
-//  * Each warp owns 8 query rows. For a tile, lane j scores key j against
-//    the row (the K tile's rows are padded to 65 floats so the 32 lanes hit
-//    32 banks), the warp reduces the max and sum with shuffles, and lane d
-//    accumulates output dims d and d + 32 from the shuffled probabilities.
+//  * Each warp owns ROWS / 4 query rows. For a tile, lane j scores key j
+//    against the row (the K tile's rows are padded to D + 1 floats so the 32
+//    lanes hit 32 banks), the warp reduces the max and sum with shuffles,
+//    and lane d accumulates output dims d, d + 32, ... from the shuffled
+//    probabilities.
 //    Running max, sum and accumulator stay in fp32 registers.
 //  * Plain CUDA cores, no tensor cores: simple and right first.
 //
-// Layouts (row-major, bf16): q [B, S, Hq, 64], k and v [B, T, Hkv * 64]
-// (one layer of the cache), out [B, S, Hq, 64].
+// Layouts (row-major, bf16): q [B, S, Hq, D], k and v [B, T, Hkv * D]
+// (one layer of the cache), out [B, S, Hq, D]; D is 64 or 128.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -35,12 +39,15 @@
 
 namespace {
 
-constexpr int HEAD_DIM = 64;
-constexpr int ROWS = 32;
 constexpr int KEYS = 32;
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
-constexpr int ROWS_PER_WARP = ROWS / WARPS;
+
+// Query rows per block at head dim D.
+template <int D>
+struct Rows {
+  static constexpr int value = 2048 / D;
+};
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -54,10 +61,14 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+template <int HEAD_DIM>
 __global__ void __launch_bounds__(THREADS) prefill_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int S, int Hkv,
     int G, int T, int offset, float scale) {
+  constexpr int ROWS = Rows<HEAD_DIM>::value;
+  constexpr int ROWS_PER_WARP = ROWS / WARPS;
+  constexpr int NACC = HEAD_DIM / 32;  // output dims per lane
   __shared__ float q_sm[ROWS][HEAD_DIM];
   __shared__ float k_sm[KEYS][HEAD_DIM + 1];
   __shared__ float v_sm[KEYS][HEAD_DIM];
@@ -88,13 +99,13 @@ __global__ void __launch_bounds__(THREADS) prefill_kernel(
   const int max_pos = offset + last_row / G;
   const int n_tiles = max_pos / KEYS + 1;
 
-  float m[ROWS_PER_WARP], l[ROWS_PER_WARP], acc0[ROWS_PER_WARP], acc1[ROWS_PER_WARP];
+  float m[ROWS_PER_WARP], l[ROWS_PER_WARP], acc[ROWS_PER_WARP][NACC];
 #pragma unroll
   for (int r = 0; r < ROWS_PER_WARP; ++r) {
     m[r] = -INFINITY;
     l[r] = 0.f;
-    acc0[r] = 0.f;
-    acc1[r] = 0.f;
+#pragma unroll
+    for (int a = 0; a < NACC; ++a) acc[r][a] = 0.f;
   }
 
   for (int tile = 0; tile < n_tiles; ++tile) {
@@ -132,16 +143,17 @@ __global__ void __launch_bounds__(THREADS) prefill_kernel(
       const float alpha = expf(m[r] - mn);
       const float p = expf(s - mn);
       l[r] = l[r] * alpha + warp_sum(p);
-      float a0 = acc0[r] * alpha;
-      float a1 = acc1[r] * alpha;
+      float av[NACC];
+#pragma unroll
+      for (int a = 0; a < NACC; ++a) av[a] = acc[r][a] * alpha;
 #pragma unroll 8
       for (int j = 0; j < KEYS; ++j) {
         const float pj = __shfl_sync(0xffffffffu, p, j);
-        a0 = fmaf(pj, v_sm[j][lane], a0);
-        a1 = fmaf(pj, v_sm[j][lane + 32], a1);
+#pragma unroll
+        for (int a = 0; a < NACC; ++a) av[a] = fmaf(pj, v_sm[j][lane + 32 * a], av[a]);
       }
-      acc0[r] = a0;
-      acc1[r] = a1;
+#pragma unroll
+      for (int a = 0; a < NACC; ++a) acc[r][a] = av[a];
       m[r] = mn;
     }
   }
@@ -154,9 +166,21 @@ __global__ void __launch_bounds__(THREADS) prefill_kernel(
     const int g = row % G;
     __nv_bfloat16* o = out + (((size_t)b * S + pos) * Hq + h * G + g) * HEAD_DIM;
     const float inv = 1.f / l[r];
-    o[lane] = __float2bfloat16(acc0[r] * inv);
-    o[lane + 32] = __float2bfloat16(acc1[r] * inv);
+#pragma unroll
+    for (int a = 0; a < NACC; ++a) o[lane + 32 * a] = __float2bfloat16(acc[r][a] * inv);
   }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int Hkv,
+           int G, int T, int offset, cudaStream_t s) {
+  constexpr int ROWS = Rows<D>::value;
+  const dim3 grid((S * G + ROWS - 1) / ROWS, Hkv, B);
+  prefill_kernel<D><<<grid, THREADS, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), S, Hkv, G, T,
+      offset, 1.0f / sqrtf((float)D));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -164,14 +188,11 @@ __global__ void __launch_bounds__(THREADS) prefill_kernel(
 extern "C" int zvt_prefill_attention(const void* q, const void* k, const void* v, void* out,
                                      int B, int S, int Hq, int Hkv, int T, int head_dim,
                                      int offset, void* stream) {
-  if (head_dim != HEAD_DIM || Hkv <= 0 || Hq % Hkv != 0 || S <= 0 || offset < 0 ||
-      offset + S > T)
+  if (Hkv <= 0 || Hq % Hkv != 0 || S <= 0 || offset < 0 || offset + S > T)
     return (int)cudaErrorInvalidValue;
   const int G = Hq / Hkv;
-  const dim3 grid((S * G + ROWS - 1) / ROWS, Hkv, B);
-  prefill_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), S, Hkv, G, T,
-      offset, 1.0f / sqrtf((float)HEAD_DIM));
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim == 64) return launch<64>(q, k, v, out, B, S, Hkv, G, T, offset, s);
+  if (head_dim == 128) return launch<128>(q, k, v, out, B, S, Hkv, G, T, offset, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,12 +1,14 @@
 """Decode engine (the JAX package's ``engine/generate.py``): prefill, then
-the staged single-token decode loop with the 9 heads, the CFG mix, sampling
-and the EOS cascade.
+the single-token decode loop with the 9 heads, the CFG mix, sampling and
+the EOS cascade.
 
 The loop stops on exactly the step where JAX's ``while_loop`` stops: it runs
 while ``max(remaining) > 0``, and ``remaining`` clamps to 9 when codebook 0
-emits EOS. That test reads one value from the device per step. The KV stage
-flushes into the cache only when it is exactly full, so flushes sit at the
-same absolute positions as in JAX.
+emits EOS. That test reads one value from the device per step. The
+transformer's KV stage flushes into the cache only when it is exactly full,
+so flushes sit at the same absolute positions as in JAX. The hybrid's cache
+has no stage: each step writes its columns into the cache directly, and the
+loop never flushes.
 """
 
 from __future__ import annotations
@@ -20,7 +22,6 @@ from ..models.backbone import flush_kv_stage
 from ..models.zonos import ZonosModel
 from ..ops.attention import NEG_INF
 from ..ops.delay_pattern import apply_delay_pattern, revert_delay_pattern
-from ..ops.rope import rope_table
 from ..ops.sampling import SamplingParams, sample_from_logits, sample_from_logits_dyn
 
 UNKNOWN_TOKEN = -1
@@ -57,8 +58,8 @@ class DecodeState:
     remaining: torch.Tensor  # [B]
     stopping: torch.Tensor  # [B] bool
     stop_offset: torch.Tensor  # [B]; -1 while the row runs
-    stage_base: int  # flushed-prefix length (absolute cache position)
-    rope: torch.Tensor
+    stage_base: int | None  # flushed-prefix length (absolute position); None: no stage
+    rope: torch.Tensor | None
 
 
 def _sync(device: torch.device) -> None:
@@ -69,7 +70,8 @@ def _sync(device: torch.device) -> None:
 def _prefill_state(model: ZonosModel, params: dict, prefix_conditioning: torch.Tensor,
                    audio_prefix_codes: torch.Tensor, generator: torch.Generator,
                    max_new_tokens: int, cfg_scale: float, sampling: SamplingParams | None,
-                   disable_eos: bool, kv_int8: bool, knobs: dict | None = None) -> DecodeState:
+                   disable_eos: bool, kv_int8: bool, knobs: dict | None = None,
+                   state_bf16: bool = False) -> DecodeState:
     """Cache, delay pattern, prefill, and the first frame. As in JAX the
     first frame is sampled without the EOS bias unless ``disable_eos``.
 
@@ -87,8 +89,9 @@ def _prefill_state(model: ZonosModel, params: dict, prefix_conditioning: torch.T
     seq_len = _find_multiple(seq_len, 512 if seq_len >= 1024 else 8)
     dev = prefix_conditioning.device
 
-    rope = rope_table(cfg.backbone.head_dim, device=dev)
-    cache = model.allocate_cache(two_b, seq_len, prefix_conditioning.dtype, dev, kv_int8)
+    rope = model.rope_for(dev)
+    cache = model.allocate_cache(two_b, seq_len, prefix_conditioning.dtype, dev, kv_int8,
+                                 state_bf16)
     codes = torch.full((batch, K, audio_seq_len), UNKNOWN_TOKEN, dtype=torch.long, device=dev)
     codes[..., :lp] = audio_prefix_codes
     delayed = apply_delay_pattern(codes, cfg.masked_token_id)
@@ -115,7 +118,8 @@ def _prefill_state(model: ZonosModel, params: dict, prefix_conditioning: torch.T
         remaining=torch.full((batch,), max_steps, dtype=torch.long, device=dev),
         stopping=torch.zeros((batch,), dtype=torch.bool, device=dev),
         stop_offset=torch.full((batch,), -1, dtype=torch.long, device=dev),
-        stage_base=cond_len + lp + 1, rope=rope,
+        # Only a staged cache has a flushed prefix, ending at the prefill.
+        stage_base=cond_len + lp + 1 if "k_stage" in cache else None, rope=rope,
     )
 
 
@@ -166,12 +170,13 @@ def _decode_loop(model: ZonosModel, params: dict, s: DecodeState, cond_len: int,
                              dtype=torch.float32, device=s.delayed.device)
     # EOS only from codebook 0; disable_eos forbids it everywhere.
     logit_bias[:, 0 if disable_eos else 1:, cfg.eos_token_id] = NEG_INF
-    stage_depth = s.cache["k_stage"].shape[2]
+    staged = s.stage_base is not None
+    stage_depth = s.cache["k_stage"].shape[2] if staged else 0
     steps = 0
     while int(s.remaining.max()) > 0:
         _decode_step(model, params, s, cond_len, cfg_scale, sampling, logit_bias, generator)
         steps += 1
-        if s.offset + cond_len - s.stage_base == stage_depth:
+        if staged and s.offset + cond_len - s.stage_base == stage_depth:
             flush_kv_stage(s.cache, s.stage_base)
             s.stage_base += stage_depth
     return steps
@@ -193,14 +198,16 @@ def _finalize(model: ZonosModel, s: DecodeState):
 class DecodeEngine:
     """User-facing generate API over a :class:`ZonosModel`.
 
-    ``kv_int8`` stores the flushed KV prefix as int8 with per-(position, kv
-    head) scales (half the cache bytes); the stage and the current token stay
-    exact. Paired with ``ops/quant.quantize_zonos_params`` weights it is the
-    int8 serving configuration."""
+    ``kv_int8`` (transformer) stores the flushed KV prefix as int8 with
+    per-(position, kv head) scales (half the cache bytes); the stage and the
+    current token stay exact. Paired with ``ops/quant.quantize_zonos_params``
+    weights it is the int8 serving configuration. ``state_bf16`` (hybrid)
+    stores the SSM state in bf16; the recurrence still computes in fp32."""
 
-    def __init__(self, model: ZonosModel, kv_int8: bool = False):
+    def __init__(self, model: ZonosModel, kv_int8: bool = False, state_bf16: bool = False):
         self.model = model
         self.kv_int8 = kv_int8
+        self.state_bf16 = state_bf16
 
     def generate(self, params: dict, prefix_conditioning: torch.Tensor,
                  audio_prefix_codes: torch.Tensor | None = None, *,
@@ -223,7 +230,7 @@ class DecodeEngine:
             t0 = time.perf_counter()
             state = _prefill_state(self.model, params, prefix_conditioning, audio_prefix_codes,
                                    generator, max_new_tokens, cfg_scale, sampling_params,
-                                   disable_eos, self.kv_int8)
+                                   disable_eos, self.kv_int8, state_bf16=self.state_bf16)
             _sync(dev)
             t1 = time.perf_counter()
             steps = _decode_loop(self.model, params, state, cond_len, cfg_scale,

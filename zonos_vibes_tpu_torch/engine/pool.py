@@ -1,5 +1,5 @@
 """Continuous-batching decode pool (the JAX package's ``engine/pool.py``) for
-the transformer backbone.
+the transformer and the hybrid backbone.
 
 A fixed number of slots, each one request: cond row ``s`` and its CFG row
 ``slots + s`` of one batch. Every pooled step advances all rows at once, so
@@ -24,9 +24,13 @@ Row lifecycle:
 
 A row's draws depend only on ``(base_seed, row_seed, row step)``
 (``ops/sampling.pool_noise``), so its codes never depend on its neighbours;
-greedy rows equal the solo engine's codes. The hybrid pool and its
-``state_bf16`` option raise ``NotImplementedError`` (the hybrid backbone is
-not ported yet).
+greedy rows equal the solo engine's codes.
+
+The hybrid pool keeps the same design: its attention layers' cache is the
+transformer's flat ``[L_attn, 2S, T, W]`` layout with per-row rings, and its
+Mamba conv and SSM states (``[M, 2S, ...]``) are per-row recurrent state
+with no position, so a join copies them with the KV rows and nothing else
+changes. ``state_bf16`` (hybrid only) stores the SSM state in bf16.
 
 Pool state is a dict of tensors on one device, updated in place.
 """
@@ -42,7 +46,6 @@ from ..models.zonos import ZonosModel
 from ..ops.attention import NEG_INF
 from ..ops.delay_pattern import revert_delay_pattern
 from ..ops.quant import quantize_rows
-from ..ops.rope import rope_table
 from ..ops.sampling import (
     SamplingParams,
     knobs_from_params,
@@ -65,12 +68,6 @@ class PoolConfig:
     max_rep_window: int = 8
 
 
-def _require_transformer(model: ZonosModel, state_bf16: bool) -> None:
-    if model.config.backbone.is_hybrid or state_bf16:
-        raise NotImplementedError("the hybrid pool (and its state_bf16 option) is not ported "
-                                  "yet; the port's pool runs the transformer")
-
-
 def _pool_cache_len(model: ZonosModel, pc: PoolConfig) -> int:
     # +KV_STAGE margin: a ring flush writes a full stage window at each
     # row's watermark, which must never reach past the cache end.
@@ -84,13 +81,14 @@ def make_pool(model: ZonosModel, pc: PoolConfig, dtype=torch.bfloat16, kv_int8: 
     """All-slots-free pool state on ``device`` (CUDA unless the caller asks
     for the CPU). The cache holds ``2 * slots`` rows of
     ``_pool_cache_len`` positions; its stage is the rows' rings. With
-    ``kv_int8`` the flushed prefixes are int8 with per-(position, kv head)
-    scales; rings and current columns stay exact."""
-    _require_transformer(model, state_bf16)
+    ``kv_int8`` (transformer) the flushed prefixes are int8 with
+    per-(position, kv head) scales; rings and current columns stay exact.
+    ``state_bf16`` (hybrid) stores the SSM state in bf16."""
     dev = resolve_device(device)
     cfg = model.config
     K, S = cfg.num_codebooks, pc.slots
-    cache = model.allocate_cache(2 * S, _pool_cache_len(model, pc), dtype, dev, kv_int8)
+    cache = model.allocate_cache(2 * S, _pool_cache_len(model, pc), dtype, dev, kv_int8,
+                                 state_bf16, pool_ring=True)
     knobs = {name: v.expand(S).clone()
              for name, v in knobs_from_params(SamplingParams(), 2.0, dev).items()}
 
@@ -111,7 +109,7 @@ def make_pool(model: ZonosModel, pc: PoolConfig, dtype=torch.bfloat16, kv_int8: 
         "knobs": knobs,
         # Columns of the repetition window relative to ``step`` (static width).
         "window": torch.arange(-pc.max_rep_window, 0, device=dev),
-        "rope": rope_table(cfg.backbone.head_dim, device=dev),
+        "rope": model.rope_for(dev),
     }
 
 
@@ -122,9 +120,8 @@ def prefill_request(model: ZonosModel, params: dict, prefix_conditioning: torch.
     """Solo prefill of a joining request; returns ``(request state, knobs)``
     for :func:`join`. ``prefix_conditioning`` is ``[2, Lc, D]`` (cond and
     uncond), ``audio_prefix_codes`` an optional ``[1, K, Lp]`` continuation;
-    ``kv_int8`` must match the pool's. The first frame is drawn with the
-    request's knobs, its noise from ``generator``."""
-    _require_transformer(model, state_bf16)
+    ``kv_int8`` and ``state_bf16`` must match the pool's. The first frame
+    is drawn with the request's knobs, its noise from ``generator``."""
     dev = prefix_conditioning.device
     K = model.config.num_codebooks
     if audio_prefix_codes is None:
@@ -133,7 +130,7 @@ def prefill_request(model: ZonosModel, params: dict, prefix_conditioning: torch.
     with torch.inference_mode():
         state = _prefill_state(model, params, prefix_conditioning, audio_prefix_codes,
                                generator, int(max_new_tokens), 0.0, None, False, kv_int8,
-                               knobs=knobs)
+                               knobs=knobs, state_bf16=state_bf16)
     return state, knobs
 
 
@@ -142,24 +139,31 @@ def join(pool: dict, req_state: DecodeState, slot: int, cond_len: int, row_seed:
          knobs: dict | None = None) -> dict:
     """Splice a prefilled request into ``slot`` (cond row ``slot``, uncond
     row ``slots + slot``), in place; returns ``pool``. The request's cache
-    rows (and scales) cover its own, shorter cache; the ring is not copied
-    (a fresh request has an empty ring) and the watermark becomes the row's
-    position. ``knobs`` are the request's runtime knobs."""
+    rows (and scales) cover its own, shorter cache; the hybrid's conv and
+    SSM states are copied whole; the ring is not copied (a fresh request
+    has an empty ring) and the watermark becomes the row's position.
+    ``knobs`` are the request's runtime knobs."""
     S = pool["active"].shape[0]
     if not 0 <= slot < S:
         raise ValueError(f"slot {slot} outside [0, {S})")
     cache, req = pool["cache"], req_state.cache
-    names = ("k", "v") + (("k_scale", "v_scale") if "k_scale" in cache else ())
+    timed = ("k", "v") + (("k_scale", "v_scale") if "k_scale" in cache else ())
+    states = ("conv", "ssm") if "ssm" in cache else ()
     if ("k_scale" in cache) != ("k_scale" in req):
         raise ValueError("join: the request's kv_int8 differs from the pool's")
+    if states and req["ssm"].dtype != cache["ssm"].dtype:
+        raise ValueError("join: the request's state_bf16 differs from the pool's")
     T, STAGE = cache["k"].shape[2], cache["k_stage"].shape[2]
     width = req_state.delayed.shape[-1]
     if width > pool["delayed"].shape[-1] or cond_len + width + STAGE > T:
         raise ValueError("join: the request is longer than the pool's geometry")
     t_req = req["k"].shape[2]
-    for name in names:
+    for name in timed:
         cache[name][:, slot, :t_req] = req[name][:, 0]
         cache[name][:, S + slot, :t_req] = req[name][:, 1]
+    for name in states:
+        cache[name][:, slot] = req[name][:, 0]
+        cache[name][:, S + slot] = req[name][:, 1]
     pool["delayed"][slot, :, :width] = req_state.delayed[0]
     pos = cond_len + req_state.offset
     pool["pos"][slot] = pos
@@ -254,7 +258,9 @@ def flush_pool_rings(pool: dict) -> dict:
     flush_base + STAGE)`` (quantized first for an int8 cache) and advance
     the watermarks to ``pos``, in place. Ring slots past a row's position
     hold stale rows; they lie past its attention bound, and the next flush,
-    whose window starts at the new watermark, overwrites them first."""
+    whose window starts at the new watermark, overwrites them first. The
+    hybrid's rings are its attention layers' ``[L_attn, 2S, STAGE, W]``
+    stages: the same copy."""
     cache = pool["cache"]
     T, STAGE = cache["k"].shape[2], cache["k_stage"].shape[2]
     B2 = cache["k"].shape[1]

@@ -20,13 +20,15 @@ flushed prefix is int8 with fp32 per-(position, kv head) scales ``k_scale``,
 per flush and once per prefill; the stage and the current column stay
 exact. The projections take float or int8 weights (``ops/quant``).
 
-The continuous-batching pool's decode (``pool_base`` given) gives every
-row its own position: the stage is each row's ring, row ``b`` attends its
-flushed prefix ``[0, pool_base[b])``, ring rows ``[0, positions[b] -
-pool_base[b])`` and itself, and its columns land in ring slot
-``positions[b] - pool_base[b]``;
-``engine/pool.flush_pool_rings`` copies the rings into the cache once per
-segment.
+The continuous-batching pool's decode (``positions`` and ``pool_base``
+given) gives every row its own position: the stage is each row's ring, row
+``b`` attends its flushed prefix ``[0, pool_base[b])``, ring rows ``[0,
+positions[b] - pool_base[b])`` and itself, and its columns land in ring
+slot ``positions[b] - pool_base[b]``; ``engine/pool.flush_pool_rings``
+copies the rings into the cache once per segment. With ``positions`` alone
+(the stage-less pooled decode, JAX's ``forward(pooled=True)`` without
+``pool_base``) row ``b`` attends ``[0, positions[b])`` of the cache and
+itself, and its columns are written at ``positions[b]`` after the stack.
 
 On a CUDA device the decode step runs ``ops/cuda``'s decode-attention kernel
 (or its int8-prefix variant, or their pooled versions) per layer and two
@@ -46,6 +48,7 @@ from ..ops.cuda.decode_attention import (
     decode_attention_layered_q,
     decode_attention_pooled_staged,
     decode_attention_pooled_staged_q,
+    decode_attention_pooled_unstaged,
 )
 from ..ops.cuda.prefill_attention import prefill_attention
 from ..ops.cuda.stage_write import stage_splice, stage_splice_rows
@@ -167,10 +170,11 @@ def transformer_forward(params: dict, cfg: BackboneConfig, hidden: torch.Tensor,
     itself, and its columns land in stage slot ``offset - stage_base``.
     RoPE positions are ``offset + arange(S)`` for every row.
 
-    With ``pool_base`` (``S == 1``, the pool's ring decode) ``offset`` is
-    unused: ``positions [B]`` are the rows' absolute positions (RoPE and
-    attention bounds) and ``pool_base [B]`` their flushed watermarks, both
-    on the device.
+    With ``positions [B]`` (``S == 1``, device) ``offset`` is unused: they
+    are the rows' absolute positions (RoPE and attention bounds). With
+    ``pool_base [B]`` too (the pool's ring decode) they are the rows'
+    flushed watermarks; without it the decode is stage-less (bf16 or fp32
+    cache only).
 
     With an int8 cache a prefill attends over a scratch holding the layer's
     dequantized positions ``[0, offset)`` and the exact chunk; the chunk is
@@ -182,15 +186,22 @@ def transformer_forward(params: dict, cfg: BackboneConfig, hidden: torch.Tensor,
     W = Hkv * cfg.head_dim
     dev = hidden.device
     kv_int8 = "k_scale" in cache
-    pooled = pool_base is not None
+    pooled = positions is not None
+    ring = pool_base is not None
+    if (pooled and S != 1) or (ring and not pooled):
+        raise ValueError("pooled decode runs one token per row: pass positions (and "
+                         "pool_base for ring mode) with S == 1")
     if pooled:
-        if S != 1 or positions is None:
-            raise NotImplementedError("pooled decode runs one token per row on the ring stage: "
-                                      "pass positions with pool_base (the stage-less pooled "
-                                      "branch belongs to the hybrid pool, not ported yet)")
-        bases = pool_base.to(torch.int32).contiguous()
-        ring_len = (positions - pool_base).to(torch.int32).contiguous()
-        positions = positions.long()[:, None]
+        if ring:
+            bases = pool_base.to(torch.int32).contiguous()
+            ring_len = (positions - pool_base).to(torch.int32).contiguous()
+        elif kv_int8:
+            raise NotImplementedError("the stage-less pooled decode takes a bf16 or fp32 "
+                                      "cache, not an int8 one")
+        else:
+            prefix_ends = positions.to(torch.int32).contiguous()
+        row_pos = positions.long()
+        positions = row_pos[:, None]
     else:
         positions = (offset + torch.arange(S, device=dev))[None, :].expand(B, S)
 
@@ -212,6 +223,17 @@ def transformer_forward(params: dict, cfg: BackboneConfig, hidden: torch.Tensor,
             def attend(q, k, v):
                 kc, vc = update_kv_cache(cache["k"][l], cache["v"][l], k, v, offset)
                 return prefill_attention(q, kc, vc, offset)
+            return attend
+    elif pooled and not ring:
+        k_cols = torch.empty((L, B, W), dtype=cache["k"].dtype, device=dev)
+        v_cols = torch.empty_like(k_cols)
+
+        def attend_for(l):
+            def attend(q, k, v):
+                k_cols[l] = k.reshape(B, W)
+                v_cols[l] = v.reshape(B, W)
+                return decode_attention_pooled_unstaged(
+                    q.contiguous(), cache["k"], cache["v"], k_cols[l], v_cols[l], prefix_ends, l)
             return attend
     elif pooled:
         k_cols = torch.empty((L, B, W), dtype=cache["k_stage"].dtype, device=dev)
@@ -257,9 +279,16 @@ def transformer_forward(params: dict, cfg: BackboneConfig, hidden: torch.Tensor,
         lp = {name: {k: t[l] for k, t in leaf.items()} for name, leaf in layers.items()}
         hidden = _block(lp, cfg, hidden, attend_for(l), positions, rope)
 
-    if pooled:
+    if pooled and ring:
         stage_splice_rows(cache["k_stage"], k_cols, ring_len)
         stage_splice_rows(cache["v_stage"], v_cols, ring_len)
+    elif pooled:
+        # Each row's columns at its own position (clamped, as JAX's
+        # dynamic_update_slice clamps), one indexed copy per K and V.
+        rows = torch.arange(B, device=dev)
+        idx = row_pos.clamp(0, cache["k"].shape[2] - 1)
+        cache["k"][:, rows, idx] = k_cols
+        cache["v"][:, rows, idx] = v_cols
     elif S == 1:
         slot = scalars[0, 1:2]
         stage_splice(cache["k_stage"], k_cols, slot)
@@ -273,8 +302,6 @@ class TransformerBackbone:
     ``TransformerBackbone``)."""
 
     def __init__(self, cfg: BackboneConfig):
-        if cfg.is_hybrid:
-            raise NotImplementedError("the hybrid (Mamba-2) backbone is not ported yet")
         self.cfg = cfg
 
     def init(self, gen, dtype, device) -> dict:

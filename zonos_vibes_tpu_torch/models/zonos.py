@@ -14,6 +14,7 @@ dequantize only the gathered rows.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -21,6 +22,7 @@ import torch
 from ..config import ZonosConfig
 from ..ops.attention import NEG_INF
 from ..ops.cuda.qmm import qmm_int8
+from ..ops.rope import rope_table
 from .conditioners import PrefixConditioner
 from .registry import backbone_for_config
 
@@ -31,7 +33,7 @@ class ZonosModel:
 
     config: ZonosConfig
 
-    @property
+    @functools.cached_property
     def backbone(self):
         return backbone_for_config(self.config.backbone)
 
@@ -85,8 +87,29 @@ class ZonosModel:
         return torch.einsum("bsd,kdv->bksv", hidden.float(), h["weight"].float())
 
     def allocate_cache(self, batch_size: int, max_seqlen: int, dtype, device,
-                       kv_int8: bool = False) -> dict:
+                       kv_int8: bool = False, state_bf16: bool = False,
+                       pool_ring: bool = False) -> dict:
+        """The backbone's cache. ``kv_int8`` (transformer only) stores the
+        flushed KV prefix as int8; ``state_bf16`` (hybrid only) stores the
+        SSM state in bf16; ``pool_ring`` gives a hybrid cache the pool's
+        ring stages (a transformer cache always carries its stage)."""
+        if self.config.backbone.is_hybrid:
+            if kv_int8:
+                raise NotImplementedError("int8 KV on the hybrid backbone is not supported, as "
+                                          "in the JAX package")
+            state_dtype = torch.bfloat16 if state_bf16 else torch.float32
+            return self.backbone.allocate_cache(batch_size, max_seqlen, dtype, device,
+                                                state_dtype=state_dtype, pool_ring=pool_ring)
+        if state_bf16:
+            raise ValueError("state_bf16 is hybrid-only: a transformer cache has no SSM state")
         return self.backbone.allocate_cache(batch_size, max_seqlen, dtype, device, kv_int8)
+
+    def rope_for(self, device):
+        """The transformer's RoPE table, or None: the hybrid computes its
+        rotary angles per layer."""
+        if self.config.backbone.is_hybrid:
+            return None
+        return rope_table(self.config.backbone.head_dim, device=device)
 
     def compute_logits(self, params: dict, hidden, cache: dict, offset: int, cfg_scale,
                        rope, stage_base: int | None = None, *, positions=None,
@@ -95,8 +118,8 @@ class ZonosModel:
         ``hidden`` is the CFG-doubled ``[2B, S, D]``; returns ``[B, K, V]``
         fp32 logits (the cache is updated in place). ``cfg_scale`` is a
         float, or a ``[B]`` tensor of per-row scales (the pool's runtime
-        knob, mixed even where it is 1). ``positions`` and ``pool_base`` go
-        to the backbone's pooled decode."""
+        knob, mixed even where it is 1). ``positions`` (and, for ring mode,
+        ``pool_base``) go to the backbone's pooled decode."""
         out = self.backbone.forward(params["backbone"], hidden, cache, offset, rope, stage_base,
                                     positions=positions, pool_base=pool_base)
         logits = self.apply_heads(params, out[:, -1:, :])[:, :, 0, :]

@@ -29,7 +29,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "zonos_vibes_tpu_torch"
-SOURCES = ("decode_attention.cu", "stage_write.cu", "prefill_attention.cu", "qmm_int8.cu")
+SOURCES = ("decode_attention.cu", "stage_write.cu", "prefill_attention.cu", "qmm_int8.cu",
+           "mamba_step.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -37,22 +38,29 @@ NVCC_FLAGS = (
 
 LAUNCHES = {"decode_attention": 0, "decode_attention_q": 0, "stage_splice": 0,
             "prefill_attention": 0, "qmm_int8": 0, "decode_attention_pooled": 0,
-            "decode_attention_pooled_q": 0, "stage_splice_rows": 0}
+            "decode_attention_pooled_q": 0, "stage_splice_rows": 0,
+            "decode_attention_unstaged": 0, "decode_attention_pooled_unstaged": 0,
+            "ssd_gate_step": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     "zvt_decode_attention_nsplit": (_I,),
     "zvt_decode_attention_layered": (_P,) * 10 + (_I,) * 6 + (_P,),
     "zvt_decode_attention_layered_q": (_P,) * 12 + (_I,) * 6 + (_P,),
     "zvt_decode_attention_pooled": (_P,) * 11 + (_I,) * 7 + (_P,),
     "zvt_decode_attention_pooled_q": (_P,) * 13 + (_I,) * 7 + (_P,),
+    "zvt_decode_attention_unstaged": (_P,) * 6 + (_I,) * 6 + (_P,),
+    "zvt_decode_attention_pooled_unstaged": (_P,) * 8 + (_I,) * 6 + (_P,),
     "zvt_stage_splice": (_P, _P, _P, _I, _I, _I, _P),
     "zvt_stage_splice_rows": (_P, _P, _P, _I, _I, _I, _I, _P),
     "zvt_prefill_attention": (_P,) * 4 + (_I,) * 7 + (_P,),
     "zvt_qmm_int8": (_P,) * 6 + (_I,) * 5 + (_P,),
     "zvt_qmm_int8_tiles": (_I,) * 4,
     "zvt_qmm_int8_workspace": (_I,) * 4,
+    "zvt_ssd_gate_step_tiles": (_I,),
+    "zvt_ssd_gate_step": (_P, _I, _I) + (_P,) * 11 + (_I,) * 5 + (_F, _P),
 }
 
 

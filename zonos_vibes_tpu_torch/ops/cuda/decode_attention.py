@@ -1,5 +1,5 @@
-"""Staged single-query decode attention: the CUDA kernels' wrappers and their
-plain versions.
+"""Single-query decode attention: the CUDA kernels' wrappers and their plain
+versions.
 
 Counterparts of ``zonos_vibes_tpu/ops/pallas/decode_attention.py::
 decode_attention_pallas_layered`` and ``decode_attention_pallas_layered_q``.
@@ -14,6 +14,13 @@ The pool's counterparts, ``decode_attention_pallas_pooled_staged`` and
 ``decode_attention_pallas_pooled_staged_q``, are the same kernels with a
 ``(flushed_end, stage_len)`` pair per row: row ``b`` attends its prefix
 ``[0, bases[b])``, its ring stage rows ``[0, lens[b])`` and its column.
+
+The stage-less counterparts, ``decode_attention_pallas`` (every row attends
+``[0, seq_end)`` of one layer, its current column already written: the
+hybrid backbone's solo decode) and ``decode_attention_pallas_pooled`` (row
+``b`` attends ``[0, prefix_ends[b])`` and its current column: the pooled
+decode of either backbone on a cache without a ring), are the same kernels
+with no stage rows. Every kernel takes head dim 64 or 128.
 """
 
 from __future__ import annotations
@@ -47,7 +54,7 @@ def decode_attention_layered(q, k_cache, v_cache, k_stage, v_stage, k_cur, v_cur
       k_cur, v_cur: ``[B, Hkv*D]`` this step's column.
       scalars: int32 ``[3]``: ``(flushed_end, stage_len, layer)``.
     Returns ``[B, 1, Hq, D]``. CPU tensors take the plain version; CUDA
-    tensors launch the kernel (bf16, D = 64) or raise.
+    tensors launch the kernel (bf16, D = 64 or 128) or raise.
     """
     B, S, Hq, D = q.shape
     L, Bc, T, W = k_cache.shape
@@ -240,7 +247,7 @@ def decode_attention_pooled_staged(q, k_cache, v_cache, k_stage, v_stage, k_cur,
       lens: int32 ``[B]``, row ``b``'s valid ring rows ``[0, lens[b])``.
       layer: host int in ``[0, L)``.
     Returns ``[B, 1, Hq, D]``. CPU tensors take the plain version; CUDA
-    tensors launch the kernel (bf16, D = 64) or raise.
+    tensors launch the kernel (bf16, D = 64 or 128) or raise.
     """
     dims = _check_pooled("decode_attention_pooled_staged", q, k_cache, v_cache, k_stage,
                          v_stage, k_cur, v_cur, bases, lens, layer)
@@ -288,3 +295,120 @@ def decode_attention_pooled_staged_q(q, k_cache, v_cache, k_scale, v_scale, k_st
     tensors = (k_cache, v_cache, k_scale, v_scale, k_stage, v_stage, k_cur, v_cur)
     return _launch_pooled("decode_attention_pooled_staged_q", "zvt_decode_attention_pooled_q",
                           "decode_attention_pooled_q", q, tensors, bases, lens, dims, layer)
+
+
+def decode_attention_unstaged_plain(q, k_cache, v_cache, seq_end, layer: int) -> torch.Tensor:
+    """Dense reference over layer ``layer``'s positions ``[0, seq_end)``
+    (clamped to the cache, as the kernel clamps it)."""
+    n = min(max(int(seq_end.item()), 0), k_cache.shape[2])
+    return decode_attention(q, k_cache[layer, :, :n], v_cache[layer, :, :n], n)
+
+
+def decode_attention_unstaged(q, k_cache, v_cache, seq_end, layer: int) -> torch.Tensor:
+    """Decode attention over one layer of a cache without a stage.
+
+    Counterpart of ``decode_attention_pallas``. Every row attends positions
+    ``[0, seq_end)`` of layer ``layer``; the current token's column is
+    already written at ``seq_end - 1``. Nothing at or past ``seq_end`` is
+    read.
+
+    Args:
+      q: ``[B, 1, Hq, D]``.
+      k_cache, v_cache: ``[L, B, T, Hkv*D]``.
+      seq_end: int32 ``[1]`` on the cache's device.
+      layer: host int in ``[0, L)``.
+    Returns ``[B, 1, Hq, D]``. CPU tensors take the plain version; CUDA
+    tensors launch the kernel (bf16, D = 64 or 128) or raise.
+    """
+    B, S, Hq, D = q.shape
+    L, Bc, T, W = k_cache.shape
+    Hkv = max(W // D, 1)
+    if (S != 1 or Bc != B or W != Hkv * D or Hq % Hkv or v_cache.shape != k_cache.shape
+            or seq_end.shape != (1,) or seq_end.dtype != torch.int32):
+        raise ValueError("decode_attention_unstaged: inconsistent shapes")
+    if not 0 <= layer < L:
+        raise ValueError(f"decode_attention_unstaged: layer {layer} outside [0, {L})")
+    if q.device.type == "cpu":
+        return decode_attention_unstaged_plain(q, k_cache, v_cache, seq_end, layer)
+    dev = build.require_cuda("decode_attention_unstaged", q, k_cache, v_cache)
+    if seq_end.device != dev:
+        raise ValueError("decode_attention_unstaged: seq_end must be on the card")
+    for t in (q, k_cache, v_cache):
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"decode_attention_unstaged: kernel takes bf16, got {t.dtype}")
+    lib = build.load()
+    nsplit = lib.zvt_decode_attention_nsplit(T)
+    part = torch.empty((B, Hkv, nsplit, Hq // Hkv, D + 2), dtype=torch.float32, device=dev)
+    out = torch.empty((B, 1, Hq, D), dtype=q.dtype, device=dev)
+    rc = lib.zvt_decode_attention_unstaged(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), seq_end.data_ptr(),
+        part.data_ptr(), out.data_ptr(), B, Hq, Hkv, T, D, layer, build.stream_handle(dev))
+    build.check_status("decode_attention_unstaged", rc)
+    build.LAUNCHES["decode_attention_unstaged"] += 1
+    return out
+
+
+def decode_attention_pooled_unstaged_plain(q, k_cache, v_cache, k_cur, v_cur, prefix_ends,
+                                           layer: int) -> torch.Tensor:
+    """Dense reference per row: its prefix ``[0, prefix_ends[b])`` (clamped
+    to the cache, as the kernel clamps it) and its column."""
+    T = k_cache.shape[2]
+    outs = []
+    for b, pe in enumerate(prefix_ends.tolist()):
+        pe = min(max(int(pe), 0), T)
+        k = torch.cat([k_cache[layer, b, :pe], k_cur[b, None]])
+        v = torch.cat([v_cache[layer, b, :pe], v_cur[b, None]])
+        outs.append(decode_attention(q[b, None], k[None], v[None], pe + 1))
+    return torch.cat(outs)
+
+
+def decode_attention_pooled_unstaged(q, k_cache, v_cache, k_cur, v_cur, prefix_ends,
+                                     layer: int) -> torch.Tensor:
+    """Pooled decode attention for layer ``layer`` of a cache without a stage.
+
+    Counterpart of ``decode_attention_pallas_pooled``: row ``b`` attends its
+    own prefix ``[0, prefix_ends[b])`` and its current column, folded in at
+    the end. Nothing of the prefix at or past ``prefix_ends[b]`` is read; the
+    caller writes the column at ``prefix_ends[b]`` afterwards.
+
+    Args:
+      q: ``[B, 1, Hq, D]``.
+      k_cache, v_cache: ``[L, B, T, Hkv*D]`` (read only).
+      k_cur, v_cur: ``[B, Hkv*D]`` this step's columns.
+      prefix_ends: int32 ``[B]`` on the cache's device.
+      layer: host int in ``[0, L)``.
+    Returns ``[B, 1, Hq, D]``. CPU tensors take the plain version; CUDA
+    tensors launch the kernel (bf16, D = 64 or 128) or raise.
+    """
+    B, S, Hq, D = q.shape
+    L, Bc, T, W = k_cache.shape
+    Hkv = max(W // D, 1)
+    if (S != 1 or Bc != B or W != Hkv * D or Hq % Hkv or v_cache.shape != k_cache.shape
+            or k_cur.shape != (B, W) or v_cur.shape != k_cur.shape
+            or prefix_ends.shape != (B,) or prefix_ends.dtype != torch.int32):
+        raise ValueError("decode_attention_pooled_unstaged: inconsistent shapes")
+    if not 0 <= layer < L:
+        raise ValueError(f"decode_attention_pooled_unstaged: layer {layer} outside [0, {L})")
+    if q.device.type == "cpu":
+        return decode_attention_pooled_unstaged_plain(q, k_cache, v_cache, k_cur, v_cur,
+                                                      prefix_ends, layer)
+    dev = build.require_cuda("decode_attention_pooled_unstaged", q, k_cache, v_cache, k_cur,
+                             v_cur)
+    if prefix_ends.device != dev or not prefix_ends.is_contiguous():
+        raise ValueError("decode_attention_pooled_unstaged: prefix_ends must be contiguous "
+                         "on the card")
+    for t in (q, k_cache, v_cache, k_cur, v_cur):
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"decode_attention_pooled_unstaged: kernel takes bf16, got "
+                             f"{t.dtype}")
+    lib = build.load()
+    nsplit = lib.zvt_decode_attention_nsplit(T)
+    part = torch.empty((B, Hkv, nsplit, Hq // Hkv, D + 2), dtype=torch.float32, device=dev)
+    out = torch.empty((B, 1, Hq, D), dtype=q.dtype, device=dev)
+    rc = lib.zvt_decode_attention_pooled_unstaged(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_cur.data_ptr(),
+        v_cur.data_ptr(), prefix_ends.data_ptr(), part.data_ptr(), out.data_ptr(), B, Hq, Hkv,
+        T, D, layer, build.stream_handle(dev))
+    build.check_status("decode_attention_pooled_unstaged", rc)
+    build.LAUNCHES["decode_attention_pooled_unstaged"] += 1
+    return out

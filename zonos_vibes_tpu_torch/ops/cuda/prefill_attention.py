@@ -23,7 +23,8 @@ def prefill_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Ten
 
     ``q [B, S, Hq, D]``, caches ``[B, T, Hkv*D]`` holding the chunk at
     ``[offset, offset + S)``. Returns ``[B, S, Hq, D]``. CPU tensors take
-    the plain version; CUDA tensors launch the kernel (bf16, D = 64) or raise.
+    the plain version; CUDA tensors launch the kernel (bf16, D = 64 or 128) or
+    raise.
     """
     B, S, Hq, D = q.shape
     Bc, T, W = k_cache.shape

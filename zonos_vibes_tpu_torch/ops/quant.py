@@ -77,9 +77,9 @@ def quantize_backbone_params(backbone_params: dict, bits: int = 8,
                                   "mixed widths are queued")
     if gptq or awq_energy is not None:
         raise NotImplementedError("GPTQ and the AWQ fold are not ported yet")
+    if "layers" not in backbone_params:
+        raise NotImplementedError("int8 weights on the hybrid backbone are not ported yet")
     layers = backbone_params["layers"]
-    if not isinstance(layers, dict):
-        raise NotImplementedError("the hybrid backbone is not ported yet")
     out_layers = dict(layers)
     for k in _QUANT_KEYS:
         if k in layers and "weight" in layers[k]:

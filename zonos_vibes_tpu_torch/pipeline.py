@@ -9,6 +9,10 @@ phonemes -> conditioning -> prefill -> staged decode -> codes -> DAC decode.
 The int8 serving configuration: ``pipe.quantize_int8()`` (int8 projections
 and heads), then ``DecodeEngine(pipe.model, kv_int8=True).generate(
 pipe.params, pipe.prepare_conditioning(cond), ...)`` for the int8 KV cache.
+The hybrid backbone: ``ZonosPipeline.from_config(ZONOS_V01_HYBRID)``, the
+same calls (its extra quality conditioners take ``make_cond_dict``'s
+``vqscore_8``, ``ctc_loss``, ``dnsmos_ovrl`` and ``speaker_noised``);
+``DecodeEngine(pipe.model, state_bf16=True)`` stores its SSM state in bf16.
 
 Text normalization, phonemization and tokenization run on the host
 (``frontend/``); everything numeric runs on ``pipe.device``. Entry points

@@ -3,7 +3,11 @@
 * :func:`params_from_jax` takes a JAX parameter tree after
   ``jax.device_get`` (nested dicts and lists of numpy arrays) and returns
   the port's tree of tensors. The Zonos model keeps the JAX tree and
-  layouts unchanged (linear weights ``[in, out]``, stacked layers). The DAC
+  layouts unchanged (linear weights ``[in, out]``, stacked layers), except
+  the hybrid backbone's list of per-layer dicts (Mamba-2 and attention
+  layers interleaved): its layers are stacked by kind into
+  ``{"mamba": {leaf: [M, ...]}, "attn": {leaf: [L_attn, ...]}}`` in layer
+  order, the layout of ``models/mamba_backbone.py``. The DAC
   tree (recognised by its ``decoder`` and ``quantizers`` keys) changes
   layout: conv kernels ``[k, Cin, Cout]`` become PyTorch's
   ``[Cout, Cin, k]``; transposed-conv kernels, stored by JAX pre-flipped as
@@ -73,11 +77,35 @@ def _dac_from_jax(tree: dict) -> dict:
     }
 
 
+def _stack(trees: list[dict]) -> dict:
+    """Same-structured trees -> one tree with each leaf stacked on axis 0."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def _hybrid_from_jax(backbone: dict) -> dict:
+    """The hybrid's ``{"layers": [per-layer dict, ...], "norm_f"}`` -> layers
+    stacked by kind (a Mamba-2 layer is the one with ``A_log``)."""
+    layers = backbone["layers"]
+    out = {k: v for k, v in backbone.items() if k != "layers"}
+    for kind, pick in (("mamba", True), ("attn", False)):
+        group = [lp for lp in layers if ("A_log" in lp) == pick]
+        if group:
+            out[kind] = _stack(group)
+    return out
+
+
 def params_from_jax(tree, device="cpu") -> dict:
     """JAX parameter tree (numpy leaves) -> the port's tree on ``device``."""
     tree = _map(tree, _to_tensor)
     if isinstance(tree, dict) and "decoder" in tree and "quantizers" in tree:
         tree = _dac_from_jax(tree)
+    if isinstance(tree, dict) and isinstance(tree.get("layers"), list):
+        tree = _hybrid_from_jax(tree)
+    elif isinstance(tree, dict) and isinstance(tree.get("backbone", {}).get("layers"), list):
+        tree = {**tree, "backbone": _hybrid_from_jax(tree["backbone"])}
     return _map(tree, lambda t: t.to(device))
 
 
