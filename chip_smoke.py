@@ -11,7 +11,9 @@ Phases, each of which fails the run loudly:
    the card, at the flagship's shapes (26 layers, CFG batch 2, 32 query
    heads, 8 KV heads, head dim 64, projections 2048 -> 3072, 2048 -> 2048,
    2048 -> 16384, 8192 -> 2048 and the 9 heads 2048 -> 1152), bf16, over
-   the edge cases of its interface; then the backbone on the card against
+   the edge cases of its interface (the prefill attention at every query-
+   and key-tile edge, at batches that give it both tile heights, with NaN in
+   every cache row at or past offset + S); then the backbone on the card against
    the CPU path on a small input, with bf16 weights and cache and with int8
    weights and an int8 cache. The pool's kernels (pooled decode attention
    with a bf16 and an int8 prefix, the per-row ring splice) at the 8-slot
@@ -57,7 +59,10 @@ Phases, each of which fails the run loudly:
 4. Timing: each kernel, its plain version and the one PyTorch call that
    computes the same function, at the shapes the main path gave it, beside
    the least time the card could take for the same work; ``qmm_int8`` at
-   the solo step's 2 rows and the pooled step's 16; the pool's kernels at
+   the solo step's 2 rows, the pooled step's 16 and the prefill's fc1 at
+   2 * (cond_len + 1) rows; the prefill attention (row 3, both head dims)
+   at the main path's chunk and at long chunks (S = 2048 at offset 0,
+   S = 512 at offset 64) beside SDPA and the flops bound; the pool's kernels at
    16 rows over a 3584-position cache, at the main path's spread of depths
    and at spreads near 1800 and near 3000 positions; the hybrid's kernels
    at its paths' shapes (the fused Mamba step with its 42 planes cycled,
@@ -69,7 +74,11 @@ card's name and power limit, and the last line
 ``{"ok": true, "device": {...}}``. Each kernel's ``launches`` in the
 kernels line is one path's count: the pool kernels' that of their own pool
 run (``stage_splice_rows``: the bf16 pool's), ``qmm_int8``'s the solo int8
-path's, the hybrid's those of the hybrid's paths (the fused Mamba step is
+path's; ``qmm_int8_m16_step`` (the pooled step's 105 launches at 16 rows,
+timed as their sum) lists those counted during the int8 pool run's pooled
+steps, and ``qmm_int8_m176_fc1`` the fc1 launches of the solo int8 path's
+prefill, one per layer, at 2 * (cond_len + 1) rows; the
+hybrid's those of the hybrid's paths (the fused Mamba step is
 one kernel with two entries, counted under ``ssd_gate_step``: row 9 lists
 the solo path's launches, row 10 the pool's). Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints no
@@ -193,8 +202,6 @@ def check_kernels() -> dict:
 
     from zonos_vibes_tpu_torch.ops.cuda.decode_attention import (
         decode_attention_layered, decode_attention_layered_plain)
-    from zonos_vibes_tpu_torch.ops.cuda.prefill_attention import (
-        prefill_attention, prefill_attention_plain)
     from zonos_vibes_tpu_torch.ops.cuda.stage_write import stage_splice, stage_splice_plain
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -226,20 +233,47 @@ def check_kernels() -> dict:
     err["stage_splice"] = 0.0
     log("kernel stage_splice: slots 0/1/63/127 bit-exact, other slots untouched")
 
-    worst = 0.0
-    for S in (7, 97, 600):
-        for offset in (0, 64):
-            q = randn(gen, B, S, HQ, D)
-            k, v = randn(gen, B, 768, W), randn(gen, B, 768, W)
-            got = prefill_attention(q, k, v, offset).float()
-            want = prefill_attention_plain(q, k, v, offset).float()
-            e = (got - want).abs().max().item()
-            if not torch.isfinite(got).all() or e > TOL:
-                raise AssertionError(f"prefill_attention S={S} offset={offset}: err {e}")
-            worst = max(worst, e)
-    err["prefill_attention"] = worst
-    log(f"kernel prefill_attention: S 7/97/600 x offset 0/64 max_abs_err {worst:.3e} <= {TOL}")
+    err["prefill_attention"] = check_prefill(gen, HQ, HKV, D)
     return err
+
+
+# Prefill chunk lengths for the checks: the 16-row warp tiles' and 32-key
+# tiles' edges, the main path's ~88 and a long chunk.
+PREFILL_S = (1, 7, 16, 17, 32, 33, 63, 64, 65, 88, 97, 600)
+
+
+def check_prefill(gen, Hq, Hkv, Dh) -> float:
+    """Row 3 against its plain version at both tile heights, every cache row
+    at or past offset + S NaN (never read); the plain version reads the
+    cache only up to offset + S. The kernel takes 64-row tiles when their
+    grid covers at least half of the 132 SMs, else 32-row ones: one batch
+    row keeps each chunk of up to 97 positions under that, 17 put it over;
+    the 600-position chunk takes 64-row tiles at any batch."""
+    import torch
+
+    from zonos_vibes_tpu_torch.ops.cuda.prefill_attention import (
+        prefill_attention, prefill_attention_plain)
+
+    worst, T = 0.0, 768
+    for S in PREFILL_S:
+        for offset in (0, 64):
+            for Bs in (1, 17) if S <= 128 else (B,):
+                q = randn(gen, Bs, S, Hq, Dh)
+                k, v = randn(gen, Bs, T, Hkv * Dh), randn(gen, Bs, T, Hkv * Dh)
+                end = offset + S
+                want = prefill_attention_plain(q, k[:, :end], v[:, :end], offset).float()
+                k[:, end:] = float("nan")
+                v[:, end:] = float("nan")
+                got = prefill_attention(q, k, v, offset).float()
+                e = (got - want).abs().max().item()
+                if not torch.isfinite(got).all() or e > TOL:
+                    raise AssertionError(f"prefill_attention D={Dh} S={S} offset={offset} "
+                                         f"B={Bs}: err {e}")
+                worst = max(worst, e)
+    log(f"kernel prefill_attention D={Dh} Hq={Hq} Hkv={Hkv}: S {'/'.join(map(str, PREFILL_S))} x "
+        f"offset 0/64 x batch 1 and 17 (32- and 64-row tiles; S = 600 at batch {B}), NaN in every "
+        f"cache row at or past offset + S: max_abs_err {worst:.3e} <= {TOL}")
+    return worst
 
 
 def check_int8_kernels() -> dict:
@@ -742,7 +776,7 @@ def run_pool(pipe, card: str, kv_int8: bool, hybrid: bool = False) -> dict:
     kv_bytes = sum(t.numel() * t.element_size() for t in pool["cache"].values())
     torch.cuda.synchronize()
     build.reset_launches()
-    joins = steps = 0
+    joins = steps = step_qmm = 0
     t_join = t_steps = 0.0
     t_window = time.perf_counter()
     for seg in range(POOL_SLOTS + AUDIO_FRAMES // POOL_SEGMENT + 4):
@@ -758,7 +792,9 @@ def run_pool(pipe, card: str, kv_int8: bool, hybrid: bool = False) -> dict:
         elif all(plib.row_finished(pool, s) for s in range(POOL_SLOTS)):
             break
         t0 = time.perf_counter()
+        qmm_before = build.LAUNCHES["qmm_int8"]
         steps += plib.pool_steps(model, params, pool, POOL_SEED, POOL_SEGMENT)
+        step_qmm += build.LAUNCHES["qmm_int8"] - qmm_before
         torch.cuda.synchronize()
         t_steps += time.perf_counter() - t0
         if seg == POOL_SLOTS - 1:  # every row joined: the spread the kernels are timed at
@@ -777,8 +813,9 @@ def run_pool(pipe, card: str, kv_int8: bool, hybrid: bool = False) -> dict:
             "stage_splice_rows": 2 * steps, **NO_HYBRID_LAUNCHES}
     if hybrid:
         want["ssd_gate_step"] = (bcfg.n_layer - n_attn) * steps
-    if launches != want:
-        raise AssertionError(f"{label} launch counts {launches}, expected {want}")
+    if launches != want or step_qmm != (4 * L + 1) * steps * kv_int8:
+        raise AssertionError(f"{label} launch counts {launches} ({step_qmm} qmm_int8 in the "
+                             f"pooled steps), expected {want}")
 
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
@@ -808,7 +845,8 @@ def run_pool(pipe, card: str, kv_int8: bool, hybrid: bool = False) -> dict:
            "audio_s_per_s": sum(frames) / FRAME_RATE / t_steps,
            "audio_s_per_s_window": sum(frames) / FRAME_RATE / t_window,
            "prefill_join_ms": t_join * 1e3 / joins, "kv_cache_bytes": kv_bytes,
-           "memory_allocated": alloc, "bases_mid": bases_mid, "launches": launches}
+           "memory_allocated": alloc, "bases_mid": bases_mid, "launches": launches,
+           "step_qmm_launches": step_qmm}
     if hybrid:
         e2e["snapshot"] = snapshot
     log(f"e2e {label} ({card}): {joins} requests x {AUDIO_FRAMES} frames max, one join per "
@@ -887,8 +925,6 @@ def check_hybrid_kernels(solo_T: int) -> dict:
         decode_attention_unstaged, decode_attention_unstaged_plain)
     from zonos_vibes_tpu_torch.ops.cuda.mamba_step import (
         ssd_gate_step, ssd_gate_step_layered, ssd_gate_step_layered_plain)
-    from zonos_vibes_tpu_torch.ops.cuda.prefill_attention import (
-        prefill_attention, prefill_attention_plain)
 
     gen = torch.Generator(device="cuda").manual_seed(31)
     err = {}
@@ -1000,20 +1036,7 @@ def check_hybrid_kernels(solo_T: int) -> dict:
         f"{worst_rel:.3e}")
     del x
 
-    worst = 0.0
-    for S in (7, 97, 600):
-        for offset in (0, 64):
-            q = randn(gen, B, S, H_HQ, H_D)
-            k, v = randn(gen, B, 768, H_W), randn(gen, B, 768, H_W)
-            got = prefill_attention(q, k, v, offset).float()
-            want = prefill_attention_plain(q, k, v, offset).float()
-            e = (got - want).abs().max().item()
-            if not torch.isfinite(got).all() or e > TOL:
-                raise AssertionError(f"prefill_attention D=128 S={S} offset={offset}: err {e}")
-            worst = max(worst, e)
-    err["prefill_attention_hd128"] = worst
-    log(f"kernel prefill_attention at head dim 128 (row 3): S 7/97/600 x offset 0/64, Hq {H_HQ}, "
-        f"Hkv {H_HKV}: max_abs_err {worst:.3e} <= {TOL}")
+    err["prefill_attention_hd128"] = check_prefill(gen, H_HQ, H_HKV, H_D)
     return err
 
 
@@ -1317,8 +1340,6 @@ def time_hybrid_kernels(solo: dict, pool: dict, stage_less: dict, errors: dict,
         decode_attention_unstaged, decode_attention_unstaged_plain)
     from zonos_vibes_tpu_torch.ops.cuda.mamba_step import (
         ssd_gate_step, ssd_gate_step_layered, ssd_gate_step_layered_plain)
-    from zonos_vibes_tpu_torch.ops.cuda.prefill_attention import (
-        prefill_attention, prefill_attention_plain)
 
     gen = torch.Generator(device="cuda").manual_seed(13)
     rows = []
@@ -1387,19 +1408,7 @@ def time_hybrid_kernels(solo: dict, pool: dict, stage_less: dict, errors: dict,
 
     # Row 3 at head dim 128: the solo path's prefill.
     S = solo["cond_len"] + 1
-    q = randn(gen, B, S, H_HQ, H_D)
-    k, v = randn(gen, B, T, H_W), randn(gen, B, T, H_W)
-    qh = q.transpose(1, 2).contiguous()
-    kh = k[:, :S].view(B, S, H_HKV, H_D).transpose(1, 2).contiguous()
-    vh = v[:, :S].view(B, S, H_HKV, H_D).transpose(1, 2).contiguous()
-    ms = device_ms(lambda: prefill_attention(q, k, v, 0), 200)
-    plain = device_ms(lambda: prefill_attention_plain(q, k, v, 0), 20)
-    lib = device_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
-                                                           enable_gqa=True), 200)
-    b, by = bound(2 * B * S * H_HQ * H_D * 2 + 2 * B * S * H_W * 2,
-                  4 * B * H_HQ * H_D * S * (S + 1) / 2)
-    log(f"time prefill_attention head dim 128 S={S} T={T} ({card}): kernel_ms {ms:.4f} plain_ms "
-        f"{plain:.4f} library_ms {lib:.4f} (SDPA, causal) bound_ms {b:.6f} ({by})")
+    ms, plain, lib, b, by = time_prefill(gen, H_HQ, H_HKV, H_D, S, T, card)[S, 0]
     rows.append(dict(name="prefill_attention_hd128", route="cuda",
                      source="zonos_vibes_tpu_torch/csrc/prefill_attention.cu",
                      replaces="zonos_vibes_tpu/ops/pallas/prefill_attention.py:111",
@@ -1484,6 +1493,54 @@ def time_hybrid_kernels(solo: dict, pool: dict, stage_less: dict, errors: dict,
     return rows
 
 
+# Long prefill chunks timed beside SDPA and the bound: (S, offset).
+PREFILL_LONG = ((2048, 0), (512, 64))
+
+
+def time_prefill(gen, Hq, Hkv, Dh, S, T, card) -> dict:
+    """Row 3 at the main path's chunk (S at offset 0 in a cache of T): the
+    kernel, the plain version and SDPA; then the long chunks, kernel and
+    SDPA only. Returns {(S, offset): (kernel, plain or None, library, bound
+    ms, bound_by)}."""
+    import torch
+    import torch.nn.functional as F
+
+    from zonos_vibes_tpu_torch.ops.cuda.prefill_attention import (
+        prefill_attention, prefill_attention_plain)
+
+    W_ = Hkv * Dh
+    out = {}
+    for S_, offset, T_ in ((S, 0, T), *((s_, o_, s_ + o_) for s_, o_ in PREFILL_LONG)):
+        end = offset + S_
+        q = randn(gen, B, S_, Hq, Dh)
+        k, v = randn(gen, B, T_, W_), randn(gen, B, T_, W_)
+        qh = q.transpose(1, 2).contiguous()
+        kh = k[:, :end].view(B, end, Hkv, Dh).transpose(1, 2).contiguous()
+        vh = v[:, :end].view(B, end, Hkv, Dh).transpose(1, 2).contiguous()
+        if offset:  # query i attends keys [0, offset + i]
+            mask = (torch.arange(end, device="cuda")[None, :]
+                    <= offset + torch.arange(S_, device="cuda")[:, None])
+            sdpa = dict(attn_mask=mask)
+        else:
+            sdpa = dict(is_causal=True)
+        iters = 200 if S_ < 256 else 20
+        ms = device_ms(lambda: prefill_attention(q, k, v, offset), iters)
+        lib = device_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, enable_gqa=True,
+                                                               **sdpa), iters)
+        b, by = bound(2 * B * S_ * Hq * Dh * 2 + 2 * B * end * W_ * 2,
+                      4 * B * Hq * Dh * (S_ * offset + S_ * (S_ + 1) / 2))
+        plain = None
+        if not out:
+            plain = device_ms(lambda: prefill_attention_plain(q, k, v, offset), 20)
+        out[S_, offset] = (ms, plain, lib, b, by)
+        log(f"time prefill_attention D={Dh} Hq={Hq} Hkv={Hkv} S={S_} offset={offset} T={T_} "
+            f"({card}): kernel_ms {ms:.4f} plain_ms {'-' if plain is None else f'{plain:.4f}'} "
+            f"library_ms {lib:.4f} (SDPA, {'masked' if offset else 'causal'}) bound_ms {b:.6f} ({by}); "
+            f"kernel / SDPA {ms / lib:.2f}")
+        del q, k, v, qh, kh, vh
+    return out
+
+
 def time_kernels(e2e: dict, errors: dict, card: str) -> list[dict]:
     """Phase 4: kernel, plain and library times at the main path's shapes."""
     import torch
@@ -1492,8 +1549,6 @@ def time_kernels(e2e: dict, errors: dict, card: str) -> list[dict]:
     from zonos_vibes_tpu_torch.engine.generate import _find_multiple
     from zonos_vibes_tpu_torch.ops.cuda.decode_attention import (
         decode_attention_layered, decode_attention_layered_plain)
-    from zonos_vibes_tpu_torch.ops.cuda.prefill_attention import (
-        prefill_attention, prefill_attention_plain)
     from zonos_vibes_tpu_torch.ops.cuda.stage_write import stage_splice, stage_splice_plain
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -1550,20 +1605,7 @@ def time_kernels(e2e: dict, errors: dict, card: str) -> list[dict]:
                      max_abs_err=errors["stage_splice"], ms=ms, plain_ms=plain,
                      bound_ms=b, bound_by=by, library_ms=lib))
 
-    S = cond_len + 1
-    q = randn(gen, B, S, HQ, D)
-    k, v = randn(gen, B, T, W), randn(gen, B, T, W)
-    qh = q.transpose(1, 2).contiguous()
-    kh = k[:, :S].view(B, S, HKV, D).transpose(1, 2).contiguous()
-    vh = v[:, :S].view(B, S, HKV, D).transpose(1, 2).contiguous()
-    ms = device_ms(lambda: prefill_attention(q, k, v, 0), 200)
-    plain = device_ms(lambda: prefill_attention_plain(q, k, v, 0), 20)
-    lib = device_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
-                                                           enable_gqa=True), 200)
-    b, by = bound(2 * B * S * HQ * D * 2 + 2 * B * S * W * 2,
-                  4 * B * HQ * D * S * (S + 1) / 2)
-    log(f"time prefill_attention S={S} T={T} offset=0 ({card}): kernel_ms {ms:.4f} "
-        f"plain_ms {plain:.4f} library_ms {lib:.4f} bound_ms {b:.6f} ({by})")
+    ms, plain, lib, b, by = time_prefill(gen, HQ, HKV, D, cond_len + 1, T, card)[cond_len + 1, 0]
     rows.append(dict(name="prefill_attention", route="cuda",
                      source="zonos_vibes_tpu_torch/csrc/prefill_attention.cu",
                      replaces="zonos_vibes_tpu/ops/pallas/prefill_attention.py:111",
@@ -1573,63 +1615,59 @@ def time_kernels(e2e: dict, errors: dict, card: str) -> list[dict]:
     return rows
 
 
-def time_int8_kernels(e2e: dict, errors: dict, card: str) -> list[dict]:
-    """Phase 4, the int8 path's kernels at the shapes of its main path."""
+def time_qmm(gen, G, K, N, out_dtype, layers, Ms) -> dict:
+    """``qmm_int8`` at each M in ``Ms``: {M: (kernel, plain, library, bound
+    ms, bound_by)}. The weights of all ``layers`` are cycled through, so
+    that each launch reads its weight from device memory as a decode step
+    does (one layer's fc1 is 33.5 MB, within the 50 MB L2). The library call
+    is the matmul on a bf16 copy of the weight."""
     import itertools
 
     import torch
-    import torch.nn.functional as F
 
-    from zonos_vibes_tpu_torch.engine.generate import _find_multiple
-    from zonos_vibes_tpu_torch.ops.cuda.decode_attention import (
-        decode_attention_layered_q, decode_attention_layered_q_plain)
     from zonos_vibes_tpu_torch.ops.cuda.qmm import qmm_int8, qmm_int8_plain
-    from zonos_vibes_tpu_torch.ops.quant import dequantize_rows, quantize_rows
 
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    cond_len, steps = e2e["cond_len"], e2e["steps"]
-    rows = []
+    w = torch.randint(-127, 128, (layers, G, K, N), dtype=torch.int8, device="cuda",
+                      generator=gen)
+    scale = torch.rand((layers, G, 1, N), device="cuda", generator=gen) * 1e-3 + 1e-4
+    w_bf16 = torch.empty(w.shape, dtype=torch.bfloat16, device="cuda")
+    for l in range(layers):
+        w_bf16[l] = (w[l].float() * scale[l]).to(torch.bfloat16)
+    lib_w = w_bf16[:, 0] if G == 1 else w_bf16
+    idx = itertools.cycle(range(layers))
+    out = {}
+    for M in Ms:
+        x = randn(gen, M, K)
 
-    # The weights of all 26 layers, cycled through, so that each launch reads
-    # its weight from device memory as a decode step does (one layer's fc1 is
-    # 33.5 MB, within the 50 MB L2).
-    def qmm_time(G, K, N, out_dtype, layers, Ms):
-        """{M: (kernel, plain, library, bound ms, bound_by)} for each M."""
-        w = torch.randint(-127, 128, (layers, G, K, N), dtype=torch.int8, device="cuda",
-                          generator=gen)
-        scale = torch.rand((layers, G, 1, N), device="cuda", generator=gen) * 1e-3 + 1e-4
-        w_bf16 = torch.empty(w.shape, dtype=torch.bfloat16, device="cuda")
-        for l in range(layers):
-            w_bf16[l] = (w[l].float() * scale[l]).to(torch.bfloat16)
-        lib_w = w_bf16[:, 0] if G == 1 else w_bf16
-        idx = itertools.cycle(range(layers))
-        out = {}
-        for M in Ms:
-            x = randn(gen, M, K)
+        def kernel():
+            l = next(idx)
+            return qmm_int8(x, w[l], scale[l], out_dtype)
 
-            def kernel():
-                l = next(idx)
-                return qmm_int8(x, w[l], scale[l], out_dtype)
+        def plain_version():
+            l = next(idx)
+            return qmm_int8_plain(x, w[l], scale[l], out_dtype)
 
-            def plain_version():
-                l = next(idx)
-                return qmm_int8_plain(x, w[l], scale[l], out_dtype)
+        ms = device_ms(kernel, 26 * 8)
+        plain = device_ms(plain_version, 26)
+        lib = device_ms(lambda: torch.matmul(x, lib_w[next(idx)]), 26 * 8)
+        out_bytes = 4 if out_dtype == torch.float32 else 2
+        out[M] = (ms, plain, lib, *bound(M * K * 2 + G * K * N + G * N * 4
+                                         + M * G * N * out_bytes, 2 * M * G * K * N))
+    return out
 
-            ms = device_ms(kernel, 26 * 8)
-            plain = device_ms(plain_version, 26)
-            lib = device_ms(lambda: torch.matmul(x, lib_w[next(idx)]), 26 * 8)
-            out_bytes = 4 if out_dtype == torch.float32 else 2
-            out[M] = (ms, plain, lib, *bound(M * K * 2 + G * K * N + G * N * 4
-                                             + M * G * N * out_bytes, 2 * M * G * K * N))
-        return out
 
-    # One forward's 105 launches: M = 2 on the solo decode step, M = 16 on
-    # the 8-slot pool's step.
+def time_qmm_steps(gen, card):
+    """One forward's 105 ``qmm_int8`` launches at M = 2 (the solo decode
+    step) and M = 16 (the 8-slot pool's step), each shape timed alone and
+    summed over its launches. Returns ({M: {"ms", "plain", "lib", "bound"}},
+    fc1's times at M = 2)."""
+    import torch
+
     step = {M: dict(ms=0.0, plain=0.0, lib=0.0, bound=0.0) for M in (2, POOL_M)}
     shapes = [(name, 1, k, n, torch.bfloat16, L) for name, (k, n) in PROJECTIONS.items()]
     shapes.append(("heads", *HEADS_SHAPE, torch.float32, 1))
     for name, G, K, N, out_dtype, count in shapes:
-        times = qmm_time(G, K, N, out_dtype, count, tuple(step))
+        times = time_qmm(gen, G, K, N, out_dtype, count, tuple(step))
         for M, (ms, plain, lib, b, by) in times.items():
             for key, v in zip(("ms", "plain", "lib", "bound"), (ms, plain, lib, b)):
                 step[M][key] += count * v
@@ -1641,16 +1679,48 @@ def time_int8_kernels(e2e: dict, errors: dict, card: str) -> list[dict]:
     for M, label in ((2, "one decode step"), (POOL_M, "one pooled step")):
         t = step[M]
         log(f"time qmm_int8 {label} (M={M}), 105 launches ({card}): kernel_ms {t['ms']:.4f} "
-            f"plain_ms {t['plain']:.3f} library_ms {t['lib']:.4f} bound_ms {t['bound']:.4f}")
+            f"plain_ms {t['plain']:.3f} library_ms {t['lib']:.4f} bound_ms {t['bound']:.4f}; "
+            f"kernel / library {t['ms'] / t['lib']:.3f}")
+    return step, fc1
+
+
+def time_int8_kernels(e2e: dict, pool_int8: dict, errors: dict, card: str) -> list[dict]:
+    """Phase 4, the int8 path's kernels at the shapes of its main path."""
+    import torch
+    import torch.nn.functional as F
+
+    from zonos_vibes_tpu_torch.engine.generate import _find_multiple
+    from zonos_vibes_tpu_torch.ops.cuda.decode_attention import (
+        decode_attention_layered_q, decode_attention_layered_q_plain)
+    from zonos_vibes_tpu_torch.ops.quant import dequantize_rows, quantize_rows
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cond_len, steps = e2e["cond_len"], e2e["steps"]
+    rows = []
+
+    step, fc1 = time_qmm_steps(gen, card)
     M = 2 * (cond_len + 1)
-    ms, plain, lib, b, by = qmm_time(1, *PROJECTIONS["fc1"], torch.bfloat16, L, (M,))[M]
-    log(f"time qmm_int8 fc1 prefill M={M} ({card}): kernel_ms {ms:.4f} plain_ms {plain:.4f} "
-        f"library_ms {lib:.4f} bound_ms {b:.5f} ({by})")
+    prefill = time_qmm(gen, 1, *PROJECTIONS["fc1"], torch.bfloat16, L, (M,))[M]
+    log(f"time qmm_int8 fc1 prefill M={M} ({card}): kernel_ms {prefill[0]:.4f} plain_ms "
+        f"{prefill[1]:.4f} library_ms {prefill[2]:.4f} bound_ms {prefill[3]:.5f} ({prefill[4]})")
+    source = dict(route="cuda", source="zonos_vibes_tpu_torch/csrc/qmm_int8.cu",
+                  replaces="zonos_vibes_tpu/ops/pallas/qmm.py:46", max_abs_err=errors["qmm_int8"])
     ms, plain, lib, b, by = fc1
-    rows.append(dict(name="qmm_int8", route="cuda", source="zonos_vibes_tpu_torch/csrc/qmm_int8.cu",
-                     replaces="zonos_vibes_tpu/ops/pallas/qmm.py:46",
-                     launches=e2e["launches"]["qmm_int8"], max_abs_err=errors["qmm_int8"],
-                     ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib))
+    rows.append(dict(name="qmm_int8", launches=e2e["launches"]["qmm_int8"], ms=ms, plain_ms=plain,
+                     bound_ms=b, bound_by=by, library_ms=lib, **source))
+    # The pooled step's 105 launches at M = 16, timed as their sum; launches:
+    # those counted during the int8 pool run's pooled steps.
+    t = step[POOL_M]
+    rows.append(dict(name="qmm_int8_m16_step", launches=pool_int8["step_qmm_launches"],
+                     ms=t["ms"], plain_ms=t["plain"], bound_ms=t["bound"], bound_by="bytes",
+                     library_ms=t["lib"], **source))
+    # fc1 at the prefill's M; launches: one per layer in each of the solo
+    # int8 path's prefill forwards (its counted launches, 105 per forward,
+    # less those of its decode steps).
+    prefills = e2e["launches"]["qmm_int8"] // (4 * L + 1) - steps
+    ms, plain, lib, b, by = prefill
+    rows.append(dict(name="qmm_int8_m176_fc1", launches=L * prefills, ms=ms,
+                     plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib, **source))
 
     T = cond_len + AUDIO_FRAMES + 9
     T = _find_multiple(T, 512 if T >= 1024 else 8)
@@ -1838,7 +1908,7 @@ def main() -> int:
     stage_less = run_stage_less(pipe, pool_hybrid, card)
     del pipe
     torch.cuda.empty_cache()
-    rows = (time_kernels(e2e, errors, card) + time_int8_kernels(e2e_int8, errors, card)
+    rows = (time_kernels(e2e, errors, card) + time_int8_kernels(e2e_int8, pool_int8, errors, card)
             + time_pool_kernels(pool_bf16, pool_int8, errors, card)
             + time_hybrid_kernels(hybrid, pool_hybrid, stage_less, errors, card))
     print(card)

@@ -119,6 +119,26 @@ def test_prefill_attention_plain_matches_pallas(S, offset):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+@pytest.mark.parametrize("S", [1, 16, 17, 64, 65, 88])
+@pytest.mark.parametrize("heads", [(2, 2, 128), (8, 2, 128), (2, 2, 64)],
+                         ids=["d128g1", "d128g4", "d64g1"])
+def test_prefill_attention_plain_matches_pallas_at_tile_edges(S, heads):
+    """The kernel's query- and key-tile edges (16-row warp tiles, 32-key
+    tiles) with a chunk at offset > 0, at head dim 128 and one query head
+    per KV head."""
+    Hq, Hkv, Dh = heads
+    offset, Tp = 64, 256
+    rng = np.random.default_rng(S * 10 + Hq + Dh)
+    q = rng.standard_normal((1, S, Hq, Dh)).astype(np.float32)
+    k = rng.standard_normal((1, Tp, Hkv * Dh)).astype(np.float32)
+    v = rng.standard_normal((1, Tp, Hkv * Dh)).astype(np.float32)
+    want = prefill_attention_pallas(
+        jnp.asarray(q), jnp.asarray(_to_time_minor(k, Hkv)), jnp.asarray(_to_time_minor(v, Hkv)),
+        jnp.int32(offset), block_q=64, block_k=128, interpret=True)
+    got = prefill_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), offset)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
 def test_wrappers_reject_inconsistent_shapes():
     q = torch.zeros(B, 4, HQ, D)
     kv = torch.zeros(B, 16, W)

@@ -165,6 +165,43 @@ def test_prefill_attention_kernel(dev, S, offset):
     torch.testing.assert_close(got.float(), want.float(), **TOL)
 
 
+# (Hq, Hkv, D): the transformer (G = 4), the hybrid (G = 4 at head dim 128),
+# and one query head per KV head (G = 1).
+PREFILL_HEADS = [(HQ, HKV, D), (16, 4, 128), (8, 8, 64)]
+
+
+@pytest.mark.parametrize("heads", PREFILL_HEADS, ids=["d64g4", "d128g4", "d64g1"])
+@pytest.mark.parametrize("S", [1, 15, 16, 17, 32, 33, 63, 64, 65, 88, 600, 2048])
+@pytest.mark.parametrize("offset", [0, 64, 1000])
+@pytest.mark.parametrize("wide", [False, True], ids=["b1", "bwide"])
+def test_prefill_attention_kernel_tile_edges(dev, heads, S, offset, wide):
+    """Every query-tile and key-tile edge at both tile heights; every cache
+    row at or past offset + S is NaN and must never be read.
+
+    The kernel takes 64-row tiles when their grid covers at least half of
+    the 132 SMs, else 32-row ones. One batch row keeps every chunk of up to
+    88 positions under that (32-row tiles); 17 put each of them over it
+    (64-row tiles). Chunks of 600 or more take 64-row tiles at any batch, so
+    the wide case runs them at 2 rows."""
+    Hq, Hkv, Dh = heads
+    Bs = (17 if S <= 128 else 2) if wide else 1
+    gen = torch.Generator(device=dev).manual_seed(S + offset + Dh)
+    T = offset + S + 40
+    q = _randn(gen, Bs, S, Hq, Dh, dev=dev)
+    k = _randn(gen, Bs, T, Hkv * Dh, dev=dev)
+    v = _randn(gen, Bs, T, Hkv * Dh, dev=dev)
+    k[:, offset + S:] = float("nan")
+    v[:, offset + S:] = float("nan")
+    before = build.LAUNCHES["prefill_attention"]
+    got = prefill_attention(q, k, v, offset)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["prefill_attention"] == before + 1
+    assert torch.isfinite(got).all()
+    end = offset + S
+    want = prefill_attention_plain(q, k[:, :end].contiguous(), v[:, :end].contiguous(), offset)
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+
+
 def test_wrappers_raise_on_fp32_cuda(dev):
     q = torch.zeros(1, 4, HQ, D, device=dev)
     kv = torch.zeros(1, 16, W, device=dev)
@@ -174,13 +211,21 @@ def test_wrappers_raise_on_fp32_cuda(dev):
     assert build.LAUNCHES["prefill_attention"] == before
 
 
-@pytest.mark.parametrize("M", [1, 2, 16, 176])  # solo step, pooled step (8 slots), prefill
-@pytest.mark.parametrize("G,K,N,out_dtype", [
+# Solo step (1, 2), pooled step (16, 8 slots), prefill (176), and the edges of
+# the tensor-core path's 16- and 64-row tiles.
+QMM_MS = [1, 2, 3, 15, 16, 17, 64, 65, 176]
+QMM_SHAPES = [
     (1, 2048, 3072, torch.bfloat16), (1, 2048, 2048, torch.bfloat16),
     (1, 2048, 16384, torch.bfloat16), (1, 8192, 2048, torch.bfloat16),
     (9, 2048, 1152, torch.float32),  # the 9 heads, fp32 logits
     (2, 1000, 144, torch.bfloat16),  # ragged: K not a multiple of 256, N of 128
-])
+    (2, 320, 144, torch.bfloat16),   # K not a multiple of the 128-row split
+    (1, 330, 32, torch.bfloat16),    # K not a multiple of 8: x staged by plain loads
+]
+
+
+@pytest.mark.parametrize("M", QMM_MS)
+@pytest.mark.parametrize("G,K,N,out_dtype", QMM_SHAPES)
 def test_qmm_int8_kernel(dev, M, G, K, N, out_dtype):
     gen = torch.Generator(device=dev).manual_seed(M + N)
     wq = quant.quantize_weight(_randn(gen, G, K, N, dev=dev) / K ** 0.5)
@@ -195,6 +240,26 @@ def test_qmm_int8_kernel(dev, M, G, K, N, out_dtype):
     # The split rows meet in a fixed order and the tile counters reset: a
     # second launch gives the same bits.
     assert torch.equal(qmm_int8(x, wq["weight_int8"], wq["scale"], out_dtype), got)
+
+
+@pytest.mark.parametrize("M", [3, 16, 17, 176])
+@pytest.mark.parametrize("G,K,N,out_dtype", [QMM_SHAPES[3], QMM_SHAPES[4]])
+def test_qmm_int8_rows_are_isolated(dev, M, G, K, N, out_dtype):
+    """A row's output does not change when another row of x changes (the
+    pool's row isolation), nor when x has fewer rows in the same tile."""
+    gen = torch.Generator(device=dev).manual_seed(M)
+    wq = quant.quantize_weight(_randn(gen, G, K, N, dev=dev) / K ** 0.5)
+    x = _randn(gen, M, K, dev=dev)
+    got = qmm_int8(x, wq["weight_int8"], wq["scale"], out_dtype)
+    x2 = x.clone()
+    x2[M - 1] = _randn(gen, K, dev=dev)
+    got2 = qmm_int8(x2, wq["weight_int8"], wq["scale"], out_dtype)
+    assert torch.equal(got[:M - 1], got2[:M - 1])
+    assert not torch.equal(got[M - 1], got2[M - 1])
+    if M <= 16:  # same 16-row tile, same plan: row 0 alone in the tile
+        x3 = torch.zeros_like(x)
+        x3[0] = x[0]
+        assert torch.equal(qmm_int8(x3, wq["weight_int8"], wq["scale"], out_dtype)[0], got[0])
 
 
 @pytest.fixture(scope="module")

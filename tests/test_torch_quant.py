@@ -153,6 +153,25 @@ def test_qmm_int8_plain_matches_pallas_and_proj_matmul(M, G, N):
             np.asarray(jquant.proj_matmul(jnp.asarray(x), leaf)), **TOL)
 
 
+@pytest.mark.parametrize("M", [16, 65])  # the tensor-core path's 16- and 64-row tile edges
+@pytest.mark.parametrize("G", [1, 3])
+def test_qmm_int8_plain_matches_pallas_at_tile_edges(M, G):
+    """K = 320: not a multiple of the kernel's 128-row split. x holds small
+    integers, so every dot is exact in fp32 whatever the summation order and
+    the two sides differ only if a row, column or scale is misplaced."""
+    rng = np.random.default_rng(M * 10 + G)
+    K, N = 320, 160
+    x = rng.integers(-8, 9, size=(M, K)).astype(np.float32)
+    w = rng.integers(-127, 128, size=(G, K, N)).astype(np.int8)
+    scale = rng.uniform(1e-3, 2e-2, size=(G, 1, N)).astype(np.float32)
+    got = qmm_int8(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(scale))
+    assert got.shape == (M, G, N) and got.dtype == torch.float32
+    for g in range(G):
+        want = qmm_int8_pallas(jnp.asarray(x), jnp.asarray(w[g]), jnp.asarray(scale[g]),
+                               interpret=True)
+        np.testing.assert_allclose(got[:, g].numpy(), np.asarray(want), **TOL)
+
+
 def test_qmm_int8_rejects_bad_inputs():
     x = torch.zeros(2, 32)
     w = torch.zeros(1, 32, 16, dtype=torch.int8)

@@ -1,0 +1,77 @@
+#!/usr/bin/env python3
+"""Times the port's prefill-attention and int8-matmul kernels at the main
+path's shapes, for one checkout of the port, on one NVIDIA GPU.
+
+    python3 tools/time_torch_kernels.py [--tree DIR] [--label NAME]
+
+``--tree`` names the checkout whose ``zonos_vibes_tpu_torch`` is imported
+(default: the one holding this script), so that two versions of the kernels
+can be compared on one card in one run: unpack the other version into a
+git-ignored directory and run parent, change, change, parent. The timing is
+this checkout's ``chip_smoke.py`` phase 4, called on the imported port:
+``time_qmm_steps`` (one forward's 105 ``qmm_int8`` launches at M = 2, the
+solo decode step, and M = 16, the 8-slot pool's step, beside the matmul on
+a bf16 copy of each weight), ``time_qmm`` for fc1 at a prefill's M = 176,
+and ``time_prefill`` for row 3 at the transformer's S = 88 (head dim 64,
+32/8 heads) and the hybrid's S = 92 (head dim 128, 16/4 heads), B = 2, and
+at the long chunks (S = 2048 at offset 0, S = 512 at offset 64), beside
+SDPA. Prints chip_smoke's timing lines, then one JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke_helpers", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", default=str(ROOT), help="checkout whose port is timed")
+    ap.add_argument("--label", default=None, help="name printed with the result")
+    args = ap.parse_args()
+    tree = Path(args.tree).resolve()
+    sys.path.insert(0, str(tree))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_torch_kernels: no CUDA device", file=sys.stderr)
+        return 1
+    import zonos_vibes_tpu_torch
+
+    if not Path(zonos_vibes_tpu_torch.__file__).resolve().is_relative_to(tree):
+        raise RuntimeError(f"imported {zonos_vibes_tpu_torch.__file__}, not from {tree}")
+    cs = _chip_smoke()
+    card = cs.card_line()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    result = {"tree": args.label or str(tree), "card": card}
+
+    step, _ = cs.time_qmm_steps(gen, card)
+    for M, t in step.items():
+        result[f"qmm_m{M}_step_ms"] = t["ms"]
+        result[f"matmul_m{M}_step_ms"] = t["lib"]
+    fc1 = cs.time_qmm(gen, 1, *cs.PROJECTIONS["fc1"], torch.bfloat16, cs.L, (176,))[176]
+    result["qmm_m176_fc1_ms"], result["matmul_m176_fc1_ms"] = fc1[0], fc1[2]
+
+    for Hq, Hkv, Dh, S, T in ((cs.HQ, cs.HKV, cs.D, 88, 528), (cs.H_HQ, cs.H_HKV, cs.H_D, 92, 536)):
+        for (S_, offset), (ms, _, lib, _, _) in cs.time_prefill(gen, Hq, Hkv, Dh, S, T,
+                                                                card).items():
+            result[f"prefill_d{Dh}_s{S_}_o{offset}_ms"] = ms
+            result[f"sdpa_d{Dh}_s{S_}_o{offset}_ms"] = lib
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

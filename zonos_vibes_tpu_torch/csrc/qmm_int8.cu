@@ -9,11 +9,16 @@
 // fp32; the fp32 scale multiplies the finished dot; the result rounds once
 // to the output type (bf16 for the projections, fp32 for the heads' logits).
 //
-// What bounds it on the H100: device-memory bytes. At decode (M = 2, the
-// CFG pair) it streams each weight byte once and does 2 * M = 4 flops per
-// byte; one fc1 weight (2048 x 16384 int8, 33.5 MB) takes >= 10 us at
-// 3.35 TB/s. The prefill (M = 2 * (cond_len + 1), ~176) reuses each weight
-// byte M times, which needs the tensor cores.
+// What bounds it on the H100, by regime of M (the rows of x):
+//  * M <= 16 (decode: M = 2, the CFG pair; the 8-slot pool's step: M = 16):
+//    device-memory bytes. Each weight byte is streamed once and used for
+//    2 * M <= 32 flops, far under the ~295 flops per byte at which the bf16
+//    tensor cores would take over; one fc2 weight (8192 x 2048 int8, 16.8 MB)
+//    takes >= 5 us at 3.35 TB/s. The time goes to keeping enough weight bytes
+//    in flight on every SM.
+//  * M = 176 (a prefill, 2 * (cond_len + 1)): each weight byte serves 176
+//    rows, 352 flops per byte: the tensor cores' rate is approached and the
+//    bytes still matter (fc1: 12 us of flops, 10 us of bytes).
 //
 // What the design does about it, for M <= 2 (decode; CUDA cores):
 //  * A block covers 128 output columns: 8 threads side by side
@@ -34,13 +39,29 @@
 //    global memory, where it stays in L1 and L2.
 //  * Each thread keeps fp32 accumulators for 16 columns of both rows (M = 1
 //    runs its one row twice).
-// For M > 2 (prefill; tensor cores): blocks of 64 rows x 128 columns step
-// through K 64 rows at a time. The x tile and the weight tile, its int8
-// values widened to bf16 (exact), go through shared memory row-major; each
-// of 8 warps runs mma.sync m16n8k16 (bf16 in, fp32 accumulate) on a 32 x 32
-// sub-tile, its B fragments loaded with ldmatrix.trans, and the next tiles
-// are loaded into registers while the current ones are multiplied. wgmma,
-// TMA and a deeper pipeline are later work.
+// For M > 2 (the pool's step and the prefill; tensor cores):
+//  * Row tiles fitted to M: BM = 16 rows (exactly one m16n8k16 row tile) for
+//    M <= 16, so no warp multiplies zero rows at the pool's M = 16; BM = 64
+//    for larger M. A block covers BM rows x 128 columns; each of its 4 warps
+//    owns 32 columns and all BM rows.
+//  * Split-K as for M <= 2: the rows of W are cut into splits of a multiple
+//    of 128 until the grid holds at least one block per SM, and up to two
+//    while each split keeps >= 512 rows (more splits cost more partials to
+//    sum; this rule was the fastest of those timed, `PERF.md`, row 4). The
+//    last block of an output tile to arrive sums the fp32 partials in split
+//    order, all of a split's loads issued together. The plan depends only on
+//    (BM, ceil(M / BM), K, N, G); each output row's value depends only on
+//    its own row of x, so a row's result does not change with the others.
+//  * Weights stay int8 in shared memory: a 4-stage ring of 64 x 128 byte
+//    tiles (32 KB of weights in flight per block) filled by 16-byte
+//    cp.async.cg copies, with the x tile ([BM, 64] bf16) in the same stage.
+//    ldmatrix.trans on the int8 tile, read as 16-bit pairs, hands each
+//    thread W[2t][2g..2g+1] and W[2t+1][2g..2g+1]; the even and odd columns
+//    become two n8 tiles of the mma B operand, widened to bf16 in registers
+//    by the byte permutation above (exact), so shared memory carries one
+//    byte per weight. x fragments come from ldmatrix on the x tile.
+//  * mma.sync m16n8k16, bf16 in, fp32 accumulate; each thread ends holding 4
+//    adjacent columns of 2 rows. wgmma and TMA are later work.
 //
 // Layouts (row-major): x bf16 [M, K]; w int8 [G, K, N]; scale fp32 [G, 1, N];
 // out [M, G, N] of OutT. N must be a multiple of 16. ws fp32 and counters
@@ -61,12 +82,18 @@ constexpr int THREADS = WARPS * 32;
 constexpr int LANE_SLICES = 32 / COL_GROUPS;  // row slices in a warp
 constexpr int SLICES = WARPS * LANE_SLICES;   // row slices in a block
 constexpr int SPLIT_ROWS = 256;               // a split's rows: a multiple of this
-constexpr int TARGET_BLOCKS = 4 * 132;        // four blocks per SM of an H100
+constexpr int SMS = 132;                      // SMs of an H100
+constexpr int TARGET_BLOCKS = 4 * SMS;        // four blocks per SM
 constexpr int MT = 2;                         // the CUDA-core kernel's rows: the CFG pair
 constexpr int U = 8;                          // weight rows each thread has in flight
-// Tensor-core kernel tiles; rows of its shared tiles are padded by 8 bf16.
-constexpr int MMA_BM = 64;
+// Tensor-core kernel: K steps of 64 rows, 4 stages in flight, 4 warps.
 constexpr int MMA_BK = 64;
+constexpr int MMA_SPLIT = 2 * MMA_BK;  // a split's rows: a multiple of this
+constexpr int MMA_STAGES = 4;
+constexpr int MMA_WARPS = 4;
+constexpr int MMA_THREADS = MMA_WARPS * 32;
+constexpr int W_PITCH = TILE_N + 16;  // bytes per int8 weight row in shared memory
+constexpr int X_PITCH = MMA_BK + 8;   // bf16 per x row in shared memory
 
 struct Plan {
   int ntiles, splits, rows;
@@ -209,8 +236,13 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Four 8 x 8 bf16 matrices from shared memory, transposed: the mma B
-// fragments of two n8 tiles over k16 from a row-major [k][n] tile.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
   const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -218,134 +250,272 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
                : "r"(addr));
 }
 
-__device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  const int n = ok ? 16 : 0;  // 0: zero-fill, nothing read
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n)
+               : "memory");
 }
 
-template <typename OutT>
-__global__ void __launch_bounds__(THREADS) qmm_int8_mma_kernel(
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Two exact floats (small integers) as the bf16 pair {lo, hi}: their top halves.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// ldmatrix.trans of int8 rows read as 16-bit pairs gives a thread the bytes
+// {W[2t][2g], W[2t][2g+1], W[2t+1][2g], W[2t+1][2g+1]} of one 8-row half of
+// the k16 step (lo: k rows 0-7, hi: 8-15). The even columns make one n8
+// tile's B fragment, the odd ones another.
+__device__ __forceinline__ void widen(uint32_t lo, uint32_t hi, uint32_t* even, uint32_t* odd) {
+  const uint32_t w[2] = {lo ^ 0x80808080u, hi ^ 0x80808080u};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    even[i] = pack_bf16(byte_to_float(w[i], 0), byte_to_float(w[i], 2));
+    odd[i] = pack_bf16(byte_to_float(w[i], 1), byte_to_float(w[i], 3));
+  }
+}
+
+// The tensor-core kernel's launch (M > MT): BM rows per block.
+struct MmaPlan {
+  int bm, mblocks, ntiles, splits, rows;
+};
+
+MmaPlan make_mma_plan(int M, int K, int N, int G) {
+  MmaPlan p;
+  p.bm = M <= 16 ? 16 : 64;
+  p.mblocks = (M + p.bm - 1) / p.bm;
+  p.ntiles = (N + TILE_N - 1) / TILE_N;
+  // At least one block per SM, and up to two while each split keeps >= 512
+  // rows: more splits cost more partials to sum, fewer leave bytes unasked.
+  const int base = p.mblocks * p.ntiles * G;
+  const int fill = (SMS + base - 1) / base;
+  const int deep = min(2 * SMS / base, K / 512);
+  const int want = max(1, min(max(fill, deep), (K + MMA_SPLIT - 1) / MMA_SPLIT));
+  p.rows = ((K + want - 1) / want + MMA_SPLIT - 1) / MMA_SPLIT * MMA_SPLIT;
+  p.splits = (K + p.rows - 1) / p.rows;
+  return p;
+}
+
+template <int BM>
+__host__ __device__ constexpr int mma_stage_bytes() {
+  return MMA_BK * W_PITCH + BM * X_PITCH * 2;
+}
+
+// X_VEC: K % 8 == 0, so x rows are 16-byte aligned and copied with cp.async;
+// otherwise x is staged by plain loads.
+template <typename OutT, int BM, bool X_VEC>
+__global__ void __launch_bounds__(MMA_THREADS) qmm_int8_mma_kernel(
     const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
-    const float* __restrict__ scale, OutT* __restrict__ out, int M, int K, int N, int G) {
-  const int m0 = blockIdx.x * MMA_BM;
+    const float* __restrict__ scale, OutT* __restrict__ out, float* __restrict__ ws,
+    int* __restrict__ counters, int M, int K, int N, int G, int rows, int splits) {
+  constexpr int MTILES = BM / 16;
+  constexpr int STAGE = mma_stage_bytes<BM>();
+  extern __shared__ __align__(16) uint8_t smem[];
+
+  const int m0 = blockIdx.x * BM;
   const int n0 = blockIdx.y * TILE_N;
-  const int g = blockIdx.z;
+  const int g = blockIdx.z / splits;
+  const int split = blockIdx.z % splits;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int wm = (warp / 4) * 32;  // the warp's 32 x 32 sub-tile
-  const int wn = (warp % 4) * 32;
-  const int gid = lane >> 2;       // mma fragment coordinates
+  const int gid = lane >> 2;
   const int tig = lane & 3;
+  const int wn = warp * 32;  // the warp's 32 columns
+  const int k_begin = split * rows;
+  const int k_end = min(K, k_begin + rows);
+  const int nk = (k_end - k_begin + MMA_BK - 1) / MMA_BK;
   const int8_t* wg = w + (size_t)g * K * N;
   const uint16_t* xb = reinterpret_cast<const uint16_t*>(x);
 
-  __shared__ __align__(16) uint16_t xs[MMA_BM][MMA_BK + 8];  // bf16 bits, [m][k]
-  __shared__ __align__(16) uint16_t wt[MMA_BK][TILE_N + 8];  // bf16 bits, [k][n]
-
-  // Per thread per K step: 16 x values (row xr, k from xk) and 2 x 16
-  // weight bytes (rows wk and wk + 32, 16 columns from wc).
-  const int xr = threadIdx.x / 4, xk = (threadIdx.x % 4) * 16;
-  const int wk = threadIdx.x / 8, wc = (threadIdx.x % 8) * 16;
-  uint32_t xv[8];
-  uint4 wv[2];
-  auto load = [&](int k0) {
-    const bool row_ok = m0 + xr < M;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int k = k0 + xk + 2 * i;
-      const size_t at = (size_t)(m0 + xr) * K + k;
-      const uint32_t lo = row_ok && k < K ? xb[at] : 0u;
-      const uint32_t hi = row_ok && k + 1 < K ? xb[at + 1] : 0u;
-      xv[i] = lo | (hi << 16);
+  // Stage s: the int8 weight tile [64][W_PITCH] then the x tile [BM][X_PITCH].
+  auto load = [&](int it, int s) {
+    uint8_t* wt = smem + s * STAGE;
+    uint16_t* xt = reinterpret_cast<uint16_t*>(wt + MMA_BK * W_PITCH);
+    const int k0 = k_begin + it * MMA_BK;
+    for (int c = threadIdx.x; c < MMA_BK * (TILE_N / 16); c += MMA_THREADS) {
+      const int r = c / (TILE_N / 16);
+      const int cc = (c % (TILE_N / 16)) * 16;
+      const int k = k0 + r;
+      const bool ok = k < k_end && n0 + cc < N;
+      cp_async16(wt + r * W_PITCH + cc, wg + (ok ? (size_t)k * N + n0 + cc : 0), ok);
     }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int k = k0 + wk + 32 * j;
-      wv[j] = (k < K && n0 + wc < N)
-                  ? __ldg(reinterpret_cast<const uint4*>(wg + (size_t)k * N + n0 + wc))
-                  : make_uint4(0u, 0u, 0u, 0u);
-    }
-  };
-  auto stash = [&]() {
-    uint4* xdst = reinterpret_cast<uint4*>(&xs[xr][xk]);
-    xdst[0] = make_uint4(xv[0], xv[1], xv[2], xv[3]);
-    xdst[1] = make_uint4(xv[4], xv[5], xv[6], xv[7]);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const uint32_t words[4] = {wv[j].x ^ 0x80808080u, wv[j].y ^ 0x80808080u,
-                                 wv[j].z ^ 0x80808080u, wv[j].w ^ 0x80808080u};
-      uint32_t h[8];
-#pragma unroll
-      for (int c = 0; c < 8; ++c)
-        h[c] = bf16x2_bits(byte_to_float(words[c / 2], (c % 2) * 2),
-                           byte_to_float(words[c / 2], (c % 2) * 2 + 1));
-      uint4* wdst = reinterpret_cast<uint4*>(&wt[wk + 32 * j][wc]);
-      wdst[0] = make_uint4(h[0], h[1], h[2], h[3]);
-      wdst[1] = make_uint4(h[4], h[5], h[6], h[7]);
+    if constexpr (X_VEC) {
+      for (int c = threadIdx.x; c < BM * (MMA_BK / 8); c += MMA_THREADS) {
+        const int r = c / (MMA_BK / 8);
+        const int kc = (c % (MMA_BK / 8)) * 8;
+        const bool ok = m0 + r < M && k0 + kc < k_end;
+        cp_async16(xt + r * X_PITCH + kc, xb + (ok ? (size_t)(m0 + r) * K + k0 + kc : 0), ok);
+      }
+    } else {
+      for (int e = threadIdx.x; e < BM * MMA_BK; e += MMA_THREADS) {
+        const int r = e / MMA_BK;
+        const int kc = e % MMA_BK;
+        xt[r * X_PITCH + kc] =
+            m0 + r < M && k0 + kc < k_end ? xb[(size_t)(m0 + r) * K + k0 + kc] : uint16_t(0);
+      }
     }
   };
 
-  float acc[2][4][4];
+  float acc[MTILES][4][4];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
+  for (int i = 0; i < MTILES; ++i) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
 #pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
     }
   }
 
-  load(0);
-  for (int k0 = 0; k0 < K; k0 += MMA_BK) {
+#pragma unroll
+  for (int s = 0; s < MMA_STAGES - 1; ++s) {
+    if (s < nk) load(s, s);
+    cp_async_commit();
+  }
+  for (int it = 0; it < nk; ++it) {
+    cp_async_wait<MMA_STAGES - 2>();
     __syncthreads();
-    stash();
-    __syncthreads();
-    if (k0 + MMA_BK < K) load(k0 + MMA_BK);
+    // Every warp is past step it - 1, whose stage the next load reuses.
+    if (it + MMA_STAGES - 1 < nk) load(it + MMA_STAGES - 1, (it + MMA_STAGES - 1) % MMA_STAGES);
+    cp_async_commit();
+    const uint8_t* wt = smem + (it % MMA_STAGES) * STAGE;
+    const uint16_t* xt = reinterpret_cast<const uint16_t*>(wt + MMA_BK * W_PITCH);
 #pragma unroll
     for (int kk = 0; kk < MMA_BK; kk += 16) {
-      uint32_t a[2][4], b[4][2];
+      uint32_t a[MTILES][4];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = wm + i * 16 + gid;
-        a[i][0] = *reinterpret_cast<const uint32_t*>(&xs[r][kk + tig * 2]);
-        a[i][1] = *reinterpret_cast<const uint32_t*>(&xs[r + 8][kk + tig * 2]);
-        a[i][2] = *reinterpret_cast<const uint32_t*>(&xs[r][kk + tig * 2 + 8]);
-        a[i][3] = *reinterpret_cast<const uint32_t*>(&xs[r + 8][kk + tig * 2 + 8]);
-      }
+      for (int i = 0; i < MTILES; ++i)
+        ldmatrix_x4(a[i], xt + (i * 16 + (lane & 15)) * X_PITCH + kk + (lane >> 4) * 8);
+      // Lanes 0-7, 8-15, 16-23, 24-31 address the rows of (k 0-7, columns
+      // wn..wn+15), (k 8-15, wn..), (k 0-7, wn+16..), (k 8-15, wn+16..).
+      uint32_t r[4];
+      ldmatrix_x4_trans(r, wt + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * W_PITCH + wn +
+                               (lane >> 4) * 16);
+      uint32_t b[4][2];
+      widen(r[0], r[1], b[0], b[1]);
+      widen(r[2], r[3], b[2], b[3]);
 #pragma unroll
-      for (int j = 0; j < 4; j += 2) {
-        // Lanes 0-7, 8-15, 16-23, 24-31 address the rows of the matrices
-        // (k 0-7, n tile j), (k 8-15, j), (k 0-7, j + 1), (k 8-15, j + 1).
-        const int k = kk + (lane & 7) + ((lane >> 3) & 1) * 8;
-        const int n = wn + (j + (lane >> 4)) * 8;
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, &wt[k][n]);
-        b[j][0] = r[0];
-        b[j][1] = r[1];
-        b[j + 1][0] = r[2];
-        b[j + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
+      for (int i = 0; i < MTILES; ++i) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a[i], b[j]);
       }
     }
   }
+  cp_async_wait<0>();
 
+  // A thread holds rows gid and gid + 8 of each row tile, columns
+  // wn + 16 jj + 4 tig + {0, 1, 2, 3} from (tile 2 jj, e), (2 jj + 1, e),
+  // (2 jj, e + 1), (2 jj + 1, e + 1).
+  __shared__ int is_last;
+  const size_t tile = ((size_t)g * gridDim.x + blockIdx.x) * gridDim.y + blockIdx.y;
+  float* tile_ws = ws + tile * splits * (BM * TILE_N);
+  if (splits > 1) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < MTILES; ++i) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+      for (int jj = 0; jj < 2; ++jj) {
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int m = m0 + wm + i * 16 + gid + (r >= 2 ? 8 : 0);
-        const int n = n0 + wn + j * 8 + tig * 2 + (r & 1);
-        if (m < M && n < N)
-          store(out + ((size_t)m * G + g) * N + n, acc[i][j][r] * scale[(size_t)g * N + n]);
+        for (int hf = 0; hf < 2; ++hf) {
+          const int r = i * 16 + gid + 8 * hf;
+          const int c = wn + 16 * jj + 4 * tig;
+          *reinterpret_cast<float4*>(tile_ws + split * (BM * TILE_N) + r * TILE_N + c) =
+              make_float4(acc[i][2 * jj][2 * hf], acc[i][2 * jj + 1][2 * hf],
+                          acc[i][2 * jj][2 * hf + 1], acc[i][2 * jj + 1][2 * hf + 1]);
+        }
+      }
+    }
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) is_last = atomicAdd(&counters[tile], 1) == splits - 1;
+    __syncthreads();
+    if (!is_last) return;
+    __threadfence();
+    // The partials summed in split order; each split's loads are issued
+    // together (and two splits' at once) so the sum waits on few latencies.
+#pragma unroll
+    for (int i = 0; i < MTILES; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+      }
+    }
+#pragma unroll 2
+    for (int sp = 0; sp < splits; ++sp) {
+      float4 p[MTILES][2][2];
+#pragma unroll
+      for (int i = 0; i < MTILES; ++i) {
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf)
+            p[i][jj][hf] = __ldcg(reinterpret_cast<const float4*>(
+                tile_ws + sp * (BM * TILE_N) + (i * 16 + gid + 8 * hf) * TILE_N + wn + 16 * jj +
+                4 * tig));
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < MTILES; ++i) {
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            acc[i][2 * jj][2 * hf] += p[i][jj][hf].x;
+            acc[i][2 * jj + 1][2 * hf] += p[i][jj][hf].y;
+            acc[i][2 * jj][2 * hf + 1] += p[i][jj][hf].z;
+            acc[i][2 * jj + 1][2 * hf + 1] += p[i][jj][hf].w;
+          }
+        }
       }
     }
   }
+#pragma unroll
+  for (int i = 0; i < MTILES; ++i) {
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = i * 16 + gid + 8 * hf;
+        const int c = wn + 16 * jj + 4 * tig;
+        const float v[4] = {acc[i][2 * jj][2 * hf], acc[i][2 * jj + 1][2 * hf],
+                            acc[i][2 * jj][2 * hf + 1], acc[i][2 * jj + 1][2 * hf + 1]};
+        const int m = m0 + r;
+        const int n = n0 + c;  // N % 16 == 0: the 4 columns are all in or all out
+        if (m < M && n < N) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            store(out + ((size_t)m * G + g) * N + n + e, v[e] * scale[(size_t)g * N + n + e]);
+        }
+      }
+    }
+  }
+  if (splits > 1 && threadIdx.x == 0) counters[tile] = 0;
+}
+
+template <typename OutT, int BM, bool X_VEC>
+cudaError_t launch_mma(const __nv_bfloat16* x, const int8_t* w, const float* scale, OutT* out,
+                       float* ws, int* counters, int M, int K, int N, int G, const MmaPlan& p,
+                       cudaStream_t s) {
+  constexpr int SMEM = MMA_STAGES * mma_stage_bytes<BM>();
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(qmm_int8_mma_kernel<OutT, BM, X_VEC>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  const dim3 grid(p.mblocks, p.ntiles, G * p.splits);
+  qmm_int8_mma_kernel<OutT, BM, X_VEC><<<grid, MMA_THREADS, SMEM, s>>>(
+      x, w, scale, out, ws, counters, M, K, N, G, p.rows, p.splits);
+  return cudaGetLastError();
 }
 
 template <typename OutT>
@@ -355,29 +525,41 @@ cudaError_t launch(const void* x, const void* w, const void* scale, void* out, v
   const auto* wp = static_cast<const int8_t*>(w);
   const auto* sp = static_cast<const float*>(scale);
   auto* op = static_cast<OutT*>(out);
+  auto* wsp = static_cast<float*>(ws);
+  auto* cp = static_cast<int*>(counters);
   if (M > MT) {
-    const dim3 grid((M + MMA_BM - 1) / MMA_BM, (N + TILE_N - 1) / TILE_N, G);
-    qmm_int8_mma_kernel<OutT><<<grid, THREADS, 0, s>>>(xp, wp, sp, op, M, K, N, G);
-    return cudaGetLastError();
+    const MmaPlan p = make_mma_plan(M, K, N, G);
+    const bool vec = K % 8 == 0;
+    if (p.bm == 16)
+      return vec ? launch_mma<OutT, 16, true>(xp, wp, sp, op, wsp, cp, M, K, N, G, p, s)
+                 : launch_mma<OutT, 16, false>(xp, wp, sp, op, wsp, cp, M, K, N, G, p, s);
+    return vec ? launch_mma<OutT, 64, true>(xp, wp, sp, op, wsp, cp, M, K, N, G, p, s)
+               : launch_mma<OutT, 64, false>(xp, wp, sp, op, wsp, cp, M, K, N, G, p, s);
   }
   const Plan p = make_plan(K, N, G);
   const dim3 grid(1, p.ntiles, G * p.splits);
-  qmm_int8_kernel<OutT><<<grid, THREADS, 0, s>>>(xp, wp, sp, op, static_cast<float*>(ws),
-                                                 static_cast<int*>(counters), M, K, N, G,
-                                                 p.rows, p.splits);
+  qmm_int8_kernel<OutT><<<grid, THREADS, 0, s>>>(xp, wp, sp, op, wsp, cp, M, K, N, G, p.rows,
+                                                 p.splits);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Output tiles of a launch: the counters it needs (0 for the tensor-core kernel).
+// Output tiles of a launch: the counters it needs.
 extern "C" int zvt_qmm_int8_tiles(int M, int K, int N, int G) {
-  return M > MT ? 0 : make_plan(K, N, G).ntiles * G;
+  if (M > MT) {
+    const MmaPlan p = make_mma_plan(M, K, N, G);
+    return p.mblocks * p.ntiles * G;
+  }
+  return make_plan(K, N, G).ntiles * G;
 }
 
 // fp32 workspace floats of a launch (0 when the rows are not split).
 extern "C" int zvt_qmm_int8_workspace(int M, int K, int N, int G) {
-  if (M > MT) return 0;
+  if (M > MT) {
+    const MmaPlan p = make_mma_plan(M, K, N, G);
+    return p.splits > 1 ? p.mblocks * p.ntiles * G * p.splits * p.bm * TILE_N : 0;
+  }
   const Plan p = make_plan(K, N, G);
   return p.splits > 1 ? p.ntiles * G * p.splits * MT * TILE_N : 0;
 }

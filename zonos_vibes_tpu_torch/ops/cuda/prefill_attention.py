@@ -22,9 +22,9 @@ def prefill_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Ten
     """Query ``i`` (absolute ``offset + i``) attends ``[0, offset + i]``.
 
     ``q [B, S, Hq, D]``, caches ``[B, T, Hkv*D]`` holding the chunk at
-    ``[offset, offset + S)``. Returns ``[B, S, Hq, D]``. CPU tensors take
-    the plain version; CUDA tensors launch the kernel (bf16, D = 64 or 128) or
-    raise.
+    ``[offset, offset + S)``; cache rows at or past ``offset + S`` are never
+    read. Returns ``[B, S, Hq, D]``. CPU tensors take the plain version; CUDA
+    tensors launch the kernel (bf16, D = 64 or 128) or raise.
     """
     B, S, Hq, D = q.shape
     Bc, T, W = k_cache.shape
