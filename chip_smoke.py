@@ -18,7 +18,12 @@ Phases, each of which fails the run loudly:
    weights and an int8 cache. The pool's kernels (pooled decode attention
    with a bf16 and an int8 prefix, the per-row ring splice) at the 8-slot
    pool's shapes (16 CFG rows, cache length 3584), rows at their own
-   depths with NaN past each row's base, and the pooled backbone step on
+   depths with NaN past each row's base; the decode-attention kernel's
+   one-launch design (1000 calls alternating the solo step at T = 528 and
+   3072 and the pool give each shape's first bits: every split ticket was
+   reset) and bounds (rows 1 and 5 with out-of-range flushed_end and
+   stage_len equal their plain versions on the clamped scalars, NaN planes
+   around the buffers; a layer outside [0, L) gives NaN); the pooled backbone step on
    the card against the CPU path, bf16 and int8, with a ring and without
    one (the stage-less pooled decode, row 12 at head dim 64). The hybrid's
    kernels at its shapes: the fused Mamba-2 step (rows 9 and 10) at 2 and
@@ -421,6 +426,83 @@ def check_pool_kernels() -> dict:
     log("kernel stage_splice_rows: B=16, slots 0/7/8/127 mixed over rows (4 pairings) "
         "bit-exact, other slots untouched")
     return err
+
+
+def check_decode_one_launch() -> None:
+    """Phase 2, the decode-attention kernel's one-launch design and bounds:
+    1000 back-to-back calls alternating the solo step at T = 528 and 3072
+    (26 layers, CFG batch 2) and the pool (16 rows, T = 3584) give each
+    shape's first bits every time (every split ticket was reset); rows 1 and
+    5 with flushed_end past T or negative and stage_len past STAGE or
+    negative equal their plain versions on the clamped scalars with NaN
+    planes on both sides of the cache and the stage (nothing outside read),
+    and a layer outside [0, L) gives an all-NaN output."""
+    import torch
+
+    from zonos_vibes_tpu_torch.ops.cuda.decode_attention import (
+        decode_attention_layered, decode_attention_layered_plain, decode_attention_layered_q,
+        decode_attention_layered_q_plain, decode_attention_pooled_staged)
+    from zonos_vibes_tpu_torch.ops import quant
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    calls = []
+    for T, fe, sl in ((528, 472, 54), (3072, 2944, 127)):
+        x = decode_inputs(gen, T)
+        sc = torch.tensor([fe, sl, L - 1], dtype=torch.int32, device="cuda")
+        calls.append(lambda x=x, sc=sc: decode_attention_layered(**x, scalars=sc))
+    xp = pool_decode_inputs(gen, POOL_T, POOL_BASES, POOL_LENS)
+    calls.append(lambda: decode_attention_pooled_staged(**xp, layer=L - 1))
+    first = [c() for c in calls]
+    outs = [calls[i % 3]() for i in range(1000)]
+    torch.cuda.synchronize()
+    for i, got in enumerate(outs):
+        if not torch.equal(got, first[i % 3]):
+            raise AssertionError(f"decode attention call {i}: bits differ from the first call")
+    del calls, xp, outs
+    log("kernel decode attention, one launch: 1000 calls alternating T=528, T=3072 (B=2) and "
+        f"the pool (B=16, T={POOL_T}) bit-equal to each shape's first call")
+
+    T = 528
+
+    def padded(shape, dtype=torch.bfloat16, fill=float("nan")):
+        full = torch.full((shape[0] + 2, *shape[1:]), fill, dtype=dtype, device="cuda")
+        return full, full[1:-1]
+
+    x = {"q": randn(gen, B, 1, HQ, D), "k_cur": randn(gen, B, W), "v_cur": randn(gen, B, W)}
+    for name, rows in (("k_cache", T), ("v_cache", T), ("k_stage", STAGE), ("v_stage", STAGE)):
+        _, x[name] = padded((L, B, rows, W))
+        x[name].copy_(randn(gen, L, B, rows, W))
+    xq = dict(x)
+    for name in ("k", "v"):
+        q8, sc8 = quant.quantize_rows(x[name + "_cache"], HKV)
+        _, xq[name + "_cache"] = padded(q8.shape, torch.int8, 0)
+        _, xq[name + "_scale"] = padded(sc8.shape, torch.float32)
+        xq[name + "_cache"].copy_(q8)
+        xq[name + "_scale"].copy_(sc8)
+    worst = 0.0
+    for name, kernel, plain, args, tol in (
+            ("decode_attention", decode_attention_layered, decode_attention_layered_plain, x, TOL),
+            ("decode_attention_q", decode_attention_layered_q, decode_attention_layered_q_plain,
+             xq, Q_TOL)):
+        for fe, sl, layer in ((T + 7, 5, L - 1), (2 * T, STAGE + 50, L - 1), (-3, 4, 0),
+                              (400, -9, 1), (-1, STAGE + 1, L - 1)):
+            got = kernel(**args, scalars=torch.tensor([fe, sl, layer], dtype=torch.int32,
+                                                      device="cuda")).float()
+            clamped = torch.tensor([min(max(fe, 0), T), min(max(sl, 0), STAGE), layer],
+                                   dtype=torch.int32, device="cuda")
+            want = plain(**args, scalars=clamped).float()
+            e = (got - want).abs().max().item()
+            if not torch.isfinite(got).all() or e > tol:
+                raise AssertionError(f"{name} scalars ({fe}, {sl}, {layer}): err {e}")
+            worst = max(worst, e)
+        for layer in (-1, L):
+            got = kernel(**args, scalars=torch.tensor([400, 5, layer], dtype=torch.int32,
+                                                      device="cuda"))
+            if not torch.isnan(got).all():
+                raise AssertionError(f"{name} layer {layer}: output not all NaN")
+    log(f"kernel decode_attention/_q bounds: flushed_end T+7/2T/-3/-1, stage_len -9/STAGE+1/"
+        f"STAGE+50 equal the plain versions on clamped scalars with NaN planes around the cache "
+        f"and stage (max_abs_err {worst:.3e}); layers -1 and {L} give all-NaN outputs")
 
 
 def check_pooled_backbone_against_cpu(int8: bool = False, ring: bool = True) -> float:
@@ -1332,12 +1414,7 @@ def time_hybrid_kernels(solo: dict, pool: dict, stage_less: dict, errors: dict,
     import itertools
 
     import torch
-    import torch.nn.functional as F
 
-    from zonos_vibes_tpu_torch.ops.cuda.decode_attention import (
-        decode_attention_pooled_staged, decode_attention_pooled_staged_plain,
-        decode_attention_pooled_unstaged, decode_attention_pooled_unstaged_plain,
-        decode_attention_unstaged, decode_attention_unstaged_plain)
     from zonos_vibes_tpu_torch.ops.cuda.mamba_step import (
         ssd_gate_step, ssd_gate_step_layered, ssd_gate_step_layered_plain)
 
@@ -1383,8 +1460,54 @@ def time_hybrid_kernels(solo: dict, pool: dict, stage_less: dict, errors: dict,
                          bound_ms=b, bound_by=by, library_ms=None))
 
     # Row 11 at the solo path's last step.
-    T = solo["T"]
-    seq_end = solo["cond_len"] + solo["steps"] + 1
+    ms, plain, lib, b, by = time_unstaged(gen, solo["T"], solo["cond_len"] + solo["steps"] + 1,
+                                          card)
+    rows.append(dict(name="decode_attention_unstaged", route="cuda",
+                     source="zonos_vibes_tpu_torch/csrc/decode_attention.cu",
+                     replaces="zonos_vibes_tpu/ops/pallas/decode_attention.py:1158",
+                     launches=solo["launches"]["decode_attention_unstaged"],
+                     max_abs_err=errors["decode_attention_unstaged"], ms=ms, plain_ms=plain,
+                     bound_ms=b, bound_by=by, library_ms=lib))
+
+    # Row 3 at head dim 128: the solo path's prefill.
+    S = solo["cond_len"] + 1
+    ms, plain, lib, b, by = time_prefill(gen, H_HQ, H_HKV, H_D, S, solo["T"], card)[S, 0]
+    rows.append(dict(name="prefill_attention_hd128", route="cuda",
+                     source="zonos_vibes_tpu_torch/csrc/prefill_attention.cu",
+                     replaces="zonos_vibes_tpu/ops/pallas/prefill_attention.py:111",
+                     launches=solo["launches"]["prefill_attention"],
+                     max_abs_err=errors["prefill_attention_hd128"], ms=ms, plain_ms=plain,
+                     bound_ms=b, bound_by=by, library_ms=lib))
+
+    # Rows 12 and 6 at 16 rows over the pool's 3584 positions.
+    ms, plain, lib, b, by = time_pooled_unstaged(gen, stage_less["prefix_ends"], card)
+    rows.append(dict(name="decode_attention_pooled_unstaged", route="cuda",
+                     source="zonos_vibes_tpu_torch/csrc/decode_attention.cu",
+                     replaces="zonos_vibes_tpu/ops/pallas/decode_attention.py:1092",
+                     launches=stage_less["launches"]["decode_attention_pooled_unstaged"],
+                     max_abs_err=errors["decode_attention_pooled_unstaged"], ms=ms,
+                     plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib))
+    ms, plain, lib, b, by = time_pooled_hd128(gen, pool["bases_mid"] * 2,
+                                              [POOL_SEGMENT - 1] * 2 * POOL_SLOTS, card)
+    rows.append(dict(name="decode_attention_pooled_hd128", route="cuda",
+                     source="zonos_vibes_tpu_torch/csrc/decode_attention.cu",
+                     replaces="zonos_vibes_tpu/ops/pallas/decode_attention.py:790",
+                     launches=pool["launches"]["decode_attention_pooled"],
+                     max_abs_err=errors["decode_attention_pooled_hd128"], ms=ms, plain_ms=plain,
+                     bound_ms=b, bound_by=by, library_ms=lib))
+    return rows
+
+
+def time_unstaged(gen, T, seq_end, card):
+    """Row 11 at the hybrid's solo shapes (CFG batch 2, 16/4 heads at head
+    dim 128), layer 3 of 6, attending [0, seq_end): kernel, plain version and
+    SDPA. Returns (ms, plain, library, bound, by)."""
+    import torch
+    import torch.nn.functional as F
+
+    from zonos_vibes_tpu_torch.ops.cuda.decode_attention import (
+        decode_attention_unstaged, decode_attention_unstaged_plain)
+
     q = randn(gen, B, 1, H_HQ, H_D)
     k, v = randn(gen, H_LA, B, T, H_W), randn(gen, H_LA, B, T, H_W)
     sc = torch.tensor([seq_end], dtype=torch.int32, device="cuda")
@@ -1395,102 +1518,74 @@ def time_hybrid_kernels(solo: dict, pool: dict, stage_less: dict, errors: dict,
     plain = device_ms(lambda: decode_attention_unstaged_plain(q, k, v, sc, 3), 20)
     lib = device_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, enable_gqa=True), 200)
     b, by = bound(2 * B * seq_end * H_W * 2 + 2 * B * H_HQ * H_D * 2, 4 * B * H_HQ * seq_end * H_D)
-    log(f"time decode_attention_unstaged T={T} seq_end={seq_end} (main-path last step) ({card}): "
-        f"kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms {lib:.4f} (SDPA, gathered K/V) "
-        f"bound_ms {b:.5f} ({by})")
-    rows.append(dict(name="decode_attention_unstaged", route="cuda",
-                     source="zonos_vibes_tpu_torch/csrc/decode_attention.cu",
-                     replaces="zonos_vibes_tpu/ops/pallas/decode_attention.py:1158",
-                     launches=solo["launches"]["decode_attention_unstaged"],
-                     max_abs_err=errors["decode_attention_unstaged"], ms=ms, plain_ms=plain,
-                     bound_ms=b, bound_by=by, library_ms=lib))
-    del k, v, kh, vh
+    log(f"time decode_attention_unstaged T={T} seq_end={seq_end} ({card}): kernel_ms {ms:.4f} "
+        f"plain_ms {plain:.4f} library_ms {lib:.4f} (SDPA, gathered K/V) bound_ms {b:.5f} "
+        f"({by}); kernel / SDPA {ms / lib:.2f}")
+    return ms, plain, lib, b, by
 
-    # Row 3 at head dim 128: the solo path's prefill.
-    S = solo["cond_len"] + 1
-    ms, plain, lib, b, by = time_prefill(gen, H_HQ, H_HKV, H_D, S, T, card)[S, 0]
-    rows.append(dict(name="prefill_attention_hd128", route="cuda",
-                     source="zonos_vibes_tpu_torch/csrc/prefill_attention.cu",
-                     replaces="zonos_vibes_tpu/ops/pallas/prefill_attention.py:111",
-                     launches=solo["launches"]["prefill_attention"],
-                     max_abs_err=errors["prefill_attention_hd128"], ms=ms, plain_ms=plain,
-                     bound_ms=b, bound_by=by, library_ms=lib))
 
-    # Rows 12 and 6 at 16 rows over the pool's 3584 positions.
-    Bp = 2 * POOL_SLOTS
+def _hybrid_pooled_inputs(gen, stage: bool):
+    x = dict(q=randn(gen, POOL_M, 1, H_HQ, H_D), k_cache=randn(gen, H_LA, POOL_M, POOL_T, H_W),
+             v_cache=randn(gen, H_LA, POOL_M, POOL_T, H_W), k_cur=randn(gen, POOL_M, H_W),
+             v_cur=randn(gen, POOL_M, H_W))
+    if stage:
+        x["k_stage"] = randn(gen, H_LA, POOL_M, STAGE, H_W)
+        x["v_stage"] = randn(gen, H_LA, POOL_M, STAGE, H_W)
+    return x
 
-    def pooled_inputs():
-        return dict(q=randn(gen, Bp, 1, H_HQ, H_D), k_cache=randn(gen, H_LA, Bp, POOL_T, H_W),
-                    v_cache=randn(gen, H_LA, Bp, POOL_T, H_W), k_cur=randn(gen, Bp, H_W),
-                    v_cur=randn(gen, Bp, H_W))
 
-    def sdpa_inputs(x, prefix, ring_rows=None):
-        n = [p + (0 if ring_rows is None else r) + 1
-             for p, r in zip(prefix, ring_rows or [0] * Bp)]
-        kg = torch.zeros(Bp, max(n), H_W, dtype=torch.bfloat16, device="cuda")
-        vg = torch.zeros_like(kg)
-        for b_ in range(Bp):
-            for dst, nm in ((kg, "k"), (vg, "v")):
-                parts = [x[nm + "_cache"][3, b_, :prefix[b_]]]
-                if ring_rows is not None:
-                    parts.append(x[nm + "_stage"][3, b_, :ring_rows[b_]])
-                parts.append(x[nm + "_cur"][b_, None])
-                dst[b_, :n[b_]] = torch.cat(parts)
-        mask = (torch.arange(max(n), device="cuda")[None, :]
-                < torch.tensor(n, device="cuda")[:, None])[:, None, None, :]
+def time_pooled_unstaged(gen, ends, card):
+    """Row 12 at the hybrid pool's shapes (16 rows, T = 3584, head dim 128),
+    layer 3, rows at prefix ends ``ends``: kernel, plain version and one
+    masked SDPA. Returns (ms, plain, library, bound, by)."""
+    import torch
+    import torch.nn.functional as F
 
-        def heads(t):
-            return t.view(Bp, max(n), H_HKV, H_D).transpose(1, 2).contiguous()
+    from zonos_vibes_tpu_torch.ops.cuda.decode_attention import (
+        decode_attention_pooled_unstaged, decode_attention_pooled_unstaged_plain)
 
-        return x["q"].transpose(1, 2).contiguous(), heads(kg), heads(vg), mask, sum(n)
-
-    ends = stage_less["prefix_ends"]
-    x = pooled_inputs()
+    x = _hybrid_pooled_inputs(gen, stage=False)
     pe = torch.tensor(ends, dtype=torch.int32, device="cuda")
-    qg, kg, vg, mask, n_total = sdpa_inputs(x, ends)
+    qg, kg, vg, mask, n_total = gathered_sdpa_inputs(x, 3, ends)
     ms = device_ms(lambda: decode_attention_pooled_unstaged(**x, prefix_ends=pe, layer=3), 200)
     plain = device_ms(lambda: decode_attention_pooled_unstaged_plain(**x, prefix_ends=pe,
                                                                      layer=3), 10)
     lib = device_ms(lambda: F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
                                                            enable_gqa=True), 200)
-    b, by = bound(2 * n_total * H_W * 2 + 2 * Bp * H_HQ * H_D * 2 + Bp * 4,
+    b, by = bound(2 * n_total * H_W * 2 + 2 * POOL_M * H_HQ * H_D * 2 + POOL_M * 4,
                   4 * H_HQ * H_D * n_total)
-    log(f"time decode_attention_pooled_unstaged B={Bp} T={POOL_T} prefix ends {min(ends)}-"
-        f"{max(ends)} (the stage-less phase's last step) ({card}): kernel_ms {ms:.4f} plain_ms "
-        f"{plain:.4f} library_ms {lib:.4f} (SDPA, per-row mask over gathered K/V) bound_ms "
-        f"{b:.5f} ({by})")
-    rows.append(dict(name="decode_attention_pooled_unstaged", route="cuda",
-                     source="zonos_vibes_tpu_torch/csrc/decode_attention.cu",
-                     replaces="zonos_vibes_tpu/ops/pallas/decode_attention.py:1092",
-                     launches=stage_less["launches"]["decode_attention_pooled_unstaged"],
-                     max_abs_err=errors["decode_attention_pooled_unstaged"], ms=ms,
-                     plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib))
-    del qg, kg, vg
+    log(f"time decode_attention_pooled_unstaged B={POOL_M} T={POOL_T} prefix ends {min(ends)}-"
+        f"{max(ends)} ({card}): kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms {lib:.4f} "
+        f"(SDPA, per-row mask over gathered K/V) bound_ms {b:.5f} ({by}); kernel / SDPA "
+        f"{ms / lib:.2f}")
+    return ms, plain, lib, b, by
 
-    bases = pool["bases_mid"] * 2
-    lens = [POOL_SEGMENT - 1] * Bp
-    x["k_stage"] = randn(gen, H_LA, Bp, STAGE, H_W)
-    x["v_stage"] = randn(gen, H_LA, Bp, STAGE, H_W)
+
+def time_pooled_hd128(gen, bases, lens, card):
+    """Row 6 at the hybrid pool's shapes (head dim 128, 16/4 heads), layer
+    3: kernel, plain version and one masked SDPA. Returns (ms, plain,
+    library, bound, by)."""
+    import torch
+    import torch.nn.functional as F
+
+    from zonos_vibes_tpu_torch.ops.cuda.decode_attention import (
+        decode_attention_pooled_staged, decode_attention_pooled_staged_plain)
+
+    x = _hybrid_pooled_inputs(gen, stage=True)
     bt = torch.tensor(bases, dtype=torch.int32, device="cuda")
     lt = torch.tensor(lens, dtype=torch.int32, device="cuda")
-    qg, kg, vg, mask, n_total = sdpa_inputs(x, bases, lens)
+    qg, kg, vg, mask, n_total = gathered_sdpa_inputs(x, 3, bases, lens)
     ms = device_ms(lambda: decode_attention_pooled_staged(**x, bases=bt, lens=lt, layer=3), 200)
     plain = device_ms(lambda: decode_attention_pooled_staged_plain(**x, bases=bt, lens=lt,
                                                                    layer=3), 10)
     lib = device_ms(lambda: F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
                                                            enable_gqa=True), 200)
-    b, by = bound(2 * n_total * H_W * 2 + 2 * Bp * H_HQ * H_D * 2 + 2 * Bp * 4,
+    b, by = bound(2 * n_total * H_W * 2 + 2 * POOL_M * H_HQ * H_D * 2 + 2 * POOL_M * 4,
                   4 * H_HQ * H_D * n_total)
-    log(f"time decode_attention_pooled head dim 128 B={Bp} T={POOL_T} bases {min(bases)}-"
-        f"{max(bases)} (the hybrid pool, all rows joined) ({card}): kernel_ms {ms:.4f} plain_ms "
-        f"{plain:.4f} library_ms {lib:.4f} (SDPA, masked) bound_ms {b:.5f} ({by})")
-    rows.append(dict(name="decode_attention_pooled_hd128", route="cuda",
-                     source="zonos_vibes_tpu_torch/csrc/decode_attention.cu",
-                     replaces="zonos_vibes_tpu/ops/pallas/decode_attention.py:790",
-                     launches=pool["launches"]["decode_attention_pooled"],
-                     max_abs_err=errors["decode_attention_pooled_hd128"], ms=ms, plain_ms=plain,
-                     bound_ms=b, bound_by=by, library_ms=lib))
-    return rows
+    log(f"time decode_attention_pooled head dim 128 B={POOL_M} T={POOL_T} bases {min(bases)}-"
+        f"{max(bases)} ({card}): kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms {lib:.4f} "
+        f"(SDPA, masked) bound_ms {b:.5f} ({by}); kernel / SDPA {ms / lib:.2f}")
+    return ms, plain, lib, b, by
 
 
 # Long prefill chunks timed beside SDPA and the bound: (S, offset).
@@ -1541,47 +1636,72 @@ def time_prefill(gen, Hq, Hkv, Dh, S, T, card) -> dict:
     return out
 
 
-def time_kernels(e2e: dict, errors: dict, card: str) -> list[dict]:
-    """Phase 4: kernel, plain and library times at the main path's shapes."""
+def main_path_decode_step(cond_len: int, steps: int) -> tuple[int, int, int]:
+    """(T, flushed_end, stage_len) of the solo main path's last decode step:
+    stage_base = cond_len + 1 plus the flushed stages; the step attends
+    positions [0, cond_len + steps]."""
+    from zonos_vibes_tpu_torch.engine.generate import _find_multiple
+
+    T = cond_len + AUDIO_FRAMES + 9
+    T = _find_multiple(T, 512 if T >= 1024 else 8)
+    last_pos = cond_len + steps
+    fe = cond_len + 1 + ((last_pos - cond_len - 1) // STAGE) * STAGE
+    return T, fe, last_pos - fe
+
+
+def time_decode(gen, T, fe, sl, label, card, quant=False):
+    """Row 1 (row 5 with ``quant``: an int8 prefix) at one step's scalars,
+    layer 5 of the 26-layer cache: kernel, plain version and SDPA over the
+    gathered (dequantized) K/V. Returns (ms, plain, library, bound, by)."""
     import torch
     import torch.nn.functional as F
 
-    from zonos_vibes_tpu_torch.engine.generate import _find_multiple
     from zonos_vibes_tpu_torch.ops.cuda.decode_attention import (
-        decode_attention_layered, decode_attention_layered_plain)
+        decode_attention_layered, decode_attention_layered_plain, decode_attention_layered_q,
+        decode_attention_layered_q_plain)
+    from zonos_vibes_tpu_torch.ops.quant import dequantize_rows, quantize_rows
+
+    x = decode_inputs(gen, T)
+    sc = torch.tensor([fe, sl, 5], dtype=torch.int32, device="cuda")
+    n = fe + sl + 1
+    parts = {}
+    for name in ("k", "v"):
+        prefix = x[name + "_cache"][5, :, :fe]
+        if quant:
+            x[name + "_cache"], x[name + "_scale"] = quantize_rows(x[name + "_cache"], HKV)
+            prefix = dequantize_rows(x[name + "_cache"][5, :, :fe],
+                                     x[name + "_scale"][5, :, :fe]).to(torch.bfloat16)
+        g = torch.cat([prefix, x[name + "_stage"][5, :, :sl], x[name + "_cur"][:, None]], 1)
+        parts[name] = g.view(B, n, HKV, D).transpose(1, 2).contiguous()
+    qg = x["q"].transpose(1, 2).contiguous()
+    kernel, plain = ((decode_attention_layered_q, decode_attention_layered_q_plain) if quant
+                     else (decode_attention_layered, decode_attention_layered_plain))
+    ms = device_ms(lambda: kernel(**x, scalars=sc), 200)
+    plain_ms = device_ms(lambda: plain(**x, scalars=sc), 20)
+    lib = device_ms(lambda: F.scaled_dot_product_attention(qg, parts["k"], parts["v"],
+                                                           enable_gqa=True), 200)
+    per_prefix = W + HKV * 4 if quant else W * 2
+    nbytes = 2 * B * fe * per_prefix + 2 * B * (sl + 1) * W * 2 + 2 * B * HQ * D * 2
+    b, by = bound(nbytes, 4 * B * HQ * n * D)
+    log(f"time decode_attention{'_q' if quant else ''} {label} T={T} flushed_end={fe} "
+        f"stage_len={sl} ({card}): kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+        f"{lib:.4f} (SDPA, {'dequantized ' if quant else ''}gathered K/V) bound_ms {b:.5f} ({by}); "
+        f"kernel / SDPA {ms / lib:.2f}")
+    return ms, plain_ms, lib, b, by
+
+
+def time_kernels(e2e: dict, errors: dict, card: str) -> list[dict]:
+    """Phase 4: kernel, plain and library times at the main path's shapes."""
+    import torch
+
     from zonos_vibes_tpu_torch.ops.cuda.stage_write import stage_splice, stage_splice_plain
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    cond_len, steps = e2e["cond_len"], e2e["steps"]
-    T = cond_len + AUDIO_FRAMES + 9
-    T = _find_multiple(T, 512 if T >= 1024 else 8)
+    cond_len = e2e["cond_len"]
+    T, fe, sl = main_path_decode_step(cond_len, e2e["steps"])
     rows = []
-
-    def decode_row(T, fe, sl, label):
-        x = decode_inputs(gen, T)
-        sc = torch.tensor([fe, sl, 5], dtype=torch.int32, device="cuda")
-        n = fe + sl + 1
-        kg = torch.cat([x["k_cache"][5, :, :fe], x["k_stage"][5, :, :sl], x["k_cur"][:, None]], 1)
-        vg = torch.cat([x["v_cache"][5, :, :fe], x["v_stage"][5, :, :sl], x["v_cur"][:, None]], 1)
-        kg = kg.view(B, n, HKV, D).transpose(1, 2).contiguous()
-        vg = vg.view(B, n, HKV, D).transpose(1, 2).contiguous()
-        qg = x["q"].transpose(1, 2).contiguous()
-        ms = device_ms(lambda: decode_attention_layered(**x, scalars=sc), 200)
-        plain = device_ms(lambda: decode_attention_layered_plain(**x, scalars=sc), 20)
-        lib = device_ms(lambda: F.scaled_dot_product_attention(qg, kg, vg, enable_gqa=True), 200)
-        nbytes = 2 * B * n * W * 2 + 2 * B * HQ * D * 2
-        b, by = bound(nbytes, 4 * B * HQ * n * D)
-        log(f"time decode_attention {label} T={T} flushed_end={fe} stage_len={sl} ({card}): "
-            f"kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms {lib:.4f} "
-            f"bound_ms {b:.5f} ({by})")
-        return ms, plain, lib, b, by
-
-    # The main path's last decode step: stage_base = cond_len + 1 plus the
-    # flushed stages; the step attends positions [0, cond_len + steps].
-    last_pos = cond_len + steps  # absolute position of the last token
-    fe = cond_len + 1 + ((last_pos - cond_len - 1) // STAGE) * STAGE
-    ms, plain, lib, b, by = decode_row(T, fe, last_pos - fe, "main-path last step")
-    decode_row(3072, 2944, 127, "30 s depth")
+    ms, plain, lib, b, by = time_decode(gen, T, fe, sl, "main-path last step", card)
+    time_decode(gen, 3072, 2944, 127, "30 s depth", card)
     rows.append(dict(name="decode_attention", route="cuda",
                      source="zonos_vibes_tpu_torch/csrc/decode_attention.cu",
                      replaces="zonos_vibes_tpu/ops/pallas/decode_attention.py:253",
@@ -1687,12 +1807,6 @@ def time_qmm_steps(gen, card):
 def time_int8_kernels(e2e: dict, pool_int8: dict, errors: dict, card: str) -> list[dict]:
     """Phase 4, the int8 path's kernels at the shapes of its main path."""
     import torch
-    import torch.nn.functional as F
-
-    from zonos_vibes_tpu_torch.engine.generate import _find_multiple
-    from zonos_vibes_tpu_torch.ops.cuda.decode_attention import (
-        decode_attention_layered_q, decode_attention_layered_q_plain)
-    from zonos_vibes_tpu_torch.ops.quant import dequantize_rows, quantize_rows
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     cond_len, steps = e2e["cond_len"], e2e["steps"]
@@ -1722,37 +1836,9 @@ def time_int8_kernels(e2e: dict, pool_int8: dict, errors: dict, card: str) -> li
     rows.append(dict(name="qmm_int8_m176_fc1", launches=L * prefills, ms=ms,
                      plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib, **source))
 
-    T = cond_len + AUDIO_FRAMES + 9
-    T = _find_multiple(T, 512 if T >= 1024 else 8)
-
-    def decode_row(T, fe, sl, label):
-        x = decode_inputs(gen, T)
-        kq, ks = quantize_rows(x.pop("k_cache"), HKV)
-        vq, vs = quantize_rows(x.pop("v_cache"), HKV)
-        args = dict(x, k_cache=kq, v_cache=vq, k_scale=ks, v_scale=vs)
-        sc = torch.tensor([fe, sl, 5], dtype=torch.int32, device="cuda")
-        n = fe + sl + 1
-        kg = torch.cat([dequantize_rows(kq[5, :, :fe], ks[5, :, :fe]).to(torch.bfloat16),
-                        x["k_stage"][5, :, :sl], x["k_cur"][:, None]], 1)
-        vg = torch.cat([dequantize_rows(vq[5, :, :fe], vs[5, :, :fe]).to(torch.bfloat16),
-                        x["v_stage"][5, :, :sl], x["v_cur"][:, None]], 1)
-        kg = kg.view(B, n, HKV, D).transpose(1, 2).contiguous()
-        vg = vg.view(B, n, HKV, D).transpose(1, 2).contiguous()
-        qg = x["q"].transpose(1, 2).contiguous()
-        ms = device_ms(lambda: decode_attention_layered_q(**args, scalars=sc), 200)
-        plain = device_ms(lambda: decode_attention_layered_q_plain(**args, scalars=sc), 20)
-        lib = device_ms(lambda: F.scaled_dot_product_attention(qg, kg, vg, enable_gqa=True), 200)
-        nbytes = 2 * B * fe * (W + HKV * 4) + 2 * B * (sl + 1) * W * 2 + 2 * B * HQ * D * 2
-        b, by = bound(nbytes, 4 * B * HQ * n * D)
-        log(f"time decode_attention_q {label} T={T} flushed_end={fe} stage_len={sl} ({card}): "
-            f"kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms {lib:.4f} (SDPA, dequantized "
-            f"gathered K/V) bound_ms {b:.5f} ({by})")
-        return ms, plain, lib, b, by
-
-    last_pos = cond_len + steps
-    fe = cond_len + 1 + ((last_pos - cond_len - 1) // STAGE) * STAGE
-    ms, plain, lib, b, by = decode_row(T, fe, last_pos - fe, "main-path last step")
-    decode_row(3072, 2944, 127, "30 s depth")
+    T, fe, sl = main_path_decode_step(cond_len, steps)
+    ms, plain, lib, b, by = time_decode(gen, T, fe, sl, "main-path last step", card, quant=True)
+    time_decode(gen, 3072, 2944, 127, "30 s depth", card, quant=True)
     rows.append(dict(name="decode_attention_q", route="cuda",
                      source="zonos_vibes_tpu_torch/csrc/decode_attention.cu",
                      replaces="zonos_vibes_tpu/ops/pallas/decode_attention.py:479",
@@ -1762,19 +1848,82 @@ def time_int8_kernels(e2e: dict, pool_int8: dict, errors: dict, card: str) -> li
     return rows
 
 
-def time_pool_kernels(pool_bf16: dict, pool_int8: dict, errors: dict, card: str) -> list[dict]:
-    """Phase 4, the pool's kernels at its shapes (16 CFG rows, T = 3584):
-    the main path's spread of bases once every row has joined, and spreads
-    near 1800 and near 3000 positions."""
+def gathered_sdpa_inputs(x, layer, prefix, ring_rows=None, quant=False):
+    """Each row's prefix (dequantized to bf16 for an int8 prefix), ring rows
+    and column of layer ``layer`` gathered into [B, Hkv, n_max, D] for one
+    SDPA call, with a [B, 1, 1, n_max] mask: (q, k, v, mask, positions)."""
     import torch
+
+    from zonos_vibes_tpu_torch.ops.quant import dequantize_rows
+
+    Bx, _, _, d = x["q"].shape
+    w = x["k_cur"].shape[1]
+    ring_rows = ring_rows or [0] * Bx
+    n = [p + r + 1 for p, r in zip(prefix, ring_rows)]
+    kg = torch.zeros(Bx, max(n), w, dtype=torch.bfloat16, device="cuda")
+    vg = torch.zeros_like(kg)
+    for b in range(Bx):
+        for dst, name in ((kg, "k"), (vg, "v")):
+            part = x[name + "_cache"][layer, b, :prefix[b]]
+            if quant:
+                part = dequantize_rows(part, x[name + "_scale"][layer, b, :prefix[b]])
+            parts = [part.to(torch.bfloat16)]
+            if ring_rows[b]:
+                parts.append(x[name + "_stage"][layer, b, :ring_rows[b]])
+            parts.append(x[name + "_cur"][b, None])
+            dst[b, :n[b]] = torch.cat(parts)
+    mask = (torch.arange(max(n), device="cuda")[None, :]
+            < torch.tensor(n, device="cuda")[:, None])[:, None, None, :]
+
+    def heads(t):
+        return t.view(Bx, max(n), w // d, d).transpose(1, 2).contiguous()
+
+    return x["q"].transpose(1, 2).contiguous(), heads(kg), heads(vg), mask, sum(n)
+
+
+def time_pooled(gen, quant, label, bases, lens, card):
+    """Row 6 (row 8 with ``quant``) at 16 rows over the pool's 3584-position
+    cache, layer 5 of 26: kernel, plain version and one masked SDPA over the
+    gathered (dequantized) K/V. Returns (ms, plain, library, bound, by)."""
     import torch.nn.functional as F
 
     from zonos_vibes_tpu_torch.ops.cuda.decode_attention import (
         decode_attention_pooled_staged, decode_attention_pooled_staged_plain,
         decode_attention_pooled_staged_q, decode_attention_pooled_staged_q_plain)
+
+    kernel, plain = ((decode_attention_pooled_staged_q, decode_attention_pooled_staged_q_plain)
+                     if quant else
+                     (decode_attention_pooled_staged, decode_attention_pooled_staged_plain))
+    Bp = len(bases)
+    x = pool_decode_inputs(gen, POOL_T, bases, lens)
+    if quant:
+        x = quantized(x)
+    qg, kg, vg, mask, n_total = gathered_sdpa_inputs(x, 5, bases, lens, quant)
+    ms = device_ms(lambda: kernel(**x, layer=5), 200)
+    plain_ms = device_ms(lambda: plain(**x, layer=5), 10)
+    lib = device_ms(lambda: F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                                           enable_gqa=True), 200)
+    prefix = sum(bases)
+    ring = n_total - prefix  # ring rows and current columns
+    per_prefix = W + HKV * 4 if quant else W * 2
+    nbytes = 2 * prefix * per_prefix + 2 * ring * W * 2 + 2 * Bp * HQ * D * 2 + 2 * Bp * 4
+    b, by = bound(nbytes, 4 * HQ * D * n_total)
+    log(f"time decode_attention_pooled{'_q' if quant else ''} B={Bp} T={POOL_T} {label} (bases "
+        f"{min(bases)}-{max(bases)}, {ring} ring+current positions) ({card}): kernel_ms {ms:.4f} "
+        f"plain_ms {plain_ms:.4f} library_ms {lib:.4f} (SDPA, per-row mask over gathered"
+        f"{' dequantized' if quant else ''} K/V) bound_ms {b:.5f} ({by}); kernel / SDPA "
+        f"{ms / lib:.2f}")
+    return ms, plain_ms, lib, b, by
+
+
+def time_pool_kernels(pool_bf16: dict, pool_int8: dict, errors: dict, card: str) -> list[dict]:
+    """Phase 4, the pool's kernels at its shapes (16 CFG rows, T = 3584):
+    the main path's spread of bases once every row has joined, and spreads
+    near 1800 and near 3000 positions."""
+    import torch
+
     from zonos_vibes_tpu_torch.ops.cuda.stage_write import (
         stage_splice_rows, stage_splice_rows_plain)
-    from zonos_vibes_tpu_torch.ops.quant import dequantize_rows
 
     gen = torch.Generator(device="cuda").manual_seed(11)
     Bp = 2 * POOL_SLOTS
@@ -1783,57 +1932,14 @@ def time_pool_kernels(pool_bf16: dict, pool_int8: dict, errors: dict, card: str)
                ("near 1800", [1800 + 37 * (b - 8) for b in range(Bp)], lens),
                ("near 3000", [3000 + 37 * (b - 8) for b in range(Bp)], lens)]
 
-    def library_inputs(x, bases, lens, quant):
-        """Each row's prefix, ring rows and column gathered into [B, Hkv,
-        n_max, D] (dequantized to bf16 for an int8 prefix) and a [B, 1, 1,
-        n_max] mask, for one SDPA call (layer 5)."""
-        n = [b + s + 1 for b, s in zip(bases, lens)]
-        kg = torch.zeros(Bp, max(n), W, dtype=torch.bfloat16, device="cuda")
-        vg = torch.zeros_like(kg)
-        for b in range(Bp):
-            for dst, name in ((kg, "k"), (vg, "v")):
-                prefix = x[name + "_cache"][5, b, :bases[b]]
-                if quant:
-                    prefix = dequantize_rows(prefix, x[name + "_scale"][5, b, :bases[b]])
-                dst[b, :n[b]] = torch.cat([prefix.to(torch.bfloat16),
-                                           x[name + "_stage"][5, b, :lens[b]],
-                                           x[name + "_cur"][b, None]])
-        mask = (torch.arange(max(n), device="cuda")[None, :]
-                < torch.tensor(n, device="cuda")[:, None])[:, None, None, :]
-
-        def heads(t):
-            return t.view(Bp, max(n), HKV, D).transpose(1, 2).contiguous()
-
-        return x["q"].transpose(1, 2).contiguous(), heads(kg), heads(vg), mask, sum(n)
-
     rows = []
-    for name, kernel, plain, quant, pallas_line, stats in (
-            ("decode_attention_pooled", decode_attention_pooled_staged,
-             decode_attention_pooled_staged_plain, False, 790, pool_bf16),
-            ("decode_attention_pooled_q", decode_attention_pooled_staged_q,
-             decode_attention_pooled_staged_q_plain, True, 1011, pool_int8)):
+    for name, quant, pallas_line, stats in (
+            ("decode_attention_pooled", False, 790, pool_bf16),
+            ("decode_attention_pooled_q", True, 1011, pool_int8)):
         first = None
         for label, bases, lns in spreads:
-            x = pool_decode_inputs(gen, POOL_T, bases, lns)
-            if quant:
-                x = quantized(x)
-            qg, kg, vg, mask, n_total = library_inputs(x, bases, lns, quant)
-            ms = device_ms(lambda: kernel(**x, layer=5), 200)
-            plain_ms = device_ms(lambda: plain(**x, layer=5), 10)
-            lib = device_ms(lambda: F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
-                                                                   enable_gqa=True), 200)
-            prefix = sum(bases)
-            ring = n_total - prefix  # ring rows and current columns
-            per_prefix = W + HKV * 4 if quant else W * 2
-            nbytes = 2 * prefix * per_prefix + 2 * ring * W * 2 + 2 * Bp * HQ * D * 2 + 2 * Bp * 4
-            b, by = bound(nbytes, 4 * HQ * D * n_total)
-            log(f"time {name} B={Bp} T={POOL_T} {label} (bases {min(bases)}-{max(bases)}, "
-                f"{ring} ring+current positions) ({card}): kernel_ms {ms:.4f} plain_ms "
-                f"{plain_ms:.4f} library_ms {lib:.4f} (SDPA, per-row mask over gathered"
-                f"{' dequantized' if quant else ''} K/V) bound_ms {b:.5f} ({by})")
-            if first is None:
-                first = (ms, plain_ms, lib, b, by)
-            del x, kg, vg
+            t = time_pooled(gen, quant, label, bases, lns, card)
+            first = first or t
         ms, plain_ms, lib, b, by = first
         rows.append(dict(name=name, route="cuda",
                          source="zonos_vibes_tpu_torch/csrc/decode_attention.cu",
@@ -1890,6 +1996,7 @@ def main() -> int:
     errors = check_kernels()
     errors.update(check_int8_kernels())
     errors.update(check_pool_kernels())
+    check_decode_one_launch()
     check_backbone_against_cpu()
     check_backbone_against_cpu(int8=True)
     check_pooled_backbone_against_cpu()

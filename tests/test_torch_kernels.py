@@ -21,6 +21,8 @@ current column folded in) are held to 1e-5 at head dims 16 and 128 (the
 hybrid's), NaN past each bound; rows 3 and 6 at head dim 128 too.
 """
 
+import itertools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -37,12 +39,15 @@ from zonos_vibes_tpu.ops.pallas.prefill_attention import prefill_attention_palla
 from zonos_vibes_tpu.ops.pallas.stage_write import stage_splice_pallas, stage_splice_rows_pallas
 from zonos_vibes_tpu.ops.quant import quantize_kv
 from zonos_vibes_tpu_torch.ops.cuda import build
+from zonos_vibes_tpu_torch.ops.cuda import decode_attention as dam
 from zonos_vibes_tpu_torch.ops.cuda.decode_attention import (
     decode_attention_layered,
+    decode_attention_layered_q,
     decode_attention_pooled_staged,
     decode_attention_pooled_staged_q,
     decode_attention_pooled_unstaged,
     decode_attention_unstaged,
+    decode_plan,
 )
 from zonos_vibes_tpu_torch.ops.cuda.prefill_attention import prefill_attention
 from zonos_vibes_tpu_torch.ops.cuda.stage_write import stage_splice, stage_splice_rows
@@ -371,3 +376,86 @@ def test_unstaged_wrappers_reject_wrong_inputs():
     with pytest.raises(ValueError):  # layer out of range
         decode_attention_pooled_unstaged(q, kv, kv, torch.zeros(2, 32), torch.zeros(2, 32),
                                          torch.tensor([3, 4], dtype=torch.int32), 2)
+
+
+# The decode-attention kernel's split plan: a host function of the shapes.
+PLAN_T = (1, 8, 255, 256, 528, 3072, 3584)
+
+
+@pytest.mark.parametrize("T", PLAN_T + (16384, 40000))
+@pytest.mark.parametrize("Bp", [2, 16])
+@pytest.mark.parametrize("stage", [1, 128])
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_decode_plan_covers_every_position_once(T, Bp, stage, head_dim):
+    chunk, n_prefix, n_stage = decode_plan(T, stage, Bp, HKV, head_dim)
+    assert chunk % 32 == 0 and n_prefix + n_stage <= dam.MAX_SPLITS
+    for rows, n in ((T, n_prefix), (stage, n_stage)):
+        hits = np.zeros(rows, np.int64)
+        for s in range(n):
+            lo, hi = s * chunk, min((s + 1) * chunk, rows)
+            assert lo < hi  # no split lies wholly past the buffer
+            hits[lo:hi] += 1
+        assert (hits == 1).all()
+
+
+def test_decode_plan_depends_on_shapes_only_and_fills_the_card():
+    target = dam.BLOCKS_PER_SM * dam.SMS
+
+    def blocks(c, T, stage, Bp, hkv):
+        return (-(-T // c) + -(-stage // c)) * Bp * hkv
+
+    for T, Bp, hkv, d, stage in itertools.product(PLAN_T, (2, 16), (8, 4), (64, 128),
+                                                  (0, 1, 128)):
+        plan = decode_plan(T, stage, Bp, hkv, d)
+        assert plan == decode_plan(T, stage, Bp, hkv, d)
+        chunk = plan[0]
+        fitting = [c for c in dam.CHUNKS if c * d <= dam.SPLIT_DIMS
+                   and -(-T // c) + -(-stage // c) <= dam.MAX_SPLITS]
+        assert chunk in fitting
+        # Two blocks per SM wherever the shortest fitting split allows it; a
+        # longer split only when it still gets there.
+        assert blocks(chunk, T, stage, Bp, hkv) >= target or chunk == fitting[-1]
+        if chunk != fitting[0]:
+            assert blocks(2 * chunk, T, stage, Bp, hkv) < target
+    # The main path's shapes: 9 prefix + 2 stage splits of 64 would be 176
+    # blocks, so the solo step takes 32-position splits; the pool takes 128.
+    assert decode_plan(528, 128, 2, 8, 64) == (32, 17, 4)
+    assert decode_plan(3072, 128, 2, 8, 64) == (128, 24, 1)
+    assert decode_plan(3584, 128, 16, 8, 64) == (128, 28, 1)
+    # The hybrid's pool (head dim 128) stops at 64 positions; its solo step
+    # (T = 536, no stage) takes 32.
+    assert decode_plan(3584, 128, 16, 4, 128) == (64, 56, 2)
+    assert decode_plan(536, 0, 2, 4, 128) == (32, 17, 0)
+    # Past 64 splits of 128 positions the splits grow by 32 until the row
+    # fits the merge's MAX_SPLITS.
+    assert decode_plan(16384, 128, 1, 1, 64) == (288, 57, 1)
+    assert decode_plan(3072, 128, 1, 1, 64) == (64, 48, 2)
+
+
+def test_layered_plain_versions_clamp_and_raise_on_a_bad_layer():
+    """The one-position staged plain versions clamp flushed_end to [0, T] and
+    stage_len to [0, STAGE], as the kernel does, and raise for a layer
+    outside [0, L) (the kernel writes NaN)."""
+    rng = np.random.default_rng(11)
+    Tc, St = 40, 8
+
+    def f(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    x = dict(q=f(B, 1, HQ, D), k_cache=f(L, B, Tc, W), v_cache=f(L, B, Tc, W),
+             k_stage=f(L, B, St, W), v_stage=f(L, B, St, W), k_cur=f(B, W), v_cur=f(B, W))
+    kq, ks = quantize_rows(x["k_cache"], HKV)
+    vq, vs = quantize_rows(x["v_cache"], HKV)
+    xq = dict(x, k_cache=kq, v_cache=vq, k_scale=ks, v_scale=vs)
+
+    def sc(*v):
+        return torch.tensor(v, dtype=torch.int32)
+
+    for fn, args in ((decode_attention_layered, x), (decode_attention_layered_q, xq)):
+        torch.testing.assert_close(fn(**args, scalars=sc(Tc + 9, St + 3, 1)),
+                                   fn(**args, scalars=sc(Tc, St, 1)), rtol=0, atol=0)
+        torch.testing.assert_close(fn(**args, scalars=sc(-4, -2, 0)),
+                                   fn(**args, scalars=sc(0, 0, 0)), rtol=0, atol=0)
+        for layer in (-1, L, L + 5):
+            with pytest.raises(ValueError, match="outside"):
+                fn(**args, scalars=sc(5, 2, layer))

@@ -538,3 +538,166 @@ def test_hybrid_wrappers_raise_on_wrong_dtypes_on_cuda(dev):
     with pytest.raises(ValueError):  # an fp16 state
         ssd_gate_step_layered(states.half(), 0, **x)
     assert build.LAUNCHES == before
+
+
+# The one-launch design: split partials meet in a per-device workspace under
+# one ticket per (row, kv head), which the last block resets.
+
+def _solo_inputs(gen, T, dev, layers=2):
+    return dict(q=_randn(gen, B, 1, HQ, D, dev=dev), k_cache=_randn(gen, layers, B, T, W, dev=dev),
+                v_cache=_randn(gen, layers, B, T, W, dev=dev),
+                k_stage=_randn(gen, layers, B, STAGE, W, dev=dev),
+                v_stage=_randn(gen, layers, B, STAGE, W, dev=dev),
+                k_cur=_randn(gen, B, W, dev=dev), v_cur=_randn(gen, B, W, dev=dev))
+
+
+def test_decode_attention_reuses_its_workspace_across_shapes(dev):
+    """1000 back-to-back calls alternating the solo step at T = 528 and 3072
+    (CFG batch 2) and the pool at B = 16, T = 3584 give the first call's bits
+    every time: every ticket was reset and no partial leaked between calls."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    calls = []
+    for T, fe, sl in ((528, 513, 14), (3072, 2944, 127)):
+        x = _solo_inputs(gen, T, dev)
+        sc = torch.tensor([fe, sl, 1], dtype=torch.int32, device=dev)
+        calls.append(lambda x=x, sc=sc: decode_attention_layered(**x, scalars=sc))
+    xp = dict(q=_randn(gen, POOL_B, 1, HQ, D, dev=dev),
+              k_cache=_randn(gen, 2, POOL_B, POOL_T, W, dev=dev),
+              v_cache=_randn(gen, 2, POOL_B, POOL_T, W, dev=dev),
+              k_stage=_randn(gen, 2, POOL_B, STAGE, W, dev=dev),
+              v_stage=_randn(gen, 2, POOL_B, STAGE, W, dev=dev),
+              k_cur=_randn(gen, POOL_B, W, dev=dev), v_cur=_randn(gen, POOL_B, W, dev=dev),
+              bases=torch.tensor(POOL_BASES, dtype=torch.int32, device=dev),
+              lens=torch.tensor(POOL_LENS, dtype=torch.int32, device=dev))
+    calls.append(lambda: decode_attention_pooled_staged(**xp, layer=1))
+    first = [c() for c in calls]
+    outs = [calls[i % 3]() for i in range(1000)]
+    torch.cuda.synchronize()
+    for i, got in enumerate(outs):
+        assert torch.equal(got, first[i % 3]), f"call {i} differs from the first"
+
+
+@pytest.mark.parametrize("variant", ["bf16", "int8", "stageless"])
+def test_pooled_rows_are_bit_isolated(dev, pooled_inputs, variant):
+    """Row 0's output keeps its bits when every other row's base, ring
+    length, cache, stage, column and query change."""
+    gen = torch.Generator(device=dev).manual_seed(22)
+    x = dict(pooled_inputs)
+    y = dict(x, bases=torch.tensor([POOL_BASES[0]] + POOL_BASES[:0:-1], dtype=torch.int32,
+                                   device=dev),
+             lens=torch.tensor([POOL_LENS[0]] + [STAGE - 1] * (POOL_B - 1), dtype=torch.int32,
+                               device=dev))
+    for name in ("q", "k_cur", "v_cur"):
+        y[name] = x[name].clone()
+        y[name][1:] = _randn(gen, *x[name][1:].shape, dev=dev)
+    for name in ("k_cache", "v_cache", "k_stage", "v_stage"):
+        y[name] = x[name].clone()
+        y[name][:, 1:] = _randn(gen, *x[name][:, 1:].shape, dev=dev)
+
+    def run(a):
+        if variant == "stageless":
+            return decode_attention_pooled_unstaged(a["q"], a["k_cache"], a["v_cache"], a["k_cur"],
+                                                    a["v_cur"], a["bases"], 3)
+        if variant == "int8":
+            a = dict(a)
+            for name in ("k", "v"):
+                a[name + "_cache"], a[name + "_scale"] = quant.quantize_rows(a[name + "_cache"], HKV)
+            return decode_attention_pooled_staged_q(**a, layer=3)
+        return decode_attention_pooled_staged(**a, layer=3)
+
+    got_x, got_y = run(x), run(y)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got_x[0]).all()
+    assert torch.equal(got_x[0], got_y[0])
+    assert not torch.equal(got_x[1:], got_y[1:])
+
+
+def _one_call_per_variant(dev):
+    """One call of each of the kernel's six variants at small shapes, the
+    device scalars made beforehand: {name: call}."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+    x = _solo_inputs(gen, 528, dev)
+    kq, ks = quant.quantize_rows(x["k_cache"], HKV)
+    vq, vs = quant.quantize_rows(x["v_cache"], HKV)
+    xq = dict(x, k_cache=kq, v_cache=vq, k_scale=ks, v_scale=vs)
+    sc = torch.tensor([513, 14, 1], dtype=torch.int32, device=dev)
+    bases = torch.tensor([500, 17], dtype=torch.int32, device=dev)
+    lens = torch.tensor([3, 100], dtype=torch.int32, device=dev)
+    seq_end = torch.tensor([300], dtype=torch.int32, device=dev)
+    unstaged = {k: x[k] for k in ("q", "k_cache", "v_cache")}
+    return {
+        "layered": lambda: decode_attention_layered(**x, scalars=sc),
+        "layered_q": lambda: decode_attention_layered_q(**xq, scalars=sc),
+        "pooled": lambda: decode_attention_pooled_staged(**x, bases=bases, lens=lens, layer=1),
+        "pooled_q": lambda: decode_attention_pooled_staged_q(**xq, bases=bases, lens=lens,
+                                                             layer=1),
+        "unstaged": lambda: decode_attention_unstaged(**unstaged, seq_end=seq_end, layer=1),
+        "pooled_unstaged": lambda: decode_attention_pooled_unstaged(
+            **unstaged, k_cur=x["k_cur"], v_cur=x["v_cur"], prefix_ends=bases, layer=1),
+    }
+
+
+@pytest.mark.parametrize("variant", ["layered", "layered_q", "pooled", "pooled_q", "unstaged",
+                                     "pooled_unstaged"])
+def test_decode_attention_call_is_one_device_kernel(dev, variant):
+    from torch.profiler import ProfilerActivity, profile
+
+    call = _one_call_per_variant(dev)[variant]
+    call()  # the workspace exists before the traced call
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1, [e.name for e in kernels]
+    assert "decode_kernel" in kernels[0].name
+
+
+def _padded(gen, shape, dev):
+    """A [L, ...] tensor inside a NaN buffer with one NaN plane on each side:
+    a read past the view's first or last plane would make NaN."""
+    full = torch.full((shape[0] + 2, *shape[1:]), float("nan"), dtype=torch.bfloat16, device=dev)
+    full[1:-1] = _randn(gen, *shape, dev=dev)
+    return full[1:-1]
+
+
+@pytest.mark.parametrize("quant_prefix", [False, True], ids=["row1", "row5"])
+def test_layered_kernels_clamp_device_scalars(dev, quant_prefix):
+    """Rows 1 and 5 with flushed_end > T or < 0 and stage_len > STAGE or < 0
+    equal the plain version on the clamped scalars, reading nothing outside
+    the buffers (NaN planes around the cache and the stage); a layer outside
+    [0, L) gives an all-NaN output, and the plain versions raise for it."""
+    gen = torch.Generator(device=dev).manual_seed(24)
+    Lc, T = 3, 1000
+    x = dict(q=_randn(gen, B, 1, HQ, D, dev=dev), k_cache=_padded(gen, (Lc, B, T, W), dev),
+             v_cache=_padded(gen, (Lc, B, T, W), dev),
+             k_stage=_padded(gen, (Lc, B, STAGE, W), dev),
+             v_stage=_padded(gen, (Lc, B, STAGE, W), dev),
+             k_cur=_randn(gen, B, W, dev=dev), v_cur=_randn(gen, B, W, dev=dev))
+    kernel, plain, tol = decode_attention_layered, decode_attention_layered_plain, TOL
+    if quant_prefix:
+        for name in ("k", "v"):
+            q8, s = quant.quantize_rows(x[name + "_cache"], HKV)
+            q8_full = torch.zeros((Lc + 2, *q8.shape[1:]), dtype=torch.int8, device=dev)
+            s_full = torch.full((Lc + 2, *s.shape[1:]), float("nan"), device=dev)
+            q8_full[1:-1], s_full[1:-1] = q8, s
+            x[name + "_cache"], x[name + "_scale"] = q8_full[1:-1], s_full[1:-1]
+        kernel, plain, tol = decode_attention_layered_q, decode_attention_layered_q_plain, Q_TOL
+    for fe, sl, layer in ((T + 7, 5, Lc - 1), (2 * T, STAGE + 50, Lc - 1), (-3, 4, 0),
+                          (400, -9, 1), (-1, STAGE + 1, Lc - 1), (T, STAGE, Lc - 1)):
+        sc = torch.tensor([fe, sl, layer], dtype=torch.int32, device=dev)
+        got = kernel(**x, scalars=sc)
+        clamped = torch.tensor([min(max(fe, 0), T), min(max(sl, 0), STAGE), layer],
+                               dtype=torch.int32, device=dev)
+        want = plain(**x, scalars=clamped)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all(), (fe, sl, layer)
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        torch.testing.assert_close(plain(**x, scalars=sc).float(), want.float(), rtol=0, atol=0)
+    for layer in (-1, Lc, 1 << 20):
+        sc = torch.tensor([500, 5, layer], dtype=torch.int32, device=dev)
+        got = kernel(**x, scalars=sc)
+        torch.cuda.synchronize()
+        assert torch.isnan(got).all(), layer
+        with pytest.raises(ValueError, match="outside"):
+            plain(**x, scalars=sc)

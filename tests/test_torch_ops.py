@@ -25,13 +25,37 @@ def test_neg_inf_is_bit_identical():
     assert NEG_INF == JAX_NEG_INF
 
 
+def _rope_table_fp64(head_dim, positions=16384):
+    """The table's definition evaluated independently: fp32 frequencies
+    (numpy's fp32 pow, then a reciprocal), fp32 angles, cos and sin in fp64;
+    with each frequency's fp32 unit in the last place."""
+    exps = np.arange(0, head_dim, 2, dtype=np.float32) / np.float32(head_dim)
+    freqs = np.float32(1.0) / np.float32(10000.0) ** exps
+    angles = np.arange(positions, dtype=np.float32)[:, None] * freqs  # fp32 products
+    cos, sin = np.cos(angles.astype(np.float64)), np.sin(angles.astype(np.float64))
+    table = np.stack([np.repeat(cos, 2, -1), np.stack([-sin, sin], -1).reshape(positions, -1)], 1)
+    return table, np.spacing(freqs), angles
+
+
 def test_rope_table_and_apply():
     rng = np.random.default_rng(0)
     x = rng.standard_normal((2, 5, 4, 16)).astype(np.float32)
     pos = rng.integers(0, 16384, size=(2, 5))
     table = rope.rope_table(16)
     want_table = np.array(jrope.expand_rope_table(jrope.rope_table(16)))
-    np.testing.assert_allclose(table.numpy(), want_table, rtol=1e-5, atol=2e-5)
+    # The port's table against its definition: fp32 cos/sin of the same fp32
+    # angles, within a few fp32 roundings.
+    exact, freq_ulp, angles = _rope_table_fp64(16)
+    np.testing.assert_allclose(table.numpy(), exact, rtol=0, atol=2e-7)
+    # Against JAX's table: XLA's fp32 pow and reciprocal are not correctly
+    # rounded, and how they round depends on how XLA compiles them (fused or
+    # not, vector width), so a frequency may differ by one ulp from the
+    # correctly rounded one. Position p turns that into an angle difference
+    # of p ulp(freq) before the angle's own rounding (one ulp each side),
+    # up to ~1.5e-4 at p = 16383; the per-element limit is exactly that.
+    slack = (np.arange(16384)[:, None] * freq_ulp + 2 * np.spacing(angles)).astype(np.float64)
+    limit = np.repeat(slack, 2, -1)[:, None, :] + 2e-7
+    assert (np.abs(table.numpy() - want_table) <= limit).all()
     # Same table on both sides: the rotation itself must agree to fp32 rounding.
     got = rope.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), torch.from_numpy(want_table))
     want = jrope.apply_rope(jnp.asarray(x), jnp.asarray(pos), jnp.asarray(want_table))

@@ -1,7 +1,7 @@
 // Single-query GQA flash-decode for one layer of the stacked KV cache, with a
 // bf16 or an int8 flushed prefix, with or without a stage, for one sequence
 // position shared by every row or for per-row positions (the
-// continuous-batching pool), at head dim 64 or 128.
+// continuous-batching pool), at head dim 64 or 128. One launch per call.
 //
 // Replaces: zonos_vibes_tpu/ops/pallas/decode_attention.py::
 //   decode_attention_pallas_layered (a TPU grid (B, nT) that walks the
@@ -16,51 +16,75 @@
 //   attends its own flushed prefix [0, base_b), the first len_b rows of its
 //   own ring stage and its current column. The pool's ring stage is the
 //   same [L, B, STAGE, W] buffer as the solo stage (ring slot pos - base),
-//   so they are the same kernels with per-row (flushed_end, stage_len).
+//   so they are the same kernel with per-row (flushed_end, stage_len).
 //   And the two kernels without a stage: decode_attention_pallas (plain
 //   flash-decode over [0, seq_end) of one layer, the current column already
 //   written: the hybrid backbone's solo decode) and
 //   decode_attention_pallas_pooled (row b attends [0, prefix_end_b) and its
 //   current column, folded in at the end: the stage-less pooled decode of
-//   either backbone). They are the same kernels with no stage rows.
+//   either backbone). They are the same kernel with no stage rows.
 //
 // What bounds it on the H100: device-memory bytes. One call must read the
 // flushed prefix [0, flushed_end) and the stage rows [0, stage_len) of one
 // layer, K and V, B * Hkv * D bf16 values per position, plus the current
 // column. It does 4 * Hq * D flops per position, about one flop per byte,
 // far below the ~295 flops per byte where the tensor cores become the limit.
-// At 5 s of audio the bytes are ~1 MB a layer, so the launch itself dominates.
-// The int8 prefix halves the prefix bytes and adds 8 bytes of scales per
+// At 5 s of audio the bytes are ~1 MB a layer, so latency dominates: the
+// launch, the depth of the dependent chain in a block, and the merge. The
+// int8 prefix halves the prefix bytes and adds 8 bytes of scales per
 // position and kv head. In the 8-slot pool (B = 16 CFG rows) near a
 // 3000-position prefix one layer's call reads ~98 MB (bf16) or ~52 MB
 // (int8 and scales): 29 us or 16 us at 3.35 TB/s.
 //
-// What the design does about it (flash-decoding):
+// What the design does about it:
 //  * One block per (split, kv head, batch row): the G query heads of a group
-//    share every K/V load. B * Hkv is only 16 at CFG batch 2, so the flushed
-//    prefix is also cut into fixed chunks of CHUNK positions, one block each,
-//    to put enough blocks on the 132 SMs at 30 s depth. The last split takes
-//    the stage rows and the current column (nothing, for the plain
-//    stage-less kernel, whose current column is in the prefix).
-//  * The grid depends only on the cache length T, never on flushed_end or
-//    stage_len, which are read from device memory: the launch is fit for
-//    graph capture. Chunks at or past flushed_end return at once, so the
-//    padded tail of the cache is never read. With per-row positions
-//    (template flag POOLED) a block reads its row's (base_b, len_b) from two
-//    device int32 [B] tensors and the layer is a launch argument; a chunk at
-//    or past base_b writes a neutral partial (the empty max, sum 0) and
-//    reads nothing, so rows at different depths share one launch.
-//  * Inside a block every warp holds 32 / (D / 8) independent decoders
-//    (4 at D = 64, 2 at D = 128): a lane holds 8 of the D dims of one
-//    position (one 16-byte load of K and of V), a few shuffles finish a dot
-//    product, and each decoder keeps its own fp32 running max, sum and
-//    accumulator. The decoders of a block merge in shared memory into one
-//    partial (acc, max, sum) per query head; a second small kernel merges
-//    the splits and writes bf16.
-//  * The int8 variant (template flag QUANT) differs only in the prefix
-//    splits: a lane loads 8 int8 values (8 bytes) of K and of V, and its
-//    decoder loads the position's two fp32 scales; all math stays fp32.
-//    Scales are read only for positions below flushed_end.
+//    share every K/V load. The positions of a row are cut into splits of
+//    `chunk` positions: ceil(T / chunk) prefix splits, then
+//    ceil(STAGE / chunk) stage splits, at most 64; the current column is the
+//    last row of the grid's last split. The host picks chunk from the shapes
+//    alone (ops/cuda/decode_attention.py::decode_plan: the largest of 128,
+//    64 and 32, at most 128 x 64 position dims, that puts two blocks on
+//    each of the 132 SMs, else the shortest within 64 splits), so the
+//    grid never depends on flushed_end or stage_len, which are read from
+//    device memory: the launch is fit for graph capture. A split at or past
+//    its row's end (and not holding the column) exits at once: every block
+//    of a row derives from the same device scalars which splits are active.
+//  * One launch: each active block writes its partial (acc, max, sum) to a
+//    workspace; the last active block of a (row, kv head) to arrive (an
+//    int32 ticket per pair, counted to the active splits) merges them in
+//    split order, the threads loading the partials in parallel (the splits'
+//    maxima and sums in one round into shared memory, then each output's
+//    partials with many loads in flight), writes bf16
+//    and resets its ticket to 0. The order of the merge does not depend on
+//    which block arrives last, so the output is deterministic and a pooled
+//    row's output does not depend on the other rows.
+//  * Two phases per tile of 32 positions, not a serial online softmax. Each
+//    warp owns query heads (warp, warp + 4, ...); in phase 1 each lane takes
+//    one position of the tile and computes its full score for the head from
+//    the K row in shared memory (no shuffles), with log2(e) folded into the
+//    fp32 query scale; phase 2 takes the warp's max and one exp2f per
+//    (position, head); phase 3 rescales each lane's D / 32 accumulated value
+//    dims once per tile and adds p * v over the tile's 32 positions. A
+//    block's heads never meet inside the block, so its partial needs no
+//    reduction.
+//  * K and V reach shared memory through a ring of 4 tiles (3 at D = 128)
+//    filled by cp.async in 16-byte chunks, zero-filled past the rows' end
+//    (reading nothing there), so the next tiles' loads are in flight while
+//    one is reduced; rows are padded by 16 bytes so the 32 lanes reading 32
+//    rows hit distinct banks. One barrier per tile hands a landed tile to
+//    every warp and frees the previous slot.
+//  * int8 prefix (template flag QUANT): rows of D bytes, and one thread per
+//    position copies each of its two fp32 scales; the key scale multiplies
+//    the score and the value scale the probability. int8 values widen to
+//    fp32 by a byte permutation and one subtraction, and all math stays
+//    fp32.
+//  * The ticket: the block's barrier, then one thread's acq_rel atomic
+//    (release of the block's partial, acquire of the others'), as CUTLASS's
+//    split-K semaphore does, instead of a fence in every thread.
+//  * Bounds: every kernel clamps its prefix end to [0, T] and its stage
+//    length to [0, STAGE]. A layer outside [0, L) (read from the device by
+//    the staged one-position kernels) reads nothing and writes NaN to the
+//    output, so a bad value is seen rather than silently clamped.
 //
 // Layouts (row-major, bf16 unless noted):
 //   q       [B, Hq, D]               k_cache, v_cache [L, B, T, Hkv * D]
@@ -69,10 +93,11 @@
 //                 k_scale, v_scale fp32 [L, B, T, Hkv]
 //   k_cur, v_cur [B, Hkv * D]
 //   one position for every row: scalars int32 [3]: flushed_end, stage_len,
-//     layer (without a stage: [2]: seq_end, layer)
+//     layer (without a stage: [1]: seq_end; layer a launch argument)
 //   per-row positions: bases (prefix ends), lens int32 [B]; layer a launch
 //     argument
-//   part    fp32 [B, Hkv, nsplit, G, D + 2]   out [B, Hq, D]
+//   ws      fp32 [B, Hkv, nsplit, G, D + 2]   tickets int32 [B * Hkv], zero
+//   out     [B, Hq, D]
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -85,14 +110,26 @@ namespace {
 constexpr int DIMS_PER_LANE = 8;
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
-constexpr int CHUNK = 256;
-constexpr int MAX_G = 8;
-// Finite sentinel for an empty running max: exp(NEG_BIG - NEG_BIG) is 1 and
+constexpr int TILE = 32;  // positions per tile: one per lane
+constexpr int MAX_SPLITS = 64;  // splits of a row (bounds the host plan)
+
+// The cp.async ring: STAGES tiles, each K then V as TILE rows of D bf16
+// values padded by 16 bytes (so the 32 lanes reading 32 rows hit distinct
+// banks; an int8 row uses the first D bytes of its slot), then the rows' key
+// and value scales.
+template <int D>
+struct Ring {
+  static constexpr int STAGES = D == 64 ? 4 : 3;
+  static constexpr int ROW = 2 * D + 16;
+  static constexpr int STAGE_BYTES = 2 * TILE * ROW + 2 * TILE * 4;
+  static constexpr int BYTES = STAGES * STAGE_BYTES;
+};
+constexpr float LOG2E = 1.4426950408889634f;
+// Finite sentinel for an empty running max: exp2(NEG_BIG - NEG_BIG) is 1 and
 // multiplies a zero sum, so merging empty states never produces NaN.
 constexpr float NEG_BIG = -1e30f;
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
+__device__ __forceinline__ void bf16x8(const uint4& u, float* out) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -102,25 +139,71 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
   }
 }
 
-__device__ __forceinline__ void load8(const int8_t* p, float* out) {
-  const int2 u = *reinterpret_cast<const int2*>(p);
-  const int8_t* c = reinterpret_cast<const int8_t*>(&u);
+// Four int8 values packed in a word to fp32, exactly, without the
+// quarter-rate integer-to-float conversion: each byte with its sign bit
+// flipped becomes the low mantissa byte of 2^23, and one subtraction of
+// 2^23 + 128 leaves its value.
+__device__ __forceinline__ void int8x4(unsigned w, float* out) {
+  const unsigned u = w ^ 0x80808080u;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) out[i] = static_cast<float>(c[i]);
+  for (int i = 0; i < 4; ++i)
+    out[i] = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7540u | i)) - 8388736.f;
 }
 
-// D is the head dim (64 or 128). PrefixT is __nv_bfloat16 for the exact
-// cache and int8_t for the int8 one (then k_scale and v_scale are read;
-// otherwise they may be null). STAGED kernels attend stage rows and the
-// current column in their last split; without a stage the pooled kernel
-// attends only the current column there and the one-position kernel nothing
-// (its scalars are (seq_end)). Without POOLED, scalars holds the position
-// shared by every row and lens is unused; with POOLED, scalars holds the
-// per-row bases and lens the per-row stage lengths (unused without a stage),
-// clamped to the buffers. Every kernel but the staged one-position kernels
-// (whose scalars carry the layer) takes the layer as layer_arg.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte copy to shared memory; src_bytes 0 zero-fills and reads nothing.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ int atomic_add_acq_rel(int* p, int v) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], %2;\n"
+               : "=r"(old)
+               : "l"(p), "r"(v)
+               : "memory");
+  return old;
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// D is the head dim (64 or 128), G the query heads per kv head. PrefixT is
+// __nv_bfloat16 for the exact cache and int8_t for the int8 one (then
+// k_scale and v_scale are read; otherwise they may be null). Without POOLED,
+// scalars holds the position shared by every row (STAGED: flushed_end,
+// stage_len, layer; otherwise seq_end) and lens is unused; with POOLED,
+// scalars holds the per-row prefix ends and lens the per-row stage lengths
+// (unused without a stage). Kernels with a stage or per-row positions
+// attend the current column as the last row of split nsplit - 1. Every
+// kernel but the staged one-position one takes the layer as layer_arg.
 template <int D, int G, typename PrefixT, bool POOLED, bool STAGED>
-__global__ void __launch_bounds__(THREADS) decode_split_kernel(
+__global__ void __launch_bounds__(THREADS, 4) decode_kernel(
     const __nv_bfloat16* __restrict__ q,
     const PrefixT* __restrict__ k_cache,
     const PrefixT* __restrict__ v_cache,
@@ -132,329 +215,421 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
     const __nv_bfloat16* __restrict__ v_cur,
     const int* __restrict__ scalars,
     const int* __restrict__ lens,
-    float* __restrict__ part,
-    int B, int Hkv, int T, int stage_depth, int nsplit, float scale, int layer_arg) {
+    float* __restrict__ ws,
+    int* __restrict__ tickets,
+    __nv_bfloat16* __restrict__ out,
+    int B, int Hkv, int L, int T, int stage_depth, int layer_arg, int chunk, int n_prefix,
+    int nsplit, float qscale) {
   constexpr bool QUANT = std::is_same<PrefixT, int8_t>::value;
   constexpr bool HAS_CUR = STAGED || POOLED;
-  constexpr int LANES = D / DIMS_PER_LANE;  // lanes per position
-  constexpr int ROWS_PER_WARP = 32 / LANES;
   constexpr int PART = D + 2;
-  const int split = blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  constexpr int HEADS_PER_WARP = (G + WARPS - 1) / WARPS;
+  constexpr int DPL = D / 32;  // value dims per lane in phase 3
+  using RingT = Ring<D>;
+  constexpr int STAGES = RingT::STAGES;
+  constexpr int ROW = RingT::ROW;
+  static_assert(TILE == 32, "one position per lane");
+
+  // With per-row positions the grid is (Hkv * B, nsplit), dispatched in
+  // order of y then x: every row's stage splits (which hold the column)
+  // first, then the prefix splits from position 0, so the splits a pool's
+  // rows use start in the first wave and the empty ones at the prefix's deep
+  // end come last (on an H100: 0.0174 -> 0.0136 ms for the 8-slot pool's
+  // bf16 call at bases 112-434, tools/time_torch_kernels.py). With one
+  // position for every row a row's splits stay adjacent, (nsplit, Hkv, B),
+  // which was faster there (row 11: 0.0087 against 0.0099 ms). The merge
+  // order is by split either way.
+  const int n_stage = nsplit - n_prefix;
+  int split, h, b;
+  if constexpr (POOLED) {
+    const int y = blockIdx.y;
+    split = y < n_stage ? n_prefix + y : y - n_stage;
+    h = blockIdx.x % Hkv;
+    b = blockIdx.x / Hkv;
+  } else {
+    split = blockIdx.x;
+    h = blockIdx.y;
+    b = blockIdx.z;
+  }
   const int W = Hkv * D;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const size_t out0 = ((size_t)b * Hkv + h) * G * D;
+
   int flushed_end, stage_len = 0, layer;
   if constexpr (POOLED) {
     flushed_end = min(max(scalars[b], 0), T);
     if constexpr (STAGED) stage_len = min(max(lens[b], 0), stage_depth);
     layer = layer_arg;
   } else if constexpr (STAGED) {
-    flushed_end = scalars[0];
-    stage_len = scalars[1];
+    flushed_end = min(max(scalars[0], 0), T);
+    stage_len = min(max(scalars[1], 0), stage_depth);
     layer = scalars[2];
   } else {
     flushed_end = min(max(scalars[0], 0), T);
     layer = layer_arg;
   }
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int sub = lane / LANES;
-  const int dim0 = (lane % LANES) * DIMS_PER_LANE;
+  // Split 0 of a (row, kv head) that attends nothing writes NaN; no block
+  // reads anything or takes a ticket.
+  auto write_nan = [&]() {
+    if (split == 0)
+      for (int e = tid; e < G * D; e += THREADS)
+        out[out0 + e] = __float2bfloat16(__int_as_float(0x7fc00000));
+  };
+  if (layer < 0 || layer >= L) {  // a bad layer is seen, not clamped
+    write_nan();
+    return;
+  }
 
-  // Rows this split attends: a prefix chunk, or the stage plus the current
-  // column (row index n of the last split).
-  const bool prefix = split < nsplit - 1;
+  // The splits that hold rows of this row b: prefix splits below
+  // ceil(flushed_end / chunk), stage splits below ceil(stage_len / chunk),
+  // and the last split when it holds the current column. Only they take
+  // part: the others exit at once, and the ticket counts the active ones.
+  const bool prefix = split < n_prefix;
+  const bool last = split == nsplit - 1;
+  const int pre_active = (flushed_end + chunk - 1) / chunk;
+  const int stage_active = (stage_len + chunk - 1) / chunk;
+  const bool last_counted = n_stage > 0 ? stage_active == n_stage : pre_active == n_prefix;
+  const int n_active = pre_active + stage_active + ((HAS_CUR && !last_counted) ? 1 : 0);
+  const bool active = prefix ? split < pre_active
+                             : split - n_prefix < stage_active;
+  if (n_active == 0) {  // nothing to attend: 0 / 0, as the plain version
+    write_nan();
+    return;
+  }
+  if (!active && !(HAS_CUR && last)) return;
+
+  // The split's rows: prefix positions [start, start + n) or stage rows
+  // [start, start + n), plus the current column as row n of the last split.
   int n;
-  size_t row0;  // element offset of the split's first row (prefix or stage)
-  size_t srow0 = 0;  // scale index of the first prefix row, this kv head
+  size_t row0;  // index of the split's first row in its buffer's [rows, W] view
   if (prefix) {
-    const int start = split * CHUNK;
-    n = max(0, min(CHUNK, flushed_end - start));
-    const size_t pos0 = ((size_t)layer * B + b) * (size_t)T + start;
-    row0 = pos0 * W;
-    srow0 = pos0 * Hkv + h;
+    const int start = split * chunk;
+    n = max(0, min(chunk, flushed_end - start));
+    row0 = ((size_t)layer * B + b) * (size_t)T + start;
   } else {
-    n = stage_len;
-    row0 = ((size_t)layer * B + b) * (size_t)stage_depth * W;
+    const int start = (split - n_prefix) * chunk;
+    n = max(0, min(chunk, stage_len - start));
+    row0 = ((size_t)layer * B + b) * (size_t)stage_depth + start;
   }
-  const int total = n + ((prefix || !HAS_CUR) ? 0 : 1);
-  const int col = h * D + dim0;
+  const int total = n + ((HAS_CUR && last) ? 1 : 0);
 
-  float qr[G][DIMS_PER_LANE];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    load8(q + ((size_t)b * Hkv * G + h * G + g) * D + dim0, qr[g]);
-#pragma unroll
-    for (int d = 0; d < DIMS_PER_LANE; ++d) qr[g][d] *= scale;
-  }
+  __shared__ __align__(16) float s_q[G][D];  // the scaled query heads
+  __shared__ __align__(16) float s_pw[WARPS][TILE];  // a warp's probabilities
+  __shared__ bool s_last;
+  extern __shared__ __align__(16) unsigned char ring[];
+  const bool q8_split = QUANT && prefix;
+  // 16-byte chunks of one row of K (or V): D * 2 bytes bf16, D bytes int8.
+  const int chunks_per_row = (q8_split ? D : 2 * D) / 16;
 
-  float m[G], l[G], acc[G][DIMS_PER_LANE];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m[g] = NEG_BIG;
-    l[g] = 0.f;
-#pragma unroll
-    for (int d = 0; d < DIMS_PER_LANE; ++d) acc[g][d] = 0.f;
-  }
-
-  // The loop bound is the same for every lane of a warp, so the shuffles
-  // below always run with the full mask; lanes past the end load nothing.
-  for (int base = warp * ROWS_PER_WARP; base < total; base += WARPS * ROWS_PER_WARP) {
-    const int i = base + sub;
-    const bool valid = i < total;
-    float kr[DIMS_PER_LANE], vr[DIMS_PER_LANE];
-    float ks = 1.f, vs = 1.f;
-    if (valid) {
-      const size_t off = row0 + (size_t)i * W + col;
-      if (prefix) {
-        load8(k_cache + off, kr);
-        load8(v_cache + off, vr);
-        if constexpr (QUANT) {
-          ks = k_scale[srow0 + (size_t)i * Hkv];
-          vs = v_scale[srow0 + (size_t)i * Hkv];
+  // Issue the copies of the tile at t0 into its slot as one commit group
+  // (empty past the split's rows): the threads take the tile's 16-byte
+  // chunks in turn; rows past the split's end are zero-filled, reading
+  // nothing, and so are their scales. An int8 split's rows are all int8 (a
+  // kernel with an int8 prefix always has a stage, which holds the column).
+  auto issue = [&](int t0) {
+    if (t0 < total) {
+      unsigned char* st = ring + ((t0 / TILE) % STAGES) * RingT::STAGE_BYTES;
+      for (int c = tid; c < 2 * TILE * chunks_per_row; c += THREADS) {
+        const bool is_v = c >= TILE * chunks_per_row;
+        const int cc = is_v ? c - TILE * chunks_per_row : c;
+        const int r = cc / chunks_per_row;
+        const int x = cc % chunks_per_row;
+        const int i = t0 + r;
+        unsigned char* dst = st + (is_v ? TILE * ROW : 0) + r * ROW + x * 16;
+        if (i < n) {
+          const size_t off = (row0 + i) * W + h * D;
+          if (q8_split) {
+            cp_async16(dst, (is_v ? v_cache : k_cache) + off + x * 16, 16);
+          } else if (prefix) {
+            cp_async16(dst, (is_v ? v_cache : k_cache) + off + x * 8, 16);
+          } else {
+            cp_async16(dst, (is_v ? v_stage : k_stage) + off + x * 8, 16);
+          }
+        } else if (HAS_CUR && last && i == n) {
+          cp_async16(dst, (is_v ? v_cur : k_cur) + (size_t)b * W + h * D + x * 8, 16);
+        } else {
+          cp_async16(dst, q, 0);
         }
-      } else if (STAGED && i < n) {
-        load8(k_stage + off, kr);
-        load8(v_stage + off, vr);
-      } else {
-        load8(k_cur + (size_t)b * W + col, kr);
-        load8(v_cur + (size_t)b * W + col, vr);
       }
-    } else {
-#pragma unroll
-      for (int d = 0; d < DIMS_PER_LANE; ++d) kr[d] = vr[d] = 0.f;
-    }
-    float s[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float acc_s = 0.f;
-#pragma unroll
-      for (int d = 0; d < DIMS_PER_LANE; ++d) acc_s = fmaf(qr[g][d], kr[d], acc_s);
-      s[g] = acc_s;
-    }
-#pragma unroll
-    for (int off = 1; off < LANES; off <<= 1) {
-#pragma unroll
-      for (int g = 0; g < G; ++g) s[g] += __shfl_xor_sync(0xffffffffu, s[g], off);
-    }
-    if (valid) {
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float sg = s[g] * ks;
-        const float mn = fmaxf(m[g], sg);
-        const float alpha = expf(m[g] - mn);
-        const float p = expf(sg - mn);
-        const float pv = p * vs;
-        l[g] = l[g] * alpha + p;
-#pragma unroll
-        for (int d = 0; d < DIMS_PER_LANE; ++d) acc[g][d] = fmaf(acc[g][d], alpha, pv * vr[d]);
-        m[g] = mn;
+      if (q8_split && tid < 2 * TILE) {
+        const int r = tid % TILE;
+        const int i = t0 + r;
+        float* sc = reinterpret_cast<float*>(st + 2 * TILE * ROW) + tid;
+        const float* src = (tid < TILE ? k_scale : v_scale) + (row0 + min(i, n - 1)) * Hkv + h;
+        cp_async4(sc, src, i < n ? 4 : 0);
       }
     }
+    cp_async_commit();
+  };
+
+  // Each warp owns the query heads g = warp, warp + WARPS, ...: phase 1
+  // (lane = position) and phase 2 (the warp's max) need no barrier, phase 3
+  // has each lane accumulate DPL value dims over the tile's positions.
+  float acc[HEADS_PER_WARP][DPL];
+  float m_run[HEADS_PER_WARP], l_run[HEADS_PER_WARP];
+#pragma unroll
+  for (int k = 0; k < HEADS_PER_WARP; ++k) {
+    m_run[k] = NEG_BIG;
+    l_run[k] = 0.f;
+#pragma unroll
+    for (int d = 0; d < DPL; ++d) acc[k][d] = 0.f;
   }
 
-  // Merge the decoders of the warp (lanes with the same dims).
 #pragma unroll
-  for (int off = LANES; off < 32; off <<= 1) {
+  for (int t = 0; t < STAGES - 1; ++t) issue(t * TILE);
+  for (int e = tid; e < G * D / DIMS_PER_LANE; e += THREADS) {
+    const int g = e / (D / DIMS_PER_LANE);
+    const int c = (e % (D / DIMS_PER_LANE)) * DIMS_PER_LANE;
+    float f[DIMS_PER_LANE];
+    bf16x8(*reinterpret_cast<const uint4*>(q + out0 + (size_t)g * D + c), f);
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float mo = __shfl_xor_sync(0xffffffffu, m[g], off);
-      const float lo = __shfl_xor_sync(0xffffffffu, l[g], off);
-      const float mn = fmaxf(m[g], mo);
-      const float a = expf(m[g] - mn);
-      const float c = expf(mo - mn);
-      l[g] = l[g] * a + lo * c;
+    for (int d = 0; d < DIMS_PER_LANE; ++d) s_q[g][c + d] = f[d] * qscale;
+  }
+  for (int t0 = 0; t0 < total; t0 += TILE) {
+    cp_async_wait<STAGES - 2>();  // this thread's copies of tile t0 have landed
+    __syncthreads();  // everyone's have, and the previous tile's slot is free
+    issue(t0 + (STAGES - 1) * TILE);
+    const unsigned char* st = ring + ((t0 / TILE) % STAGES) * RingT::STAGE_BYTES;
+    const float* sc = reinterpret_cast<const float*>(st + 2 * TILE * ROW);
+    const unsigned char* krow = st + lane * ROW;
+    const bool valid = t0 + lane < total;
 #pragma unroll
-      for (int d = 0; d < DIMS_PER_LANE; ++d) {
-        const float ao = __shfl_xor_sync(0xffffffffu, acc[g][d], off);
-        acc[g][d] = acc[g][d] * a + ao * c;
+    for (int k = 0; k < HEADS_PER_WARP; ++k) {
+      const int g = warp + k * WARPS;
+      if (g >= G) break;
+      // Phase 1: this lane's position's score for head g.
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int c = 0; c < D / DIMS_PER_LANE; ++c) {
+        float kf[DIMS_PER_LANE];
+        if (q8_split) {
+          const uint2 u = *reinterpret_cast<const uint2*>(krow + c * 8);
+          int8x4(u.x, kf);
+          int8x4(u.y, kf + 4);
+        } else {
+          bf16x8(*reinterpret_cast<const uint4*>(krow + c * 16), kf);
+        }
+        const float4 q0 = *reinterpret_cast<const float4*>(&s_q[g][c * 8]);
+        const float4 q1 = *reinterpret_cast<const float4*>(&s_q[g][c * 8 + 4]);
+        part[c % 4] += q0.x * kf[0] + q0.y * kf[1] + q0.z * kf[2] + q0.w * kf[3] +
+                       q1.x * kf[4] + q1.y * kf[5] + q1.z * kf[6] + q1.w * kf[7];
       }
-      m[g] = mn;
+      float sg = (part[0] + part[1]) + (part[2] + part[3]);
+      if (q8_split) sg *= sc[lane];
+      sg = valid ? sg : NEG_BIG;
+      // Phase 2: the tile's max for head g, one exp2f per position.
+      const float mn = fmaxf(m_run[k], warp_max(sg));
+      const float p = exp2f(sg - mn);
+      const float alpha = exp2f(m_run[k] - mn);
+      l_run[k] = l_run[k] * alpha + p;
+      m_run[k] = mn;
+      s_pw[warp][lane] = q8_split ? p * sc[TILE + lane] : p;
+      __syncwarp();
+      // Phase 3: rescale and accumulate p * v over the tile's positions.
+#pragma unroll
+      for (int d = 0; d < DPL; ++d) acc[k][d] *= alpha;
+      const unsigned char* vbase = st + TILE * ROW;
+#pragma unroll 4
+      for (int r = 0; r < TILE; r += 4) {
+        const float4 p4 = *reinterpret_cast<const float4*>(&s_pw[warp][r]);
+        const float pr[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const unsigned char* vrow = vbase + (r + u) * ROW;
+          float vf[DPL];
+          if (q8_split) {
+            float f[4];
+            if constexpr (DPL == 2) {
+              int8x4(*reinterpret_cast<const unsigned short*>(vrow + lane * 2), f);
+            } else {
+              int8x4(*reinterpret_cast<const unsigned*>(vrow + lane * 4), f);
+            }
+#pragma unroll
+            for (int d = 0; d < DPL; ++d) vf[d] = f[d];
+          } else {
+#pragma unroll
+            for (int d = 0; d < DPL; d += 2) {
+              const float2 f = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(vrow + (lane * DPL + d) * 2));
+              vf[d] = f.x;
+              vf[d + 1] = f.y;
+            }
+          }
+#pragma unroll
+          for (int d = 0; d < DPL; ++d) acc[k][d] = fmaf(pr[u], vf[d], acc[k][d]);
+        }
+      }
+      __syncwarp();
     }
   }
+  cp_async_wait<0>();
 
-  // Merge the warps in shared memory and write this split's partial.
-  __shared__ float sm_acc[WARPS][MAX_G][D];
-  __shared__ float sm_m[WARPS][MAX_G];
-  __shared__ float sm_l[WARPS][MAX_G];
-  if (sub == 0) {
+  // The block's partial: each warp writes its heads' accumulators, running
+  // maxima and sums.
+  float* pair_ws = ws + ((size_t)b * Hkv + h) * nsplit * G * PART;
+  float* dst = pair_ws + (size_t)split * G * PART;
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
+  for (int k = 0; k < HEADS_PER_WARP; ++k) {
+    const int g = warp + k * WARPS;
+    const float l = warp_sum(l_run[k]);
+    if (g < G) {
 #pragma unroll
-      for (int d = 0; d < DIMS_PER_LANE; ++d) sm_acc[warp][g][dim0 + d] = acc[g][d];
+      for (int d = 0; d < DPL; ++d) dst[g * PART + lane * DPL + d] = acc[k][d];
       if (lane == 0) {
-        sm_m[warp][g] = m[g];
-        sm_l[warp][g] = l[g];
+        dst[g * PART + D] = m_run[k];
+        dst[g * PART + D + 1] = l;
       }
     }
   }
+
+  // The last block of this (row, kv head) merges the splits in split order:
+  // the barrier orders the block's writes before thread 0's release, and its
+  // acquire orders the other blocks' partials before the barrier after it.
   __syncthreads();
-  float* dst = part + (((size_t)b * Hkv + h) * nsplit + split) * G * PART;
-  for (int e = threadIdx.x; e < G * D; e += THREADS) {
-    const int g = e / D;
-    const int d = e % D;
-    float mx = NEG_BIG;
+  if (tid == 0) s_last = atomic_add_acq_rel(&tickets[b * Hkv + h], 1) == n_active - 1;
+  __syncthreads();
+  if (!s_last) return;
+  // Active split k of n_active, in split order.
+  auto split_of = [&](int k) {
+    return k < pre_active ? k
+           : k < pre_active + stage_active ? n_prefix + (k - pre_active) : nsplit - 1;
+  };
+  // Each thread merges EPT consecutive outputs of one head over the splits,
+  // MG splits' partials (values, max, sum) in flight at once (one round for
+  // up to 24 active splits at head dim 64), rescaled group by group.
+  constexpr int EPT = (G * D + THREADS - 1) / THREADS;  // outputs per thread
+  constexpr int MG = 48 / EPT < 24 ? 48 / EPT : 24;
+  const int e0 = min(tid * EPT, G * D - EPT);
+  const int g0 = e0 / D;
+  float mx = NEG_BIG, sum = 0.f, a[EPT];
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, sm_m[w][g]);
-    float a = 0.f, sum = 0.f;
+  for (int i = 0; i < EPT; ++i) a[i] = 0.f;
+  for (int k0 = 0; k0 < n_active; k0 += MG) {
+    float v[MG][EPT], mk[MG], lk[MG];
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      const float f = expf(sm_m[w][g] - mx);
-      a += sm_acc[w][g][d] * f;
-      sum += sm_l[w][g] * f;
+    for (int j2 = 0; j2 < MG; ++j2) {
+      const int k = min(k0 + j2, n_active - 1);
+      const float* p = pair_ws + ((size_t)split_of(k) * G + g0) * PART;
+      mk[j2] = __ldcg(p + D);
+      lk[j2] = __ldcg(p + D + 1);
+#pragma unroll
+      for (int i = 0; i < EPT; ++i) v[j2][i] = __ldcg(p + e0 % D + i);
     }
-    dst[g * PART + d] = a;
-    if (d == 0) {
-      dst[g * PART + D] = mx;
-      dst[g * PART + D + 1] = sum;
+    float mn = mx;
+#pragma unroll
+    for (int j2 = 0; j2 < MG; ++j2)
+      if (k0 + j2 < n_active) mn = fmaxf(mn, mk[j2]);
+    const float r = exp2f(mx - mn);
+    sum *= r;
+#pragma unroll
+    for (int i = 0; i < EPT; ++i) a[i] *= r;
+#pragma unroll
+    for (int j2 = 0; j2 < MG; ++j2) {
+      if (k0 + j2 < n_active) {
+        const float f = exp2f(mk[j2] - mn);
+        sum = fmaf(lk[j2], f, sum);
+#pragma unroll
+        for (int i = 0; i < EPT; ++i) a[i] = fmaf(v[j2][i], f, a[i]);
+      }
     }
+    mx = mn;
   }
-}
-
-// Merges the splits of one (kv head, batch row): thread (g, d) of G * D.
-template <int D>
-__global__ void decode_combine_kernel(const float* __restrict__ part,
-                                      __nv_bfloat16* __restrict__ out,
-                                      int Hkv, int G, int nsplit) {
-  constexpr int PART = D + 2;
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int g = threadIdx.x / D;
-  const int d = threadIdx.x % D;
-  const float* src = part + ((size_t)b * Hkv + h) * nsplit * G * PART;
-  float mx = NEG_BIG;
-  for (int s = 0; s < nsplit; ++s) mx = fmaxf(mx, src[(s * G + g) * PART + D]);
-  float a = 0.f, sum = 0.f;
-  for (int s = 0; s < nsplit; ++s) {
-    const float* p = src + (s * G + g) * PART;
-    const float f = expf(p[D] - mx);
-    a += p[d] * f;
-    sum += p[D + 1] * f;
+  if (tid * EPT < G * D) {
+#pragma unroll
+    for (int i = 0; i < EPT; ++i) out[out0 + e0 + i] = __float2bfloat16(a[i] / sum);
   }
-  out[((size_t)b * Hkv * G + h * G + g) * D + d] = __float2bfloat16(a / sum);
+  if (tid == 0) tickets[b * Hkv + h] = 0;
 }
-
-}  // namespace
-
-extern "C" int zvt_decode_attention_nsplit(int T) { return (T + CHUNK - 1) / CHUNK + 1; }
-
-namespace {
 
 template <int D, typename PrefixT, bool POOLED, bool STAGED>
 int launch(const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
            const void* v_scale, const void* k_stage, const void* v_stage, const void* k_cur,
-           const void* v_cur, const void* scalars, const void* lens, void* part, void* out,
-           int B, int Hq, int Hkv, int T, int stage_depth, int layer, cudaStream_t s) {
+           const void* v_cur, const void* scalars, const void* lens, void* ws, void* tickets,
+           void* out, int B, int Hq, int Hkv, int L, int T, int stage_depth, int layer,
+           int chunk, int n_prefix, int n_stage, cudaStream_t s) {
   const int G = Hq / Hkv;
-  const int nsplit = zvt_decode_attention_nsplit(T);
-  const float scale = 1.0f / sqrtf((float)D);
-  const dim3 grid(nsplit, Hkv, B);
-#define ZVT_SPLIT(GV)                                                                       \
-  decode_split_kernel<D, GV, PrefixT, POOLED, STAGED><<<grid, THREADS, 0, s>>>(             \
-      static_cast<const __nv_bfloat16*>(q), static_cast<const PrefixT*>(k_cache),           \
-      static_cast<const PrefixT*>(v_cache), static_cast<const float*>(k_scale),             \
-      static_cast<const float*>(v_scale), static_cast<const __nv_bfloat16*>(k_stage),       \
-      static_cast<const __nv_bfloat16*>(v_stage), static_cast<const __nv_bfloat16*>(k_cur), \
-      static_cast<const __nv_bfloat16*>(v_cur), static_cast<const int*>(scalars),           \
-      static_cast<const int*>(lens), static_cast<float*>(part), B, Hkv, T, stage_depth,     \
-      nsplit, scale, layer)
+  const int nsplit = n_prefix + n_stage;
+  const float qscale = LOG2E / sqrtf((float)D);
+  const dim3 grid = POOLED ? dim3(Hkv * B, nsplit) : dim3(nsplit, Hkv, B);
+  constexpr int smem = Ring<D>::BYTES;
+  int dev = 0;
+  cudaGetDevice(&dev);
+#define ZVT_DECODE(GV)                                                                       \
+  {                                                                                          \
+    static unsigned configured = 0; /* devices whose attribute is set */                     \
+    auto* kernel = decode_kernel<D, GV, PrefixT, POOLED, STAGED>;                            \
+    if (!(configured >> dev & 1u)) {                                                         \
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);       \
+      configured |= 1u << dev;                                                               \
+    }                                                                                        \
+  }                                                                                          \
+  decode_kernel<D, GV, PrefixT, POOLED, STAGED><<<grid, THREADS, smem, s>>>(                 \
+      static_cast<const __nv_bfloat16*>(q), static_cast<const PrefixT*>(k_cache),            \
+      static_cast<const PrefixT*>(v_cache), static_cast<const float*>(k_scale),              \
+      static_cast<const float*>(v_scale), static_cast<const __nv_bfloat16*>(k_stage),        \
+      static_cast<const __nv_bfloat16*>(v_stage), static_cast<const __nv_bfloat16*>(k_cur),  \
+      static_cast<const __nv_bfloat16*>(v_cur), static_cast<const int*>(scalars),            \
+      static_cast<const int*>(lens), static_cast<float*>(ws), static_cast<int*>(tickets),    \
+      static_cast<__nv_bfloat16*>(out), B, Hkv, L, T, stage_depth, layer, chunk, n_prefix,   \
+      nsplit, qscale)
   switch (G) {
-    case 1: ZVT_SPLIT(1); break;
-    case 2: ZVT_SPLIT(2); break;
-    case 4: ZVT_SPLIT(4); break;
-    case 8: ZVT_SPLIT(8); break;
+    case 1: ZVT_DECODE(1); break;
+    case 2: ZVT_DECODE(2); break;
+    case 4: ZVT_DECODE(4); break;
+    case 8: ZVT_DECODE(8); break;
     default: return (int)cudaErrorInvalidValue;
   }
-#undef ZVT_SPLIT
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  decode_combine_kernel<D><<<dim3(Hkv, B), G * D, 0, s>>>(
-      static_cast<const float*>(part), static_cast<__nv_bfloat16*>(out), Hkv, G, nsplit);
+#undef ZVT_DECODE
   return (int)cudaGetLastError();
 }
 
-// Dispatch on the head dim (64 or 128).
 template <typename PrefixT, bool POOLED, bool STAGED>
 int launch_any(const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
                const void* v_scale, const void* k_stage, const void* v_stage, const void* k_cur,
-               const void* v_cur, const void* scalars, const void* lens, void* part, void* out,
-               int B, int Hq, int Hkv, int T, int stage_depth, int head_dim, int layer,
-               void* stream) {
-  if (Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+               const void* v_cur, const void* scalars, const void* lens, void* ws,
+               void* tickets, void* out, int B, int Hq, int Hkv, int L, int T, int stage_depth,
+               int head_dim, int layer, int chunk, int n_prefix, int n_stage, cudaStream_t s) {
   if (head_dim == 64)
     return launch<64, PrefixT, POOLED, STAGED>(q, k_cache, v_cache, k_scale, v_scale, k_stage,
-                                               v_stage, k_cur, v_cur, scalars, lens, part, out,
-                                               B, Hq, Hkv, T, stage_depth, layer, s);
+                                               v_stage, k_cur, v_cur, scalars, lens, ws,
+                                               tickets, out, B, Hq, Hkv, L, T, stage_depth,
+                                               layer, chunk, n_prefix, n_stage, s);
   if (head_dim == 128)
     return launch<128, PrefixT, POOLED, STAGED>(q, k_cache, v_cache, k_scale, v_scale, k_stage,
-                                                v_stage, k_cur, v_cur, scalars, lens, part, out,
-                                                B, Hq, Hkv, T, stage_depth, layer, s);
+                                                v_stage, k_cur, v_cur, scalars, lens, ws,
+                                                tickets, out, B, Hq, Hkv, L, T, stage_depth,
+                                                layer, chunk, n_prefix, n_stage, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-extern "C" int zvt_decode_attention_layered(
-    const void* q, const void* k_cache, const void* v_cache, const void* k_stage,
-    const void* v_stage, const void* k_cur, const void* v_cur, const void* scalars,
-    void* part, void* out, int B, int Hq, int Hkv, int T, int stage_depth,
-    int head_dim, void* stream) {
-  return launch_any<__nv_bfloat16, false, true>(
-      q, k_cache, v_cache, nullptr, nullptr, k_stage, v_stage, k_cur, v_cur, scalars, nullptr,
-      part, out, B, Hq, Hkv, T, stage_depth, head_dim, 0, stream);
-}
-
-extern "C" int zvt_decode_attention_layered_q(
-    const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
-    const void* v_scale, const void* k_stage, const void* v_stage, const void* k_cur,
-    const void* v_cur, const void* scalars, void* part, void* out, int B, int Hq, int Hkv,
-    int T, int stage_depth, int head_dim, void* stream) {
-  return launch_any<int8_t, false, true>(q, k_cache, v_cache, k_scale, v_scale, k_stage,
-                                         v_stage, k_cur, v_cur, scalars, nullptr, part, out, B,
-                                         Hq, Hkv, T, stage_depth, head_dim, 0, stream);
-}
-
-// Per-row positions: bases and lens are device int32 [B]; layer must lie in
-// [0, L) (the wrapper checks it).
-extern "C" int zvt_decode_attention_pooled(
-    const void* q, const void* k_cache, const void* v_cache, const void* k_stage,
-    const void* v_stage, const void* k_cur, const void* v_cur, const void* bases,
-    const void* lens, void* part, void* out, int B, int Hq, int Hkv, int T, int stage_depth,
-    int head_dim, int layer, void* stream) {
-  return launch_any<__nv_bfloat16, true, true>(
-      q, k_cache, v_cache, nullptr, nullptr, k_stage, v_stage, k_cur, v_cur, bases, lens, part,
-      out, B, Hq, Hkv, T, stage_depth, head_dim, layer, stream);
-}
-
-extern "C" int zvt_decode_attention_pooled_q(
-    const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
-    const void* v_scale, const void* k_stage, const void* v_stage, const void* k_cur,
-    const void* v_cur, const void* bases, const void* lens, void* part, void* out, int B,
-    int Hq, int Hkv, int T, int stage_depth, int head_dim, int layer, void* stream) {
-  return launch_any<int8_t, true, true>(q, k_cache, v_cache, k_scale, v_scale, k_stage, v_stage,
-                                        k_cur, v_cur, bases, lens, part, out, B, Hq, Hkv, T,
-                                        stage_depth, head_dim, layer, stream);
-}
-
-// No stage, one position: every row attends [0, seq_end) of layer `layer`,
-// the current column already written there; seq_end is device int32 [1];
-// layer must lie in [0, L) (the wrapper checks it).
-extern "C" int zvt_decode_attention_unstaged(
-    const void* q, const void* k_cache, const void* v_cache, const void* seq_end, void* part,
-    void* out, int B, int Hq, int Hkv, int T, int head_dim, int layer, void* stream) {
-  return launch_any<__nv_bfloat16, false, false>(
-      q, k_cache, v_cache, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, seq_end,
-      nullptr, part, out, B, Hq, Hkv, T, 1, head_dim, layer, stream);
-}
-
-// No stage, per-row positions: row b attends [0, prefix_ends[b]) of layer
-// `layer` and its current column; prefix_ends is device int32 [B].
-extern "C" int zvt_decode_attention_pooled_unstaged(
-    const void* q, const void* k_cache, const void* v_cache, const void* k_cur,
-    const void* v_cur, const void* prefix_ends, void* part, void* out, int B, int Hq, int Hkv,
-    int T, int head_dim, int layer, void* stream) {
-  return launch_any<__nv_bfloat16, true, false>(
-      q, k_cache, v_cache, nullptr, nullptr, nullptr, nullptr, k_cur, v_cur, prefix_ends,
-      nullptr, part, out, B, Hq, Hkv, T, 1, head_dim, layer, stream);
+// One entry for every variant: quant (int8 prefix with k_scale/v_scale),
+// pooled (scalars = per-row prefix ends, lens = per-row stage lengths) and
+// staged (k_stage/v_stage attended; the one-position staged kernel reads
+// its layer from scalars[2], every other takes `layer`). The split plan
+// (chunk, n_prefix = ceil(T / chunk), n_stage = ceil(stage_depth / chunk),
+// 0 without a stage) comes from the host; ws holds B * Hkv * (n_prefix +
+// n_stage) * G * (head_dim + 2) floats and tickets B * Hkv zeroed int32s.
+extern "C" int zvt_decode_attention(
+    int quant, int pooled, int staged, const void* q, const void* k_cache, const void* v_cache,
+    const void* k_scale, const void* v_scale, const void* k_stage, const void* v_stage,
+    const void* k_cur, const void* v_cur, const void* scalars, const void* lens, void* ws,
+    void* tickets, void* out, int B, int Hq, int Hkv, int L, int T, int stage_depth,
+    int head_dim, int layer, int chunk, int n_prefix, int n_stage, void* stream) {
+  if (Hkv <= 0 || Hq % Hkv != 0 || chunk % TILE != 0 || chunk <= 0 || n_prefix + n_stage <= 0 ||
+      n_prefix + n_stage > MAX_SPLITS || (quant && (!staged || stage_depth < 1)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define ZVT_ANY(PT, P, S)                                                                       \
+  launch_any<PT, P, S>(q, k_cache, v_cache, k_scale, v_scale, k_stage, v_stage, k_cur, v_cur,   \
+                       scalars, lens, ws, tickets, out, B, Hq, Hkv, L, T, stage_depth, head_dim, \
+                       layer, chunk, n_prefix, n_stage, s)
+  if (quant) return pooled ? ZVT_ANY(int8_t, true, true) : ZVT_ANY(int8_t, false, true);
+  if (staged) return pooled ? ZVT_ANY(__nv_bfloat16, true, true)
+                            : ZVT_ANY(__nv_bfloat16, false, true);
+  return pooled ? ZVT_ANY(__nv_bfloat16, true, false) : ZVT_ANY(__nv_bfloat16, false, false);
+#undef ZVT_ANY
 }

@@ -46,13 +46,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "zvt_decode_attention_nsplit": (_I,),
-    "zvt_decode_attention_layered": (_P,) * 10 + (_I,) * 6 + (_P,),
-    "zvt_decode_attention_layered_q": (_P,) * 12 + (_I,) * 6 + (_P,),
-    "zvt_decode_attention_pooled": (_P,) * 11 + (_I,) * 7 + (_P,),
-    "zvt_decode_attention_pooled_q": (_P,) * 13 + (_I,) * 7 + (_P,),
-    "zvt_decode_attention_unstaged": (_P,) * 6 + (_I,) * 6 + (_P,),
-    "zvt_decode_attention_pooled_unstaged": (_P,) * 8 + (_I,) * 6 + (_P,),
+    "zvt_decode_attention": (_I,) * 3 + (_P,) * 14 + (_I,) * 11 + (_P,),
     "zvt_stage_splice": (_P, _P, _P, _I, _I, _I, _P),
     "zvt_stage_splice_rows": (_P, _P, _P, _I, _I, _I, _I, _P),
     "zvt_prefill_attention": (_P,) * 4 + (_I,) * 7 + (_P,),

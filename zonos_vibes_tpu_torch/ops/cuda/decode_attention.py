@@ -1,4 +1,4 @@
-"""Single-query decode attention: the CUDA kernels' wrappers and their plain
+"""Single-query decode attention: the CUDA kernel's wrappers and their plain
 versions.
 
 Counterparts of ``zonos_vibes_tpu/ops/pallas/decode_attention.py::
@@ -6,12 +6,14 @@ decode_attention_pallas_layered`` and ``decode_attention_pallas_layered_q``.
 For layer ``layer`` of the stacked cache they attend over three parts: the
 flushed prefix ``[0, flushed_end)`` of the time-major cache (bf16, or int8
 with per-(position, kv head) scales), the first ``stage_len`` rows of the
-time-major stage, and the current token's column. The kernels
-(``csrc/decode_attention.cu``) read the three scalars from a device int32
-tensor, so the launch does not depend on host values.
+time-major stage, and the current token's column. The kernel
+(``csrc/decode_attention.cu``) reads the three scalars from a device int32
+tensor, so the launch does not depend on host values; it clamps
+``flushed_end`` to ``[0, T]`` and ``stage_len`` to ``[0, STAGE]``, and for a
+layer outside ``[0, L)`` reads nothing and writes NaN.
 
 The pool's counterparts, ``decode_attention_pallas_pooled_staged`` and
-``decode_attention_pallas_pooled_staged_q``, are the same kernels with a
+``decode_attention_pallas_pooled_staged_q``, are the same kernel with a
 ``(flushed_end, stage_len)`` pair per row: row ``b`` attends its prefix
 ``[0, bases[b])``, its ring stage rows ``[0, lens[b])`` and its column.
 
@@ -19,8 +21,13 @@ The stage-less counterparts, ``decode_attention_pallas`` (every row attends
 ``[0, seq_end)`` of one layer, its current column already written: the
 hybrid backbone's solo decode) and ``decode_attention_pallas_pooled`` (row
 ``b`` attends ``[0, prefix_ends[b])`` and its current column: the pooled
-decode of either backbone on a cache without a ring), are the same kernels
-with no stage rows. Every kernel takes head dim 64 or 128.
+decode of either backbone on a cache without a ring), are the same kernel
+with no stage rows. Every variant takes head dim 64 or 128.
+
+Each call is one launch: the kernel's split blocks meet in a per-device fp32
+workspace under one int32 ticket per (row, kv head), which the last block
+resets. Both are reused across calls, so every launch must stay on one
+stream (the caller's current one), as ``qmm_int8``'s counters must.
 """
 
 from __future__ import annotations
@@ -31,11 +38,113 @@ from ..attention import decode_attention
 from ..quant import dequantize_rows
 from . import build
 
+# Split lengths the plan picks from, longest first; the kernel's tiles are 32
+# positions and its merge holds at most MAX_SPLITS splits of a row. The plan
+# takes the longest that still puts BLOCKS_PER_SM blocks on each SM, else
+# the shortest within MAX_SPLITS. A split holds at most SPLIT_DIMS position
+# dims (128 positions at head dim 64, 64 at 128): a pool's rows at mid depth
+# leave most splits empty, and the few active blocks then set the time by
+# their serial tiles. On an H100 (tools/time_torch_kernels.py --chunks), the
+# 8-slot pool's bf16 call at bases 112-434 took 0.0200 ms with 256-position
+# splits, 0.0172 with 128 and 0.0196 with 64 at head dim 64 (near 3000
+# positions: 0.059, 0.064, 0.076), and the hybrid's at head dim 128 0.0248,
+# 0.0197 and 0.0170.
+CHUNKS = (128, 64, 32)
+SPLIT_DIMS = 128 * 64
+MAX_SPLITS = 64
+SMS = 132
+BLOCKS_PER_SM = 2
+_WORKSPACES: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def decode_plan(T: int, stage: int, B: int, Hkv: int, D: int) -> tuple[int, int, int]:
+    """``(chunk, n_prefix_splits, n_stage_splits)`` of a launch over a cache of
+    ``T`` positions and a stage of ``stage`` rows (0: none) at head dim
+    ``D``, from the shapes alone: ``ceil(T / chunk)`` prefix splits and
+    ``ceil(stage / chunk)`` stage splits, one block each per (row, kv head)."""
+    def splits(chunk):
+        return -(-T // chunk), -(-stage // chunk)
+
+    chunks = [c for c in CHUNKS if c * D <= SPLIT_DIMS] or [CHUNKS[-1]]
+    fitting = [c for c in chunks if sum(splits(c)) <= MAX_SPLITS]
+    if not fitting:  # a cache deeper than MAX_SPLITS * chunks[0]
+        chunk = chunks[0]
+        while sum(splits(chunk)) > MAX_SPLITS:
+            chunk += 32
+        fitting = [chunk]
+    for chunk in fitting:
+        if sum(splits(chunk)) * B * Hkv >= BLOCKS_PER_SM * SMS:
+            break
+    return (chunk, *splits(chunk))
+
+
+def _workspace(dev: torch.device, floats: int, pairs: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The device's split workspace and zeroed tickets, grown on demand."""
+    ws, tickets = _WORKSPACES.get(dev, (None, None))
+    if ws is None or ws.numel() < floats or tickets.numel() < pairs:
+        ws = torch.empty(max(floats, 1 << 20), dtype=torch.float32, device=dev)
+        tickets = torch.zeros(max(pairs, 1024), dtype=torch.int32, device=dev)
+        _WORKSPACES[dev] = ws, tickets
+    return ws, tickets
+
+
+def _launch(name: str, launch_key: str, *, quant: bool, pooled: bool, q, k_cache, v_cache,
+            k_scale=None, v_scale=None, k_stage=None, v_stage=None, k_cur=None, v_cur=None,
+            scalars, lens=None, layer: int = 0) -> torch.Tensor:
+    """Launches the kernel for ``q [B, 1, Hq, D]`` on ``q``'s device and
+    counts the launch. ``scalars`` (and ``lens``) are device int32 tensors."""
+    B, _, Hq, D = q.shape
+    L, _, T, W = k_cache.shape
+    Hkv = W // D
+    staged = k_stage is not None
+    STAGE = k_stage.shape[2] if staged else 0
+    if quant and STAGE < 1:
+        raise ValueError(f"{name}: the int8 kernels take a stage of at least one row")
+    tensors = [t for t in (k_cache, v_cache, k_scale, v_scale, k_stage, v_stage, k_cur, v_cur)
+               if t is not None]
+    dev = build.require_cuda(name, q, *tensors)
+    exact = [q, k_stage, v_stage, k_cur, v_cur] + ([] if quant else [k_cache, v_cache])
+    for t in exact:
+        if t is not None and t.dtype != torch.bfloat16:
+            raise ValueError(f"{name}: kernel takes a bf16 query, cache, stage and column "
+                             f"(int8 prefix aside), got {t.dtype}")
+    for t in (scalars, lens):
+        if t is not None and (t.device != dev or not t.is_contiguous()):
+            raise ValueError(f"{name}: device scalars must be contiguous on the card")
+    chunk, n_prefix, n_stage = decode_plan(T, STAGE, B, Hkv, D)
+    ws, tickets = _workspace(dev, B * Hkv * (n_prefix + n_stage) * (Hq // Hkv) * (D + 2),
+                             B * Hkv)
+    out = torch.empty((B, 1, Hq, D), dtype=q.dtype, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    rc = build.load().zvt_decode_attention(
+        int(quant), int(pooled), int(staged), q.data_ptr(), k_cache.data_ptr(),
+        v_cache.data_ptr(), ptr(k_scale), ptr(v_scale), ptr(k_stage), ptr(v_stage), ptr(k_cur),
+        ptr(v_cur), scalars.data_ptr(), ptr(lens), ws.data_ptr(), tickets.data_ptr(),
+        out.data_ptr(), B, Hq, Hkv, L, T, STAGE, D, layer, chunk, n_prefix, n_stage,
+        build.stream_handle(dev))
+    build.check_status(name, rc)
+    build.LAUNCHES[launch_key] += 1
+    return out
+
+
+def _layered_bounds(scalars, T: int, STAGE: int, L: int, name: str) -> tuple[int, int, int]:
+    """``(flushed_end, stage_len, layer)`` on the host, clamped to the buffers
+    as the kernel clamps them; a layer outside ``[0, L)`` raises (the kernel
+    writes NaN for it)."""
+    flushed_end, stage_len, layer = (int(x) for x in scalars.tolist())
+    if not 0 <= layer < L:
+        raise ValueError(f"{name}: layer {layer} outside [0, {L})")
+    return min(max(flushed_end, 0), T), min(max(stage_len, 0), STAGE), layer
+
 
 def decode_attention_layered_plain(q, k_cache, v_cache, k_stage, v_stage, k_cur,
                                    v_cur, scalars) -> torch.Tensor:
     """Dense reference: gather the three parts and attend over all of them."""
-    flushed_end, stage_len, layer = (int(x) for x in scalars.tolist())
+    flushed_end, stage_len, layer = _layered_bounds(scalars, k_cache.shape[2], k_stage.shape[2],
+                                                    k_cache.shape[0], "decode_attention_layered")
     k = torch.cat([k_cache[layer, :, :flushed_end], k_stage[layer, :, :stage_len],
                    k_cur[:, None]], dim=1)
     v = torch.cat([v_cache[layer, :, :flushed_end], v_stage[layer, :, :stage_len],
@@ -67,27 +176,9 @@ def decode_attention_layered(q, k_cache, v_cache, k_stage, v_stage, k_cur, v_cur
     if q.device.type == "cpu":
         return decode_attention_layered_plain(q, k_cache, v_cache, k_stage, v_stage,
                                               k_cur, v_cur, scalars)
-    dev = build.require_cuda("decode_attention_layered", q, k_cache, v_cache, k_stage,
-                             v_stage, k_cur, v_cur)
-    if scalars.device != dev or not scalars.is_contiguous():
-        raise ValueError("decode_attention_layered: scalars must be contiguous on the card")
-    for t in (q, k_cache, v_cache, k_stage, v_stage, k_cur, v_cur):
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"decode_attention_layered: kernel takes bf16, got {t.dtype}")
-    Hkv = W // D
-    lib = build.load()
-    nsplit = lib.zvt_decode_attention_nsplit(T)
-    part = torch.empty((B, Hkv, nsplit, Hq // Hkv, D + 2), dtype=torch.float32, device=dev)
-    out = torch.empty((B, 1, Hq, D), dtype=q.dtype, device=dev)
-    rc = lib.zvt_decode_attention_layered(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_stage.data_ptr(),
-        v_stage.data_ptr(), k_cur.data_ptr(), v_cur.data_ptr(), scalars.data_ptr(),
-        part.data_ptr(), out.data_ptr(), B, Hq, Hkv, T, STAGE, D,
-        build.stream_handle(dev),
-    )
-    build.check_status("decode_attention_layered", rc)
-    build.LAUNCHES["decode_attention"] += 1
-    return out
+    return _launch("decode_attention_layered", "decode_attention", quant=False, pooled=False,
+                   q=q, k_cache=k_cache, v_cache=v_cache, k_stage=k_stage, v_stage=v_stage,
+                   k_cur=k_cur, v_cur=v_cur, scalars=scalars)
 
 
 def decode_attention_layered_q_plain(q, k_cache, v_cache, k_scale, v_scale, k_stage, v_stage,
@@ -95,7 +186,8 @@ def decode_attention_layered_q_plain(q, k_cache, v_cache, k_scale, v_scale, k_st
     """Dense reference: the layer's prefix dequantized to fp32, the stage
     rows and the current column widened to fp32, attention in fp32 with the
     probabilities kept fp32 (as the Pallas ``_kernel_layered_q`` does)."""
-    flushed_end, stage_len, layer = (int(x) for x in scalars.tolist())
+    flushed_end, stage_len, layer = _layered_bounds(scalars, k_cache.shape[2], k_stage.shape[2],
+                                                    k_cache.shape[0], "decode_attention_layered_q")
     k = torch.cat([dequantize_rows(k_cache[layer, :, :flushed_end],
                                    k_scale[layer, :, :flushed_end]),
                    k_stage[layer, :, :stage_len].float(), k_cur.float()[:, None]], dim=1)
@@ -134,27 +226,9 @@ def decode_attention_layered_q(q, k_cache, v_cache, k_scale, v_scale, k_stage, v
     if q.device.type == "cpu":
         return decode_attention_layered_q_plain(q, k_cache, v_cache, k_scale, v_scale,
                                                 k_stage, v_stage, k_cur, v_cur, scalars)
-    dev = build.require_cuda("decode_attention_layered_q", q, k_cache, v_cache, k_scale,
-                             v_scale, k_stage, v_stage, k_cur, v_cur)
-    if scalars.device != dev or not scalars.is_contiguous():
-        raise ValueError("decode_attention_layered_q: scalars must be contiguous on the card")
-    for t in (q, k_stage, v_stage, k_cur, v_cur):
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"decode_attention_layered_q: kernel takes a bf16 query and "
-                             f"stage, got {t.dtype}")
-    lib = build.load()
-    nsplit = lib.zvt_decode_attention_nsplit(T)
-    part = torch.empty((B, Hkv, nsplit, Hq // Hkv, D + 2), dtype=torch.float32, device=dev)
-    out = torch.empty((B, 1, Hq, D), dtype=q.dtype, device=dev)
-    rc = lib.zvt_decode_attention_layered_q(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
-        v_scale.data_ptr(), k_stage.data_ptr(), v_stage.data_ptr(), k_cur.data_ptr(),
-        v_cur.data_ptr(), scalars.data_ptr(), part.data_ptr(), out.data_ptr(),
-        B, Hq, Hkv, T, STAGE, D, build.stream_handle(dev),
-    )
-    build.check_status("decode_attention_layered_q", rc)
-    build.LAUNCHES["decode_attention_q"] += 1
-    return out
+    return _launch("decode_attention_layered_q", "decode_attention_q", quant=True, pooled=False,
+                   q=q, k_cache=k_cache, v_cache=v_cache, k_scale=k_scale, v_scale=v_scale,
+                   k_stage=k_stage, v_stage=v_stage, k_cur=k_cur, v_cur=v_cur, scalars=scalars)
 
 
 def _pooled_bounds(bases, lens, T: int, STAGE: int):
@@ -211,28 +285,6 @@ def _check_pooled(name, q, k_cache, v_cache, k_stage, v_stage, k_cur, v_cur, bas
     return B, Hq, Hkv, T, STAGE, D
 
 
-def _launch_pooled(name, entry, launch_key, q, tensors, bases, lens, dims, layer):
-    """Allocates the split partials and the output, launches ``entry`` on
-    ``q``'s device and counts the launch."""
-    B, Hq, Hkv, T, STAGE, D = dims
-    dev = build.require_cuda(name, q, *tensors)
-    for t in (bases, lens):
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError(f"{name}: bases and lens must be contiguous on the card")
-    lib = build.load()
-    nsplit = lib.zvt_decode_attention_nsplit(T)
-    part = torch.empty((B, Hkv, nsplit, Hq // Hkv, D + 2), dtype=torch.float32, device=dev)
-    out = torch.empty((B, 1, Hq, D), dtype=q.dtype, device=dev)
-    rc = getattr(lib, entry)(
-        q.data_ptr(), *(t.data_ptr() for t in tensors), bases.data_ptr(), lens.data_ptr(),
-        part.data_ptr(), out.data_ptr(), B, Hq, Hkv, T, STAGE, D, layer,
-        build.stream_handle(dev),
-    )
-    build.check_status(name, rc)
-    build.LAUNCHES[launch_key] += 1
-    return out
-
-
 def decode_attention_pooled_staged(q, k_cache, v_cache, k_stage, v_stage, k_cur, v_cur,
                                    bases, lens, layer: int) -> torch.Tensor:
     """Pooled decode attention for layer ``layer`` of the stacked cache.
@@ -249,17 +301,15 @@ def decode_attention_pooled_staged(q, k_cache, v_cache, k_stage, v_stage, k_cur,
     Returns ``[B, 1, Hq, D]``. CPU tensors take the plain version; CUDA
     tensors launch the kernel (bf16, D = 64 or 128) or raise.
     """
-    dims = _check_pooled("decode_attention_pooled_staged", q, k_cache, v_cache, k_stage,
-                         v_stage, k_cur, v_cur, bases, lens, layer)
+    _check_pooled("decode_attention_pooled_staged", q, k_cache, v_cache, k_stage, v_stage,
+                  k_cur, v_cur, bases, lens, layer)
     if q.device.type == "cpu":
         return decode_attention_pooled_staged_plain(q, k_cache, v_cache, k_stage, v_stage,
                                                     k_cur, v_cur, bases, lens, layer)
-    tensors = (k_cache, v_cache, k_stage, v_stage, k_cur, v_cur)
-    for t in (q, *tensors):
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"decode_attention_pooled_staged: kernel takes bf16, got {t.dtype}")
-    return _launch_pooled("decode_attention_pooled_staged", "zvt_decode_attention_pooled",
-                          "decode_attention_pooled", q, tensors, bases, lens, dims, layer)
+    return _launch("decode_attention_pooled_staged", "decode_attention_pooled", quant=False,
+                   pooled=True, q=q, k_cache=k_cache, v_cache=v_cache, k_stage=k_stage,
+                   v_stage=v_stage, k_cur=k_cur, v_cur=v_cur, scalars=bases, lens=lens,
+                   layer=layer)
 
 
 def decode_attention_pooled_staged_q(q, k_cache, v_cache, k_scale, v_scale, k_stage, v_stage,
@@ -288,13 +338,10 @@ def decode_attention_pooled_staged_q(q, k_cache, v_cache, k_scale, v_scale, k_st
         return decode_attention_pooled_staged_q_plain(q, k_cache, v_cache, k_scale, v_scale,
                                                       k_stage, v_stage, k_cur, v_cur, bases,
                                                       lens, layer)
-    for t in (q, k_stage, v_stage, k_cur, v_cur):
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"decode_attention_pooled_staged_q: kernel takes a bf16 query "
-                             f"and stage, got {t.dtype}")
-    tensors = (k_cache, v_cache, k_scale, v_scale, k_stage, v_stage, k_cur, v_cur)
-    return _launch_pooled("decode_attention_pooled_staged_q", "zvt_decode_attention_pooled_q",
-                          "decode_attention_pooled_q", q, tensors, bases, lens, dims, layer)
+    return _launch("decode_attention_pooled_staged_q", "decode_attention_pooled_q", quant=True,
+                   pooled=True, q=q, k_cache=k_cache, v_cache=v_cache, k_scale=k_scale,
+                   v_scale=v_scale, k_stage=k_stage, v_stage=v_stage, k_cur=k_cur, v_cur=v_cur,
+                   scalars=bases, lens=lens, layer=layer)
 
 
 def decode_attention_unstaged_plain(q, k_cache, v_cache, seq_end, layer: int) -> torch.Tensor:
@@ -330,22 +377,9 @@ def decode_attention_unstaged(q, k_cache, v_cache, seq_end, layer: int) -> torch
         raise ValueError(f"decode_attention_unstaged: layer {layer} outside [0, {L})")
     if q.device.type == "cpu":
         return decode_attention_unstaged_plain(q, k_cache, v_cache, seq_end, layer)
-    dev = build.require_cuda("decode_attention_unstaged", q, k_cache, v_cache)
-    if seq_end.device != dev:
-        raise ValueError("decode_attention_unstaged: seq_end must be on the card")
-    for t in (q, k_cache, v_cache):
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"decode_attention_unstaged: kernel takes bf16, got {t.dtype}")
-    lib = build.load()
-    nsplit = lib.zvt_decode_attention_nsplit(T)
-    part = torch.empty((B, Hkv, nsplit, Hq // Hkv, D + 2), dtype=torch.float32, device=dev)
-    out = torch.empty((B, 1, Hq, D), dtype=q.dtype, device=dev)
-    rc = lib.zvt_decode_attention_unstaged(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), seq_end.data_ptr(),
-        part.data_ptr(), out.data_ptr(), B, Hq, Hkv, T, D, layer, build.stream_handle(dev))
-    build.check_status("decode_attention_unstaged", rc)
-    build.LAUNCHES["decode_attention_unstaged"] += 1
-    return out
+    return _launch("decode_attention_unstaged", "decode_attention_unstaged", quant=False,
+                   pooled=False, q=q, k_cache=k_cache, v_cache=v_cache, scalars=seq_end,
+                   layer=layer)
 
 
 def decode_attention_pooled_unstaged_plain(q, k_cache, v_cache, k_cur, v_cur, prefix_ends,
@@ -392,23 +426,6 @@ def decode_attention_pooled_unstaged(q, k_cache, v_cache, k_cur, v_cur, prefix_e
     if q.device.type == "cpu":
         return decode_attention_pooled_unstaged_plain(q, k_cache, v_cache, k_cur, v_cur,
                                                       prefix_ends, layer)
-    dev = build.require_cuda("decode_attention_pooled_unstaged", q, k_cache, v_cache, k_cur,
-                             v_cur)
-    if prefix_ends.device != dev or not prefix_ends.is_contiguous():
-        raise ValueError("decode_attention_pooled_unstaged: prefix_ends must be contiguous "
-                         "on the card")
-    for t in (q, k_cache, v_cache, k_cur, v_cur):
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"decode_attention_pooled_unstaged: kernel takes bf16, got "
-                             f"{t.dtype}")
-    lib = build.load()
-    nsplit = lib.zvt_decode_attention_nsplit(T)
-    part = torch.empty((B, Hkv, nsplit, Hq // Hkv, D + 2), dtype=torch.float32, device=dev)
-    out = torch.empty((B, 1, Hq, D), dtype=q.dtype, device=dev)
-    rc = lib.zvt_decode_attention_pooled_unstaged(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_cur.data_ptr(),
-        v_cur.data_ptr(), prefix_ends.data_ptr(), part.data_ptr(), out.data_ptr(), B, Hq, Hkv,
-        T, D, layer, build.stream_handle(dev))
-    build.check_status("decode_attention_pooled_unstaged", rc)
-    build.LAUNCHES["decode_attention_pooled_unstaged"] += 1
-    return out
+    return _launch("decode_attention_pooled_unstaged", "decode_attention_pooled_unstaged",
+                   quant=False, pooled=True, q=q, k_cache=k_cache, v_cache=v_cache, k_cur=k_cur,
+                   v_cur=v_cur, scalars=prefix_ends, layer=layer)
