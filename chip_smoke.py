@@ -23,7 +23,9 @@ Phases, each of which fails the run loudly:
    3072 and the pool give each shape's first bits: every split ticket was
    reset) and bounds (rows 1 and 5 with out-of-range flushed_end and
    stage_len equal their plain versions on the clamped scalars, NaN planes
-   around the buffers; a layer outside [0, L) gives NaN); the pooled backbone step on
+   around the buffers; a layer outside [0, L) gives NaN); ``qmm_int8`` at
+   M <= 2 and the fused Mamba step as one device kernel per call, whose
+   calls at alternating shapes repeat each shape's first bits; the pooled backbone step on
    the card against the CPU path, bf16 and int8, with a ring and without
    one (the stage-less pooled decode, row 12 at head dim 64). The hybrid's
    kernels at its shapes: the fused Mamba-2 step (rows 9 and 10) at 2 and
@@ -503,6 +505,70 @@ def check_decode_one_launch() -> None:
     log(f"kernel decode_attention/_q bounds: flushed_end T+7/2T/-3/-1, stage_len -9/STAGE+1/"
         f"STAGE+50 equal the plain versions on clamped scalars with NaN planes around the cache "
         f"and stage (max_abs_err {worst:.3e}); layers -1 and {L} give all-NaN outputs")
+
+
+def check_step_kernels_one_launch() -> None:
+    """Phase 2, the one-launch designs of ``qmm_int8`` at M <= 2 and of the
+    fused Mamba step: each call is one device kernel (``torch.profiler``),
+    and 300 calls alternating the five projections' shapes (M = 2, and M = 1
+    for fc2, whose K is split in a cluster) and the Mamba step's four (B = 2
+    and 16, fp32 and bf16 state, each from a fresh copy of its plane) give
+    each shape's first bits: nothing is kept from one call to the next."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from zonos_vibes_tpu_torch.ops.cuda.mamba_step import ssd_gate_step_layered
+    from zonos_vibes_tpu_torch.ops.cuda.qmm import qmm_int8
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    calls = {}  # name: (set-up before the call or None, the call, its state or None)
+    shapes = [(name, 1, k, n, torch.bfloat16) for name, (k, n) in PROJECTIONS.items()]
+    shapes.append(("heads", *HEADS_SHAPE, torch.float32))
+    for name, G, K, N, out_dtype in shapes:
+        w = torch.randint(-127, 128, (G, K, N), dtype=torch.int8, device="cuda", generator=gen)
+        scale = torch.rand((G, 1, N), device="cuda", generator=gen) * 1e-3 + 1e-4
+        x = randn(gen, 1 if name == "fc2" else 2, K)
+        calls[f"qmm_int8 {name}"] = (
+            None, lambda x=x, w=w, scale=scale, o=out_dtype: qmm_int8(x, w, scale, o), None)
+    for Bs in (B, POOL_M):
+        for sdt, label in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+            states, x = ssd_inputs(gen, Bs, 2, sdt)
+            states.normal_(generator=gen)
+            init = states.clone()
+            calls[f"ssd_gate_step B={Bs} {label}"] = (
+                lambda states=states, init=init: states.copy_(init),
+                lambda states=states, x=x: ssd_gate_step_layered(states, 1, **x), states)
+
+    def run(name):
+        prepare, call, state = calls[name]
+        if prepare is not None:
+            prepare()
+        out = call()
+        return [out] if state is None else [out, state.clone()]
+
+    for name, (prepare, call, _) in calls.items():
+        run(name)
+        if prepare is not None:
+            prepare()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if len(kernels) != 1:
+            raise AssertionError(f"{name}: {len(kernels)} device kernels in one call: {kernels}")
+    names = list(calls)
+    first = [run(n) for n in names]
+    for i in range(300):
+        got, want = run(names[i % len(names)]), first[i % len(names)]
+        if not all(torch.equal(g.view(torch.uint8), w_.view(torch.uint8))
+                   for g, w_ in zip(got, want)):
+            raise AssertionError(f"{names[i % len(names)]}, call {i}: bits differ from the first")
+    torch.cuda.synchronize()
+    log(f"kernels qmm_int8 (M <= 2) and ssd_gate_step: one device kernel per call "
+        f"(torch.profiler) for {len(names)} shapes; 300 calls alternating them give each "
+        f"shape's first bits (output and state)")
 
 
 def check_pooled_backbone_against_cpu(int8: bool = False, ring: bool = True) -> float:
@@ -1408,9 +1474,18 @@ def run_stage_less(pipe, pool_e2e: dict, card: str) -> dict:
     return out
 
 
-def time_hybrid_kernels(solo: dict, pool: dict, stage_less: dict, errors: dict,
-                        card: str) -> list[dict]:
-    """Phase 4, the hybrid's kernels at the shapes its paths gave them."""
+def ssd_bound(B, sdt_bytes):
+    nbytes = 2 * B * M_N * M_HP * sdt_bytes + 3 * B * M_HP * 2 + 4 * B * (2 * M_H + 2 * M_N)
+    flops = 6 * B * M_N * M_HP + 12 * B * M_HP
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_ssd(gen, card) -> dict:
+    """Rows 9 and 10 at the solo step's B = 2 and the pool's 16, with an fp32
+    and a bf16 state: {(B, "fp32" or "bf16"): (kernel, plain, bound ms,
+    bound_by)}. The 42 planes are cycled through, so that every launch reads
+    its plane from device memory as a decode step does."""
     import itertools
 
     import torch
@@ -1418,17 +1493,6 @@ def time_hybrid_kernels(solo: dict, pool: dict, stage_less: dict, errors: dict,
     from zonos_vibes_tpu_torch.ops.cuda.mamba_step import (
         ssd_gate_step, ssd_gate_step_layered, ssd_gate_step_layered_plain)
 
-    gen = torch.Generator(device="cuda").manual_seed(13)
-    rows = []
-
-    def ssd_bound(B, sdt_bytes):
-        nbytes = 2 * B * M_N * M_HP * sdt_bytes + 3 * B * M_HP * 2 + 4 * B * (2 * M_H + 2 * M_N)
-        flops = 6 * B * M_N * M_HP + 12 * B * M_HP
-        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-    # Rows 9 and 10: 42 planes cycled through, so that every launch reads
-    # its plane from device memory as a decode step does.
     ssd = {}
     for Bs, name in ((B, "ssd_gate_step"), (POOL_M, "ssd_gate_step_layered")):
         for sdt, label, nb in ((torch.float32, "fp32", 4), (torch.bfloat16, "bf16", 2)):
@@ -1450,6 +1514,17 @@ def time_hybrid_kernels(solo: dict, pool: dict, stage_less: dict, errors: dict,
                 f"the fused update, readout, gate and norm) bound_ms {b:.5f} ({by}); per "
                 f"decode step ({H_M} launches) {H_M * ms:.4f} ms against {H_M * b:.4f}")
             del states
+    return ssd
+
+
+def time_hybrid_kernels(solo: dict, pool: dict, stage_less: dict, errors: dict,
+                        card: str) -> list[dict]:
+    """Phase 4, the hybrid's kernels at the shapes its paths gave them."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rows = []
+    ssd = time_ssd(gen, card)
     for Bs, name, line, count in ((B, "ssd_gate_step", 178, solo["launches"]["ssd_gate_step"]),
                                   (POOL_M, "ssd_gate_step_layered", 116,
                                    pool["launches"]["ssd_gate_step"])):
@@ -1776,32 +1851,33 @@ def time_qmm(gen, G, K, N, out_dtype, layers, Ms) -> dict:
     return out
 
 
-def time_qmm_steps(gen, card):
-    """One forward's 105 ``qmm_int8`` launches at M = 2 (the solo decode
-    step) and M = 16 (the 8-slot pool's step), each shape timed alone and
-    summed over its launches. Returns ({M: {"ms", "plain", "lib", "bound"}},
-    fc1's times at M = 2)."""
+def time_qmm_steps(gen, card, Ms=(2, POOL_M)):
+    """One forward's 105 ``qmm_int8`` launches at each M of ``Ms``: M = 2
+    (the solo decode step) and M = 16 (the 8-slot pool's step), each shape
+    timed alone and summed over its launches. Returns ({M: {"ms", "plain",
+    "lib", "bound"}}, {(shape name, M): (kernel, plain, library, bound ms,
+    bound_by)})."""
     import torch
 
-    step = {M: dict(ms=0.0, plain=0.0, lib=0.0, bound=0.0) for M in (2, POOL_M)}
+    step = {M: dict(ms=0.0, plain=0.0, lib=0.0, bound=0.0) for M in Ms}
+    per_shape = {}
     shapes = [(name, 1, k, n, torch.bfloat16, L) for name, (k, n) in PROJECTIONS.items()]
     shapes.append(("heads", *HEADS_SHAPE, torch.float32, 1))
     for name, G, K, N, out_dtype, count in shapes:
         times = time_qmm(gen, G, K, N, out_dtype, count, tuple(step))
         for M, (ms, plain, lib, b, by) in times.items():
+            per_shape[name, M] = times[M]
             for key, v in zip(("ms", "plain", "lib", "bound"), (ms, plain, lib, b)):
                 step[M][key] += count * v
             log(f"time qmm_int8 {name} M={M} G={G} {K}x{N} ({card}): kernel_ms {ms:.5f} "
                 f"plain_ms {plain:.4f} library_ms {lib:.5f} (matmul, bf16 weight) bound_ms "
                 f"{b:.5f} ({by})")
-        if name == "fc1":
-            fc1 = times[2]
-    for M, label in ((2, "one decode step"), (POOL_M, "one pooled step")):
-        t = step[M]
+    for M, t in step.items():
+        label = "one decode step" if M <= 2 else "one pooled step"
         log(f"time qmm_int8 {label} (M={M}), 105 launches ({card}): kernel_ms {t['ms']:.4f} "
             f"plain_ms {t['plain']:.3f} library_ms {t['lib']:.4f} bound_ms {t['bound']:.4f}; "
             f"kernel / library {t['ms'] / t['lib']:.3f}")
-    return step, fc1
+    return step, per_shape
 
 
 def time_int8_kernels(e2e: dict, pool_int8: dict, errors: dict, card: str) -> list[dict]:
@@ -1812,7 +1888,8 @@ def time_int8_kernels(e2e: dict, pool_int8: dict, errors: dict, card: str) -> li
     cond_len, steps = e2e["cond_len"], e2e["steps"]
     rows = []
 
-    step, fc1 = time_qmm_steps(gen, card)
+    step, per_shape = time_qmm_steps(gen, card)
+    fc1 = per_shape["fc1", 2]
     M = 2 * (cond_len + 1)
     prefill = time_qmm(gen, 1, *PROJECTIONS["fc1"], torch.bfloat16, L, (M,))[M]
     log(f"time qmm_int8 fc1 prefill M={M} ({card}): kernel_ms {prefill[0]:.4f} plain_ms "
@@ -1997,6 +2074,7 @@ def main() -> int:
     errors.update(check_int8_kernels())
     errors.update(check_pool_kernels())
     check_decode_one_launch()
+    check_step_kernels_one_launch()
     check_backbone_against_cpu()
     check_backbone_against_cpu(int8=True)
     check_pooled_backbone_against_cpu()

@@ -49,6 +49,8 @@ from zonos_vibes_tpu_torch.ops.cuda.decode_attention import (
     decode_attention_unstaged,
     decode_plan,
 )
+from zonos_vibes_tpu_torch.ops.cuda import mamba_step as msm
+from zonos_vibes_tpu_torch.ops.cuda import qmm as qmm_mod
 from zonos_vibes_tpu_torch.ops.cuda.prefill_attention import prefill_attention
 from zonos_vibes_tpu_torch.ops.cuda.stage_write import stage_splice, stage_splice_rows
 from zonos_vibes_tpu_torch.ops.quant import quantize_rows
@@ -459,3 +461,99 @@ def test_layered_plain_versions_clamp_and_raise_on_a_bad_layer():
         for layer in (-1, L, L + 5):
             with pytest.raises(ValueError, match="outside"):
                 fn(**args, scalars=sc(5, 2, layer))
+
+
+# The M <= 2 qmm_int8 kernel's plan: (tile width, cluster size, rows per
+# block), a host function of (M, K, N, G). The flagship projections (in_proj,
+# out_proj, fc1, fc2) and the nine heads, then small and odd shapes.
+QMM_FLAGSHIP = [(2048, 3072, 1), (2048, 2048, 1), (2048, 16384, 1), (8192, 2048, 1),
+                (2048, 1152, 9)]
+QMM_ODD = [(1000, 144, 2), (320, 144, 2), (330, 32, 1), (2112, 3072, 1), (8256, 2048, 1),
+           (16, 16, 1), (129, 48, 3), (40000, 64, 1)]
+
+
+@pytest.mark.parametrize("M", [1, 2])
+@pytest.mark.parametrize("K,N,G", QMM_FLAGSHIP + QMM_ODD)
+def test_qmm_decode_plan_covers_every_row_and_column_once(M, K, N, G):
+    tn, cs, rows = qmm_mod.decode_plan(M, K, N, G)
+    assert tn in qmm_mod.TILES and N % 16 == 0
+    assert 1 <= cs <= qmm_mod.MAX_CLUSTER <= 16 and cs & (cs - 1) == 0
+    stage_rows = qmm_mod.STAGE_BYTES // tn
+    assert rows % stage_rows == 0
+    k_hits = np.zeros(K, np.int64)
+    for rank in range(cs):
+        k_hits[rank * rows:(rank + 1) * rows] += 1
+    assert (k_hits == 1).all()
+    # Every output column of every weight lies in exactly one tile; a thread
+    # owns 16 columns, all inside or all past N.
+    n_hits = np.zeros(N, np.int64)
+    for t in range(-(-N // tn)):
+        n_hits[t * tn:min((t + 1) * tn, N)] += 1
+    assert (n_hits == 1).all()
+    assert qmm_mod.decode_plan(M, K, N, G) == (tn, cs, rows)  # shapes alone
+
+
+def test_qmm_decode_plan_sizes_blocks_and_clusters_at_the_flagship_shapes():
+    """The narrowest tile whose grid stays within MAX_PER_SM blocks per SM;
+    clusters only while a block would walk more than BLOCK_BYTES; at least
+    64 blocks (about half the SMs) at every flagship shape."""
+    for K, N, G in QMM_FLAGSHIP:
+        tn, cs, rows = qmm_mod.decode_plan(2, K, N, G)
+        assert qmm_mod.decode_plan(1, K, N, G) == (tn, cs, rows)
+        blocks = cs * -(-N // tn) * G
+        assert 64 <= blocks <= qmm_mod.MAX_PER_SM * qmm_mod.SMS, (K, N, G)
+        narrower = [t for t in qmm_mod.TILES if t < tn]
+        assert all(-(-N // t) * G > qmm_mod.MAX_PER_SM * qmm_mod.SMS for t in narrower)
+        assert tn * -(-K // cs) <= qmm_mod.BLOCK_BYTES
+        if cs > 1:  # one cluster fewer would leave a block more than BLOCK_BYTES
+            assert tn * -(-K // (cs // 2)) > qmm_mod.BLOCK_BYTES
+    # in_proj, out_proj, fc1, fc2 (the one that splits K), the heads.
+    assert qmm_mod.decode_plan(2, 2048, 3072, 1) == (32, 1, 2048)
+    assert qmm_mod.decode_plan(2, 2048, 2048, 1) == (32, 1, 2048)
+    assert qmm_mod.decode_plan(2, 2048, 16384, 1) == (64, 1, 2048)
+    assert qmm_mod.decode_plan(2, 8192, 2048, 1) == (32, 2, 4096)
+    assert qmm_mod.decode_plan(2, 2048, 1152, 9) == (32, 1, 2048)
+    # A K too long for eight blocks: each block walks more rows.
+    assert qmm_mod.decode_plan(2, 40000, 64, 1) == (32, 8, 5120)
+    with pytest.raises(ValueError):
+        qmm_mod.decode_plan(3, 2048, 2048, 1)
+
+
+# The Mamba step's plan: the column tile, a host function of (B, N, HP,
+# state bytes).
+@pytest.mark.parametrize("B", [1, 2, 3, 16])
+@pytest.mark.parametrize("N,HP", [(128, 4096), (64, 128), (64, 256), (256, 1024)])
+@pytest.mark.parametrize("state_bytes", [4, 2])
+def test_step_plan_covers_every_state_row_and_column_once(B, N, HP, state_bytes):
+    tile = msm.step_plan(B, N, HP, state_bytes)
+    assert tile in msm.TILES and HP % tile == 0
+    # Every (state row, column) of a batch row is one thread's chunk in
+    # exactly one pass of exactly one block.
+    per_chunk = 16 // state_bytes
+    threads_per_row = tile // per_chunk
+    pass_rows = 256 // threads_per_row
+    assert N % pass_rows == 0
+    hits = np.zeros((N, HP), np.int64)
+    for t in range(HP // tile):
+        for tid in range(256):
+            for j in range(N // pass_rows):
+                r = tid // threads_per_row + j * pass_rows
+                c = t * tile + (tid % threads_per_row) * per_chunk
+                hits[r, c:c + per_chunk] += 1
+    assert (hits == 1).all()
+    assert msm.step_plan(B, N, HP, state_bytes) == tile  # shapes alone
+
+
+def test_step_plan_fills_the_card_at_the_hybrid_shapes():
+    for B, state_bytes in itertools.product((1, 2, 16), (4, 2)):
+        tile = msm.step_plan(B, 128, 4096, state_bytes)
+        assert B * 4096 // tile >= msm.SMS or tile == msm.TILES[-1]
+        wider = [t for t in msm.TILES if t > tile]
+        assert all(B * 4096 // t < msm.SMS for t in wider)
+    assert msm.step_plan(2, 128, 4096, 4) == 32    # the solo step: 256 blocks
+    assert msm.step_plan(2, 128, 4096, 2) == 32
+    assert msm.step_plan(16, 128, 4096, 4) == 128  # the pool: 512 blocks
+    assert msm.step_plan(16, 128, 4096, 2) == 128
+    for bad in ((2, 12, 4096, 4), (2, 128, 4000, 4), (2, 512, 4096, 4)):
+        with pytest.raises(ValueError):
+            msm.step_plan(*bad)

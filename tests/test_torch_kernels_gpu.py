@@ -221,6 +221,9 @@ QMM_SHAPES = [
     (2, 1000, 144, torch.bfloat16),  # ragged: K not a multiple of 256, N of 128
     (2, 320, 144, torch.bfloat16),   # K not a multiple of the 128-row split
     (1, 330, 32, torch.bfloat16),    # K not a multiple of 8: x staged by plain loads
+    (1, 2112, 3072, torch.bfloat16),  # K = 2048 + 64: one block's rows past a stage
+    (1, 8256, 2048, torch.bfloat16),  # K = 8192 + 64: the cluster's last rank ragged
+    (1, 40000, 64, torch.bfloat16),   # clusters of 8, each block walking 5000 rows
 ]
 
 
@@ -237,8 +240,8 @@ def test_qmm_int8_kernel(dev, M, G, K, N, out_dtype):
     assert got.shape == (M, G, N) and got.dtype == out_dtype
     want = qmm_int8_plain(x, wq["weight_int8"], wq["scale"], out_dtype)
     torch.testing.assert_close(got.float(), want.float(), **QMM_TOL[out_dtype])
-    # The split rows meet in a fixed order and the tile counters reset: a
-    # second launch gives the same bits.
+    # The split rows meet in a fixed order (in the cluster at M <= 2; under
+    # tile counters that reset at M > 2): a second launch gives the same bits.
     assert torch.equal(qmm_int8(x, wq["weight_int8"], wq["scale"], out_dtype), got)
 
 
@@ -260,6 +263,60 @@ def test_qmm_int8_rows_are_isolated(dev, M, G, K, N, out_dtype):
         x3 = torch.zeros_like(x)
         x3[0] = x[0]
         assert torch.equal(qmm_int8(x3, wq["weight_int8"], wq["scale"], out_dtype)[0], got[0])
+
+
+def _qmm_case(gen, M, G, K, N, dev):
+    wq = quant.quantize_weight(_randn(gen, G, K, N, dev=dev) / K ** 0.5)
+    return _randn(gen, M, K, dev=dev), wq["weight_int8"], wq["scale"]
+
+
+def test_qmm_int8_keeps_no_state_between_calls(dev):
+    """Calls of different shapes and M back to back, 300 in all, give each
+    call's bits alone: the M <= 2 launches keep nothing between calls, and
+    the M > 2 launches' tile counters are reset."""
+    gen = torch.Generator(device=dev).manual_seed(30)
+    cases = [(2, *QMM_SHAPES[0][:3], torch.bfloat16), (1, *QMM_SHAPES[3][:3], torch.bfloat16),
+             (2, *QMM_SHAPES[4][:3], torch.float32), (16, *QMM_SHAPES[1][:3], torch.bfloat16),
+             (2, *QMM_SHAPES[8][:3], torch.bfloat16), (1, *QMM_SHAPES[9][:3], torch.bfloat16),
+             (2, *QMM_SHAPES[10][:3], torch.bfloat16)]
+    calls = []
+    for M, G, K, N, out_dtype in cases:
+        x, w, scale = _qmm_case(gen, M, G, K, N, dev)
+        calls.append(lambda x=x, w=w, scale=scale, o=out_dtype: qmm_int8(x, w, scale, o))
+    alone = []
+    for c in calls:
+        alone.append(c())
+        torch.cuda.synchronize()
+    outs = [calls[i % len(calls)]() for i in range(300)]
+    torch.cuda.synchronize()
+    for i, got in enumerate(outs):
+        assert torch.equal(got, alone[i % len(calls)]), f"call {i} differs from its call alone"
+
+
+def test_qmm_int8_reads_x_written_just_before(dev):
+    """The decode kernel right after a PyTorch kernel that writes x (no
+    synchronisation between) sees the new x."""
+    gen = torch.Generator(device=dev).manual_seed(31)
+    x, w, scale = _qmm_case(gen, 2, 1, 2048, 3072, dev)
+    want = qmm_int8_plain(x * 3, w, scale, torch.bfloat16)
+    for _ in range(20):
+        y = x.clone()
+        y.mul_(3)
+        got = qmm_int8(y, w, scale, torch.bfloat16)
+        torch.testing.assert_close(got.float(), want.float(), **QMM_TOL[torch.bfloat16])
+
+
+def test_qmm_int8_chain_reads_the_previous_output(dev):
+    """A decode launch whose x is the previous decode launch's output (each
+    may start while the one before it finishes) equals the plain chain."""
+    gen = torch.Generator(device=dev).manual_seed(35)
+    x, w1, s1 = _qmm_case(gen, 2, 1, 2048, 8192, dev)
+    _, w2, s2 = _qmm_case(gen, 2, 1, 8192, 2048, dev)
+    want = qmm_int8_plain(qmm_int8_plain(x, w1, s1, torch.bfloat16)[:, 0], w2, s2,
+                          torch.bfloat16)
+    for _ in range(20):
+        got = qmm_int8(qmm_int8(x, w1, s1, torch.bfloat16)[:, 0], w2, s2, torch.bfloat16)
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
 
 
 @pytest.fixture(scope="module")
@@ -407,15 +464,20 @@ def _ssd_inputs(gen, B, dev, state_dtype, planes=M_LAYERS):
                         d_skip=f(M_H), norm_w=(1.0 + 0.1 * f(M_HP)).bfloat16())
 
 
-@pytest.mark.parametrize("B", [2, 16])
+def _bits(t):
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
+
+
+@pytest.mark.parametrize("B", [1, 2, 16])
 @pytest.mark.parametrize("state_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("layer", [0, 17, M_LAYERS - 1])
 def test_ssd_gate_step_layered_kernel(dev, B, state_dtype, layer):
     """Plane ``layer`` updated in place against the plain version; every
-    other plane (NaN) untouched."""
+    other plane (NaN) bitwise untouched."""
     gen = torch.Generator(device=dev).manual_seed(B + layer)
     states, x = _ssd_inputs(gen, B, dev, state_dtype)
     states[layer] = torch.randn(B, M_N, M_HP, generator=gen, device=dev).to(state_dtype)
+    others_before = torch.cat([states[:layer], states[layer + 1:]]).clone()
     want_states = states[layer:layer + 1].clone()
     want = ssd_gate_step_layered_plain(want_states, 0, **x)
     before = build.LAUNCHES["ssd_gate_step"]
@@ -429,6 +491,48 @@ def test_ssd_gate_step_layered_kernel(dev, B, state_dtype, layer):
     torch.testing.assert_close(states[layer].float(), want_states[0].float(), **stol)
     others = torch.cat([states[:layer], states[layer + 1:]])
     assert torch.isnan(others).all()
+    assert torch.equal(_bits(others), _bits(others_before))
+
+
+@pytest.mark.parametrize("state_dtype", [torch.float32, torch.bfloat16])
+def test_ssd_gate_step_repeats_its_bits(dev, state_dtype):
+    """The same inputs give the same output and state bits over 50 calls,
+    with calls of another batch size in between (the workspace and the
+    tickets carry nothing from one call to the next)."""
+    gen = torch.Generator(device=dev).manual_seed(32)
+    cases = []
+    for B in (2, 16):
+        states, x = _ssd_inputs(gen, B, dev, state_dtype, planes=2)
+        states[1] = torch.randn(B, M_N, M_HP, generator=gen, device=dev).to(state_dtype)
+        cases.append((states[1:].clone(), x))
+    first = []
+    for init, x in cases:
+        st = init.clone()
+        first.append((ssd_gate_step_layered(st, 0, **x), st))
+    for i in range(50):
+        init, x = cases[i % 2]
+        st = init.clone()
+        got = ssd_gate_step_layered(st, 0, **x)
+        assert torch.equal(got, first[i % 2][0]), f"call {i}: output bits differ"
+        assert torch.equal(_bits(st), _bits(first[i % 2][1])), f"call {i}: state bits differ"
+
+
+def test_ssd_gate_step_reads_inputs_written_just_before(dev):
+    """The step right after PyTorch kernels that write its state plane and
+    its x (no synchronisation between) sees the new values."""
+    gen = torch.Generator(device=dev).manual_seed(36)
+    states, x = _ssd_inputs(gen, 2, dev, torch.float32, planes=2)
+    init = torch.randn(2, M_N, M_HP, generator=gen, device=dev)
+    ref = (init * 2)[None].clone()
+    want = ssd_gate_step_layered_plain(ref, 0, **dict(x, xs=x["xs"] * 2))
+    for _ in range(20):
+        states[1].copy_(init)
+        states[1].mul_(2)
+        xs = x["xs"].clone()
+        xs.mul_(2)
+        got = ssd_gate_step_layered(states, 1, **dict(x, xs=xs))
+        torch.testing.assert_close(got.float(), want.float(), **SSM_TOL)
+        torch.testing.assert_close(states[1], ref[0], rtol=1e-5, atol=1e-5)
 
 
 def test_ssd_gate_step_single_state_kernel(dev):
@@ -651,6 +755,36 @@ def test_decode_attention_call_is_one_device_kernel(dev, variant):
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     assert len(kernels) == 1, [e.name for e in kernels]
     assert "decode_kernel" in kernels[0].name
+
+
+def _one_device_kernel(call, name_part):
+    from torch.profiler import ProfilerActivity, profile
+
+    call()  # any workspace exists before the traced call
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1, [e.name for e in kernels]
+    assert name_part in kernels[0].name
+
+
+@pytest.mark.parametrize("M", [1, 2])
+@pytest.mark.parametrize("shape", [0, 1, 2, 3, 4])
+def test_qmm_int8_decode_call_is_one_device_kernel(dev, M, shape):
+    G, K, N, out_dtype = QMM_SHAPES[shape]
+    x, w, scale = _qmm_case(torch.Generator(device=dev).manual_seed(33), M, G, K, N, dev)
+    _one_device_kernel(lambda: qmm_int8(x, w, scale, out_dtype), "qmm_int8_decode_kernel")
+
+
+@pytest.mark.parametrize("B", [2, 16])
+@pytest.mark.parametrize("state_dtype", [torch.float32, torch.bfloat16])
+def test_ssd_gate_step_call_is_one_device_kernel(dev, B, state_dtype):
+    gen = torch.Generator(device=dev).manual_seed(34)
+    states, x = _ssd_inputs(gen, B, dev, state_dtype, planes=3)
+    states.zero_()
+    _one_device_kernel(lambda: ssd_gate_step_layered(states, 1, **x), "ssd_step_kernel")
 
 
 def _padded(gen, shape, dev):

@@ -4,7 +4,7 @@ kernels at the main path's shapes, for one checkout of the port, on one
 NVIDIA GPU.
 
     python3 tools/time_torch_kernels.py [--tree DIR] [--label NAME]
-        [--only decode] [--chunks 256,128,64,32]
+        [--only decode|qmm2|mamba] [--chunks 256,128,64,32]
 
 ``--tree`` names the checkout whose ``zonos_vibes_tpu_torch`` is imported
 (default: the one holding this script), so that two versions of the kernels
@@ -25,9 +25,12 @@ main path once every row has joined), near 1800 and near 3000, row 6 at
 head dim 128 (``time_pooled_hd128``) at bases 112-434, row 11
 (``time_unstaged``) at T = 536, seq_end 531, row 12
 (``time_pooled_unstaged``) at prefix ends 111-433. ``--only decode`` times
-the decode rows alone; ``--chunks`` sets the split lengths the
-decode-attention plan picks from (a checkout whose wrapper has the plan).
-Prints chip_smoke's timing lines, then one JSON line.
+the decode rows alone; ``--only qmm2`` the solo step's 105 ``qmm_int8``
+launches at M = 2, shape by shape (in_proj, out_proj, fc1, fc2, heads);
+``--only mamba`` the fused Mamba step (rows 9/10, ``time_ssd``) at B = 2
+and 16 with an fp32 and a bf16 state. ``--chunks`` sets the split lengths
+the decode-attention plan picks from (a checkout whose wrapper has the
+plan). Prints chip_smoke's timing lines, then one JSON line.
 """
 
 from __future__ import annotations
@@ -52,7 +55,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=str(ROOT), help="checkout whose port is timed")
     ap.add_argument("--label", default=None, help="name printed with the result")
-    ap.add_argument("--only", choices=("decode",), default=None, help="time one family only")
+    ap.add_argument("--only", choices=("decode", "qmm2", "mamba"), default=None,
+                    help="time one family only")
     ap.add_argument("--chunks", default=None, help="decode-attention split lengths, longest first")
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
@@ -85,6 +89,18 @@ def main() -> int:
                 result[f"prefill_d{Dh}_s{S_}_o{offset}_ms"] = ms
                 result[f"sdpa_d{Dh}_s{S_}_o{offset}_ms"] = lib
 
+    if args.only == "qmm2":
+        step, per_shape = cs.time_qmm_steps(gen, card, Ms=(2,))
+        for (name, _), (ms, _, lib, b, _) in per_shape.items():
+            result[f"qmm_m2_{name}_ms"], result[f"matmul_m2_{name}_ms"] = ms, lib
+            result[f"qmm_m2_{name}_bound_ms"] = b
+        result["qmm_m2_step_ms"], result["matmul_m2_step_ms"] = step[2]["ms"], step[2]["lib"]
+    if args.only == "mamba":
+        for (Bs, label), (ms, _, b, _) in cs.time_ssd(gen, card).items():
+            result[f"ssd_b{Bs}_{label}_ms"], result[f"ssd_b{Bs}_{label}_bound_ms"] = ms, b
+    if args.only in ("qmm2", "mamba"):
+        print(json.dumps(result))
+        return 0
     if args.chunks:
         from zonos_vibes_tpu_torch.ops.cuda import decode_attention
 

@@ -20,33 +20,56 @@
 //    rows, 352 flops per byte: the tensor cores' rate is approached and the
 //    bytes still matter (fc1: 12 us of flops, 10 us of bytes).
 //
-// What the design does about it, for M <= 2 (decode; CUDA cores):
-//  * A block covers 128 output columns: 8 threads side by side
-//    each load 16 bytes, so every weight row is read as one 128-byte line,
-//    and the 32 row slices of a block (4 per warp) walk different rows.
-//    Each thread issues U loads before it uses any (U = 8 at decode).
-//  * Split-K: the rows are cut into `splits` ranges of a multiple of 256
-//    rows, one block each, so that a projection of 2048 columns still puts
-//    ~128-512 blocks on the card. Each block writes its fp32 partial to a
-//    workspace; the last block of an output tile to arrive (an atomic
-//    counter per tile) sums the partials in split order, applies the scale
-//    and writes the output, then resets its counter to 0 for the next
-//    launch. One launch, no host values, a deterministic sum.
+// What the design does about it, for M <= 2 (decode; CUDA cores; one
+// launch, no workspace, no counters):
+//  * A block covers a tile of TN columns (32 or 64) and ~64-128 KB of
+//    the weight's rows, so one launch at the decode shapes is 64-324 blocks
+//    that each walk a long stretch of K: the per-block cost (the launch, the
+//    first load's latency, the partials' reduction) is paid once for many
+//    bytes, and narrow tiles give enough blocks without splitting K. The
+//    host plans (TN, CS, rows) from (M, K, N, G) alone
+//    (ops/cuda/qmm.py::decode_plan).
+//  * Where K is too long for one block (fc2's 8192 rows), it is split inside
+//    a thread-block cluster of CS blocks (at most 8, the portable size):
+//    block `rank` takes rows [rank * rows, (rank + 1) * rows). After a cluster barrier the blocks sum their fp32 partials
+//    through distributed shared memory, each block a 1/CS slice of the
+//    tile's outputs, in rank order, so the sum is deterministic and nothing
+//    but the output reaches device memory. On an H100 a cluster launch of
+//    long blocks costs microseconds of scheduling (`PERF.md`, row 4), so the
+//    plan keeps clusters as small as the block size allows.
+//  * Weights are streamed into shared memory by 16-byte cp.async.cg copies
+//    in a ring of STAGES stages of 4 KB (RS = 4096 / TN rows each): 16 KB
+//    in flight per block whatever the registers, one to four blocks per SM
+//    (more stages were slower in the sweeps; so were 128-column tiles,
+//    though a 32-column tile reads only 32 bytes of each row: the
+//    neighbouring tiles read the rest of the row at about the same time). Each thread copies the same 16 bytes of every stage's rows (row
+//    tid / (TN / 16), columns 16 (tid % (TN / 16))) and is the only one to
+//    read them, so its own cp.async.wait_group is the only wait: no block
+//    barrier in the loop. Rows past K (or columns past N) are zero-filled,
+//    reading nothing.
+//  * x's slice of the block's rows is staged once in shared memory as bf16
+//    pairs (row 0 in the low half, row 1 in the high half; 0 for M = 1), one
+//    32-bit load per weight row gives both rows' values.
 //  * int8 -> fp32 by byte permutation: the byte (sign bit flipped) becomes
 //    the low mantissa byte of 2^23, and one subtraction gives the exact
 //    value, which avoids the quarter-rate integer-to-float conversion.
-//  * x is tiny (M x K bf16) and read by every block: threads read it from
-//    global memory, where it stays in L1 and L2.
-//  * Each thread keeps fp32 accumulators for 16 columns of both rows (M = 1
-//    runs its one row twice).
+//  * Each thread keeps fp32 accumulators for its 16 columns of both rows;
+//    the row slices of a warp meet by shuffles, the warps in shared memory
+//    (the ring, once drained), in a fixed order.
+//  * Programmatic dependent launch: the launch may be scheduled while the
+//    previous kernel on the stream is finishing, and waits for it
+//    (griddepcontrol.wait) before any read, so nothing the previous kernel
+//    writes is read early. This hides most of the gap between a launch and
+//    the kernel before it, whatever that kernel is (`PERF.md`, row 4);
+//    loading the weights before the wait gained nothing more.
 // For M > 2 (the pool's step and the prefill; tensor cores):
 //  * Row tiles fitted to M: BM = 16 rows (exactly one m16n8k16 row tile) for
 //    M <= 16, so no warp multiplies zero rows at the pool's M = 16; BM = 64
 //    for larger M. A block covers BM rows x 128 columns; each of its 4 warps
 //    owns 32 columns and all BM rows.
-//  * Split-K as for M <= 2: the rows of W are cut into splits of a multiple
-//    of 128 until the grid holds at least one block per SM, and up to two
-//    while each split keeps >= 512 rows (more splits cost more partials to
+//  * Split-K through a workspace: the rows of W are cut into splits of a
+//    multiple of 128 until the grid holds at least one block per SM, and up
+//    to two while each split keeps >= 512 rows (more splits cost more partials to
 //    sum; this rule was the fastest of those timed, `PERF.md`, row 4). The
 //    last block of an output tile to arrive sums the fp32 partials in split
 //    order, all of a split's loads issued together. The plan depends only on
@@ -64,28 +87,30 @@
 //    adjacent columns of 2 rows. wgmma and TMA are later work.
 //
 // Layouts (row-major): x bf16 [M, K]; w int8 [G, K, N]; scale fp32 [G, 1, N];
-// out [M, G, N] of OutT. N must be a multiple of 16. ws fp32 and counters
-// int32 (zero before the first launch) as sized by zvt_qmm_int8_workspace
-// and zvt_qmm_int8_tiles.
+// out [M, G, N] of OutT. N must be a multiple of 16. For M > 2, ws fp32 and
+// counters int32 (zero before the first launch) as sized by
+// zvt_qmm_int8_workspace and zvt_qmm_int8_tiles.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int COLS_PER_THREAD = 16;  // one 16-byte load of a W row
-constexpr int COL_GROUPS = 8;        // threads side by side on a row
-constexpr int TILE_N = COLS_PER_THREAD * COL_GROUPS;  // 128 columns
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int LANE_SLICES = 32 / COL_GROUPS;  // row slices in a warp
-constexpr int SLICES = WARPS * LANE_SLICES;   // row slices in a block
-constexpr int SPLIT_ROWS = 256;               // a split's rows: a multiple of this
-constexpr int SMS = 132;                      // SMs of an H100
-constexpr int TARGET_BLOCKS = 4 * SMS;        // four blocks per SM
-constexpr int MT = 2;                         // the CUDA-core kernel's rows: the CFG pair
-constexpr int U = 8;                          // weight rows each thread has in flight
+constexpr int TILE_N = 128;          // the tensor-core kernel's columns per block
+constexpr int SMS = 132;             // SMs of an H100
+constexpr int MT = 2;                // the CUDA-core kernel's rows: the CFG pair
+// CUDA-core kernel: 8 warps, a ring of STAGES stages of STAGE_BYTES.
+constexpr int DEC_THREADS = 256;
+constexpr int DEC_WARPS = DEC_THREADS / 32;
+constexpr int STAGE_BYTES = DEC_THREADS * 16;
+constexpr int STAGES = 4;
+constexpr int MAX_CLUSTER = 8;  // portable cluster size
+constexpr int MAX_BLOCK_SMEM = 232448;  // shared memory a block can have (227 KB)
 // Tensor-core kernel: K steps of 64 rows, 4 stages in flight, 4 warps.
 constexpr int MMA_BK = 64;
 constexpr int MMA_SPLIT = 2 * MMA_BK;  // a split's rows: a multiple of this
@@ -95,137 +120,12 @@ constexpr int MMA_THREADS = MMA_WARPS * 32;
 constexpr int W_PITCH = TILE_N + 16;  // bytes per int8 weight row in shared memory
 constexpr int X_PITCH = MMA_BK + 8;   // bf16 per x row in shared memory
 
-struct Plan {
-  int ntiles, splits, rows;
-};
-
-// The CUDA-core kernel's launch (M <= MT).
-Plan make_plan(int K, int N, int G) {
-  Plan p;
-  p.ntiles = (N + TILE_N - 1) / TILE_N;
-  const int base = p.ntiles * G;
-  const int want = max(1, min((TARGET_BLOCKS + base - 1) / base, K / SPLIT_ROWS));
-  p.rows = ((K + want - 1) / want + SPLIT_ROWS - 1) / SPLIT_ROWS * SPLIT_ROWS;
-  p.splits = (K + p.rows - 1) / p.rows;
-  return p;
-}
-
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
 // Byte i of v (a signed int8 whose sign bit was flipped) as an exact float.
 __device__ __forceinline__ float byte_to_float(uint32_t v, int i) {
   return __int_as_float(__byte_perm(v, 0x4B000000u, 0x7540u + i)) - 8388736.0f;  // 2^23 + 128
-}
-
-template <typename OutT>
-__global__ void __launch_bounds__(THREADS) qmm_int8_kernel(
-    const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
-    const float* __restrict__ scale, OutT* __restrict__ out, float* __restrict__ ws,
-    int* __restrict__ counters, int M, int K, int N, int G, int rows, int splits) {
-  const int n0 = blockIdx.y * TILE_N;
-  const int g = blockIdx.z / splits;
-  const int split = blockIdx.z % splits;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int cg = lane % COL_GROUPS;
-  const int slice = warp * LANE_SLICES + lane / COL_GROUPS;
-  const int col = n0 + cg * COLS_PER_THREAD;
-  const int k_end = min(K, (split + 1) * rows);
-  const int8_t* wg = w + (size_t)g * K * N;
-  // With M = 1 the second row repeats the first; the epilogue drops it.
-  const __nv_bfloat16* xr[MT];
-#pragma unroll
-  for (int m = 0; m < MT; ++m) xr[m] = x + (size_t)min(m, M - 1) * K;
-
-  float acc[MT][COLS_PER_THREAD];
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-#pragma unroll
-    for (int c = 0; c < COLS_PER_THREAD; ++c) acc[m][c] = 0.f;
-  }
-
-  if (col < N) {
-    for (int k = split * rows + slice; k < k_end; k += SLICES * U) {
-      uint4 wv[U];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int kk = k + u * SLICES;
-        // Past k_end: zero weights.
-        wv[u] = kk < k_end ? __ldg(reinterpret_cast<const uint4*>(wg + (size_t)kk * N + col))
-                           : make_uint4(0u, 0u, 0u, 0u);
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int kk = min(k + u * SLICES, k_end - 1);
-        float xf[MT];
-#pragma unroll
-        for (int m = 0; m < MT; ++m) xf[m] = __bfloat162float(xr[m][kk]);
-        const uint32_t words[4] = {wv[u].x ^ 0x80808080u, wv[u].y ^ 0x80808080u,
-                                   wv[u].z ^ 0x80808080u, wv[u].w ^ 0x80808080u};
-#pragma unroll
-        for (int c = 0; c < COLS_PER_THREAD; ++c) {
-          const float wf = byte_to_float(words[c / 4], c % 4);
-#pragma unroll
-          for (int m = 0; m < MT; ++m) acc[m][c] = fmaf(xf[m], wf, acc[m][c]);
-        }
-      }
-    }
-  }
-
-  // Sum the warp's row slices (lanes of the same column group), then the
-  // warps in shared memory; every lane takes part in the shuffles.
-#pragma unroll
-  for (int off = COL_GROUPS; off < 32; off <<= 1) {
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-#pragma unroll
-      for (int c = 0; c < COLS_PER_THREAD; ++c)
-        acc[m][c] += __shfl_xor_sync(0xffffffffu, acc[m][c], off);
-    }
-  }
-  __shared__ float red[WARPS][MT][TILE_N];
-  __shared__ int is_last;
-  if (lane < COL_GROUPS) {
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-#pragma unroll
-      for (int c = 0; c < COLS_PER_THREAD; ++c)
-        red[warp][m][cg * COLS_PER_THREAD + c] = acc[m][c];
-    }
-  }
-  __syncthreads();
-
-  const size_t tile = (size_t)g * gridDim.y + blockIdx.y;
-  float* tile_ws = ws + tile * splits * (MT * TILE_N);
-  if (splits > 1) {
-    for (int e = threadIdx.x; e < MT * TILE_N; e += THREADS) {
-      float s = 0.f;
-#pragma unroll
-      for (int wi = 0; wi < WARPS; ++wi) s += red[wi][e / TILE_N][e % TILE_N];
-      tile_ws[split * (MT * TILE_N) + e] = s;
-    }
-    __threadfence();
-    __syncthreads();
-    if (threadIdx.x == 0) is_last = atomicAdd(&counters[tile], 1) == splits - 1;
-    __syncthreads();
-    if (!is_last) return;
-    __threadfence();
-  }
-  for (int e = threadIdx.x; e < MT * TILE_N; e += THREADS) {
-    const int m = e / TILE_N;
-    const int c = e % TILE_N;
-    float s = 0.f;
-    if (splits > 1) {
-      for (int sp = 0; sp < splits; ++sp) s += __ldcg(tile_ws + sp * (MT * TILE_N) + e);
-    } else {
-#pragma unroll
-      for (int wi = 0; wi < WARPS; ++wi) s += red[wi][m][c];
-    }
-    if (m < M && n0 + c < N)
-      store(out + ((size_t)m * G + g) * N + n0 + c, s * scale[(size_t)g * N + n0 + c]);
-  }
-  if (splits > 1 && threadIdx.x == 0) counters[tile] = 0;
 }
 
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
@@ -282,6 +182,196 @@ __device__ __forceinline__ void widen(uint32_t lo, uint32_t hi, uint32_t* even, 
     even[i] = pack_bf16(byte_to_float(w[i], 0), byte_to_float(w[i], 2));
     odd[i] = pack_bf16(byte_to_float(w[i], 1), byte_to_float(w[i], 3));
   }
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The CUDA-core kernel (M <= MT): one cluster of `gridDim.x` blocks per
+// output tile of TN columns of weight g = blockIdx.z; block `rank` of the
+// cluster sums rows [rank * rows, (rank + 1) * rows) of K. A launch without
+// clusters (cs = 1) is a cluster of one block.
+template <typename OutT, int TN, int NSTAGE>
+__global__ void __launch_bounds__(DEC_THREADS) qmm_int8_decode_kernel(
+    const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
+    const float* __restrict__ scale, OutT* __restrict__ out, int M, int K, int N, int G,
+    int rows) {
+  constexpr int CG = TN / COLS_PER_THREAD;  // threads side by side on a row
+  constexpr int RS = DEC_THREADS / CG;      // rows of a stage
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint8_t* ring = smem;                                                   // [NSTAGE][RS][TN]
+  uint32_t* xs = reinterpret_cast<uint32_t*>(smem + NSTAGE * STAGE_BYTES);  // [rows] pairs
+  float* red = reinterpret_cast<float*>(smem);  // [DEC_WARPS][MT][TN], once the ring is drained
+  __shared__ float part[MT * TN];               // the block's partial, read by the cluster
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int cs = static_cast<int>(cluster.num_blocks());
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int r = tid / CG;
+  const int cgi = tid % CG;
+  const int n0 = blockIdx.y * TN;
+  const int g = blockIdx.z;
+  const int col = n0 + cgi * COLS_PER_THREAD;
+  const int k0 = rank * rows;
+  const int k1 = min(K, k0 + rows);
+  const int nst = k1 > k0 ? (k1 - k0 + RS - 1) / RS : 0;
+  const int8_t* wg = w + (size_t)g * K * N;
+
+  // Programmatic dependent launch: the block may start while the previous
+  // kernel on the stream finishes, and reads nothing before it is done.
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  auto issue = [&](int it) {
+    const int k = k0 + it * RS + r;
+    const bool ok = k < k1 && col < N;
+    cp_async16(ring + (it % NSTAGE) * STAGE_BYTES + tid * 16, wg + (ok ? (size_t)k * N + col : 0),
+               ok);
+  };
+#pragma unroll
+  for (int s = 0; s < NSTAGE; ++s) {
+    if (s < nst) issue(s);
+    cp_async_commit();
+  }
+  // While the first stages are in flight: the scale of the output this
+  // thread writes (block `rank` writes its 1/cs slice of the tile's MT x TN
+  // outputs), and x's rows of the block as (row 0, row 1) bf16 pairs, zero
+  // past k1.
+  const int per = MT * TN / cs;
+  const int e_out = rank * per + tid;
+  const int m_out = e_out / TN;
+  const int n_out = n0 + e_out % TN;
+  const bool writes = tid < per && m_out < M && n_out < N;
+  const float sc = writes ? scale[(size_t)g * N + n_out] : 0.f;
+  const uint16_t* xb = reinterpret_cast<const uint16_t*>(x);
+  for (int i = tid; i < nst * RS; i += DEC_THREADS) {
+    const int k = k0 + i;
+    uint32_t v = 0;
+    if (k < k1) v = xb[k] | (M > 1 ? uint32_t(xb[K + k]) << 16 : 0u);
+    xs[i] = v;
+  }
+  __syncthreads();
+
+  float acc[MT][COLS_PER_THREAD];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+#pragma unroll
+    for (int c = 0; c < COLS_PER_THREAD; ++c) acc[m][c] = 0.f;
+  }
+  for (int it = 0; it < nst; ++it) {
+    cp_async_wait<NSTAGE - 1>();  // this thread's copy of stage `it` has landed
+    const uint4 wv = *reinterpret_cast<const uint4*>(ring + (it % NSTAGE) * STAGE_BYTES + tid * 16);
+    const uint32_t xp = xs[it * RS + r];
+    const float x0 = __uint_as_float(xp << 16);
+    const float x1 = __uint_as_float(xp & 0xffff0000u);
+    // The slot is free once read: the next copy into it is this thread's own.
+    if (it + NSTAGE < nst) issue(it + NSTAGE);
+    cp_async_commit();
+    const uint32_t words[4] = {wv.x ^ 0x80808080u, wv.y ^ 0x80808080u, wv.z ^ 0x80808080u,
+                               wv.w ^ 0x80808080u};
+#pragma unroll
+    for (int c = 0; c < COLS_PER_THREAD; ++c) {
+      const float wf = byte_to_float(words[c / 4], c % 4);
+      acc[0][c] = fmaf(x0, wf, acc[0][c]);
+      acc[1][c] = fmaf(x1, wf, acc[1][c]);
+    }
+  }
+  cp_async_wait<0>();
+
+  // The warp's row slices (lanes of one column group) meet by shuffles, then
+  // the warps in shared memory (the drained ring), in a fixed order.
+#pragma unroll
+  for (int off = CG; off < 32; off <<= 1) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+#pragma unroll
+      for (int c = 0; c < COLS_PER_THREAD; ++c)
+        acc[m][c] += __shfl_xor_sync(0xffffffffu, acc[m][c], off);
+    }
+  }
+  __syncthreads();
+  if (lane < CG) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+#pragma unroll
+      for (int c = 0; c < COLS_PER_THREAD; c += 4)
+        *reinterpret_cast<float4*>(red + (warp * MT + m) * TN + cgi * COLS_PER_THREAD + c) =
+            make_float4(acc[m][c], acc[m][c + 1], acc[m][c + 2], acc[m][c + 3]);
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < MT * TN; e += DEC_THREADS) {
+    float sum = 0.f;
+#pragma unroll
+    for (int wi = 0; wi < DEC_WARPS; ++wi) sum += red[wi * MT * TN + e];
+    part[e] = sum;
+  }
+
+  // The cluster's partials meet in distributed shared memory: block `rank`
+  // sums its slice over the ranks in order.
+  if (cs > 1) {
+    cluster_arrive();
+    cluster_wait();
+  } else {
+    __syncthreads();
+  }
+  float sum = 0.f;
+  if (tid < per) {
+    if (cs > 1) {
+      float v[MAX_CLUSTER];
+#pragma unroll
+      for (int q = 0; q < MAX_CLUSTER; ++q)
+        v[q] = q < cs ? *cluster.map_shared_rank(part + e_out, q) : 0.f;
+#pragma unroll
+      for (int q = 0; q < MAX_CLUSTER; ++q) sum += v[q];
+    } else {
+      sum = part[e_out];
+    }
+  }
+  if (cs > 1) cluster_arrive();  // this block is done reading the others' partials
+  if (writes) store(out + ((size_t)m_out * G + g) * N + n_out, sum * sc);
+  if (cs > 1) cluster_wait();  // no block leaves while another still reads its partial
+}
+
+template <typename OutT, int TN, int NSTAGE = STAGES>
+cudaError_t launch_decode(const __nv_bfloat16* x, const int8_t* w, const float* scale, OutT* out,
+                          int M, int K, int N, int G, int cs, int rows, cudaStream_t s) {
+  constexpr int RS = DEC_THREADS / (TN / COLS_PER_THREAD);
+  const int smem = NSTAGE * STAGE_BYTES + (rows + RS - 1) / RS * RS * 4;
+  if (smem + MT * TN * 4 > MAX_BLOCK_SMEM) return cudaErrorInvalidValue;
+  auto* kernel = qmm_int8_decode_kernel<OutT, TN, NSTAGE>;
+  static int configured_smem = 0;
+  if (smem > configured_smem) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    configured_smem = smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs, (N + TN - 1) / TN, G);
+  cfg.blockDim = dim3(DEC_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  // Programmatic dependent launch: the blocks may be scheduled while the
+  // previous kernel on the stream finishes (the kernel waits for it before
+  // its first read).
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  attr[1].id = cudaLaunchAttributeClusterDimension;
+  attr[1].val.clusterDim.x = cs;
+  attr[1].val.clusterDim.y = 1;
+  attr[1].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cs > 1 ? 2 : 1;  // a launch without clusters is cheaper to dispatch
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, x, w, scale, out, M, K, N, G, rows);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 // The tensor-core kernel's launch (M > MT): BM rows per block.
@@ -527,52 +617,67 @@ cudaError_t launch(const void* x, const void* w, const void* scale, void* out, v
   auto* op = static_cast<OutT*>(out);
   auto* wsp = static_cast<float*>(ws);
   auto* cp = static_cast<int*>(counters);
-  if (M > MT) {
-    const MmaPlan p = make_mma_plan(M, K, N, G);
-    const bool vec = K % 8 == 0;
-    if (p.bm == 16)
-      return vec ? launch_mma<OutT, 16, true>(xp, wp, sp, op, wsp, cp, M, K, N, G, p, s)
-                 : launch_mma<OutT, 16, false>(xp, wp, sp, op, wsp, cp, M, K, N, G, p, s);
-    return vec ? launch_mma<OutT, 64, true>(xp, wp, sp, op, wsp, cp, M, K, N, G, p, s)
-               : launch_mma<OutT, 64, false>(xp, wp, sp, op, wsp, cp, M, K, N, G, p, s);
-  }
-  const Plan p = make_plan(K, N, G);
-  const dim3 grid(1, p.ntiles, G * p.splits);
-  qmm_int8_kernel<OutT><<<grid, THREADS, 0, s>>>(xp, wp, sp, op, wsp, cp, M, K, N, G, p.rows,
-                                                 p.splits);
-  return cudaGetLastError();
+  const MmaPlan p = make_mma_plan(M, K, N, G);
+  const bool vec = K % 8 == 0;
+  if (p.bm == 16)
+    return vec ? launch_mma<OutT, 16, true>(xp, wp, sp, op, wsp, cp, M, K, N, G, p, s)
+               : launch_mma<OutT, 16, false>(xp, wp, sp, op, wsp, cp, M, K, N, G, p, s);
+  return vec ? launch_mma<OutT, 64, true>(xp, wp, sp, op, wsp, cp, M, K, N, G, p, s)
+             : launch_mma<OutT, 64, false>(xp, wp, sp, op, wsp, cp, M, K, N, G, p, s);
+}
+
+template <typename OutT>
+cudaError_t launch_decode_tn(const void* x, const void* w, const void* scale, void* out, int M,
+                             int K, int N, int G, int tn, int cs, int rows, cudaStream_t s) {
+  const auto* xp = static_cast<const __nv_bfloat16*>(x);
+  const auto* wp = static_cast<const int8_t*>(w);
+  const auto* sp = static_cast<const float*>(scale);
+  auto* op = static_cast<OutT*>(out);
+  return tn == 64 ? launch_decode<OutT, 64>(xp, wp, sp, op, M, K, N, G, cs, rows, s)
+                  : launch_decode<OutT, 32>(xp, wp, sp, op, M, K, N, G, cs, rows, s);
 }
 
 }  // namespace
 
-// Output tiles of a launch: the counters it needs.
+// The tensor-core path (M > 2). Output tiles of a launch: the counters it
+// needs.
 extern "C" int zvt_qmm_int8_tiles(int M, int K, int N, int G) {
-  if (M > MT) {
-    const MmaPlan p = make_mma_plan(M, K, N, G);
-    return p.mblocks * p.ntiles * G;
-  }
-  return make_plan(K, N, G).ntiles * G;
+  const MmaPlan p = make_mma_plan(M, K, N, G);
+  return p.mblocks * p.ntiles * G;
 }
 
-// fp32 workspace floats of a launch (0 when the rows are not split).
+// The tensor-core path's fp32 workspace floats (0 when the rows are not split).
 extern "C" int zvt_qmm_int8_workspace(int M, int K, int N, int G) {
-  if (M > MT) {
-    const MmaPlan p = make_mma_plan(M, K, N, G);
-    return p.splits > 1 ? p.mblocks * p.ntiles * G * p.splits * p.bm * TILE_N : 0;
-  }
-  const Plan p = make_plan(K, N, G);
-  return p.splits > 1 ? p.ntiles * G * p.splits * MT * TILE_N : 0;
+  const MmaPlan p = make_mma_plan(M, K, N, G);
+  return p.splits > 1 ? p.mblocks * p.ntiles * G * p.splits * p.bm * TILE_N : 0;
 }
 
-// out_f32: 1 for an fp32 output, 0 for bf16.
+// M > 2, on tensor cores. out_f32: 1 for an fp32 output, 0 for bf16.
 extern "C" int zvt_qmm_int8(const void* x, const void* w, const void* scale, void* out,
                             void* ws, void* counters, int M, int K, int N, int G, int out_f32,
                             void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0 || G <= 0 || N % COLS_PER_THREAD != 0)
+  if (M <= MT || K <= 0 || N <= 0 || G <= 0 || N % COLS_PER_THREAD != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       out_f32 ? launch<float>(x, w, scale, out, ws, counters, M, K, N, G, s)
               : launch<__nv_bfloat16>(x, w, scale, out, ws, counters, M, K, N, G, s);
+  return (int)err;
+}
+
+// M <= 2, on CUDA cores, as planned by ops/cuda/qmm.py::decode_plan: tiles of
+// tn (32 or 64) columns, clusters of cs (1, 2, 4 or 8) blocks, `rows` rows
+// of K per block (cs * rows >= K).
+extern "C" int zvt_qmm_int8_decode(const void* x, const void* w, const void* scale, void* out,
+                                   int M, int K, int N, int G, int out_f32, int tn, int cs,
+                                   int rows, void* stream) {
+  if (M <= 0 || M > MT || K <= 0 || N <= 0 || G <= 0 || N % COLS_PER_THREAD != 0 ||
+      (tn != 32 && tn != 64) || cs <= 0 || cs > MAX_CLUSTER || (cs & (cs - 1)) != 0 ||
+      rows <= 0 || (long long)cs * rows < K)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      out_f32 ? launch_decode_tn<float>(x, w, scale, out, M, K, N, G, tn, cs, rows, s)
+              : launch_decode_tn<__nv_bfloat16>(x, w, scale, out, M, K, N, G, tn, cs, rows, s);
   return (int)err;
 }

@@ -51,10 +51,10 @@ _SIGNATURES = {
     "zvt_stage_splice_rows": (_P, _P, _P, _I, _I, _I, _I, _P),
     "zvt_prefill_attention": (_P,) * 4 + (_I,) * 7 + (_P,),
     "zvt_qmm_int8": (_P,) * 6 + (_I,) * 5 + (_P,),
+    "zvt_qmm_int8_decode": (_P,) * 4 + (_I,) * 8 + (_P,),
     "zvt_qmm_int8_tiles": (_I,) * 4,
     "zvt_qmm_int8_workspace": (_I,) * 4,
-    "zvt_ssd_gate_step_tiles": (_I,),
-    "zvt_ssd_gate_step": (_P, _I, _I) + (_P,) * 11 + (_I,) * 5 + (_F, _P),
+    "zvt_ssd_gate_step": (_P, _I, _I) + (_P,) * 11 + (_I,) * 6 + (_F, _P),
 }
 
 

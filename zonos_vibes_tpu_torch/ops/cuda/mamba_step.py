@@ -15,6 +15,13 @@ The kernel takes per-head ``dt`` and ``decay = exp(dt A)`` ``[B, H]`` and
 kernel serves both Pallas functions: :func:`ssd_gate_step` is
 :func:`ssd_gate_step_layered` on a one-plane view, and both count their
 launches under ``ssd_gate_step``.
+
+Each call is one launch: a block updates every state row of a tile of
+columns (:func:`step_plan`), and the row's gated norm is taken by its last
+block to arrive, from ``g`` and the tiles' sums of ``g^2`` in a per-device
+fp32 workspace, under one int32 ticket per batch row, which that block
+resets. Both are reused across calls, so every launch must stay on one
+stream (the caller's current one).
 """
 
 from __future__ import annotations
@@ -22,6 +29,38 @@ from __future__ import annotations
 import torch
 
 from . import build
+
+# The kernel's plan: the widest column tile of TILES whose grid of
+# (HP / tile) x B blocks puts a block on each of the SMS SMs (else the
+# narrowest). Each block updates all N state rows of its tile; a thread
+# copies one 16-byte chunk of a state row per pass (4 fp32 or 8 bf16
+# columns), so a pass covers 256 * 16 / (tile * state bytes) rows, and a
+# block holds at most MAX_ROWS.
+TILES = (128, 64, 32)
+SMS = 132
+MAX_ROWS = 256
+_WORKSPACES: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def step_plan(B: int, N: int, HP: int, state_bytes: int) -> int:
+    """The column tile of a launch, from the shapes alone: the grid is
+    ``(HP / tile, B)`` blocks."""
+    tile = next((t for t in TILES if B * (HP // t) >= SMS), TILES[-1])
+    pass_rows = 256 * 16 // (tile * state_bytes)
+    if HP % TILES[0] or N % pass_rows or N > MAX_ROWS:
+        raise ValueError(f"step_plan: HP must be a multiple of {TILES[0]} and N of {pass_rows}, "
+                         f"at most {MAX_ROWS}; got HP={HP}, N={N}")
+    return tile
+
+
+def _workspace(dev: torch.device, floats: int, rows: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The device's fp32 workspace and zeroed tickets, grown on demand."""
+    ws, tickets = _WORKSPACES.get(dev, (None, None))
+    if ws is None or ws.numel() < floats or tickets.numel() < rows:
+        ws = torch.empty(max(floats, 1 << 16), dtype=torch.float32, device=dev)
+        tickets = torch.zeros(max(rows, 64), dtype=torch.int32, device=dev)
+        _WORKSPACES[dev] = ws, tickets
+    return ws, tickets
 
 
 def ssd_gate_step_layered_plain(states, layer: int, xs, dt, decay, bm, cm, z, d_skip, norm_w,
@@ -57,9 +96,9 @@ def ssd_gate_step_layered(states: torch.Tensor, layer: int, xs, dt, decay, bm, c
       bm, cm: ``[B, N]`` fp32 (one group).
       d_skip: ``[H]`` fp32; norm_w: ``[HP]``.
     CPU tensors take the plain version; CUDA tensors launch the kernel (bf16
-    ``xs``, ``z``, ``norm_w``; ``HP`` a multiple of 128, ``P`` of 4, ``N`` of
-    64) or raise.
-    """
+    ``xs``, ``z``, ``norm_w``; ``HP`` a multiple of 128 up to 8192; ``P`` a
+    multiple of 4 with an fp32 state, of 8 with a bf16 one; ``N`` at most
+    256 and a multiple of the plan's rows a pass) or raise."""
     R, B, N, HP = states.shape
     H = dt.shape[-1]
     if (H <= 0 or HP % H or xs.shape != (B, HP) or z.shape != (B, HP)
@@ -80,16 +119,14 @@ def ssd_gate_step_layered(states: torch.Tensor, layer: int, xs, dt, decay, bm, c
     for t in (dt, decay, bm, cm, d_skip):
         if t.dtype != torch.float32:
             raise ValueError(f"ssd_gate_step: dt, decay, B, C and D must be fp32, got {t.dtype}")
-    lib = build.load()
-    g = torch.empty((B, HP), dtype=torch.float32, device=dev)
-    part = torch.empty((B, max(lib.zvt_ssd_gate_step_tiles(HP), 1)), dtype=torch.float32,
-                       device=dev)
+    tile = step_plan(B, N, HP, states.element_size())
+    ws, tickets = _workspace(dev, B * HP + B * HP // tile, B)
     out = torch.empty((B, HP), dtype=z.dtype, device=dev)
-    rc = lib.zvt_ssd_gate_step(
+    rc = build.load().zvt_ssd_gate_step(
         states.data_ptr(), int(states.dtype == torch.bfloat16), layer, xs.data_ptr(),
         dt.data_ptr(), decay.data_ptr(), bm.data_ptr(), cm.data_ptr(), z.data_ptr(),
-        d_skip.data_ptr(), norm_w.data_ptr(), g.data_ptr(), part.data_ptr(), out.data_ptr(),
-        R, B, N, HP, H, float(eps), build.stream_handle(dev))
+        d_skip.data_ptr(), norm_w.data_ptr(), out.data_ptr(), ws.data_ptr(), tickets.data_ptr(),
+        R, B, N, HP, H, tile, float(eps), build.stream_handle(dev))
     build.check_status("ssd_gate_step", rc)
     build.LAUNCHES["ssd_gate_step"] += 1
     return out
