@@ -23,7 +23,11 @@ Phases, each of which fails the run loudly:
    3072 and the pool give each shape's first bits: every split ticket was
    reset) and bounds (rows 1 and 5 with out-of-range flushed_end and
    stage_len equal their plain versions on the clamped scalars, NaN planes
-   around the buffers; a layer outside [0, L) gives NaN); ``qmm_int8`` at
+   around the buffers; a layer outside [0, L) gives NaN); the stage write
+   of the five staged templates (rows 1, 5, 6, 6b, 8) at the main paths'
+   shapes, V a strided row view, slots inside and outside
+   the stage: each stage bit-equal to the plain splice's, NaN planes around
+   it untouched; ``qmm_int8`` at
    M <= 2 and the fused Mamba step as one device kernel per call, whose
    calls at alternating shapes repeat each shape's first bits; the pooled backbone step on
    the card against the CPU path, bf16 and int8, with a ring and without
@@ -38,7 +42,9 @@ Phases, each of which fails the run loudly:
    random bf16 weights from a seeded generator, text -> about 5 s of codes
    -> DAC -> WAV (written to ``build/chip_smoke.wav``). The launch
    counters are zeroed just before and read just after: every kernel must
-   have run on the main path, decode attention 26 times per decode step.
+   have run on the main path, decode attention 26 times per decode step,
+   the standalone stage splices never (the decode-attention calls store
+   the columns).
    Then the int8 serving path on the same weights: the first frame's
    next-token distributions before and after ``pipe.quantize_int8()``
    (mean total-variation distance at most 0.05), and
@@ -56,8 +62,8 @@ Phases, each of which fails the run loudly:
    (``build/chip_smoke_hybrid.wav``) with exact counts (42 fused Mamba
    steps and 6 row-11 launches per decode step, 6 prefill launches, every
    transformer-only kernel 0); its pool, as above with fp32 SSM state
-   (``build/chip_smoke_pool_hybrid_row{s}.wav``; 42 Mamba steps, 6 row-6
-   launches and 2 ring splices per pooled step, 6 prefill launches per
+   (``build/chip_smoke_pool_hybrid_row{s}.wav``; 42 Mamba steps and 6 row-6
+   launches per pooled step, no ring splice, 6 prefill launches per
    join); then 43 stage-less pooled steps (row 12, 6 per step) from a copy
    of the pool's state after its last join, each step's logits held
    against the ring mode's from the same state; with plain attention the
@@ -65,7 +71,10 @@ Phases, each of which fails the run loudly:
    one position off they must differ by more than the limit.
 4. Timing: each kernel, its plain version and the one PyTorch call that
    computes the same function, at the shapes the main path gave it, beside
-   the least time the card could take for the same work; ``qmm_int8`` at
+   the least time the card could take for the same work; the staged
+   decode rows with their stage write, as the main path calls them, the
+   timed calls' stage held against the plain splice, the standalone
+   splices beside them; ``qmm_int8`` at
    the solo step's 2 rows, the pooled step's 16 and the prefill's fc1 at
    2 * (cond_len + 1) rows; the prefill attention (row 3, both head dims)
    at the main path's chunk and at long chunks (S = 2048 at offset 0,
@@ -507,6 +516,118 @@ def check_decode_one_launch() -> None:
         f"and stage (max_abs_err {worst:.3e}); layers -1 and {L} give all-NaN outputs")
 
 
+def check_stage_write() -> dict:
+    """Phase 2, the stage write of the five staged templates (rows 1, 5, 6,
+    6b and 8, as the backbones call them): at the main
+    paths' per-layer shapes (the solo step: CFG batch 2, T = 528; the pools:
+    16 rows over 3584 positions at head dim 64, and the hybrid's at 128),
+    three layers inside a stage buffer with a NaN plane on each side, V a
+    strided row view of a [B, 3W] buffer as the qkv projection's output
+    gives it. Solo slots 0, 54, STAGE - 1, -1 and STAGE; pooled slots mixed
+    over the rows, -1 and STAGE among them; layers 0 and 2. Each call's
+    output against the plain version, its whole guarded stage bit for bit
+    against the plain version's (``stage_splice_plain`` /
+    ``stage_splice_rows_plain`` on the layer's plane), and nothing but the
+    in-range slots of the layer's plane changed; a layer outside [0, L)
+    (rows 1 and 5) gives NaN and writes nothing. Returns the largest
+    output error per kernel name."""
+    import torch
+
+    from zonos_vibes_tpu_torch.ops import quant
+    from zonos_vibes_tpu_torch.ops.cuda import decode_attention as da
+
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    Lw = 3
+
+    def bits(t):
+        return t.view(torch.int16)
+
+    cases = (("decode_attention", da.decode_attention_layered,
+              da.decode_attention_layered_plain, False, HQ, HKV, D, TOL),
+             ("decode_attention_q", da.decode_attention_layered_q,
+              da.decode_attention_layered_q_plain, False, HQ, HKV, D, Q_TOL),
+             ("decode_attention_pooled", da.decode_attention_pooled_staged,
+              da.decode_attention_pooled_staged_plain, True, HQ, HKV, D, TOL),
+             ("decode_attention_pooled_q", da.decode_attention_pooled_staged_q,
+              da.decode_attention_pooled_staged_q_plain, True, HQ, HKV, D, Q_TOL),
+             ("decode_attention_pooled_hd128", da.decode_attention_pooled_staged,
+              da.decode_attention_pooled_staged_plain, True, H_HQ, H_HKV, H_D, TOL))
+    err, calls = {}, 0
+    for name, kernel, plain, pooled, hq, hkv, d, tol in cases:
+        bx, T, w = (POOL_M, POOL_T, hkv * d) if pooled else (B, 528, hkv * d)
+        x = dict(q=randn(gen, bx, 1, hq, d), k_cache=randn(gen, Lw, bx, T, w),
+                 v_cache=randn(gen, Lw, bx, T, w), k_cur=randn(gen, bx, w),
+                 v_cur=randn(gen, bx, 3 * w)[:, w:2 * w])
+        if name.endswith("_q"):
+            for n in ("k", "v"):
+                x[n + "_cache"], x[n + "_scale"] = quant.quantize_rows(x[n + "_cache"], hkv)
+        full = {}
+        for n in ("k_stage", "v_stage"):
+            full[n] = torch.full((Lw + 2, bx, STAGE, w), float("nan"), dtype=torch.bfloat16,
+                                 device="cuda")
+            full[n][1:-1] = randn(gen, Lw, bx, STAGE, w)
+        if pooled:
+            x["bases"] = torch.tensor(POOL_BASES, dtype=torch.int32, device="cuda")
+            lens = [(23 * b) % STAGE for b in range(bx)]
+            lens[:4] = [-1, STAGE, STAGE - 1, 0]
+            variants = [(dict(lens=torch.tensor(ln, dtype=torch.int32, device="cuda")), ln)
+                        for ln in (lens, lens[::-1])]
+        else:
+            variants = [(dict(scalars=torch.tensor([472, s, 0], dtype=torch.int32,
+                                                   device="cuda")), [s] * bx)
+                        for s in (0, 54, STAGE - 1, -1, STAGE)]
+        worst = 0.0
+        for layer in (0, Lw - 1):
+            for kw, slots in variants:
+                kw = dict(kw)
+                if pooled:
+                    kw["layer"] = layer
+                else:
+                    kw["scalars"] = kw["scalars"].clone()
+                    kw["scalars"][2] = layer
+                outs, stages = [], []
+                for fn in (kernel, plain):
+                    st = {n: t.clone() for n, t in full.items()}
+                    outs.append(fn(**x, k_stage=st["k_stage"][1:-1], v_stage=st["v_stage"][1:-1],
+                                   **kw).float())
+                    stages.append(st)
+                torch.cuda.synchronize()
+                e = (outs[0] - outs[1]).abs().max().item()
+                for n in full:
+                    changed = (bits(stages[0][n]) != bits(full[n])).any(-1)
+                    where = torch.zeros_like(changed)
+                    for b, s in enumerate(slots):
+                        if 0 <= s < STAGE:
+                            where[1 + layer, b, s] = True
+                    if (not torch.equal(bits(stages[0][n]), bits(stages[1][n]))
+                            or not torch.equal(changed, where)):
+                        raise AssertionError(f"{name} stage write, layer {layer}, slots {slots}: "
+                                             f"{n} differs from the plain version's or a byte "
+                                             f"outside the slots changed")
+                if not torch.isfinite(outs[0]).all() or e > tol:
+                    raise AssertionError(f"{name} with the stage write, layer {layer}: err {e}")
+                worst, calls = max(worst, e), calls + 1
+        if not pooled:
+            for layer in (-1, Lw):
+                st = {n: t.clone() for n, t in full.items()}
+                got = kernel(**x, k_stage=st["k_stage"][1:-1], v_stage=st["v_stage"][1:-1],
+                             scalars=torch.tensor([472, 5, layer], dtype=torch.int32,
+                                                  device="cuda"))
+                torch.cuda.synchronize()
+                if not torch.isnan(got).all() or not all(
+                        torch.equal(bits(st[n]), bits(full[n])) for n in full):
+                    raise AssertionError(f"{name} layer {layer} with the stage write: output not "
+                                         f"all NaN, or the stage written")
+        err[name] = worst
+        del x, full
+    log(f"kernel decode attention stage write (rows 1/5/6/8 at head dim 64, 6b at 128): {calls} "
+        f"writing calls at the main paths' shapes, V a strided row view, slots 0/54/STAGE-1 "
+        f"and -1/STAGE (outside: no write), NaN planes around the stage: every stage bit-equal "
+        f"to the plain splice's, nothing outside the in-range slots changed, outputs within "
+        f"tolerance (max_abs_err {max(err.values()):.3e}); layers -1 and 3 write nothing")
+    return err
+
+
 def check_step_kernels_one_launch() -> None:
     """Phase 2, the one-launch designs of ``qmm_int8`` at M <= 2 and of the
     fused Mamba step: each call is one device kernel (``torch.profiler``),
@@ -743,7 +864,7 @@ def run_main_path(card: str):
         raise AssertionError(f"valid length {result.valid_length} != {AUDIO_FRAMES}")
     if wav.size == 0 or not np.isfinite(wav).all():
         raise AssertionError("waveform empty or not finite")
-    want = {"decode_attention": L * steps, "decode_attention_q": 0, "stage_splice": 2 * steps,
+    want = {"decode_attention": L * steps, "decode_attention_q": 0, "stage_splice": 0,
             "prefill_attention": L, "qmm_int8": 0, **NO_POOL_LAUNCHES}
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
@@ -852,7 +973,7 @@ def run_int8_path(pipe, cond, card: str) -> dict:
     if wav.size == 0 or not np.isfinite(wav).all():
         raise AssertionError("int8 waveform empty or not finite")
     # 4 projections per layer and one launch for the 9 heads per forward.
-    want = {"decode_attention": 0, "decode_attention_q": L * steps, "stage_splice": 2 * steps,
+    want = {"decode_attention": 0, "decode_attention_q": L * steps, "stage_splice": 0,
             "prefill_attention": L, "qmm_int8": (4 * L + 1) * (steps + 1), **NO_POOL_LAUNCHES}
     if launches != want:
         raise AssertionError(f"int8 launch counts {launches}, expected {want}")
@@ -958,7 +1079,7 @@ def run_pool(pipe, card: str, kv_int8: bool, hybrid: bool = False) -> dict:
             "qmm_int8": (4 * L + 1) * (joins + steps) * kv_int8,
             "decode_attention_pooled": 0 if kv_int8 else n_attn * steps,
             "decode_attention_pooled_q": L * steps if kv_int8 else 0,
-            "stage_splice_rows": 2 * steps, **NO_HYBRID_LAUNCHES}
+            "stage_splice_rows": 0, **NO_HYBRID_LAUNCHES}
     if hybrid:
         want["ssd_gate_step"] = (bcfg.n_layer - n_attn) * steps
     if launches != want or step_qmm != (4 * L + 1) * steps * kv_int8:
@@ -1562,8 +1683,9 @@ def time_hybrid_kernels(solo: dict, pool: dict, stage_less: dict, errors: dict,
                      launches=stage_less["launches"]["decode_attention_pooled_unstaged"],
                      max_abs_err=errors["decode_attention_pooled_unstaged"], ms=ms,
                      plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib))
-    ms, plain, lib, b, by = time_pooled_hd128(gen, pool["bases_mid"] * 2,
-                                              [POOL_SEGMENT - 1] * 2 * POOL_SLOTS, card)
+    ms, plain, lib, b, by, held = time_pooled_hd128(gen, pool["bases_mid"] * 2,
+                                                    [POOL_SEGMENT - 1] * 2 * POOL_SLOTS, card)
+    require_stage_write("decode_attention_pooled_hd128", held)
     rows.append(dict(name="decode_attention_pooled_hd128", route="cuda",
                      source="zonos_vibes_tpu_torch/csrc/decode_attention.cu",
                      replaces="zonos_vibes_tpu/ops/pallas/decode_attention.py:790",
@@ -1638,8 +1760,8 @@ def time_pooled_unstaged(gen, ends, card):
 
 def time_pooled_hd128(gen, bases, lens, card):
     """Row 6 at the hybrid pool's shapes (head dim 128, 16/4 heads), layer
-    3: kernel, plain version and one masked SDPA. Returns (ms, plain,
-    library, bound, by)."""
+    3, with its stage write: kernel, plain version and one masked SDPA.
+    Returns (ms, plain, library, bound, by, stage write held)."""
     import torch
     import torch.nn.functional as F
 
@@ -1650,17 +1772,20 @@ def time_pooled_hd128(gen, bases, lens, card):
     bt = torch.tensor(bases, dtype=torch.int32, device="cuda")
     lt = torch.tensor(lens, dtype=torch.int32, device="cuda")
     qg, kg, vg, mask, n_total = gathered_sdpa_inputs(x, 3, bases, lens)
+    before = stage_planes(x, 3)
     ms = device_ms(lambda: decode_attention_pooled_staged(**x, bases=bt, lens=lt, layer=3), 200)
+    held = stage_write_held(x, before, 3, lt)
     plain = device_ms(lambda: decode_attention_pooled_staged_plain(**x, bases=bt, lens=lt,
                                                                    layer=3), 10)
     lib = device_ms(lambda: F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
                                                            enable_gqa=True), 200)
-    b, by = bound(2 * n_total * H_W * 2 + 2 * POOL_M * H_HQ * H_D * 2 + 2 * POOL_M * 4,
-                  4 * H_HQ * H_D * n_total)
+    b, by = bound(2 * n_total * H_W * 2 + 2 * POOL_M * H_HQ * H_D * 2 + 2 * POOL_M * 4
+                  + 2 * POOL_M * H_W * 2, 4 * H_HQ * H_D * n_total)
     log(f"time decode_attention_pooled head dim 128 B={POOL_M} T={POOL_T} bases {min(bases)}-"
         f"{max(bases)} ({card}): kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms {lib:.4f} "
-        f"(SDPA, masked) bound_ms {b:.5f} ({by}); kernel / SDPA {ms / lib:.2f}")
-    return ms, plain, lib, b, by
+        f"(SDPA, masked) bound_ms {b:.5f} ({by}); kernel / SDPA {ms / lib:.2f}; "
+        f"{_write_label(held)}")
+    return ms, plain, lib, b, by, held
 
 
 # Long prefill chunks timed beside SDPA and the bound: (S, offset).
@@ -1724,10 +1849,44 @@ def main_path_decode_step(cond_len: int, steps: int) -> tuple[int, int, int]:
     return T, fe, last_pos - fe
 
 
+def stage_planes(x, layer) -> dict:
+    """Copies of layer ``layer``'s stage planes of a staged call's inputs."""
+    return {n: x[n][layer:layer + 1].clone() for n in ("k_stage", "v_stage")}
+
+
+def stage_write_held(x, before, layer, slots) -> bool:
+    """Whether the staged calls just made on ``x`` stored their columns as
+    the decode step needs them: layer ``layer``'s stage planes equal
+    ``stage_splice_rows_plain`` of the columns at ``slots`` (int32 [B]) on
+    ``before``, the planes as they were. A version of the port that kept
+    the splice as a launch of its own leaves them unchanged."""
+    import torch
+
+    from zonos_vibes_tpu_torch.ops.cuda.stage_write import stage_splice_rows_plain
+
+    torch.cuda.synchronize()
+    return all(torch.equal(x[n][layer:layer + 1],
+                           stage_splice_rows_plain(before[n].clone(), x[col][None], slots))
+               for n, col in (("k_stage", "k_cur"), ("v_stage", "v_cur")))
+
+
+def require_stage_write(name, held) -> None:
+    if not held:
+        raise AssertionError(f"{name}: the timed calls' stage write differs from the plain "
+                             f"splice")
+
+
+def _write_label(held) -> str:
+    return ("stage write bit-equal to the plain splice" if held else
+            "stage not written as the plain splice writes it")
+
+
 def time_decode(gen, T, fe, sl, label, card, quant=False):
     """Row 1 (row 5 with ``quant``: an int8 prefix) at one step's scalars,
-    layer 5 of the 26-layer cache: kernel, plain version and SDPA over the
-    gathered (dequantized) K/V. Returns (ms, plain, library, bound, by)."""
+    layer 5 of the 26-layer cache, with its stage write: kernel, plain
+    version and SDPA over the gathered (dequantized) K/V. Returns (ms,
+    plain, library, bound, by, stage write held); the bound counts the
+    stage write's bytes."""
     import torch
     import torch.nn.functional as F
 
@@ -1751,18 +1910,21 @@ def time_decode(gen, T, fe, sl, label, card, quant=False):
     qg = x["q"].transpose(1, 2).contiguous()
     kernel, plain = ((decode_attention_layered_q, decode_attention_layered_q_plain) if quant
                      else (decode_attention_layered, decode_attention_layered_plain))
+    before = stage_planes(x, 5)
     ms = device_ms(lambda: kernel(**x, scalars=sc), 200)
+    held = stage_write_held(x, before, 5, torch.full((B,), sl, dtype=torch.int32, device="cuda"))
     plain_ms = device_ms(lambda: plain(**x, scalars=sc), 20)
     lib = device_ms(lambda: F.scaled_dot_product_attention(qg, parts["k"], parts["v"],
                                                            enable_gqa=True), 200)
     per_prefix = W + HKV * 4 if quant else W * 2
-    nbytes = 2 * B * fe * per_prefix + 2 * B * (sl + 1) * W * 2 + 2 * B * HQ * D * 2
+    nbytes = (2 * B * fe * per_prefix + 2 * B * (sl + 1) * W * 2 + 2 * B * HQ * D * 2
+              + 2 * B * W * 2)
     b, by = bound(nbytes, 4 * B * HQ * n * D)
     log(f"time decode_attention{'_q' if quant else ''} {label} T={T} flushed_end={fe} "
         f"stage_len={sl} ({card}): kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
         f"{lib:.4f} (SDPA, {'dequantized ' if quant else ''}gathered K/V) bound_ms {b:.5f} ({by}); "
-        f"kernel / SDPA {ms / lib:.2f}")
-    return ms, plain_ms, lib, b, by
+        f"kernel / SDPA {ms / lib:.2f}; {_write_label(held)}")
+    return ms, plain_ms, lib, b, by, held
 
 
 def time_kernels(e2e: dict, errors: dict, card: str) -> list[dict]:
@@ -1775,8 +1937,10 @@ def time_kernels(e2e: dict, errors: dict, card: str) -> list[dict]:
     cond_len = e2e["cond_len"]
     T, fe, sl = main_path_decode_step(cond_len, e2e["steps"])
     rows = []
-    ms, plain, lib, b, by = time_decode(gen, T, fe, sl, "main-path last step", card)
-    time_decode(gen, 3072, 2944, 127, "30 s depth", card)
+    ms, plain, lib, b, by, held = time_decode(gen, T, fe, sl, "main-path last step", card)
+    require_stage_write("decode_attention", held)
+    require_stage_write("decode_attention", time_decode(gen, 3072, 2944, 127, "30 s depth",
+                                                        card)[5])
     rows.append(dict(name="decode_attention", route="cuda",
                      source="zonos_vibes_tpu_torch/csrc/decode_attention.cu",
                      replaces="zonos_vibes_tpu/ops/pallas/decode_attention.py:253",
@@ -1792,7 +1956,9 @@ def time_kernels(e2e: dict, errors: dict, card: str) -> list[dict]:
     lib = device_ms(lambda: stage[:, :, 17].copy_(cols), 500)
     b, by = bound(2 * L * B * W * 2 + 4, 0)
     log(f"time stage_splice L={L} B={B} W={W} ({card}): kernel_ms {ms:.4f} plain_ms "
-        f"{plain:.4f} library_ms {lib:.4f} bound_ms {b:.6f} ({by})")
+        f"{plain:.4f} library_ms {lib:.4f} bound_ms {b:.6f} ({by}); standalone, "
+        f"{e2e['launches']['stage_splice']} launches on the main path (the decode-attention "
+        f"calls store the columns)")
     rows.append(dict(name="stage_splice", route="cuda",
                      source="zonos_vibes_tpu_torch/csrc/stage_write.cu",
                      replaces="zonos_vibes_tpu/ops/pallas/stage_write.py:41",
@@ -1914,8 +2080,11 @@ def time_int8_kernels(e2e: dict, pool_int8: dict, errors: dict, card: str) -> li
                      plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib, **source))
 
     T, fe, sl = main_path_decode_step(cond_len, steps)
-    ms, plain, lib, b, by = time_decode(gen, T, fe, sl, "main-path last step", card, quant=True)
-    time_decode(gen, 3072, 2944, 127, "30 s depth", card, quant=True)
+    ms, plain, lib, b, by, held = time_decode(gen, T, fe, sl, "main-path last step", card,
+                                              quant=True)
+    require_stage_write("decode_attention_q", held)
+    require_stage_write("decode_attention_q", time_decode(gen, 3072, 2944, 127, "30 s depth",
+                                                          card, quant=True)[5])
     rows.append(dict(name="decode_attention_q", route="cuda",
                      source="zonos_vibes_tpu_torch/csrc/decode_attention.cu",
                      replaces="zonos_vibes_tpu/ops/pallas/decode_attention.py:479",
@@ -1960,8 +2129,9 @@ def gathered_sdpa_inputs(x, layer, prefix, ring_rows=None, quant=False):
 
 def time_pooled(gen, quant, label, bases, lens, card):
     """Row 6 (row 8 with ``quant``) at 16 rows over the pool's 3584-position
-    cache, layer 5 of 26: kernel, plain version and one masked SDPA over the
-    gathered (dequantized) K/V. Returns (ms, plain, library, bound, by)."""
+    cache, layer 5 of 26, with its stage write: kernel, plain version and
+    one masked SDPA over the gathered (dequantized) K/V. Returns (ms, plain,
+    library, bound, by, stage write held)."""
     import torch.nn.functional as F
 
     from zonos_vibes_tpu_torch.ops.cuda.decode_attention import (
@@ -1976,21 +2146,24 @@ def time_pooled(gen, quant, label, bases, lens, card):
     if quant:
         x = quantized(x)
     qg, kg, vg, mask, n_total = gathered_sdpa_inputs(x, 5, bases, lens, quant)
+    before = stage_planes(x, 5)
     ms = device_ms(lambda: kernel(**x, layer=5), 200)
+    held = stage_write_held(x, before, 5, x["lens"])
     plain_ms = device_ms(lambda: plain(**x, layer=5), 10)
     lib = device_ms(lambda: F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
                                                            enable_gqa=True), 200)
     prefix = sum(bases)
     ring = n_total - prefix  # ring rows and current columns
     per_prefix = W + HKV * 4 if quant else W * 2
-    nbytes = 2 * prefix * per_prefix + 2 * ring * W * 2 + 2 * Bp * HQ * D * 2 + 2 * Bp * 4
+    nbytes = (2 * prefix * per_prefix + 2 * ring * W * 2 + 2 * Bp * HQ * D * 2 + 2 * Bp * 4
+              + 2 * Bp * W * 2)
     b, by = bound(nbytes, 4 * HQ * D * n_total)
     log(f"time decode_attention_pooled{'_q' if quant else ''} B={Bp} T={POOL_T} {label} (bases "
         f"{min(bases)}-{max(bases)}, {ring} ring+current positions) ({card}): kernel_ms {ms:.4f} "
         f"plain_ms {plain_ms:.4f} library_ms {lib:.4f} (SDPA, per-row mask over gathered"
         f"{' dequantized' if quant else ''} K/V) bound_ms {b:.5f} ({by}); kernel / SDPA "
-        f"{ms / lib:.2f}")
-    return ms, plain_ms, lib, b, by
+        f"{ms / lib:.2f}; {_write_label(held)}")
+    return ms, plain_ms, lib, b, by, held
 
 
 def time_pool_kernels(pool_bf16: dict, pool_int8: dict, errors: dict, card: str) -> list[dict]:
@@ -2016,8 +2189,9 @@ def time_pool_kernels(pool_bf16: dict, pool_int8: dict, errors: dict, card: str)
         first = None
         for label, bases, lns in spreads:
             t = time_pooled(gen, quant, label, bases, lns, card)
+            require_stage_write(name, t[5])
             first = first or t
-        ms, plain_ms, lib, b, by = first
+        ms, plain_ms, lib, b, by, _ = first
         rows.append(dict(name=name, route="cuda",
                          source="zonos_vibes_tpu_torch/csrc/decode_attention.cu",
                          replaces=f"zonos_vibes_tpu/ops/pallas/decode_attention.py:{pallas_line}",
@@ -2041,7 +2215,8 @@ def time_pool_kernels(pool_bf16: dict, pool_int8: dict, errors: dict, card: str)
     log(f"time stage_splice_rows L={L} B={Bp} W={W} ({card}): kernel_ms {ms:.4f} plain_ms "
         f"{plain_ms:.4f} library_ms {lib:.4f} (advanced-index assignment) bound_ms {b:.6f} ({by}); "
         f"launches {pool_bf16['launches']['stage_splice_rows']} in the bf16 pool run, "
-        f"{pool_int8['launches']['stage_splice_rows']} in the int8 one")
+        f"{pool_int8['launches']['stage_splice_rows']} in the int8 one (standalone: the pooled "
+        f"decode-attention calls store the columns)")
     rows.append(dict(name="stage_splice_rows", route="cuda",
                      source="zonos_vibes_tpu_torch/csrc/stage_write.cu",
                      replaces="zonos_vibes_tpu/ops/pallas/stage_write.py:105",
@@ -2074,6 +2249,7 @@ def main() -> int:
     errors.update(check_int8_kernels())
     errors.update(check_pool_kernels())
     check_decode_one_launch()
+    write_errors = check_stage_write()
     check_step_kernels_one_launch()
     check_backbone_against_cpu()
     check_backbone_against_cpu(int8=True)
@@ -2093,6 +2269,8 @@ def main() -> int:
     stage_less = run_stage_less(pipe, pool_hybrid, card)
     del pipe
     torch.cuda.empty_cache()
+    for name, e in write_errors.items():  # each decode row's error, with and without the write
+        errors[name] = max(errors[name], e)
     rows = (time_kernels(e2e, errors, card) + time_int8_kernels(e2e_int8, pool_int8, errors, card)
             + time_pool_kernels(pool_bf16, pool_int8, errors, card)
             + time_hybrid_kernels(hybrid, pool_hybrid, stage_less, errors, card))

@@ -19,8 +19,16 @@ The stage-less kernels (``decode_attention_pallas``, one position for every
 row, and ``decode_attention_pallas_pooled``, per-row prefix ends with the
 current column folded in) are held to 1e-5 at head dims 16 and 128 (the
 hybrid's), NaN past each bound; rows 3 and 6 at head dim 128 too.
+
+The staged wrappers' stage write (the decode step's
+``stage_splice_pallas`` / ``stage_splice_rows_pallas``, done by the
+decode-attention call) is held bit for bit against those Pallas kernels on
+the same columns, slots in and out of the stage, V a strided row view; and
+each backbone's stage after a decode step against gathering the columns and
+splicing them after the layer loop.
 """
 
+import inspect
 import itertools
 
 import jax.numpy as jnp
@@ -31,6 +39,7 @@ import torch
 from zonos_vibes_tpu.ops.pallas.decode_attention import (
     decode_attention_pallas,
     decode_attention_pallas_layered,
+    decode_attention_pallas_layered_q,
     decode_attention_pallas_pooled,
     decode_attention_pallas_pooled_staged,
     decode_attention_pallas_pooled_staged_q,
@@ -38,6 +47,9 @@ from zonos_vibes_tpu.ops.pallas.decode_attention import (
 from zonos_vibes_tpu.ops.pallas.prefill_attention import prefill_attention_pallas
 from zonos_vibes_tpu.ops.pallas.stage_write import stage_splice_pallas, stage_splice_rows_pallas
 from zonos_vibes_tpu.ops.quant import quantize_kv
+from zonos_vibes_tpu_torch.config import BackboneConfig, _freeze
+from zonos_vibes_tpu_torch.models import backbone as tbb
+from zonos_vibes_tpu_torch.models import mamba_backbone as tmb
 from zonos_vibes_tpu_torch.ops.cuda import build
 from zonos_vibes_tpu_torch.ops.cuda import decode_attention as dam
 from zonos_vibes_tpu_torch.ops.cuda.decode_attention import (
@@ -54,6 +66,7 @@ from zonos_vibes_tpu_torch.ops.cuda import qmm as qmm_mod
 from zonos_vibes_tpu_torch.ops.cuda.prefill_attention import prefill_attention
 from zonos_vibes_tpu_torch.ops.cuda.stage_write import stage_splice, stage_splice_rows
 from zonos_vibes_tpu_torch.ops.quant import quantize_rows
+from zonos_vibes_tpu_torch.ops.rope import rope_table
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 L, B, HQ, HKV, D, STAGE, T = 2, 2, 8, 2, 64, 128, 640
@@ -461,6 +474,200 @@ def test_layered_plain_versions_clamp_and_raise_on_a_bad_layer():
         for layer in (-1, L, L + 5):
             with pytest.raises(ValueError, match="outside"):
                 fn(**args, scalars=sc(5, 2, layer))
+
+
+# The stage write folded into the staged decode-attention calls. Each case:
+# (one position for every row or per-row ring slots, int8 prefix, head dim).
+W_STAGE, W_T, W_LAYER = 16, 256, 1
+WRITE_CASES = {"solo": (False, False, 64), "solo_int8": (False, True, 64),
+               "ring": (True, False, 64), "ring_int8": (True, True, 64),
+               "ring_d128": (True, False, 128)}
+
+
+def _write_inputs(rng, pooled, head_dim):
+    Hq, Hkv = (HQ, HKV) if head_dim == 64 else (4, 2)
+    Bw = P_B if pooled else B
+    w = Hkv * head_dim
+
+    def f(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    x = dict(q=f(Bw, 1, Hq, head_dim), k_cache=f(L, Bw, W_T, w), v_cache=f(L, Bw, W_T, w),
+             k_stage=f(L, Bw, W_STAGE, w), v_stage=f(L, Bw, W_STAGE, w), k_cur=f(Bw, w))
+    v_rows = f(Bw, 3 * w)  # the column V as a row view of a wider projection output
+    return x, Hkv, v_rows
+
+
+@pytest.mark.parametrize("slot", [0, W_STAGE - 1, -1, W_STAGE])
+@pytest.mark.parametrize("case", list(WRITE_CASES))
+def test_stage_write_plain_matches_pallas(case, slot):
+    """The writing call of each staged wrapper on the CPU: its output
+    against the Pallas decode-attention kernel it stands for (at the clamped
+    stage length), and the stage against ``stage_splice_pallas`` /
+    ``stage_splice_rows_pallas`` on the same columns on layer ``W_LAYER``'s
+    plane, bit for bit; a slot outside the stage writes nothing, and no
+    other plane or slot changes. V is a strided row view. Pooled cases put
+    ``slot`` on row 0 and in-range slots on the others."""
+    pooled, int8, head_dim = WRITE_CASES[case]
+    rng = np.random.default_rng(100 + 7 * abs(slot) + len(case))
+    x, Hkv, v_rows = _write_inputs(rng, pooled, head_dim)
+    w = x["k_cur"].shape[1]
+    v_cur = v_rows[:, w:2 * w]
+    clamp = int(np.clip(slot, 0, W_STAGE))
+
+    def tm(a):
+        return jnp.asarray(_to_time_minor(a, Hkv))
+
+    jcur = [jnp.asarray(c.reshape(c.shape[0], Hkv, head_dim, 1)) for c in (x["k_cur"], v_cur)]
+    jstage = (jnp.asarray(x["k_stage"]), jnp.asarray(x["v_stage"]))
+    args = {k: torch.from_numpy(v.copy()) for k, v in x.items()}
+    args["v_cur"] = torch.from_numpy(v_rows)[:, w:2 * w]
+    assert not args["v_cur"].is_contiguous()
+    if int8:
+        jq = {n: quantize_kv(tm(x[n + "_cache"]), dh_axis=3) for n in "kv"}
+        jprefix = (jq["k"][0], jq["v"][0], jq["k"][1], jq["v"][1])
+        for n in "kv":
+            args[n + "_cache"], args[n + "_scale"] = quantize_rows(args[n + "_cache"], Hkv)
+    else:
+        jprefix = (tm(x["k_cache"]), tm(x["v_cache"]))
+    before = dict(build.LAUNCHES)
+    if pooled:
+        bases = np.array([40, 0, 201, 100], np.int32)
+        lens = np.array([slot, 5, W_STAGE - 1, 0], np.int32)
+        jax_fn = decode_attention_pallas_pooled_staged_q if int8 else (
+            decode_attention_pallas_pooled_staged)
+        want = jax_fn(jnp.asarray(x["q"]), *jprefix, *jstage, *jcur, jnp.asarray(bases),
+                      jnp.asarray(np.clip(lens, 0, W_STAGE)), jnp.int32(W_LAYER), block=128,
+                      interpret=True)
+        fn = decode_attention_pooled_staged_q if int8 else decode_attention_pooled_staged
+        got = fn(**args, bases=torch.from_numpy(bases), lens=torch.from_numpy(lens),
+                 layer=W_LAYER)
+        valid = (lens >= 0) & (lens < W_STAGE)
+        plane = {n: np.array(stage_splice_rows_pallas(
+            jstage[i][W_LAYER:W_LAYER + 1], jcur[i].reshape(1, -1, 1, w),
+            jnp.asarray(np.where(valid, lens, 0)), interpret=True))[0]
+            for i, n in enumerate("kv")}
+        for n in "kv":  # a row whose slot is outside the stage keeps its plane
+            plane[n][~valid] = x[n + "_stage"][W_LAYER][~valid]
+        tol = P_TOL
+    else:
+        jax_fn = decode_attention_pallas_layered_q if int8 else decode_attention_pallas_layered
+        want = jax_fn(jnp.asarray(x["q"]), *jprefix, *jstage, *jcur, jnp.int32(100),
+                      jnp.int32(clamp), jnp.int32(W_LAYER), block=128, interpret=True)
+        fn = decode_attention_layered_q if int8 else decode_attention_layered
+        got = fn(**args, scalars=torch.tensor([100, slot, W_LAYER], dtype=torch.int32))
+        plane = {n: x[n + "_stage"][W_LAYER] for n in "kv"}
+        if slot == clamp < W_STAGE:
+            plane = {n: np.asarray(stage_splice_pallas(
+                jstage[i][W_LAYER:W_LAYER + 1], jcur[i].reshape(1, -1, 1, w), jnp.int32(slot),
+                interpret=True))[0] for i, n in enumerate("kv")}
+        tol = TOL
+    assert build.LAUNCHES == before  # the CPU path launches nothing
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
+    for n in "kv":
+        stage = args[n + "_stage"].numpy()
+        np.testing.assert_array_equal(stage[W_LAYER], plane[n])
+        np.testing.assert_array_equal(np.delete(stage, W_LAYER, axis=0),
+                                      np.delete(x[n + "_stage"], W_LAYER, axis=0))
+
+
+def test_column_row_stride_accepts_row_views_only():
+    """The launch wrapper's check of a column ``[B, W]`` (host code, run
+    before any launch): row views of a wider buffer pass with their row
+    stride; a stride that is not a multiple of 8 elements, a row start off
+    16 bytes, a strided last dimension, overlapping rows or another device
+    raise."""
+    cpu = torch.device("cpu")
+    wide = torch.zeros(4, 3 * 64, dtype=torch.bfloat16)
+    assert dam._row_stride("t", wide[:, 128:192], cpu) == 192
+    assert dam._row_stride("t", wide[:1, 64:128], cpu) == 64
+    assert dam._row_stride("t", wide[:, :64].contiguous(), cpu) == 64
+    assert dam._row_stride("t", None, cpu) == 0
+    for bad in (wide[:, 4:68], torch.zeros(4, 100, dtype=torch.bfloat16)[:, :64],
+                wide[:, 64:192:2], wide.view(-1).as_strided((4, 64), (8, 1))):
+        with pytest.raises(ValueError):
+            dam._row_stride("t", bad, cpu)
+    with pytest.raises(ValueError):
+        dam._row_stride("t", wide[:, :64], torch.device("cuda"))
+
+
+def _recorded(fn, cols):
+    """``fn`` with its stage write sent to a copy of the stage, recording
+    each call's columns: the backbones' decode before the write moved into
+    the attention call."""
+    sig = inspect.signature(fn)
+
+    def call(*args, **kwargs):
+        bound = sig.bind(*args, **kwargs).arguments
+        cols.append((bound["k_cur"].clone(), bound["v_cur"].clone()))
+        for n in ("k_stage", "v_stage"):
+            bound[n] = bound[n].clone()
+        return fn(**bound)
+    return call
+
+
+BACKBONE_CASES = ["transformer_solo", "transformer_solo_int8", "transformer_ring",
+                  "transformer_ring_int8", "hybrid_ring"]
+
+
+@pytest.mark.parametrize("case", BACKBONE_CASES)
+def test_backbone_stage_after_a_step_equals_gather_then_splice(case, monkeypatch):
+    """A decode step's stage planes (and output and cache) bit-equal to the
+    same step with the columns gathered per layer and spliced into the stage
+    after the layer loop (``stage_splice`` / ``stage_splice_rows``): 2-4
+    layers at narrow widths, fp32 on the CPU, a random stage and prefix."""
+    gen = torch.Generator().manual_seed(len(case))
+    ring = "ring" in case
+    if case.startswith("hybrid"):
+        cfg = BackboneConfig(
+            d_model=128, n_layer=4, d_intermediate=0, attn_mlp_d_intermediate=256,
+            attn_layer_idx=(1, 3), rms_norm=True, residual_in_fp32=True,
+            ssm_cfg=_freeze({"layer": "Mamba2", "d_state": 16, "headdim": 32, "chunk_size": 8}),
+            attn_cfg=_freeze({"num_heads": 2, "num_heads_kv": 1, "head_dim": 128,
+                              "rotary_emb_dim": 64}))
+        model = tmb.HybridBackbone(cfg)
+        params = model.init(gen, torch.float32, "cpu")
+        cache = model.allocate_cache(4, 64, torch.float32, "cpu", pool_ring=True)
+        names, module, rope, d_model = ("decode_attention_pooled_staged",), tmb, None, 128
+    else:
+        cfg = BackboneConfig(d_model=64, n_layer=3, attn_mlp_d_intermediate=128,
+                             attn_cfg=_freeze({"num_heads": 4, "num_heads_kv": 2}))
+        model = tbb.TransformerBackbone(cfg)
+        params = model.init(gen, torch.float32, "cpu")
+        cache = model.allocate_cache(4 if ring else 2, 64, torch.float32, "cpu",
+                                     kv_int8="int8" in case)
+        names = (("decode_attention_pooled_staged", "decode_attention_pooled_staged_q") if ring
+                 else ("decode_attention_layered", "decode_attention_layered_q"))
+        module, rope, d_model = tbb, rope_table(cfg.head_dim), 64
+    for name, t in cache.items():
+        if t.is_floating_point() and "scale" not in name:
+            t.copy_(torch.randn(t.shape, generator=gen))
+    Bx = cache["k_stage"].shape[1]
+    hidden = torch.randn(Bx, 1, d_model, generator=gen)
+    if ring:
+        pos, base = torch.tensor([25, 12, 40, 9]), torch.tensor([20, 12, 30, 2])
+        kw = dict(positions=pos, pool_base=base)
+        args, slots = (0, rope), (pos - base).to(torch.int32)
+    else:
+        args, slots = (25, rope, 20), torch.tensor([5], dtype=torch.int32)
+        kw = {}
+    start = {k: v.clone() for k, v in cache.items()}
+    want_out = model.forward(params, hidden, cache, *args, **kw)
+
+    ref = {k: v.clone() for k, v in start.items()}
+    cols = []
+    for name in names:
+        monkeypatch.setattr(module, name, _recorded(getattr(module, name), cols))
+    out = model.forward(params, hidden, ref, *args, **kw)
+    splice = stage_splice_rows if ring else stage_splice
+    for i, n in enumerate(("k_stage", "v_stage")):
+        assert torch.equal(ref[n], start[n])  # the calls wrote only to copies
+        splice(ref[n], torch.stack([c[i] for c in cols]), slots)
+    assert len(cols) == cache["k_stage"].shape[0]
+    assert torch.equal(out, want_out)
+    for name, t in cache.items():
+        assert torch.equal(t, ref[name]), name
+    assert not torch.equal(cache["k_stage"], start["k_stage"])
 
 
 # The M <= 2 qmm_int8 kernel's plan: (tile width, cluster size, rows per

@@ -835,3 +835,138 @@ def test_layered_kernels_clamp_device_scalars(dev, quant_prefix):
         assert torch.isnan(got).all(), layer
         with pytest.raises(ValueError, match="outside"):
             plain(**x, scalars=sc)
+
+
+# The stage write of the staged calls: the block that holds a
+# (row, kv head)'s column stores it into the stage slot. Against the plain
+# versions (attention, then stage_splice_plain / stage_splice_rows_plain on
+# the layer's plane): output within the tolerance, the stage bit for bit,
+# NaN planes on both sides of the stage, V a strided row view.
+WRITE_VARIANTS = ["layered", "layered_q", "pooled", "pooled_q", "pooled_d128"]
+WRITE_LAYERS = 3
+
+
+def _bits_equal(a, b):
+    return torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+def _write_case(gen, variant, dev):
+    """One writing call's inputs at the main path's per-layer shapes
+    (``WRITE_LAYERS`` layers): ``(x, guarded stages, call(x, **kw), plain(x,
+    **kw))``; ``x["k_stage"]``/``x["v_stage"]`` are views inside NaN
+    planes."""
+    pooled = variant.startswith("pooled")
+    hq, hkv, d = (H_HQ, H_HKV, H_D) if variant.endswith("d128") else (HQ, HKV, D)
+    bx, T = (POOL_B, 1024) if pooled else (B, 528)
+    w = hkv * d
+    x = dict(q=_randn(gen, bx, 1, hq, d, dev=dev),
+             k_cache=_randn(gen, WRITE_LAYERS, bx, T, w, dev=dev),
+             v_cache=_randn(gen, WRITE_LAYERS, bx, T, w, dev=dev),
+             k_cur=_randn(gen, bx, w, dev=dev),
+             v_cur=_randn(gen, bx, 3 * w, dev=dev)[:, w:2 * w])
+    full = {}
+    for n in ("k_stage", "v_stage"):
+        full[n] = torch.full((WRITE_LAYERS + 2, bx, STAGE, w), float("nan"),
+                             dtype=torch.bfloat16, device=dev)
+        full[n][1:-1] = _randn(gen, WRITE_LAYERS, bx, STAGE, w, dev=dev)
+        x[n] = full[n][1:-1]
+    if variant.endswith("_q"):
+        for n in ("k", "v"):
+            x[n + "_cache"], x[n + "_scale"] = quant.quantize_rows(x[n + "_cache"], hkv)
+    kernel, plain = {
+        "layered": (decode_attention_layered, decode_attention_layered_plain),
+        "layered_q": (decode_attention_layered_q, decode_attention_layered_q_plain),
+        "pooled": (decode_attention_pooled_staged, decode_attention_pooled_staged_plain),
+        "pooled_q": (decode_attention_pooled_staged_q, decode_attention_pooled_staged_q_plain),
+        "pooled_d128": (decode_attention_pooled_staged, decode_attention_pooled_staged_plain),
+    }[variant]
+    if pooled:
+        x["bases"] = torch.randint(0, T + 1, (bx,), generator=gen, device=dev,
+                                   dtype=torch.int32)
+    return x, full, kernel, plain
+
+
+def _with_stages(x, full):
+    """``x`` on copies of the guarded stages: ``(x', guarded copies)``."""
+    copies = {n: t.clone() for n, t in full.items()}
+    return dict(x, k_stage=copies["k_stage"][1:-1], v_stage=copies["v_stage"][1:-1]), copies
+
+
+def _write_slots(variant, bx):
+    """Per call: the scalars' keyword arguments (stage_len or ring lengths;
+    slots -1 and STAGE lie outside the stage) and the slot per row."""
+    if not variant.startswith("pooled"):
+        return [(s, [s] * bx) for s in (0, 5, STAGE - 1, -1, STAGE)]
+    lens = [(23 * b) % STAGE for b in range(bx)]
+    lens[:4] = [-1, STAGE, STAGE - 1, 0]
+    return [(None, lens), (None, lens[::-1])]
+
+
+@pytest.mark.parametrize("variant", WRITE_VARIANTS)
+def test_stage_write_kernel(dev, variant):
+    gen = torch.Generator(device=dev).manual_seed(40 + WRITE_VARIANTS.index(variant))
+    x, full, kernel, plain = _write_case(gen, variant, dev)
+    tol = Q_TOL if variant.endswith("_q") else TOL
+    bx = x["q"].shape[0]
+    for layer in (0, WRITE_LAYERS - 1):
+        for stage_len, slots in _write_slots(variant, bx):
+            if stage_len is None:
+                kw = dict(lens=torch.tensor(slots, dtype=torch.int32, device=dev), layer=layer)
+            else:
+                kw = dict(scalars=torch.tensor([400, stage_len, layer], dtype=torch.int32,
+                                               device=dev))
+            xk, got_full = _with_stages(x, full)
+            xp, want_full = _with_stages(x, full)
+            got = kernel(**xk, **kw)
+            want = plain(**xp, **kw)
+            torch.cuda.synchronize()
+            assert torch.isfinite(got).all()
+            torch.testing.assert_close(got.float(), want.float(), **tol)
+            for n in ("k_stage", "v_stage"):
+                assert _bits_equal(got_full[n], want_full[n]), (layer, slots, n)
+                changed = (got_full[n].view(torch.int16) != full[n].view(torch.int16)).any(-1)
+                where = torch.zeros_like(changed)
+                for b, s in enumerate(slots):
+                    if 0 <= s < STAGE:
+                        where[1 + layer, b, s] = True
+                assert torch.equal(changed, where), (layer, slots, n)
+
+
+@pytest.mark.parametrize("variant", ["layered", "layered_q"], ids=["row1", "row5"])
+def test_stage_write_skips_a_bad_layer(dev, variant):
+    """A layer outside [0, L) gives NaN and writes nothing."""
+    gen = torch.Generator(device=dev).manual_seed(46)
+    x, full, kernel, _ = _write_case(gen, variant, dev)
+    for layer in (-1, WRITE_LAYERS, 1 << 20):
+        xk, got_full = _with_stages(x, full)
+        got = kernel(**xk, scalars=torch.tensor([400, 5, layer], dtype=torch.int32, device=dev))
+        torch.cuda.synchronize()
+        assert torch.isnan(got).all(), layer
+        assert all(_bits_equal(got_full[n], full[n]) for n in full), layer
+
+
+def test_stage_write_repeats_its_bits(dev):
+    """300 calls alternating the five writing variants, each from its
+    initial stage, give each variant's first output and stage bits."""
+    gen = torch.Generator(device=dev).manual_seed(47)
+    calls = []
+    for variant in WRITE_VARIANTS:
+        x, full, kernel, _ = _write_case(gen, variant, dev)
+        kw = (dict(lens=torch.tensor(_write_slots(variant, x["q"].shape[0])[0][1],
+                                     dtype=torch.int32, device=dev), layer=1)
+              if variant.startswith("pooled") else
+              dict(scalars=torch.tensor([400, 54, 1], dtype=torch.int32, device=dev)))
+        work = {n: t.clone() for n, t in full.items()}
+        xw = dict(x, k_stage=work["k_stage"][1:-1], v_stage=work["v_stage"][1:-1])
+
+        def call(xw=xw, kw=kw, work=work, full=full, kernel=kernel):
+            for n in work:
+                work[n].copy_(full[n])
+            out = kernel(**xw, **kw)
+            return [out] + [work[n].clone() for n in work]
+        calls.append(call)
+    first = [c() for c in calls]
+    for i in range(300):
+        got = calls[i % len(calls)]()
+        assert all(_bits_equal(g, w) for g, w in zip(got, first[i % len(calls)])), i
+    torch.cuda.synchronize()

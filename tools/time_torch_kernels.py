@@ -24,8 +24,11 @@ stage_len 54) and at 30 s (T = 3072, 2944 + 127), rows 6 and 8
 main path once every row has joined), near 1800 and near 3000, row 6 at
 head dim 128 (``time_pooled_hd128``) at bases 112-434, row 11
 (``time_unstaged``) at T = 536, seq_end 531, row 12
-(``time_pooled_unstaged``) at prefix ends 111-433. ``--only decode`` times
-the decode rows alone; ``--only qmm2`` the solo step's 105 ``qmm_int8``
+(``time_pooled_unstaged``) at prefix ends 111-433; for the staged rows (1,
+5, 6, 6b, 8) ``*_stage_written`` says whether the timed calls stored their
+columns as the plain splice does (a checkout from before the stage write
+moved into decode attention does not). ``--only decode`` times the decode
+rows alone; ``--only qmm2`` the solo step's 105 ``qmm_int8``
 launches at M = 2, shape by shape (in_proj, out_proj, fc1, fc2, heads);
 ``--only mamba`` the fused Mamba step (rows 9/10, ``time_ssd``) at B = 2
 and 16 with an fp32 and a bf16 state. ``--chunks`` sets the split lengths
@@ -121,8 +124,10 @@ def main() -> int:
     decode["row6b_mid"] = cs.time_pooled_hd128(gen, mid, [cs.POOL_SEGMENT - 1] * cs.POOL_M, card)
     decode["row11_t536"] = cs.time_unstaged(gen, 536, 531, card)
     decode["row12_mid"] = cs.time_pooled_unstaged(gen, [m - 1 for m in mid], card)
-    for key, (ms, _, lib, b, _) in decode.items():
+    for key, (ms, _, lib, b, _, *held) in decode.items():
         result[f"{key}_ms"], result[f"{key}_sdpa_ms"], result[f"{key}_bound_ms"] = ms, lib, b
+        if held:
+            result[f"{key}_stage_written"] = held[0]
     print(json.dumps(result))
     return 0
 

@@ -86,12 +86,32 @@
 //    the staged one-position kernels) reads nothing and writes NaN to the
 //    output, so a bad value is seen rather than silently clamped.
 //
+// The stage write (every kernel with a stage): the decode step must also
+// store its column into the stage slot it belongs in, which the TPU
+// program does after the layer scan with a stage splice
+// (stage_write.py::stage_splice_pallas and stage_splice_rows_pallas; the
+// standalone counterparts stay in csrc/stage_write.cu). Here the block that
+// holds the grid's last split of a (row, kv head) has already landed the
+// column in shared memory, and no block of the call reads the slot: the
+// one-position kernel reads stage rows [0, stage_len) and its slot is
+// stage_len, a pooled row reads rows [0, lens[b]) and its slot is lens[b].
+// So that block stores its D-wide slice of K and V into
+// stage[layer, b, slot, h * D:(h + 1) * D] after its last tile, with no
+// race and no launch of its own: on the decode step this takes the 2 * L
+// column copies into a gather buffer and the two splice launches off the
+// stream. What bounds it: nothing, 2 * D * 2 bytes a block (a few KB a
+// call). The slot is the unclamped device scalar (scalars[1], lens[b]); a
+// slot outside [0, STAGE) writes nothing, as the splice kernels, and so
+// does a layer outside [0, L). The write lands before any later launch on
+// the stream (the stage flush, the next step's read).
+//
 // Layouts (row-major, bf16 unless noted):
 //   q       [B, Hq, D]               k_cache, v_cache [L, B, T, Hkv * D]
 //   k_stage, v_stage [L, B, STAGE, Hkv * D]
 //   int8 variant: k_cache, v_cache int8 [L, B, T, Hkv * D],
 //                 k_scale, v_scale fp32 [L, B, T, Hkv]
-//   k_cur, v_cur [B, Hkv * D]
+//   k_cur, v_cur [B, Hkv * D], row b at k_cur + b * k_cur_stride (a
+//     multiple of 8 elements: a view into a wider projection output)
 //   one position for every row: scalars int32 [3]: flushed_end, stage_len,
 //     layer (without a stage: [1]: seq_end; layer a launch argument)
 //   per-row positions: bases (prefix ends), lens int32 [B]; layer a launch
@@ -209,8 +229,8 @@ __global__ void __launch_bounds__(THREADS, 4) decode_kernel(
     const PrefixT* __restrict__ v_cache,
     const float* __restrict__ k_scale,
     const float* __restrict__ v_scale,
-    const __nv_bfloat16* __restrict__ k_stage,
-    const __nv_bfloat16* __restrict__ v_stage,
+    __nv_bfloat16* __restrict__ k_stage,
+    __nv_bfloat16* __restrict__ v_stage,
     const __nv_bfloat16* __restrict__ k_cur,
     const __nv_bfloat16* __restrict__ v_cur,
     const int* __restrict__ scalars,
@@ -219,7 +239,7 @@ __global__ void __launch_bounds__(THREADS, 4) decode_kernel(
     int* __restrict__ tickets,
     __nv_bfloat16* __restrict__ out,
     int B, int Hkv, int L, int T, int stage_depth, int layer_arg, int chunk, int n_prefix,
-    int nsplit, float qscale) {
+    int nsplit, int k_cur_stride, int v_cur_stride, float qscale) {
   constexpr bool QUANT = std::is_same<PrefixT, int8_t>::value;
   constexpr bool HAS_CUR = STAGED || POOLED;
   constexpr int PART = D + 2;
@@ -348,7 +368,9 @@ __global__ void __launch_bounds__(THREADS, 4) decode_kernel(
             cp_async16(dst, (is_v ? v_stage : k_stage) + off + x * 8, 16);
           }
         } else if (HAS_CUR && last && i == n) {
-          cp_async16(dst, (is_v ? v_cur : k_cur) + (size_t)b * W + h * D + x * 8, 16);
+          const __nv_bfloat16* col = is_v ? v_cur + (size_t)b * v_cur_stride
+                                          : k_cur + (size_t)b * k_cur_stride;
+          cp_async16(dst, col + h * D + x * 8, 16);
         } else {
           cp_async16(dst, q, 0);
         }
@@ -466,6 +488,25 @@ __global__ void __launch_bounds__(THREADS, 4) decode_kernel(
   }
   cp_async_wait<0>();
 
+  // The stage write: the column's K and V rows (row n of the split, in the
+  // ring slot of the last tile, which the barrier of that tile published
+  // and no later copy overwrote) stored into the column's stage slot.
+  if constexpr (STAGED) {
+    const int slot = last ? (POOLED ? lens[b] : scalars[1]) : -1;
+    if (slot >= 0 && slot < stage_depth) {
+      constexpr int VECS = 2 * D / 16;  // 16-byte chunks of a bf16 row
+      const unsigned char* st = ring + ((n / TILE) % STAGES) * RingT::STAGE_BYTES;
+      const size_t dst0 = (((size_t)layer * B + b) * stage_depth + slot) * W + h * D;
+      for (int c = tid; c < 2 * VECS; c += THREADS) {
+        const bool is_v = c >= VECS;
+        const int x = is_v ? c - VECS : c;
+        const uint4 val = *reinterpret_cast<const uint4*>(
+            st + (is_v ? TILE * ROW : 0) + (n % TILE) * ROW + x * 16);
+        *reinterpret_cast<uint4*>((is_v ? v_stage : k_stage) + dst0 + x * 8) = val;
+      }
+    }
+  }
+
   // The block's partial: each warp writes its heads' accumulators, running
   // maxima and sums.
   float* pair_ws = ws + ((size_t)b * Hkv + h) * nsplit * G * PART;
@@ -545,10 +586,11 @@ __global__ void __launch_bounds__(THREADS, 4) decode_kernel(
 
 template <int D, typename PrefixT, bool POOLED, bool STAGED>
 int launch(const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
-           const void* v_scale, const void* k_stage, const void* v_stage, const void* k_cur,
+           const void* v_scale, void* k_stage, void* v_stage, const void* k_cur,
            const void* v_cur, const void* scalars, const void* lens, void* ws, void* tickets,
            void* out, int B, int Hq, int Hkv, int L, int T, int stage_depth, int layer,
-           int chunk, int n_prefix, int n_stage, cudaStream_t s) {
+           int chunk, int n_prefix, int n_stage, int k_cur_stride, int v_cur_stride,
+           cudaStream_t s) {
   const int G = Hq / Hkv;
   const int nsplit = n_prefix + n_stage;
   const float qscale = LOG2E / sqrtf((float)D);
@@ -568,12 +610,12 @@ int launch(const void* q, const void* k_cache, const void* v_cache, const void* 
   decode_kernel<D, GV, PrefixT, POOLED, STAGED><<<grid, THREADS, smem, s>>>(                 \
       static_cast<const __nv_bfloat16*>(q), static_cast<const PrefixT*>(k_cache),            \
       static_cast<const PrefixT*>(v_cache), static_cast<const float*>(k_scale),              \
-      static_cast<const float*>(v_scale), static_cast<const __nv_bfloat16*>(k_stage),        \
-      static_cast<const __nv_bfloat16*>(v_stage), static_cast<const __nv_bfloat16*>(k_cur),  \
+      static_cast<const float*>(v_scale), static_cast<__nv_bfloat16*>(k_stage),              \
+      static_cast<__nv_bfloat16*>(v_stage), static_cast<const __nv_bfloat16*>(k_cur),        \
       static_cast<const __nv_bfloat16*>(v_cur), static_cast<const int*>(scalars),            \
       static_cast<const int*>(lens), static_cast<float*>(ws), static_cast<int*>(tickets),    \
       static_cast<__nv_bfloat16*>(out), B, Hkv, L, T, stage_depth, layer, chunk, n_prefix,   \
-      nsplit, qscale)
+      nsplit, k_cur_stride, v_cur_stride, qscale)
   switch (G) {
     case 1: ZVT_DECODE(1); break;
     case 2: ZVT_DECODE(2); break;
@@ -587,20 +629,23 @@ int launch(const void* q, const void* k_cache, const void* v_cache, const void* 
 
 template <typename PrefixT, bool POOLED, bool STAGED>
 int launch_any(const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
-               const void* v_scale, const void* k_stage, const void* v_stage, const void* k_cur,
+               const void* v_scale, void* k_stage, void* v_stage, const void* k_cur,
                const void* v_cur, const void* scalars, const void* lens, void* ws,
                void* tickets, void* out, int B, int Hq, int Hkv, int L, int T, int stage_depth,
-               int head_dim, int layer, int chunk, int n_prefix, int n_stage, cudaStream_t s) {
+               int head_dim, int layer, int chunk, int n_prefix, int n_stage, int k_cur_stride,
+               int v_cur_stride, cudaStream_t s) {
   if (head_dim == 64)
     return launch<64, PrefixT, POOLED, STAGED>(q, k_cache, v_cache, k_scale, v_scale, k_stage,
                                                v_stage, k_cur, v_cur, scalars, lens, ws,
                                                tickets, out, B, Hq, Hkv, L, T, stage_depth,
-                                               layer, chunk, n_prefix, n_stage, s);
+                                               layer, chunk, n_prefix, n_stage, k_cur_stride,
+                                               v_cur_stride, s);
   if (head_dim == 128)
     return launch<128, PrefixT, POOLED, STAGED>(q, k_cache, v_cache, k_scale, v_scale, k_stage,
                                                 v_stage, k_cur, v_cur, scalars, lens, ws,
                                                 tickets, out, B, Hq, Hkv, L, T, stage_depth,
-                                                layer, chunk, n_prefix, n_stage, s);
+                                                layer, chunk, n_prefix, n_stage, k_cur_stride,
+                                                v_cur_stride, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -608,25 +653,29 @@ int launch_any(const void* q, const void* k_cache, const void* v_cache, const vo
 
 // One entry for every variant: quant (int8 prefix with k_scale/v_scale),
 // pooled (scalars = per-row prefix ends, lens = per-row stage lengths) and
-// staged (k_stage/v_stage attended; the one-position staged kernel reads
-// its layer from scalars[2], every other takes `layer`). The split plan
-// (chunk, n_prefix = ceil(T / chunk), n_stage = ceil(stage_depth / chunk),
-// 0 without a stage) comes from the host; ws holds B * Hkv * (n_prefix +
-// n_stage) * G * (head_dim + 2) floats and tickets B * Hkv zeroed int32s.
+// staged (k_stage/v_stage attended, and the column stored into its stage
+// slot; the one-position staged kernel reads its layer from scalars[2],
+// every other takes `layer`). The split plan (chunk, n_prefix = ceil(T /
+// chunk), n_stage = ceil(stage_depth / chunk), 0 without a stage) comes
+// from the host; ws holds B * Hkv * (n_prefix + n_stage) * G *
+// (head_dim + 2) floats and tickets B * Hkv zeroed int32s. The columns' row
+// strides are in elements, multiples of 8 (16-byte rows for cp.async).
 extern "C" int zvt_decode_attention(
     int quant, int pooled, int staged, const void* q, const void* k_cache, const void* v_cache,
-    const void* k_scale, const void* v_scale, const void* k_stage, const void* v_stage,
+    const void* k_scale, const void* v_scale, void* k_stage, void* v_stage,
     const void* k_cur, const void* v_cur, const void* scalars, const void* lens, void* ws,
     void* tickets, void* out, int B, int Hq, int Hkv, int L, int T, int stage_depth,
-    int head_dim, int layer, int chunk, int n_prefix, int n_stage, void* stream) {
+    int head_dim, int layer, int chunk, int n_prefix, int n_stage, int k_cur_stride,
+    int v_cur_stride, void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0 || chunk % TILE != 0 || chunk <= 0 || n_prefix + n_stage <= 0 ||
-      n_prefix + n_stage > MAX_SPLITS || (quant && (!staged || stage_depth < 1)))
+      n_prefix + n_stage > MAX_SPLITS || (quant && (!staged || stage_depth < 1)) ||
+      k_cur_stride % 8 != 0 || v_cur_stride % 8 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ZVT_ANY(PT, P, S)                                                                       \
   launch_any<PT, P, S>(q, k_cache, v_cache, k_scale, v_scale, k_stage, v_stage, k_cur, v_cur,   \
                        scalars, lens, ws, tickets, out, B, Hq, Hkv, L, T, stage_depth, head_dim, \
-                       layer, chunk, n_prefix, n_stage, s)
+                       layer, chunk, n_prefix, n_stage, k_cur_stride, v_cur_stride, s)
   if (quant) return pooled ? ZVT_ANY(int8_t, true, true) : ZVT_ANY(int8_t, false, true);
   if (staged) return pooled ? ZVT_ANY(__nv_bfloat16, true, true)
                             : ZVT_ANY(__nv_bfloat16, false, true);

@@ -31,9 +31,11 @@ copies the rings into the cache once per segment. With ``positions`` alone
 itself, and its columns are written at ``positions[b]`` after the stack.
 
 On a CUDA device the decode step runs ``ops/cuda``'s decode-attention kernel
-(or its int8-prefix variant, or their pooled versions) per layer and two
-stage splices per step, prefill runs the prefill-attention kernel per layer,
-and int8 projections run the int8 matmul kernel; on the CPU the same
+(or its int8-prefix variant, or their pooled versions) per layer, which
+also stores the layer's columns into their stage slot (JAX splices them
+after the layer scan; no layer reads another's stage plane within a step,
+so the stage is the same), prefill runs the prefill-attention kernel per
+layer, and int8 projections run the int8 matmul kernel; on the CPU the same
 wrappers run their plain versions.
 """
 
@@ -51,7 +53,6 @@ from ..ops.cuda.decode_attention import (
     decode_attention_pooled_unstaged,
 )
 from ..ops.cuda.prefill_attention import prefill_attention
-from ..ops.cuda.stage_write import stage_splice, stage_splice_rows
 from ..ops.mlp import swiglu_mid
 from ..ops.norms import layer_norm
 from ..ops.quant import dequantize_rows, proj_matmul, quantize_rows
@@ -174,7 +175,8 @@ def transformer_forward(params: dict, cfg: BackboneConfig, hidden: torch.Tensor,
     are the rows' absolute positions (RoPE and attention bounds). With
     ``pool_base [B]`` too (the pool's ring decode) they are the rows'
     flushed watermarks; without it the decode is stage-less (bf16 or fp32
-    cache only).
+    cache only). A staged decode's columns reach the stage inside each
+    layer's attention call.
 
     With an int8 cache a prefill attends over a scratch holding the layer's
     dequantized positions ``[0, offset)`` and the exact chunk; the chunk is
@@ -236,63 +238,51 @@ def transformer_forward(params: dict, cfg: BackboneConfig, hidden: torch.Tensor,
                     q.contiguous(), cache["k"], cache["v"], k_cols[l], v_cols[l], prefix_ends, l)
             return attend
     elif pooled:
-        k_cols = torch.empty((L, B, W), dtype=cache["k_stage"].dtype, device=dev)
-        v_cols = torch.empty_like(k_cols)
-
+        # The kernel stores each row's columns in its ring slot ring_len[b];
+        # V stays a row view of the qkv projection's output.
         def attend_for(l):
             def attend(q, k, v):
-                k_cols[l] = k.reshape(B, W)
-                v_cols[l] = v.reshape(B, W)
                 if kv_int8:
                     return decode_attention_pooled_staged_q(
                         q, cache["k"], cache["v"], cache["k_scale"], cache["v_scale"],
-                        cache["k_stage"], cache["v_stage"], k_cols[l], v_cols[l], bases,
-                        ring_len, l)
+                        cache["k_stage"], cache["v_stage"], k.reshape(B, W), v.reshape(B, W),
+                        bases, ring_len, l)
                 return decode_attention_pooled_staged(
                     q, cache["k"], cache["v"], cache["k_stage"], cache["v_stage"],
-                    k_cols[l], v_cols[l], bases, ring_len, l)
+                    k.reshape(B, W), v.reshape(B, W), bases, ring_len, l)
             return attend
     else:
         if stage_base is None:
             raise ValueError("single-token decode runs on the staged cache: pass stage_base")
         stage_len = offset - stage_base
-        # (flushed_end, stage_len, layer) per layer, one copy to the device.
+        # (flushed_end, stage_len, layer) per layer, one copy to the device;
+        # the kernel stores the columns in stage slot stage_len.
         scalars = torch.tensor([[stage_base, stage_len, l] for l in range(L)],
                                dtype=torch.int32).to(dev)
-        k_cols = torch.empty((L, B, W), dtype=cache["k_stage"].dtype, device=dev)
-        v_cols = torch.empty_like(k_cols)
 
         def attend_for(l):
             def attend(q, k, v):
-                k_cols[l] = k.reshape(B, W)
-                v_cols[l] = v.reshape(B, W)
                 if kv_int8:
                     return decode_attention_layered_q(
                         q, cache["k"], cache["v"], cache["k_scale"], cache["v_scale"],
-                        cache["k_stage"], cache["v_stage"], k_cols[l], v_cols[l], scalars[l])
+                        cache["k_stage"], cache["v_stage"], k.reshape(B, W), v.reshape(B, W),
+                        scalars[l])
                 return decode_attention_layered(
                     q, cache["k"], cache["v"], cache["k_stage"], cache["v_stage"],
-                    k_cols[l], v_cols[l], scalars[l])
+                    k.reshape(B, W), v.reshape(B, W), scalars[l])
             return attend
 
     for l in range(L):
         lp = {name: {k: t[l] for k, t in leaf.items()} for name, leaf in layers.items()}
         hidden = _block(lp, cfg, hidden, attend_for(l), positions, rope)
 
-    if pooled and ring:
-        stage_splice_rows(cache["k_stage"], k_cols, ring_len)
-        stage_splice_rows(cache["v_stage"], v_cols, ring_len)
-    elif pooled:
+    if pooled and not ring:
         # Each row's columns at its own position (clamped, as JAX's
         # dynamic_update_slice clamps), one indexed copy per K and V.
         rows = torch.arange(B, device=dev)
         idx = row_pos.clamp(0, cache["k"].shape[2] - 1)
         cache["k"][:, rows, idx] = k_cols
         cache["v"][:, rows, idx] = v_cols
-    elif S == 1:
-        slot = scalars[0, 1:2]
-        stage_splice(cache["k_stage"], k_cols, slot)
-        stage_splice(cache["v_stage"], v_cols, slot)
     nf = params["norm_f"]
     return layer_norm(hidden, nf["weight"], nf["bias"], cfg.norm_epsilon)
 

@@ -37,8 +37,8 @@ Decode modes of :meth:`HybridBackbone.forward` (``S == 1``):
   attends ``[0, offset + 1)`` (no stage, as in JAX);
 * pooled ring (``positions`` and ``pool_base``): row ``b`` attends its
   flushed prefix ``[0, pool_base[b])``, its ring rows and itself; its
-  columns land in ring slot ``positions[b] - pool_base[b]``, one splice per
-  K and V for all attention layers;
+  columns land in ring slot ``positions[b] - pool_base[b]``, stored by each
+  attention layer's decode-attention call;
 * stage-less pooled (``positions`` only): row ``b`` attends ``[0,
   positions[b])`` and itself; its columns are written at ``positions[b]``
   after the stack, one indexed copy per K and V.
@@ -63,7 +63,6 @@ from ..ops.cuda.decode_attention import (
 )
 from ..ops.cuda.mamba_step import ssd_gate_step_layered
 from ..ops.cuda.prefill_attention import prefill_attention
-from ..ops.cuda.stage_write import stage_splice_rows
 from ..ops.mamba import (
     causal_conv1d,
     causal_conv1d_step,
@@ -288,8 +287,9 @@ class HybridBackbone:
         else:
             rope_pos = (offset + torch.arange(S, device=dev))[None, :].expand(B, S)
         if S == 1 and pooled:
-            k_cols = torch.empty((La, B, W), dtype=cache["k"].dtype, device=dev)
-            v_cols = torch.empty_like(k_cols)
+            if not ring:
+                k_cols = torch.empty((La, B, W), dtype=cache["k"].dtype, device=dev)
+                v_cols = torch.empty_like(k_cols)
         elif S == 1:
             seq_end = torch.tensor([offset + 1], dtype=torch.int32).to(dev)
 
@@ -299,16 +299,15 @@ class HybridBackbone:
                 kc, vc = update_kv_cache(cache["k"][j], cache["v"][j], k, v, offset)
                 y = (prefill_attention(q, kc, vc, offset) if S > 1 else
                      decode_attention_unstaged(q, cache["k"], cache["v"], seq_end, j))
+            elif ring:  # the kernel stores the columns in ring slot ring_len[b]
+                y = decode_attention_pooled_staged(
+                    q, cache["k"], cache["v"], cache["k_stage"], cache["v_stage"],
+                    k.reshape(B, W), v.reshape(B, W), prefix_ends, ring_len, j)
             else:
                 k_cols[j] = k.reshape(B, W)
                 v_cols[j] = v.reshape(B, W)
-                if ring:
-                    y = decode_attention_pooled_staged(
-                        q, cache["k"], cache["v"], cache["k_stage"], cache["v_stage"],
-                        k_cols[j], v_cols[j], prefix_ends, ring_len, j)
-                else:
-                    y = decode_attention_pooled_unstaged(
-                        q, cache["k"], cache["v"], k_cols[j], v_cols[j], prefix_ends, j)
+                y = decode_attention_pooled_unstaged(
+                    q, cache["k"], cache["v"], k_cols[j], v_cols[j], prefix_ends, j)
             return proj_matmul(y.reshape(B, S, -1), lp["out_proj"])
 
         rdtype = torch.float32 if self.cfg.residual_in_fp32 else hidden.dtype
@@ -326,16 +325,12 @@ class HybridBackbone:
                 normed = self._norm(lp["norm2"], residual.to(hidden.dtype))
                 hidden = proj_matmul(swiglu_mid(normed, lp["fc1"]), lp["fc2"])
 
-        if S == 1 and pooled and La:
-            if ring:
-                stage_splice_rows(cache["k_stage"], k_cols, ring_len)
-                stage_splice_rows(cache["v_stage"], v_cols, ring_len)
-            else:
-                # Each row's columns at its own position (clamped, as JAX's
-                # dynamic_update_slice clamps), one indexed copy per K and V.
-                rows = torch.arange(B, device=dev)
-                idx = positions.long().clamp(0, cache["k"].shape[2] - 1)
-                cache["k"][:, rows, idx] = k_cols
-                cache["v"][:, rows, idx] = v_cols
+        if S == 1 and pooled and not ring and La:
+            # Each row's columns at its own position (clamped, as JAX's
+            # dynamic_update_slice clamps), one indexed copy per K and V.
+            rows = torch.arange(B, device=dev)
+            idx = positions.long().clamp(0, cache["k"].shape[2] - 1)
+            cache["k"][:, rows, idx] = k_cols
+            cache["v"][:, rows, idx] = v_cols
         residual = hidden.to(rdtype) + residual
         return self._norm(params["norm_f"], residual.to(hidden.dtype))

@@ -46,7 +46,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "zvt_decode_attention": (_I,) * 3 + (_P,) * 14 + (_I,) * 11 + (_P,),
+    "zvt_decode_attention": (_I,) * 3 + (_P,) * 14 + (_I,) * 13 + (_P,),
     "zvt_stage_splice": (_P, _P, _P, _I, _I, _I, _P),
     "zvt_stage_splice_rows": (_P, _P, _P, _I, _I, _I, _I, _P),
     "zvt_prefill_attention": (_P,) * 4 + (_I,) * 7 + (_P,),

@@ -28,15 +28,29 @@ Each call is one launch: the kernel's split blocks meet in a per-device fp32
 workspace under one int32 ticket per (row, kv head), which the last block
 resets. Both are reused across calls, so every launch must stay on one
 stream (the caller's current one), as ``qmm_int8``'s counters must.
+
+The staged variants also do the decode step's stage write
+(``stage_splice_pallas`` / ``stage_splice_rows_pallas``, which the JAX
+package runs after the layer scan) for this call's layer, in the kernel's
+block that already holds the column (``csrc/decode_attention.cu``) with no
+launch of its own: ``stage[layer, :, stage_len] = column`` for the
+one-position variants, ``stage[layer, b, lens[b]] = column[b]`` for the
+pooled ones, from the unclamped device scalars; a slot outside
+``[0, STAGE)`` is not written. The columns may be strided row views (the
+last dimension contiguous, rows 16-byte aligned), such as the V slice of
+the fused qkv projection's output.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from ..attention import decode_attention
 from ..quant import dequantize_rows
 from . import build
+from .stage_write import stage_splice_plain, stage_splice_rows_plain
 
 # Split lengths the plan picks from, longest first; the kernel's tiles are 32
 # positions and its merge holds at most MAX_SPLITS splits of a row. The plan
@@ -52,16 +66,23 @@ from . import build
 CHUNKS = (128, 64, 32)
 SPLIT_DIMS = 128 * 64
 MAX_SPLITS = 64
-SMS = 132
+SMS = 132  # the H100 SXM's; a launch plans for its own card's count
 BLOCKS_PER_SM = 2
 _WORKSPACES: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
 
 
-def decode_plan(T: int, stage: int, B: int, Hkv: int, D: int) -> tuple[int, int, int]:
+@functools.cache
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def decode_plan(T: int, stage: int, B: int, Hkv: int, D: int,
+                sms: int = SMS) -> tuple[int, int, int]:
     """``(chunk, n_prefix_splits, n_stage_splits)`` of a launch over a cache of
     ``T`` positions and a stage of ``stage`` rows (0: none) at head dim
-    ``D``, from the shapes alone: ``ceil(T / chunk)`` prefix splits and
-    ``ceil(stage / chunk)`` stage splits, one block each per (row, kv head)."""
+    ``D`` on a card of ``sms`` SMs, from the shapes alone: ``ceil(T /
+    chunk)`` prefix splits and ``ceil(stage / chunk)`` stage splits, one
+    block each per (row, kv head)."""
     def splits(chunk):
         return -(-T // chunk), -(-stage // chunk)
 
@@ -73,7 +94,7 @@ def decode_plan(T: int, stage: int, B: int, Hkv: int, D: int) -> tuple[int, int,
             chunk += 32
         fitting = [chunk]
     for chunk in fitting:
-        if sum(splits(chunk)) * B * Hkv >= BLOCKS_PER_SM * SMS:
+        if sum(splits(chunk)) * B * Hkv >= BLOCKS_PER_SM * sms:
             break
     return (chunk, *splits(chunk))
 
@@ -88,11 +109,27 @@ def _workspace(dev: torch.device, floats: int, pairs: int) -> tuple[torch.Tensor
     return ws, tickets
 
 
+def _row_stride(name: str, col: torch.Tensor | None, dev: torch.device) -> int:
+    """The row stride, in elements, of a column ``[B, W]`` on ``dev``: its
+    last dimension contiguous and every row 16-byte aligned, for the
+    kernel's 16-byte copies."""
+    if col is None:
+        return 0
+    if col.device != dev:
+        raise ValueError(f"{name}: tensors must share one CUDA device, got {col.device}")
+    stride = col.stride(0) if col.shape[0] > 1 else col.shape[1]
+    if col.stride(1) != 1 or stride < col.shape[1] or stride % 8 or col.data_ptr() % 16:
+        raise ValueError(f"{name}: a column must be rows of contiguous elements at a stride "
+                         f"of a multiple of 8, 16-byte aligned; got strides {col.stride()}")
+    return stride
+
+
 def _launch(name: str, launch_key: str, *, quant: bool, pooled: bool, q, k_cache, v_cache,
             k_scale=None, v_scale=None, k_stage=None, v_stage=None, k_cur=None, v_cur=None,
             scalars, lens=None, layer: int = 0) -> torch.Tensor:
     """Launches the kernel for ``q [B, 1, Hq, D]`` on ``q``'s device and
-    counts the launch. ``scalars`` (and ``lens``) are device int32 tensors."""
+    counts the launch. ``scalars`` (and ``lens``) are device int32 tensors;
+    ``k_cur``/``v_cur`` may be strided row views."""
     B, _, Hq, D = q.shape
     L, _, T, W = k_cache.shape
     Hkv = W // D
@@ -100,9 +137,9 @@ def _launch(name: str, launch_key: str, *, quant: bool, pooled: bool, q, k_cache
     STAGE = k_stage.shape[2] if staged else 0
     if quant and STAGE < 1:
         raise ValueError(f"{name}: the int8 kernels take a stage of at least one row")
-    tensors = [t for t in (k_cache, v_cache, k_scale, v_scale, k_stage, v_stage, k_cur, v_cur)
-               if t is not None]
+    tensors = [t for t in (k_cache, v_cache, k_scale, v_scale, k_stage, v_stage) if t is not None]
     dev = build.require_cuda(name, q, *tensors)
+    k_stride, v_stride = _row_stride(name, k_cur, dev), _row_stride(name, v_cur, dev)
     exact = [q, k_stage, v_stage, k_cur, v_cur] + ([] if quant else [k_cache, v_cache])
     for t in exact:
         if t is not None and t.dtype != torch.bfloat16:
@@ -111,7 +148,7 @@ def _launch(name: str, launch_key: str, *, quant: bool, pooled: bool, q, k_cache
     for t in (scalars, lens):
         if t is not None and (t.device != dev or not t.is_contiguous()):
             raise ValueError(f"{name}: device scalars must be contiguous on the card")
-    chunk, n_prefix, n_stage = decode_plan(T, STAGE, B, Hkv, D)
+    chunk, n_prefix, n_stage = decode_plan(T, STAGE, B, Hkv, D, _sm_count(dev))
     ws, tickets = _workspace(dev, B * Hkv * (n_prefix + n_stage) * (Hq // Hkv) * (D + 2),
                              B * Hkv)
     out = torch.empty((B, 1, Hq, D), dtype=q.dtype, device=dev)
@@ -123,8 +160,8 @@ def _launch(name: str, launch_key: str, *, quant: bool, pooled: bool, q, k_cache
         int(quant), int(pooled), int(staged), q.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), ptr(k_scale), ptr(v_scale), ptr(k_stage), ptr(v_stage), ptr(k_cur),
         ptr(v_cur), scalars.data_ptr(), ptr(lens), ws.data_ptr(), tickets.data_ptr(),
-        out.data_ptr(), B, Hq, Hkv, L, T, STAGE, D, layer, chunk, n_prefix, n_stage,
-        build.stream_handle(dev))
+        out.data_ptr(), B, Hq, Hkv, L, T, STAGE, D, layer, chunk, n_prefix, n_stage, k_stride,
+        v_stride, build.stream_handle(dev))
     build.check_status(name, rc)
     build.LAUNCHES[launch_key] += 1
     return out
@@ -140,30 +177,52 @@ def _layered_bounds(scalars, T: int, STAGE: int, L: int, name: str) -> tuple[int
     return min(max(flushed_end, 0), T), min(max(stage_len, 0), STAGE), layer
 
 
+def _write_stage_plain(k_stage, v_stage, k_cur, v_cur, layer: int, slot: int) -> None:
+    """The one-position stage write's plain version: ``stage_splice_plain``
+    on layer ``layer``'s plane; a slot outside ``[0, STAGE)`` writes
+    nothing, as in the kernel."""
+    if 0 <= slot < k_stage.shape[2]:
+        for stage, col in ((k_stage, k_cur), (v_stage, v_cur)):
+            stage_splice_plain(stage[layer:layer + 1], col[None], slot)
+
+
+def _write_rows_plain(k_stage, v_stage, k_cur, v_cur, layer: int, lens) -> None:
+    """The pooled stage write's plain version: ``stage_splice_rows_plain``
+    on layer ``layer``'s plane (row ``b`` at slot ``lens[b]``)."""
+    for stage, col in ((k_stage, k_cur), (v_stage, v_cur)):
+        stage_splice_rows_plain(stage[layer:layer + 1], col[None], lens)
+
+
 def decode_attention_layered_plain(q, k_cache, v_cache, k_stage, v_stage, k_cur,
                                    v_cur, scalars) -> torch.Tensor:
-    """Dense reference: gather the three parts and attend over all of them."""
+    """Dense reference: gather the three parts and attend over all of them;
+    then the stage write."""
     flushed_end, stage_len, layer = _layered_bounds(scalars, k_cache.shape[2], k_stage.shape[2],
                                                     k_cache.shape[0], "decode_attention_layered")
     k = torch.cat([k_cache[layer, :, :flushed_end], k_stage[layer, :, :stage_len],
                    k_cur[:, None]], dim=1)
     v = torch.cat([v_cache[layer, :, :flushed_end], v_stage[layer, :, :stage_len],
                    v_cur[:, None]], dim=1)
-    return decode_attention(q, k, v, flushed_end + stage_len + 1)
+    out = decode_attention(q, k, v, flushed_end + stage_len + 1)
+    _write_stage_plain(k_stage, v_stage, k_cur, v_cur, layer, int(scalars[1]))
+    return out
 
 
 def decode_attention_layered(q, k_cache, v_cache, k_stage, v_stage, k_cur, v_cur,
                              scalars) -> torch.Tensor:
-    """Decode attention for one layer of the stacked cache.
+    """Decode attention for one layer of the stacked cache, and the stage
+    write of its column.
 
     Args:
       q: ``[B, 1, Hq, D]``.
       k_cache, v_cache: ``[L, B, T, Hkv*D]`` flushed prefix (read only).
       k_stage, v_stage: ``[L, B, STAGE, Hkv*D]`` unflushed tail.
-      k_cur, v_cur: ``[B, Hkv*D]`` this step's column.
+      k_cur, v_cur: ``[B, Hkv*D]`` this step's column (row views allowed).
       scalars: int32 ``[3]``: ``(flushed_end, stage_len, layer)``.
-    Returns ``[B, 1, Hq, D]``. CPU tensors take the plain version; CUDA
-    tensors launch the kernel (bf16, D = 64 or 128) or raise.
+    The column is also stored at ``stage[layer, :, stage_len]`` (unclamped;
+    nothing outside ``[0, STAGE)``). Returns ``[B, 1, Hq, D]``. CPU tensors
+    take the plain version; CUDA tensors launch the kernel (bf16, D = 64 or
+    128) or raise.
     """
     B, S, Hq, D = q.shape
     L, Bc, T, W = k_cache.shape
@@ -185,7 +244,8 @@ def decode_attention_layered_q_plain(q, k_cache, v_cache, k_scale, v_scale, k_st
                                      k_cur, v_cur, scalars) -> torch.Tensor:
     """Dense reference: the layer's prefix dequantized to fp32, the stage
     rows and the current column widened to fp32, attention in fp32 with the
-    probabilities kept fp32 (as the Pallas ``_kernel_layered_q`` does)."""
+    probabilities kept fp32 (as the Pallas ``_kernel_layered_q`` does); then
+    the stage write."""
     flushed_end, stage_len, layer = _layered_bounds(scalars, k_cache.shape[2], k_stage.shape[2],
                                                     k_cache.shape[0], "decode_attention_layered_q")
     k = torch.cat([dequantize_rows(k_cache[layer, :, :flushed_end],
@@ -194,7 +254,9 @@ def decode_attention_layered_q_plain(q, k_cache, v_cache, k_scale, v_scale, k_st
     v = torch.cat([dequantize_rows(v_cache[layer, :, :flushed_end],
                                    v_scale[layer, :, :flushed_end]),
                    v_stage[layer, :, :stage_len].float(), v_cur.float()[:, None]], dim=1)
-    return decode_attention(q, k, v, flushed_end + stage_len + 1)
+    out = decode_attention(q, k, v, flushed_end + stage_len + 1)
+    _write_stage_plain(k_stage, v_stage, k_cur, v_cur, layer, int(scalars[1]))
+    return out
 
 
 def decode_attention_layered_q(q, k_cache, v_cache, k_scale, v_scale, k_stage, v_stage,
@@ -207,8 +269,9 @@ def decode_attention_layered_q(q, k_cache, v_cache, k_scale, v_scale, k_stage, v
     ``k_scale``/``v_scale`` ``[L, B, T, Hkv]``; key scales multiply the
     scores after q.k, value scales the probabilities before p.v. The stage
     and the current column are exact (bf16 on the card). Only positions below
-    ``flushed_end`` of the prefix and its scales are read. CPU tensors take
-    the plain version; CUDA tensors launch the kernel or raise.
+    ``flushed_end`` of the prefix and its scales are read; the stage write
+    as there. CPU tensors take the plain version; CUDA tensors launch the
+    kernel or raise.
     """
     B, S, Hq, D = q.shape
     L, Bc, T, W = k_cache.shape
@@ -241,13 +304,15 @@ def _pooled_bounds(bases, lens, T: int, STAGE: int):
 def decode_attention_pooled_staged_plain(q, k_cache, v_cache, k_stage, v_stage, k_cur, v_cur,
                                          bases, lens, layer: int) -> torch.Tensor:
     """Dense reference: for each row gather its prefix, ring rows and column
-    and attend over them (as :func:`decode_attention_layered_plain`)."""
+    and attend over them (as :func:`decode_attention_layered_plain`); then
+    the stage write."""
     outs = []
     for b, (fe, sl) in enumerate(_pooled_bounds(bases, lens, k_cache.shape[2],
                                                 k_stage.shape[2])):
         k = torch.cat([k_cache[layer, b, :fe], k_stage[layer, b, :sl], k_cur[b, None]])
         v = torch.cat([v_cache[layer, b, :fe], v_stage[layer, b, :sl], v_cur[b, None]])
         outs.append(decode_attention(q[b, None], k[None], v[None], fe + sl + 1))
+    _write_rows_plain(k_stage, v_stage, k_cur, v_cur, layer, lens)
     return torch.cat(outs)
 
 
@@ -256,7 +321,8 @@ def decode_attention_pooled_staged_q_plain(q, k_cache, v_cache, k_scale, v_scale
                                            layer: int) -> torch.Tensor:
     """Dense reference per row: the prefix dequantized to fp32, ring rows and
     column widened to fp32, attention in fp32 with the probabilities kept
-    fp32 (as the Pallas ``_kernel_pooled_staged_q`` does)."""
+    fp32 (as the Pallas ``_kernel_pooled_staged_q`` does); then the stage
+    write."""
     outs = []
     for b, (fe, sl) in enumerate(_pooled_bounds(bases, lens, k_cache.shape[2],
                                                 k_stage.shape[2])):
@@ -265,6 +331,7 @@ def decode_attention_pooled_staged_q_plain(q, k_cache, v_cache, k_scale, v_scale
         v = torch.cat([dequantize_rows(v_cache[layer, b, :fe], v_scale[layer, b, :fe]),
                        v_stage[layer, b, :sl].float(), v_cur[b, None].float()])
         outs.append(decode_attention(q[b, None], k[None], v[None], fe + sl + 1))
+    _write_rows_plain(k_stage, v_stage, k_cur, v_cur, layer, lens)
     return torch.cat(outs)
 
 
@@ -287,19 +354,22 @@ def _check_pooled(name, q, k_cache, v_cache, k_stage, v_stage, k_cur, v_cur, bas
 
 def decode_attention_pooled_staged(q, k_cache, v_cache, k_stage, v_stage, k_cur, v_cur,
                                    bases, lens, layer: int) -> torch.Tensor:
-    """Pooled decode attention for layer ``layer`` of the stacked cache.
+    """Pooled decode attention for layer ``layer`` of the stacked cache, and
+    the stage write of each row's column.
 
     Args:
       q: ``[B, 1, Hq, D]``.
       k_cache, v_cache: ``[L, B, T, Hkv*D]`` flushed prefixes (read only).
       k_stage, v_stage: ``[L, B, STAGE, Hkv*D]`` per-row ring stages.
-      k_cur, v_cur: ``[B, Hkv*D]`` this step's columns.
+      k_cur, v_cur: ``[B, Hkv*D]`` this step's columns (row views allowed).
       bases: int32 ``[B]``, row ``b``'s flushed watermark: it attends prefix
         positions ``[0, bases[b])`` and nothing of the prefix past them.
       lens: int32 ``[B]``, row ``b``'s valid ring rows ``[0, lens[b])``.
       layer: host int in ``[0, L)``.
-    Returns ``[B, 1, Hq, D]``. CPU tensors take the plain version; CUDA
-    tensors launch the kernel (bf16, D = 64 or 128) or raise.
+    Row ``b``'s column is also stored at ``stage[layer, b, lens[b]]``
+    (unclamped; nothing outside ``[0, STAGE)``). Returns ``[B, 1, Hq, D]``.
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (bf16, D = 64 or 128) or raise.
     """
     _check_pooled("decode_attention_pooled_staged", q, k_cache, v_cache, k_stage, v_stage,
                   k_cur, v_cur, bases, lens, layer)
@@ -322,8 +392,9 @@ def decode_attention_pooled_staged_q(q, k_cache, v_cache, k_scale, v_scale, k_st
     ``k_scale``/``v_scale`` ``[L, B, T, Hkv]`` (key scales multiply the
     scores after q.k, value scales the probabilities before p.v); the ring
     stages and the columns are exact (bf16 on the card). Nothing of the
-    prefix or its scales at or past ``bases[b]`` is read. CPU tensors take
-    the plain version; CUDA tensors launch the kernel or raise.
+    prefix or its scales at or past ``bases[b]`` is read; the stage write as
+    there. CPU tensors take the plain version; CUDA tensors launch the
+    kernel or raise.
     """
     dims = _check_pooled("decode_attention_pooled_staged_q", q, k_cache, v_cache, k_stage,
                          v_stage, k_cur, v_cur, bases, lens, layer)
