@@ -69,6 +69,18 @@ Phases, each of which fails the run loudly:
    against the ring mode's from the same state; with plain attention the
    two modes must agree exactly, and with each stage-less column written
    one position off they must differ by more than the limit.
+   Every solo path and every pool runs twice on the same seed and inputs:
+   through its entry point, which on the card captures one decode step as
+   a CUDA graph and replays it (``engine/graphs.py``), and eagerly
+   (``DecodeEngine(..., cuda_graphs=False)``, ``make_pool(...,
+   cuda_graphs=False)``). The codes must be equal, both runs' launch counts
+   must equal the same expected counts (a replayed step counts the
+   launches its capture recorded), and the graph run must have replayed
+   every step after its first; the run prints both runs' ms/step beside the
+   step's bound, the capture time and the stop test's host reads. The bf16
+   main path also streams: ``generate_stream`` in 43-step chunks, whose
+   last cumulative codes equal the one-shot codes, and the pipeline's
+   audio stream against one-shot audio, with the times to the first chunk.
 4. Timing: each kernel, its plain version and the one PyTorch call that
    computes the same function, at the shapes the main path gave it, beside
    the least time the card could take for the same work; the staged
@@ -85,8 +97,10 @@ Phases, each of which fails the run loudly:
    so each launch reads its state from device memory; no single PyTorch
    call computes it, so it has no library time).
 
-The second-to-last line is ``{"kernels": [...]}``, the line before it the
-card's name and power limit, and the last line
+Before them a ``{"graphs": ...}`` line gathers each path's eager and graph
+ms/step, bound, capture time and host reads. The second-to-last line is
+``{"kernels": [...]}``, the line before it the card's name and power limit,
+and the last line
 ``{"ok": true, "device": {...}}``. Each kernel's ``launches`` in the
 kernels line is one path's count: the pool kernels' that of their own pool
 run (``stage_splice_rows``: the bf16 pool's), ``qmm_int8``'s the solo int8
@@ -821,6 +835,59 @@ def check_backbone_against_cpu(int8: bool = False) -> float:
     return worst
 
 
+# The least time a decode step could take (PERF.md section 2): the weights
+# read once per step at 3.35 TB/s, with the hybrid's fp32 SSM state read
+# and written (CFG batch 2 solo, 16 rows pooled). KV reads are left out.
+STEP_BOUND_MS = {"bf16": 0.955, "int8": 0.478, "hybrid": 0.89 + 0.105}
+POOL_STEP_BOUND_MS = {"bf16": 0.955, "int8": 0.478, "hybrid": 0.89 + 0.84}
+
+
+def graph_against_eager(label: str, model, params, prefix, graph, want: dict, per_step: dict,
+                        bound_ms: float, card: str, **engine_kw) -> dict:
+    """The eager counterpart of a counted generate that replayed its
+    captured step (``graph``): the same seed and inputs through
+    ``DecodeEngine(cuda_graphs=False)``. Codes, valid lengths and steps must
+    be equal, the eager run's launch counts must equal ``want`` as the graph
+    run's do (the eager steps' plus the captured step's ``per_step`` times
+    the replays), and the graph run must have replayed every step after its
+    first. Returns the two runs' numbers."""
+    import torch
+
+    from zonos_vibes_tpu_torch.engine.generate import DecodeEngine
+    from zonos_vibes_tpu_torch.ops.cuda import build
+
+    engine = DecodeEngine(model, cuda_graphs=False, **engine_kw)
+    engine.generate(params, prefix, generator=torch.Generator("cuda").manual_seed(1),
+                    max_new_tokens=8, disable_eos=True)
+    build.reset_launches()
+    eager = engine.generate(params, prefix, generator=torch.Generator("cuda").manual_seed(421),
+                            max_new_tokens=AUDIO_FRAMES, disable_eos=True)
+    launches = dict(build.LAUNCHES)
+    steps = graph.steps
+    if (eager.steps != steps or not torch.equal(eager.codes, graph.codes)
+            or eager.valid_length != graph.valid_length
+            or not torch.equal(eager.valid_lengths, graph.valid_lengths)):
+        raise AssertionError(f"{label}: graph codes differ from the eager run's (steps {steps} "
+                             f"vs {eager.steps})")
+    if launches != want:
+        raise AssertionError(f"{label} eager launch counts {launches}, expected {want}")
+    if (eager.replays, graph.replays) != (0, steps - 1) or graph.step_launches != per_step:
+        raise AssertionError(f"{label}: {graph.replays} replays of {steps} steps capturing "
+                             f"{graph.step_launches}, expected {steps - 1} of {per_step}")
+    out = {"eager_ms_per_step": eager.decode_seconds * 1e3 / steps,
+           "graph_ms_per_step": (graph.decode_seconds - graph.capture_seconds) * 1e3 / steps,
+           "capture_ms": graph.capture_seconds * 1e3, "reads": graph.host_reads,
+           "eager_reads": eager.host_reads, "bound_ms": bound_ms, "replays": graph.replays,
+           "step_launches": graph.step_launches}
+    log(f"graphs {label} ({card}): {steps} steps, codes equal to the eager run's; eager "
+        f"{out['eager_ms_per_step']:.3f} ms/step, graph {out['graph_ms_per_step']:.3f} ms/step "
+        f"(capture {out['capture_ms']:.1f} ms once, not in the figure; with it "
+        f"{graph.decode_seconds * 1e3 / steps:.3f}), bound {bound_ms:.3f} ms/step; host reads "
+        f"per generate {graph.host_reads} (eager {eager.host_reads}); {graph.replays} replays "
+        f"of {per_step} + the eager steps' launches = {want}")
+    return out
+
+
 def run_main_path(card: str):
     """Phase 3: text -> codes -> WAV through the pipeline, counted. Returns
     the pipeline, the cond dict and the numbers."""
@@ -871,6 +938,10 @@ def run_main_path(card: str):
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.wav").write_bytes(wav_bytes(wav[0], pipe.dac.sampling_rate))
+    prefix = pipe.prepare_conditioning(cond)
+    graphs = graph_against_eager("bf16", pipe.model, pipe.params, prefix, result, want,
+                                 {"decode_attention": L}, STEP_BOUND_MS["bf16"], card)
+    stream = run_stream(pipe, cond, result, card)
 
     audio_s = wav.shape[-1] / pipe.dac.sampling_rate
     e2e = {
@@ -878,13 +949,68 @@ def run_main_path(card: str):
         "prefill_ms": result.prefill_seconds * 1e3,
         "decode_ms_per_step": result.decode_seconds * 1e3 / steps,
         "generate_s": t_gen, "dac_ms": t_dac * 1e3, "rtf": audio_s / (t_gen + t_dac),
-        "launches": launches,
+        "launches": launches, "graphs": graphs, "stream": stream,
     }
     log(f"e2e ({card}): text -> {audio_s:.2f} s of audio; cond_len {cond_len}, "
         f"{steps} decode steps; prefill {e2e['prefill_ms']:.2f} ms, decode "
         f"{e2e['decode_ms_per_step']:.3f} ms/step, DAC {e2e['dac_ms']:.1f} ms, "
         f"RTF {e2e['rtf']:.3f}; launches {launches}")
     return pipe, cond, e2e
+
+
+STREAM_AUDIO_TOL = 1e-3  # fp32 DAC; cuDNN may pick other algorithms for the shorter windows
+
+
+def run_stream(pipe, cond, one_shot, card: str) -> dict:
+    """Phase 3, streaming on the bf16 main path. ``pipe.engine.generate_stream``
+    with the one-shot run's seed and inputs, in 43-step chunks: every yield
+    cumulative, the last one's codes equal to the one-shot codes. Then
+    ``pipe.generate_stream`` (EOS on, as its JAX counterpart has no
+    ``disable_eos``) against one-shot ``generate`` + ``decode_audio`` with the
+    same seed: the concatenated chunks equal its waveform within
+    ``STREAM_AUDIO_TOL``. Returns the times to the first chunk."""
+    import numpy as np
+    import torch
+
+    prefix = pipe.prepare_conditioning(cond)
+    torch.cuda.synchronize()
+    chunks, t0 = [], time.perf_counter()
+    for res in pipe.engine.generate_stream(
+            pipe.params, prefix, generator=torch.Generator("cuda").manual_seed(421),
+            max_new_tokens=AUDIO_FRAMES, disable_eos=True, chunk_steps=POOL_SEGMENT):
+        chunks.append((time.perf_counter() - t0, res))  # each yield follows a device sync
+    final = chunks[-1][1]
+    if (len(chunks) != -(-one_shot.steps // POOL_SEGMENT) or final.steps != one_shot.steps
+            or not torch.equal(final.codes, one_shot.codes)):
+        raise AssertionError(f"stream: {len(chunks)} chunks of {final.steps} steps, codes "
+                             f"differ from the one-shot run's {one_shot.steps} steps")
+    for _, res in chunks:
+        n = res.valid_length
+        if not torch.equal(res.codes[..., :n], final.codes[..., :n]):
+            raise AssertionError(f"stream: a chunk's first {n} frames differ from the final codes")
+
+    kw = dict(max_new_tokens=AUDIO_FRAMES)
+    ref = pipe.decode_audio(pipe.generate(cond, generator=torch.Generator("cuda").manual_seed(421),
+                                          **kw))
+    pieces, t1 = [], time.perf_counter()
+    for piece in pipe.generate_stream(cond, generator=torch.Generator("cuda").manual_seed(421),
+                                      **kw):
+        pieces.append((time.perf_counter() - t1, piece))
+    got = np.concatenate([p for _, p in pieces], axis=-1)
+    diff = float(np.abs(got - ref).max()) if got.shape == ref.shape and got.size else float("inf")
+    if not np.isfinite(got).all() or diff > STREAM_AUDIO_TOL:
+        raise AssertionError(f"stream audio: shape {got.shape} vs {ref.shape}, max |diff| {diff}")
+    out = {"chunks": len(chunks), "first_chunk_ms": chunks[0][0] * 1e3,
+           "stream_ms": chunks[-1][0] * 1e3, "audio_chunks": len(pieces),
+           "first_audio_ms": pieces[0][0] * 1e3, "audio_s": got.shape[-1] / pipe.dac.sampling_rate,
+           "audio_max_diff": diff}
+    log(f"stream bf16 ({card}): {len(chunks)} chunks of {POOL_SEGMENT} steps, codes equal to "
+        f"the one-shot run's; first chunk after {out['first_chunk_ms']:.1f} ms (prefill, capture "
+        f"and {POOL_SEGMENT} steps), all {final.steps} steps after {out['stream_ms']:.1f} ms; "
+        f"pipeline audio stream: first of {len(pieces)} chunks after "
+        f"{out['first_audio_ms']:.1f} ms, {out['audio_s']:.2f} s of audio, max |diff| to the "
+        f"one-shot waveform {diff:.3e} <= {STREAM_AUDIO_TOL}")
+    return out
 
 
 def param_bytes(tree) -> int:
@@ -980,6 +1106,9 @@ def run_int8_path(pipe, cond, card: str) -> dict:
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_int8.wav").write_bytes(wav_bytes(wav[0], pipe.dac.sampling_rate))
+    graphs = graph_against_eager("int8", pipe.model, pipe.params, prefix, result, want,
+                                 {"decode_attention_q": L, "qmm_int8": 4 * L + 1},
+                                 STEP_BOUND_MS["int8"], card, kv_int8=True)
 
     audio_s = wav.shape[-1] / pipe.dac.sampling_rate
     e2e = {
@@ -987,7 +1116,7 @@ def run_int8_path(pipe, cond, card: str) -> dict:
         "prefill_ms": result.prefill_seconds * 1e3,
         "decode_ms_per_step": result.decode_seconds * 1e3 / steps,
         "generate_s": t_gen, "dac_ms": t_dac * 1e3, "rtf": audio_s / (t_gen + t_dac),
-        "launches": launches, "tvd": mean_tvd,
+        "launches": launches, "tvd": mean_tvd, "graphs": graphs,
     }
     log(f"e2e int8 ({card}): text -> {audio_s:.2f} s of audio; cond_len {cond_len}, "
         f"{steps} decode steps; prefill {e2e['prefill_ms']:.2f} ms, decode "
@@ -1026,8 +1155,9 @@ def run_pool(pipe, card: str, kv_int8: bool, hybrid: bool = False) -> dict:
             2.0, SamplingParams(min_p=0.1), kv_int8=kv_int8)
         plib.join(pool, req, s, conds[s].shape[1], 1000 + s, knobs)
 
-    def new_pool():
-        pool = plib.make_pool(model, pc, conds[0].dtype, kv_int8=kv_int8, device="cuda")
+    def new_pool(graphs: bool = True):
+        pool = plib.make_pool(model, pc, conds[0].dtype, kv_int8=kv_int8, device="cuda",
+                              cuda_graphs=graphs)
         if pool["cache"]["k"].shape[2] != POOL_T:
             raise AssertionError(f"pool cache length {pool['cache']['k'].shape[2]} != {POOL_T}")
         return pool
@@ -1041,39 +1171,62 @@ def run_pool(pipe, card: str, kv_int8: bool, hybrid: bool = False) -> dict:
     del pool
     torch.cuda.empty_cache()
 
-    pool = new_pool()
-    kv_bytes = sum(t.numel() * t.element_size() for t in pool["cache"].values())
-    torch.cuda.synchronize()
-    build.reset_launches()
-    joins = steps = step_qmm = 0
-    t_join = t_steps = 0.0
-    t_window = time.perf_counter()
-    for seg in range(POOL_SLOTS + AUDIO_FRAMES // POOL_SEGMENT + 4):
-        if seg < POOL_SLOTS:
-            t0 = time.perf_counter()
-            join(pool, seg)
-            torch.cuda.synchronize()
-            t_join += time.perf_counter() - t0
-            joins += 1
-            if hybrid and seg == POOL_SLOTS - 1:
-                snapshot = {k: v.clone() for k, v in pool["cache"].items()}
-                snapshot.update(pos=pool["pos"].clone(), cfg_scale=pool["knobs"]["cfg_scale"])
-        elif all(plib.row_finished(pool, s) for s in range(POOL_SLOTS)):
-            break
-        t0 = time.perf_counter()
-        qmm_before = build.LAUNCHES["qmm_int8"]
-        steps += plib.pool_steps(model, params, pool, POOL_SEED, POOL_SEGMENT)
-        step_qmm += build.LAUNCHES["qmm_int8"] - qmm_before
+    def staggered(graphs: bool) -> dict:
+        """The counted schedule: one join per segment, then segments until
+        every row finishes. Returns its numbers, the rows' codes and (for the
+        hybrid) the state right after the last join."""
+        pool = new_pool(graphs)
+        out = {"kv_bytes": sum(t.numel() * t.element_size() for t in pool["cache"].values())}
         torch.cuda.synchronize()
-        t_steps += time.perf_counter() - t0
-        if seg == POOL_SLOTS - 1:  # every row joined: the spread the kernels are timed at
-            bases_mid = pool["flush_base"].tolist()
-    launches = dict(build.LAUNCHES)
-    t_window = time.perf_counter() - t_window
-    if not all(plib.row_finished(pool, s) for s in range(POOL_SLOTS)):
-        raise AssertionError(f"{label}: rows still running after {steps} steps")
-    alloc = torch.cuda.memory_allocated()
+        build.reset_launches()
+        joins = steps = step_qmm = segments = 0
+        t_join = t_steps = 0.0
+        t_window = time.perf_counter()
+        for seg in range(POOL_SLOTS + AUDIO_FRAMES // POOL_SEGMENT + 4):
+            if seg < POOL_SLOTS:
+                t0 = time.perf_counter()
+                join(pool, seg)
+                torch.cuda.synchronize()
+                t_join += time.perf_counter() - t0
+                joins += 1
+                if hybrid and seg == POOL_SLOTS - 1:
+                    snapshot = {k: v.clone() for k, v in pool["cache"].items()}
+                    snapshot.update(pos=pool["pos"].clone(), cfg_scale=pool["knobs"]["cfg_scale"])
+                    out["snapshot"] = snapshot
+            elif all(plib.row_finished(pool, s) for s in range(POOL_SLOTS)):
+                break
+            t0 = time.perf_counter()
+            qmm_before = build.LAUNCHES["qmm_int8"]
+            steps += plib.pool_steps(model, params, pool, POOL_SEED, POOL_SEGMENT)
+            segments += 1
+            step_qmm += build.LAUNCHES["qmm_int8"] - qmm_before
+            torch.cuda.synchronize()
+            t_steps += time.perf_counter() - t0
+            if seg == POOL_SLOTS - 1:  # every row joined: the spread the kernels are timed at
+                out["bases_mid"] = pool["flush_base"].tolist()
+        out["launches"] = dict(build.LAUNCHES)
+        out["t_window"] = time.perf_counter() - t_window
+        if not all(plib.row_finished(pool, s) for s in range(POOL_SLOTS)):
+            raise AssertionError(f"{label}: rows still running after {steps} steps")
+        out["alloc"] = torch.cuda.memory_allocated()
+        runners = pool["graphs"].values()
+        out.update(joins=joins, steps=steps, step_qmm=step_qmm, t_join=t_join, t_steps=t_steps,
+                   segments=segments,
+                   host_reads=pool["host_reads"], rows=[plib.extract_row(model, pool, s)
+                                                         for s in range(POOL_SLOTS)],
+                   graphs=len(runners), replays=sum(r.replays for r in runners),
+                   capture_ms=sum(r.capture_seconds for r in runners) * 1e3,
+                   step_launches=[r.step_launches for r in runners])
+        del pool
+        torch.cuda.empty_cache()
+        return out
 
+    run = staggered(graphs=True)
+    eager = staggered(graphs=False)
+    joins, steps, launches = run["joins"], run["steps"], run["launches"]
+    step_qmm, t_steps, t_join = run["step_qmm"], run["t_steps"], run["t_join"]
+    t_window = run["t_window"]
+    kv_bytes, alloc, bases_mid = run["kv_bytes"], run["alloc"], run["bases_mid"]
     want = {"decode_attention": 0, "decode_attention_q": 0, "stage_splice": 0,
             "prefill_attention": n_attn * joins,
             "qmm_int8": (4 * L + 1) * (joins + steps) * kv_int8,
@@ -1085,12 +1238,40 @@ def run_pool(pipe, card: str, kv_int8: bool, hybrid: bool = False) -> dict:
     if launches != want or step_qmm != (4 * L + 1) * steps * kv_int8:
         raise AssertionError(f"{label} launch counts {launches} ({step_qmm} qmm_int8 in the "
                              f"pooled steps), expected {want}")
+    per_step = {k: v // steps for k, v in want.items() if k != "prefill_attention" and v}
+    if kv_int8:
+        per_step["qmm_int8"] = 4 * L + 1
+    if (eager["launches"] != want or eager["steps"] != steps or eager["replays"]
+            or any(r != per_step for r in run["step_launches"])
+            or run["replays"] != steps - run["graphs"]):
+        raise AssertionError(f"{label}: eager run {eager['steps']} steps, launches "
+                             f"{eager['launches']}; graph run {run['replays']} replays of "
+                             f"{run['step_launches']}, expected {steps - run['graphs']} of "
+                             f"{per_step}")
+    for s, ((codes, valid), (e_codes, e_valid)) in enumerate(zip(run["rows"], eager["rows"])):
+        if valid != e_valid or not torch.equal(codes, e_codes):
+            raise AssertionError(f"{label} row {s}: graph codes ({valid} frames) differ from "
+                                 f"the eager run's ({e_valid} frames)")
+    graphs = {"eager_ms_per_step": eager["t_steps"] * 1e3 / steps,
+              "graph_ms_per_step": (t_steps - run["capture_ms"] / 1e3) * 1e3 / steps,
+              "capture_ms": run["capture_ms"], "graphs": run["graphs"],
+              "reads_per_segment": run["host_reads"] / run["segments"],
+              "reads": run["host_reads"], "eager_reads": eager["host_reads"],
+              "bound_ms": POOL_STEP_BOUND_MS["hybrid" if hybrid else "int8" if kv_int8 else "bf16"],
+              "replays": run["replays"]}
+    log(f"graphs {label} ({card}): {steps} pooled steps, every row's codes equal to the eager "
+        f"run's; eager {graphs['eager_ms_per_step']:.3f} ms/step, graph "
+        f"{graphs['graph_ms_per_step']:.3f} ms/step ({run['graphs']} graphs captured in "
+        f"{graphs['capture_ms']:.1f} ms, not in the figure), bound {graphs['bound_ms']:.3f} "
+        f"ms/step (weights{' and fp32 state' if hybrid else ''}); host reads {run['host_reads']} "
+        f"(eager {eager['host_reads']}) in {run['segments']} segments of {steps} steps; "
+        f"{run['replays']} replays of {per_step} "
+        f"+ the eager steps' launches = {want}")
 
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     frames = []
-    for s in range(POOL_SLOTS):
-        codes, valid = plib.extract_row(model, pool, s)
+    for s, (codes, valid) in enumerate(run["rows"]):
         if valid <= 0 or valid > AUDIO_FRAMES or int(codes.min()) < 0 or int(codes.max()) >= 1024:
             raise AssertionError(f"{label} row {s}: {valid} frames, codes out of range")
         if s == 0:
@@ -1106,8 +1287,6 @@ def run_pool(pipe, card: str, kv_int8: bool, hybrid: bool = False) -> dict:
         (out_dir / f"chip_smoke_pool{suffix}_row{s}.wav").write_bytes(
             wav_bytes(wav, pipe.dac.sampling_rate))
         frames.append(valid)
-    del pool
-    torch.cuda.empty_cache()
 
     e2e = {"joins": joins, "steps": steps, "frames": frames,
            "ms_per_step": t_steps * 1e3 / steps,
@@ -1115,9 +1294,9 @@ def run_pool(pipe, card: str, kv_int8: bool, hybrid: bool = False) -> dict:
            "audio_s_per_s_window": sum(frames) / FRAME_RATE / t_window,
            "prefill_join_ms": t_join * 1e3 / joins, "kv_cache_bytes": kv_bytes,
            "memory_allocated": alloc, "bases_mid": bases_mid, "launches": launches,
-           "step_qmm_launches": step_qmm}
+           "step_qmm_launches": step_qmm, "graphs": graphs}
     if hybrid:
-        e2e["snapshot"] = snapshot
+        e2e["snapshot"] = run["snapshot"]
     log(f"e2e {label} ({card}): {joins} requests x {AUDIO_FRAMES} frames max, one join per "
         f"{POOL_SEGMENT}-step segment; {steps} pooled steps at {e2e['ms_per_step']:.3f} ms/step; "
         f"valid frames {frames}; aggregate {e2e['audio_s_per_s']:.3f} audio-s/s over the pooled "
@@ -1443,6 +1622,10 @@ def run_hybrid_path(card: str):
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_hybrid.wav").write_bytes(wav_bytes(wav[0], pipe.dac.sampling_rate))
+    graphs = graph_against_eager("hybrid", pipe.model, pipe.params,
+                                 pipe.prepare_conditioning(cond), result, want,
+                                 {"decode_attention_unstaged": H_LA, "ssd_gate_step": H_M},
+                                 STEP_BOUND_MS["hybrid"], card)
     audio_s = wav.shape[-1] / pipe.dac.sampling_rate
     e2e = {
         "cond_len": cond_len, "steps": steps, "audio_s": audio_s,
@@ -1450,7 +1633,7 @@ def run_hybrid_path(card: str):
         "prefill_ms": result.prefill_seconds * 1e3,
         "decode_ms_per_step": result.decode_seconds * 1e3 / steps,
         "generate_s": t_gen, "dac_ms": t_dac * 1e3, "rtf": audio_s / (t_gen + t_dac),
-        "launches": launches,
+        "launches": launches, "graphs": graphs,
     }
     log(f"e2e hybrid ({card}): text -> {audio_s:.2f} s of audio; cond_len {cond_len}, {steps} "
         f"decode steps; prefill {e2e['prefill_ms']:.2f} ms, decode "
@@ -2274,6 +2457,11 @@ def main() -> int:
     rows = (time_kernels(e2e, errors, card) + time_int8_kernels(e2e_int8, pool_int8, errors, card)
             + time_pool_kernels(pool_bf16, pool_int8, errors, card)
             + time_hybrid_kernels(hybrid, pool_hybrid, stage_less, errors, card))
+    summary = {name: {k: v for k, v in run["graphs"].items() if k != "step_launches"}
+               for name, run in (("bf16", e2e), ("int8", e2e_int8), ("hybrid", hybrid),
+                                 ("pool_bf16", pool_bf16), ("pool_int8", pool_int8),
+                                 ("pool_hybrid", pool_hybrid))}
+    log(json.dumps({"graphs": summary, "stream": e2e["stream"], "card": card}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

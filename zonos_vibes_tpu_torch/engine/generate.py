@@ -2,19 +2,32 @@
 the single-token decode loop with the 9 heads, the CFG mix, sampling and
 the EOS cascade.
 
-The loop stops on exactly the step where JAX's ``while_loop`` stops: it runs
-while ``max(remaining) > 0``, and ``remaining`` clamps to 9 when codebook 0
-emits EOS. That test reads one value from the device per step. The
-transformer's KV stage flushes into the cache only when it is exactly full,
-so flushes sit at the same absolute positions as in JAX. The hybrid's cache
-has no stage: each step writes its columns into the cache directly, and the
-loop never flushes.
+The step's state lives on the device: the delayed codes, ``offset``,
+``remaining``, ``stopping``, ``stop_offset`` and, on the transformer's
+staged cache, the ``[L, 3]`` ``(flushed_end, stage_len, layer)`` scalars
+the decode-attention kernel reads. A step reads and writes only those
+tensors (and the cache), in place, and no host value, so on the card one
+step is captured as a CUDA graph and replayed (``engine/graphs.py``): the
+counterpart of JAX compiling the loop. The host keeps an exact mirror of
+``offset`` (every step advances it by one) and of the flushed-prefix
+length.
+
+The loop stops on exactly the step where JAX's ``while_loop`` stops: it
+runs while ``max(remaining) > 0``, and ``remaining`` clamps to 9 when
+codebook 0 emits EOS. The host reads ``max(remaining)`` only when the
+steps that value guarantees are spent (:func:`_decode_segment`). The
+transformer's KV stage flushes into the cache only when it is exactly
+full, outside the graph, so flushes sit at the same absolute positions as
+in JAX. The hybrid's cache has no stage: each step writes its columns into
+the cache directly, and the loop never flushes.
 """
 
 from __future__ import annotations
 
+import functools
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Iterator
 
 import torch
 
@@ -23,8 +36,12 @@ from ..models.zonos import ZonosModel
 from ..ops.attention import NEG_INF
 from ..ops.delay_pattern import apply_delay_pattern, revert_delay_pattern
 from ..ops.sampling import SamplingParams, sample_from_logits, sample_from_logits_dyn
+from .graphs import StepGraph
 
 UNKNOWN_TOKEN = -1
+# Steps from codebook 0's EOS to the last codebook's: ``remaining`` clamps
+# to it on EOS, and codebook ``EOS_CASCADE - remaining`` emits EOS.
+EOS_CASCADE = 9
 
 
 def _find_multiple(n: int, k: int) -> int:
@@ -47,19 +64,28 @@ class GenerateResult:
     valid_lengths: torch.Tensor  # [B] per-row frame counts
     steps: int = 0  # decode steps run after the prefill
     prefill_seconds: float = 0.0  # host clock, the device synchronised
-    decode_seconds: float = 0.0
+    decode_seconds: float = 0.0  # the decode loop, a graph's capture included
+    host_reads: int = 0  # reads of max(remaining) by the loop's stop test
+    replays: int = 0  # steps run by replaying the captured step
+    capture_seconds: float = 0.0
+    step_launches: dict = field(default_factory=dict)  # kernel launches per replayed step
 
 
 @dataclass
 class DecodeState:
     delayed: torch.Tensor  # [B, K, audio_seq_len + K]
     cache: dict
-    offset: int  # delayed column written last
+    offset: int  # delayed column written last (the host's mirror of offset_t)
     remaining: torch.Tensor  # [B]
     stopping: torch.Tensor  # [B] bool
     stop_offset: torch.Tensor  # [B]; -1 while the row runs
     stage_base: int | None  # flushed-prefix length (absolute position); None: no stage
     rope: torch.Tensor | None
+    offset_t: torch.Tensor | None = None  # [1] int64 on the device
+    stage_scalars: torch.Tensor | None = None  # [L, 3] int32 (flushed_end, stage_len, layer)
+    guaranteed: int = 0  # steps certain to run before the stop test must read again
+    done: bool = False  # a read found max(remaining) <= 0
+    host_reads: int = 0
 
 
 def _sync(device: torch.device) -> None:
@@ -113,72 +139,118 @@ def _prefill_state(model: ZonosModel, params: dict, prefix_conditioning: torch.T
     offset0 = lp + 1
     delayed[..., offset0] = _masked_scatter_frame(delayed[..., offset0], next_token)
     max_steps = delayed.shape[-1] - offset0
+    # Only a staged cache has a flushed prefix, ending at the prefill.
+    stage_base = cond_len + lp + 1 if "k_stage" in cache else None
+    stage_scalars = None
+    if stage_base is not None:
+        stage_scalars = torch.tensor([[stage_base, 0, l] for l in range(cache["k_stage"].shape[0])],
+                                     dtype=torch.int32, device=dev)
     return DecodeState(
         delayed=delayed, cache=cache, offset=offset0,
         remaining=torch.full((batch,), max_steps, dtype=torch.long, device=dev),
         stopping=torch.zeros((batch,), dtype=torch.bool, device=dev),
         stop_offset=torch.full((batch,), -1, dtype=torch.long, device=dev),
-        # Only a staged cache has a flushed prefix, ending at the prefill.
-        stage_base=cond_len + lp + 1 if "k_stage" in cache else None, rope=rope,
+        stage_base=stage_base, rope=rope,
+        offset_t=torch.full((1,), offset0, dtype=torch.long, device=dev),
+        stage_scalars=stage_scalars,
     )
 
 
 def _decode_step(model, params, s: DecodeState, cond_len, cfg_scale, sampling, logit_bias,
                  generator) -> None:
+    """One decode step on the device state, in place. It reads no host
+    value and changes no host field, so a CUDA graph can capture it."""
     cfg = model.config
     K, eos, mask_tok = cfg.num_codebooks, cfg.eos_token_id, cfg.masked_token_id
     delayed = s.delayed
     ncol = delayed.shape[-1]
-    offset = s.offset + 1
-    emb = model.embed_codes(params, delayed[..., offset - 1: offset])
+    dev = delayed.device
+    prev = s.offset_t  # the column written last: this step's input
+    offset = prev + 1
+    emb = model.embed_codes(params, delayed.index_select(2, prev))
     emb = torch.cat([emb, emb], dim=0)
-    logits = model.compute_logits(params, emb, s.cache, offset - 1 + cond_len, cfg_scale,
-                                  s.rope, stage_base=s.stage_base)
+    logits = model.compute_logits(params, emb, s.cache, prev + cond_len, cfg_scale, s.rope,
+                                  stage_base=s.stage_scalars)
     logits = logits + logit_bias
 
-    # Window of the last w delayed frames; the start clamps into range as
-    # JAX's dynamic_slice does.
+    # Window of the last w delayed frames, its start clamped into range
+    # (JAX's dynamic_slice wraps a negative start instead, a window wider
+    # than the columns so far; with the default w = 2 that never happens).
     w = min(sampling.repetition_penalty_window, ncol)
-    start = min(max(offset - w, 0), ncol - w)
-    next_token = sample_from_logits(generator, logits, sampling, delayed[..., start: start + w])
+    start = (offset - w).clamp(0, ncol - w)
+    window = delayed.index_select(2, start + torch.arange(w, device=dev))
+    next_token = sample_from_logits(generator, logits, sampling, window)
 
     # EOS cascade (vector math; codebook idx = 9 - remaining emits EOS).
     eos_in_cb0 = next_token[:, 0] == eos
-    remaining = torch.where(eos_in_cb0, s.remaining.clamp(max=9), s.remaining)
-    s.stop_offset = torch.where(eos_in_cb0 & ~s.stopping, offset, s.stop_offset)
-    s.stopping = s.stopping | eos_in_cb0
-    eos_idx = (9 - remaining).clamp(0, K - 1)[:, None]
-    cb = torch.arange(K, device=delayed.device)[None, :]
+    remaining = torch.where(eos_in_cb0, s.remaining.clamp(max=EOS_CASCADE), s.remaining)
+    s.stop_offset.copy_(torch.where(eos_in_cb0 & ~s.stopping, offset, s.stop_offset))
+    s.stopping |= eos_in_cb0
+    eos_idx = (EOS_CASCADE - remaining).clamp(0, K - 1)[:, None]
+    cb = torch.arange(K, device=dev)[None, :]
     cascade = torch.where(cb < eos_idx, mask_tok, torch.where(cb == eos_idx, eos, next_token))
     next_token = torch.where(s.stopping[:, None], cascade, next_token)
 
     # The column index clamps into range as JAX's dynamic update does (the
     # last step rewrites the already full last column, a no-op).
-    col = min(offset, ncol - 1)
-    delayed[..., col] = _masked_scatter_frame(delayed[..., col], next_token)
-    s.remaining = remaining - 1
-    s.offset = offset
+    col = offset.clamp(max=ncol - 1)
+    frame = _masked_scatter_frame(delayed.index_select(2, col)[..., 0], next_token)
+    delayed.index_copy_(2, col, frame[..., None])
+    s.remaining.copy_(remaining - 1)
+    s.offset_t += 1
+    if s.stage_scalars is not None:
+        s.stage_scalars[:, 1] += 1
 
 
-def _decode_loop(model: ZonosModel, params: dict, s: DecodeState, cond_len: int,
-                 cfg_scale: float, sampling: SamplingParams, disable_eos: bool,
-                 generator: torch.Generator) -> int:
-    """Steps until every row is done; returns the number of steps."""
-    cfg = model.config
-    batch = s.delayed.shape[0]
-    logit_bias = torch.zeros((batch, cfg.num_codebooks, model.head_out_dim),
-                             dtype=torch.float32, device=s.delayed.device)
-    # EOS only from codebook 0; disable_eos forbids it everywhere.
-    logit_bias[:, 0 if disable_eos else 1:, cfg.eos_token_id] = NEG_INF
+def _read_max_remaining(s: DecodeState) -> int:
+    """The stop test's one device read."""
+    s.host_reads += 1
+    return int(s.remaining.max())
+
+
+def _refill(s: DecodeState, disable_eos: bool) -> None:
+    """Read ``R = max(remaining)`` and set the steps it guarantees.
+
+    A step maps a row's ``r`` to ``min(r, 9) - 1`` when codebook 0 draws
+    EOS and to ``r - 1`` otherwise, so after ``j`` more steps the row that
+    held ``R`` holds at least ``min(R, 9) - j``: the next ``min(R, 9)``
+    steps all pass JAX's test ``max(remaining) > 0``. With ``disable_eos``
+    EOS has logit NEG_INF in every codebook (probability 0 after the
+    softmax, never an argmax), so no row clamps and all ``R`` steps run.
+    After a read of ``R < 9`` every row ends within ``R`` steps, so a run
+    of ``n`` steps makes at most ``ceil(n / 9) + 1`` reads."""
+    r = _read_max_remaining(s)
+    s.done = r <= 0
+    s.guaranteed = 0 if s.done else r if disable_eos else min(r, EOS_CASCADE)
+
+
+def _decode_segment(s: DecodeState, runner: StepGraph, cond_len: int, disable_eos: bool,
+                    step_limit: int | None = None) -> int:
+    """JAX's ``_decode_loop``: steps until every row is done or, if given,
+    ``step_limit`` steps have run; returns the number of steps. Steps run
+    in runs of those the last read guarantees (:func:`_refill`), cut at the
+    stage's canonical flush and at the limit, so no step runs after JAX's
+    loop would have stopped. ``runner`` runs the steps (eagerly or by
+    replaying a captured one)."""
     staged = s.stage_base is not None
-    stage_depth = s.cache["k_stage"].shape[2] if staged else 0
+    depth = s.cache["k_stage"].shape[2] if staged else 0
     steps = 0
-    while int(s.remaining.max()) > 0:
-        _decode_step(model, params, s, cond_len, cfg_scale, sampling, logit_bias, generator)
-        steps += 1
-        if staged and s.offset + cond_len - s.stage_base == stage_depth:
-            flush_kv_stage(s.cache, s.stage_base)
-            s.stage_base += stage_depth
+    while not s.done and (step_limit is None or steps < step_limit):
+        if s.guaranteed == 0:
+            _refill(s, disable_eos)
+            continue
+        n = s.guaranteed
+        if step_limit is not None:
+            n = min(n, step_limit - steps)
+        if staged:
+            n = min(n, depth - (s.offset + cond_len - s.stage_base))
+        runner.run(n)
+        s.offset += n
+        s.guaranteed -= n
+        steps += n
+        if staged and s.offset + cond_len - s.stage_base == depth:
+            flush_kv_stage(s.cache, s.stage_base, s.stage_scalars)
+            s.stage_base += depth
     return steps
 
 
@@ -202,18 +274,24 @@ class DecodeEngine:
     per-(position, kv head) scales (half the cache bytes); the stage and the
     current token stay exact. Paired with ``ops/quant.quantize_zonos_params``
     weights it is the int8 serving configuration. ``state_bf16`` (hybrid)
-    stores the SSM state in bf16; the recurrence still computes in fp32."""
+    stores the SSM state in bf16; the recurrence still computes in fp32.
 
-    def __init__(self, model: ZonosModel, kv_int8: bool = False, state_bf16: bool = False):
+    ``cuda_graphs`` (default: on for inputs on the card, off on the CPU)
+    captures one decode step per call, after the prefill and one eager
+    step, and replays it; ``False`` runs the same step eagerly, for
+    comparisons. Asking for graphs with inputs on the CPU raises."""
+
+    def __init__(self, model: ZonosModel, kv_int8: bool = False, state_bf16: bool = False,
+                 cuda_graphs: bool | None = None):
         self.model = model
         self.kv_int8 = kv_int8
         self.state_bf16 = state_bf16
+        self.cuda_graphs = cuda_graphs
 
-    def generate(self, params: dict, prefix_conditioning: torch.Tensor,
-                 audio_prefix_codes: torch.Tensor | None = None, *,
-                 generator: torch.Generator | None = None, max_new_tokens: int = 86 * 30,
-                 cfg_scale: float = 2.0, sampling_params: SamplingParams | dict | None = None,
-                 disable_eos: bool = False) -> GenerateResult:
+    def _start(self, params, prefix_conditioning, audio_prefix_codes, generator,
+               max_new_tokens, cfg_scale, sampling_params,
+               disable_eos) -> tuple[DecodeState, StepGraph]:
+        """Checks, the prefill and the step's runner."""
         if cfg_scale == 1.0:
             raise NotImplementedError("cfg_scale == 1 is not supported (as in the reference)")
         if sampling_params is None:
@@ -221,22 +299,81 @@ class DecodeEngine:
         elif isinstance(sampling_params, dict):
             sampling_params = SamplingParams.from_dict(sampling_params)
         dev = prefix_conditioning.device
-        K = self.model.config.num_codebooks
+        graphs = dev.type == "cuda" if self.cuda_graphs is None else self.cuda_graphs
+        if graphs and dev.type != "cuda":
+            raise ValueError(f"cuda_graphs=True needs inputs on a CUDA device, got {dev}")
+        cfg = self.model.config
         if audio_prefix_codes is None:
-            audio_prefix_codes = torch.zeros((prefix_conditioning.shape[0] // 2, K, 0),
-                                             dtype=torch.long, device=dev)
+            audio_prefix_codes = torch.zeros((prefix_conditioning.shape[0] // 2,
+                                              cfg.num_codebooks, 0), dtype=torch.long, device=dev)
+        s = _prefill_state(self.model, params, prefix_conditioning, audio_prefix_codes,
+                           generator, max_new_tokens, cfg_scale, sampling_params, disable_eos,
+                           self.kv_int8, state_bf16=self.state_bf16)
+        logit_bias = torch.zeros((s.delayed.shape[0], cfg.num_codebooks, self.model.head_out_dim),
+                                 dtype=torch.float32, device=dev)
+        # EOS only from codebook 0; disable_eos forbids it everywhere.
+        logit_bias[:, 0 if disable_eos else 1:, cfg.eos_token_id] = NEG_INF
+        step = functools.partial(_decode_step, self.model, params, s,
+                                 prefix_conditioning.shape[1], cfg_scale, sampling_params,
+                                 logit_bias, generator)
+        return s, StepGraph(step, dev, graphs, generator)
+
+    def _result(self, s: DecodeState, runner: StepGraph, steps: int, prefill_s: float,
+                decode_s: float) -> GenerateResult:
+        codes, valid, valid_rows = _finalize(self.model, s)
+        return GenerateResult(codes=codes, valid_length=valid, valid_lengths=valid_rows,
+                              steps=steps, prefill_seconds=prefill_s, decode_seconds=decode_s,
+                              host_reads=s.host_reads, replays=runner.replays,
+                              capture_seconds=runner.capture_seconds,
+                              step_launches=dict(runner.step_launches))
+
+    def generate(self, params: dict, prefix_conditioning: torch.Tensor,
+                 audio_prefix_codes: torch.Tensor | None = None, *,
+                 generator: torch.Generator | None = None, max_new_tokens: int = 86 * 30,
+                 cfg_scale: float = 2.0, sampling_params: SamplingParams | dict | None = None,
+                 disable_eos: bool = False) -> GenerateResult:
+        dev = prefix_conditioning.device
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            s, runner = self._start(params, prefix_conditioning, audio_prefix_codes, generator,
+                                    max_new_tokens, cfg_scale, sampling_params, disable_eos)
+            _sync(dev)
+            t1 = time.perf_counter()
+            steps = _decode_segment(s, runner, prefix_conditioning.shape[1], disable_eos)
+            _sync(dev)
+            return self._result(s, runner, steps, t1 - t0, time.perf_counter() - t1)
+
+    def generate_stream(self, params: dict, prefix_conditioning: torch.Tensor,
+                        audio_prefix_codes: torch.Tensor | None = None, *,
+                        generator: torch.Generator | None = None,
+                        max_new_tokens: int = 86 * 30, cfg_scale: float = 2.0,
+                        sampling_params: SamplingParams | dict | None = None,
+                        disable_eos: bool = False,
+                        chunk_steps: int = 43) -> Iterator[GenerateResult]:
+        """Yield a cumulative :class:`GenerateResult` every ``chunk_steps``
+        decode steps (~0.5 s of audio at 43). The codes equal
+        :meth:`generate`'s for the same generator state; stop consuming the
+        iterator to abort (nothing runs after the last yield consumed)."""
+        if chunk_steps < 1:
+            raise ValueError(f"chunk_steps must be positive, got {chunk_steps}")
+        dev = prefix_conditioning.device
         cond_len = prefix_conditioning.shape[1]
         with torch.inference_mode():
             t0 = time.perf_counter()
-            state = _prefill_state(self.model, params, prefix_conditioning, audio_prefix_codes,
-                                   generator, max_new_tokens, cfg_scale, sampling_params,
-                                   disable_eos, self.kv_int8, state_bf16=self.state_bf16)
+            s, runner = self._start(params, prefix_conditioning, audio_prefix_codes, generator,
+                                    max_new_tokens, cfg_scale, sampling_params, disable_eos)
             _sync(dev)
-            t1 = time.perf_counter()
-            steps = _decode_loop(self.model, params, state, cond_len, cfg_scale,
-                                 sampling_params, disable_eos, generator)
-            _sync(dev)
-            t2 = time.perf_counter()
-            codes, valid, valid_rows = _finalize(self.model, state)
-        return GenerateResult(codes=codes, valid_length=valid, valid_lengths=valid_rows,
-                              steps=steps, prefill_seconds=t1 - t0, decode_seconds=t2 - t1)
+            prefill_s, steps, decode_s = time.perf_counter() - t0, 0, 0.0
+        while True:
+            with torch.inference_mode():
+                t0 = time.perf_counter()
+                steps += _decode_segment(s, runner, cond_len, disable_eos, chunk_steps)
+                _sync(dev)
+                decode_s += time.perf_counter() - t0
+                result = self._result(s, runner, steps, prefill_s, decode_s)
+            yield result
+            with torch.inference_mode():
+                if not s.done and s.guaranteed == 0:
+                    _refill(s, disable_eos)
+            if s.done:
+                return

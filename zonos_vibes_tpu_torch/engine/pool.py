@@ -18,7 +18,11 @@ Row lifecycle:
 * :func:`pool_steps` runs up to ``n_steps`` pooled steps (fewer once no row
   is running), each row's fresh K/V columns landing in its ring slot
   ``pos - flush_base``, then :func:`flush_pool_rings` copies every row's
-  ring window into the cache and advances the watermarks;
+  ring window into the cache and advances the watermarks. On the card a
+  pooled step is captured once as a CUDA graph per sampler variant and
+  replayed (``engine/graphs.py``), as JAX compiles one program per
+  ``sorted_sampler``; the host reads the rows' state only when the steps
+  the last read guarantees are spent (``engine/generate._refill``);
 * :func:`extract_row` returns a finished row's codes and
   :func:`release_row` frees its slot.
 
@@ -32,11 +36,16 @@ Mamba conv and SSM states (``[M, 2S, ...]``) are per-row recurrent state
 with no position, so a join copies them with the KV rows and nothing else
 changes. ``state_bf16`` (hybrid only) stores the SSM state in bf16.
 
-Pool state is a dict of tensors on one device, updated in place.
+Pool state is a dict of tensors on one device, updated in place: every
+tensor keeps its storage for the pool's lifetime, so the graphs captured
+over them stay valid across joins, segments and flushes. Beside the
+tensors it holds the captured steps (``"graphs"``) and the count of the
+stop test's device reads (``"host_reads"``).
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -53,7 +62,14 @@ from ..ops.sampling import (
     sample_from_logits_dyn,
 )
 from ..utils.device import resolve_device
-from .generate import DecodeState, _find_multiple, _masked_scatter_frame, _prefill_state
+from .generate import (
+    EOS_CASCADE,
+    DecodeState,
+    _find_multiple,
+    _masked_scatter_frame,
+    _prefill_state,
+)
+from .graphs import StepGraph
 
 _M32 = 0xFFFFFFFF
 
@@ -77,14 +93,20 @@ def _pool_cache_len(model: ZonosModel, pc: PoolConfig) -> int:
 
 @torch.inference_mode()
 def make_pool(model: ZonosModel, pc: PoolConfig, dtype=torch.bfloat16, kv_int8: bool = False,
-              state_bf16: bool = False, device=None) -> dict:
+              state_bf16: bool = False, device=None, cuda_graphs: bool | None = None) -> dict:
     """All-slots-free pool state on ``device`` (CUDA unless the caller asks
     for the CPU). The cache holds ``2 * slots`` rows of
     ``_pool_cache_len`` positions; its stage is the rows' rings. With
     ``kv_int8`` (transformer) the flushed prefixes are int8 with
     per-(position, kv head) scales; rings and current columns stay exact.
-    ``state_bf16`` (hybrid) stores the SSM state in bf16."""
+    ``state_bf16`` (hybrid) stores the SSM state in bf16. ``cuda_graphs``
+    (default: on for a CUDA device) replays captured pooled steps;
+    ``False`` runs them eagerly, for comparisons; ``True`` on the CPU
+    raises."""
     dev = resolve_device(device)
+    graphs = dev.type == "cuda" if cuda_graphs is None else cuda_graphs
+    if graphs and dev.type != "cuda":
+        raise ValueError(f"cuda_graphs=True needs a CUDA device, got {dev}")
     cfg = model.config
     K, S = cfg.num_codebooks, pc.slots
     cache = model.allocate_cache(2 * S, _pool_cache_len(model, pc), dtype, dev, kv_int8,
@@ -110,6 +132,9 @@ def make_pool(model: ZonosModel, pc: PoolConfig, dtype=torch.bfloat16, kv_int8: 
         # Columns of the repetition window relative to ``step`` (static width).
         "window": torch.arange(-pc.max_rep_window, 0, device=dev),
         "rope": model.rope_for(dev),
+        "cuda_graphs": graphs,
+        "graphs": {},  # (needs_sort, base_seed, id(params)) -> StepGraph
+        "host_reads": 0,
     }
 
 
@@ -182,8 +207,9 @@ def join(pool: dict, req_state: DecodeState, slot: int, cond_len: int, row_seed:
 
 def _pool_body(model: ZonosModel, params: dict, pool: dict, base_seed: int,
                needs_sort: bool) -> None:
-    """One pooled step over every row; inactive rows are computed and their
-    results masked out."""
+    """One pooled step over every row, in place; inactive rows are computed
+    and their results masked out. It reads no host value, so a CUDA graph
+    can capture it."""
     cfg = model.config
     K, eos, mask_tok = cfg.num_codebooks, cfg.eos_token_id, cfg.masked_token_id
     delayed, step = pool["delayed"], pool["step"]
@@ -191,7 +217,11 @@ def _pool_body(model: ZonosModel, params: dict, pool: dict, base_seed: int,
     dev = delayed.device
     active = pool["active"] & (pool["remaining"] > 0)
 
-    frame_in = torch.gather(delayed, 2, (step - 1).clamp(min=0)[:, None, None].expand(S, K, 1))
+    # A row that spent its whole budget sits at step ncol + 1 while others
+    # run: its reads clamp into the buffer (JAX's gathers never fault), and
+    # its results are masked out below.
+    frame_in = torch.gather(delayed, 2,
+                            (step - 1).clamp(0, ncol - 1)[:, None, None].expand(S, K, 1))
     emb = model.embed_codes(params, frame_in)
     emb = torch.cat([emb, emb], dim=0)  # CFG rows [cond..., uncond...]
     logits = model.compute_logits(
@@ -200,17 +230,18 @@ def _pool_body(model: ZonosModel, params: dict, pool: dict, base_seed: int,
         pool_base=torch.cat([pool["flush_base"], pool["flush_base"]]))
     logits[:, 1:, eos] += NEG_INF  # EOS only from codebook 0
 
-    widx = (step[:, None] + pool["window"][None, :]).clamp(min=0)
+    widx = (step[:, None] + pool["window"][None, :]).clamp(0, ncol - 1)
     window = torch.gather(delayed, 2, widx[:, None, :].expand(S, K, widx.shape[1]))
     noise = pool_noise(base_seed, pool["row_seed"], step, K, logits.shape[-1])
     next_token = sample_from_logits_dyn(logits, pool["knobs"], noise, window, needs_sort)
 
     # EOS cascade (codebook 9 - remaining emits EOS), active rows only.
     eos_in_cb0 = (next_token[:, 0] == eos) & active
-    remaining = torch.where(eos_in_cb0, pool["remaining"].clamp(max=9), pool["remaining"])
+    remaining = torch.where(eos_in_cb0, pool["remaining"].clamp(max=EOS_CASCADE),
+                            pool["remaining"])
     stop_offset = torch.where(eos_in_cb0 & ~pool["stopping"], step, pool["stop_offset"])
     stopping = pool["stopping"] | eos_in_cb0
-    eos_idx = (9 - remaining).clamp(0, K - 1)[:, None]
+    eos_idx = (EOS_CASCADE - remaining).clamp(0, K - 1)[:, None]
     cb = torch.arange(K, device=dev)[None, :]
     cascade = torch.where(cb < eos_idx, mask_tok, torch.where(cb == eos_idx, eos, next_token))
     next_token = torch.where(stopping[:, None], cascade, next_token)
@@ -223,31 +254,59 @@ def _pool_body(model: ZonosModel, params: dict, pool: dict, base_seed: int,
     delayed.scatter_(2, col, torch.where(write, _masked_scatter_frame(cur, next_token), cur)[..., None])
 
     adv = active.long()
-    pool["pos"] = pool["pos"] + adv
-    pool["step"] = step + adv
-    pool["remaining"] = torch.where(active, remaining - 1, pool["remaining"])
-    pool["stopping"] = torch.where(active, stopping, pool["stopping"])
-    pool["stop_offset"] = torch.where(active, stop_offset, pool["stop_offset"])
+    pool["stopping"].copy_(torch.where(active, stopping, pool["stopping"]))
+    pool["stop_offset"].copy_(torch.where(active, stop_offset, pool["stop_offset"]))
+    pool["remaining"].copy_(torch.where(active, remaining - 1, pool["remaining"]))
+    pool["pos"] += adv
+    step += adv  # pool["step"], in place
+
+
+def _read_running(pool: dict) -> tuple[bool, int]:
+    """The stop test's one device read: ``(some active row sets top-p or
+    top-k, max remaining over the active rows)``."""
+    pool["host_reads"] += 1
+    knobs, active = pool["knobs"], pool["active"]
+    sort = (active & ((knobs["top_p"] > 0) | (knobs["top_k"] > 0))).any()
+    running = torch.where(active, pool["remaining"], 0).max()
+    flag, r = torch.stack([sort.long(), running]).tolist()
+    return bool(flag), r
 
 
 @torch.inference_mode()
 def pool_steps(model: ZonosModel, params: dict, pool: dict, base_seed: int,
                n_steps: int) -> int:
     """Advance every active row by up to ``n_steps`` pooled steps, stopping
-    early once no row is running (one host read per step), then flush the
+    early on exactly the step where no row is running, then flush the
     rings; returns the number of steps run. ``n_steps`` may not exceed the
-    ring depth. The sort-bearing top-p and top-k stages run only in a
-    segment where some active row sets ``top_p`` or ``top_k`` (one host read
-    per segment); rows that leave them at 0 draw the same either way."""
+    ring depth. The host reads the rows' state once, then again only when
+    the steps that read guarantees are spent (``min(R, 9)`` for ``R`` the
+    largest ``remaining`` of an active row; ``engine/generate._refill``
+    derives it), so a segment of ``n`` steps makes at most ``ceil(n / 9) +
+    1`` reads. The sort-bearing top-p and top-k stages run only in a
+    segment where some active row sets ``top_p`` or ``top_k``; rows that
+    leave them at 0 draw the same either way. On the card each such variant
+    (and base seed) is one graph, captured at its first segment after one
+    eager step."""
     depth = pool["cache"]["k_stage"].shape[2]
     if n_steps > depth:
         raise ValueError(f"a segment of {n_steps} steps overflows the {depth}-deep ring stage")
-    knobs = pool["knobs"]
-    needs_sort = bool((pool["active"] & ((knobs["top_p"] > 0) | (knobs["top_k"] > 0))).any())
+    needs_sort, running = _read_running(pool)
+    key = (needs_sort, base_seed, id(params))
+    runner = pool["graphs"].get(key)
+    if runner is None:
+        # The step sees the pool's tensors (all updated in place) but not its
+        # graphs, so the runner and the pool hold no reference cycle.
+        tensors = {k: v for k, v in pool.items() if k != "graphs"}
+        step = functools.partial(_pool_body, model, params, tensors, base_seed, needs_sort)
+        runner = StepGraph(step, pool["delayed"].device, pool["cuda_graphs"])
+        pool["graphs"][key] = runner  # the runner holds params: its id stays unique
     steps = 0
-    while steps < n_steps and bool((pool["active"] & (pool["remaining"] > 0)).any()):
-        _pool_body(model, params, pool, base_seed, needs_sort)
-        steps += 1
+    while steps < n_steps and running > 0:
+        n = min(running, EOS_CASCADE, n_steps - steps)
+        runner.run(n)
+        steps += n
+        if steps < n_steps:
+            _, running = _read_running(pool)
     flush_pool_rings(pool)
     return steps
 
@@ -276,7 +335,7 @@ def flush_pool_rings(pool: dict) -> dict:
             cache[name + "_scale"][:, rows, idx] = scale
         else:
             cache[name][:, rows, idx] = stage
-    pool["flush_base"] = pool["pos"].clone()
+    pool["flush_base"].copy_(pool["pos"])
     return pool
 
 

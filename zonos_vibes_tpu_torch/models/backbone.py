@@ -114,10 +114,13 @@ def allocate_kv_cache(cfg: BackboneConfig, batch_size: int, max_seqlen: int, dty
     return out
 
 
-def flush_kv_stage(cache: dict, stage_base: int) -> dict:
+def flush_kv_stage(cache: dict, stage_base: int, scalars: torch.Tensor | None = None) -> dict:
     """Copy the full stage into the cache at ``[stage_base, stage_base +
     STAGE)``, in place, quantizing it first for an int8 cache. The decode
-    loop calls it only when the stage is exactly full."""
+    loop calls it only when the stage is exactly full. ``scalars``, the
+    decode's device ``[L, 3]`` ``(flushed_end, stage_len, layer)``, move on
+    in place after the copy on the same stream: ``flushed_end`` by STAGE,
+    ``stage_len`` to 0."""
     depth = cache["k_stage"].shape[2]
     window = slice(stage_base, stage_base + depth)
     for name in ("k", "v"):
@@ -128,6 +131,9 @@ def flush_kv_stage(cache: dict, stage_base: int) -> dict:
             cache[name + "_scale"][:, :, window] = scale
         else:
             cache[name][:, :, window] = stage
+    if scalars is not None:
+        scalars[:, 0] += depth
+        scalars[:, 1] = 0
     return cache
 
 
@@ -158,7 +164,8 @@ def _block(lp: dict, cfg: BackboneConfig, x, attend, positions, table):
 
 
 def transformer_forward(params: dict, cfg: BackboneConfig, hidden: torch.Tensor, cache: dict,
-                        offset: int, rope: torch.Tensor, stage_base: int | None = None, *,
+                        offset: int | torch.Tensor, rope: torch.Tensor,
+                        stage_base: int | torch.Tensor | None = None, *,
                         positions: torch.Tensor | None = None,
                         pool_base: torch.Tensor | None = None):
     """Layer stack and final LayerNorm; updates ``cache`` in place.
@@ -169,7 +176,13 @@ def transformer_forward(params: dict, cfg: BackboneConfig, hidden: torch.Tensor,
     token, ``stage_base`` the flushed-prefix length: the token attends the
     prefix ``[0, stage_base)``, stage rows ``[0, offset - stage_base)`` and
     itself, and its columns land in stage slot ``offset - stage_base``.
-    RoPE positions are ``offset + arange(S)`` for every row.
+    RoPE positions are ``offset + arange(S)`` for every row. For a staged
+    decode ``offset`` may be a one-element int64 device tensor and
+    ``stage_base`` the device ``[L, 3]`` int32 ``(flushed_end, stage_len,
+    layer)`` that the kernel reads: then no host value enters the step,
+    which a CUDA graph can capture (the caller advances ``stage_len`` and
+    ``offset`` on the device; :func:`flush_kv_stage` moves
+    ``flushed_end``).
 
     With ``positions [B]`` (``S == 1``, device) ``offset`` is unused: they
     are the rows' absolute positions (RoPE and attention bounds). With
@@ -254,11 +267,13 @@ def transformer_forward(params: dict, cfg: BackboneConfig, hidden: torch.Tensor,
     else:
         if stage_base is None:
             raise ValueError("single-token decode runs on the staged cache: pass stage_base")
-        stage_len = offset - stage_base
-        # (flushed_end, stage_len, layer) per layer, one copy to the device;
-        # the kernel stores the columns in stage slot stage_len.
-        scalars = torch.tensor([[stage_base, stage_len, l] for l in range(L)],
-                               dtype=torch.int32).to(dev)
+        if isinstance(stage_base, torch.Tensor):
+            scalars = stage_base
+        else:
+            # (flushed_end, stage_len, layer) per layer, one copy to the device.
+            scalars = torch.tensor([[stage_base, offset - stage_base, l] for l in range(L)],
+                                   dtype=torch.int32).to(dev)
+        # The kernel stores the columns in stage slot stage_len.
 
         def attend_for(l):
             def attend(q, k, v):

@@ -256,14 +256,18 @@ class HybridBackbone:
 
     # -- forward --------------------------------------------------------------
 
-    def forward(self, params: dict, hidden: torch.Tensor, cache: dict, offset: int,
-                rope=None, stage_base=None, *, positions: torch.Tensor | None = None,
+    def forward(self, params: dict, hidden: torch.Tensor, cache: dict,
+                offset: int | torch.Tensor, rope=None, stage_base=None, *,
+                positions: torch.Tensor | None = None,
                 pool_base: torch.Tensor | None = None) -> torch.Tensor:
         """The stack and the final norm; updates ``cache`` in place.
 
         ``hidden [B, S, D]``. Without ``positions`` the chunk sits at cache
         positions ``[offset, offset + S)`` for every row (prefill for
-        ``S > 1``, the solo decode for ``S == 1``). With ``positions [B]``
+        ``S > 1``, the solo decode for ``S == 1``; the decode's ``offset``
+        may be a one-element int64 device tensor, which the step's column
+        write, RoPE and attention bound read on the device, so a CUDA graph
+        can capture the step). With ``positions [B]``
         (device, ``S == 1``) every row decodes at its own position: in ring
         mode with ``pool_base [B]``, stage-less otherwise (module
         docstring). ``rope`` and ``stage_base`` are unused: the rotary
@@ -291,7 +295,7 @@ class HybridBackbone:
                 k_cols = torch.empty((La, B, W), dtype=cache["k"].dtype, device=dev)
                 v_cols = torch.empty_like(k_cols)
         elif S == 1:
-            seq_end = torch.tensor([offset + 1], dtype=torch.int32).to(dev)
+            seq_end = (torch.as_tensor(offset, device=dev).reshape(1) + 1).to(torch.int32)
 
         def attention(lp, x, j):
             q, k, v = self._qkv(lp, x, rope_pos)

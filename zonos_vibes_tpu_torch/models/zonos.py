@@ -111,15 +111,17 @@ class ZonosModel:
             return None
         return rope_table(self.config.backbone.head_dim, device=device)
 
-    def compute_logits(self, params: dict, hidden, cache: dict, offset: int, cfg_scale,
-                       rope, stage_base: int | None = None, *, positions=None,
-                       pool_base=None):
+    def compute_logits(self, params: dict, hidden, cache: dict, offset, cfg_scale,
+                       rope, stage_base=None, *, positions=None, pool_base=None):
         """Backbone -> last position -> heads -> CFG mix -> pad mask.
         ``hidden`` is the CFG-doubled ``[2B, S, D]``; returns ``[B, K, V]``
         fp32 logits (the cache is updated in place). ``cfg_scale`` is a
         float, or a ``[B]`` tensor of per-row scales (the pool's runtime
-        knob, mixed even where it is 1). ``positions`` (and, for ring mode,
-        ``pool_base``) go to the backbone's pooled decode."""
+        knob, mixed even where it is 1). A solo decode step's ``offset``
+        (and the transformer's ``stage_base``) may be device tensors, passed
+        through to the backbone, so that no host value enters the step.
+        ``positions`` (and, for ring mode, ``pool_base``) go to the
+        backbone's pooled decode."""
         out = self.backbone.forward(params["backbone"], hidden, cache, offset, rope, stage_base,
                                     positions=positions, pool_base=pool_base)
         logits = self.apply_heads(params, out[:, -1:, :])[:, :, 0, :]

@@ -25,12 +25,18 @@ import torch
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 
-def update_kv_cache(k_cache, v_cache, k, v, offset: int):
+def update_kv_cache(k_cache, v_cache, k, v, offset):
     """Write ``k, v`` ``[B, S, Hkv, D]`` into ``[B, T, Hkv * D]`` caches at
-    positions ``[offset, offset + S)``, in place. Returns the caches."""
+    positions ``[offset, offset + S)``, in place. Returns the caches.
+    ``offset`` is a host int or a one-element device tensor (the decode
+    step's position, read by an indexed copy and never by the host)."""
     B, S = k.shape[:2]
-    k_cache[:, offset: offset + S] = k.reshape(B, S, -1).to(k_cache.dtype)
-    v_cache[:, offset: offset + S] = v.reshape(B, S, -1).to(v_cache.dtype)
+    for cache, x in ((k_cache, k), (v_cache, v)):
+        x = x.reshape(B, S, -1).to(cache.dtype)
+        if isinstance(offset, torch.Tensor):
+            cache.index_copy_(1, offset.reshape(1) + torch.arange(S, device=offset.device), x)
+        else:
+            cache[:, offset: offset + S] = x
     return k_cache, v_cache
 
 

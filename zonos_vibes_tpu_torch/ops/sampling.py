@@ -57,7 +57,9 @@ def apply_repetition_penalty(logits, generated_tokens, penalty: float, window: i
     seen = (window_tokens >= 0).float()
     counts = torch.zeros(logits.shape, dtype=torch.float32, device=logits.device)
     counts.scatter_add_(-1, window_tokens.clamp(min=0), seen)
-    factors = torch.pow(torch.tensor(penalty, dtype=torch.float32, device=logits.device), counts)
+    # A Python scalar base: no host-to-device copy, so the step stays
+    # capturable in a CUDA graph.
+    factors = torch.pow(float(penalty), counts)
     lf = logits.float()
     return torch.where(lf <= 0, lf * factors, lf / factors)
 

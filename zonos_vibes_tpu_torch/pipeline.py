@@ -5,6 +5,8 @@ phonemes -> conditioning -> prefill -> staged decode -> codes -> DAC decode.
     cond = pipe.make_cond_dict(text="Hello!", language="en-us")
     result = pipe.generate(cond, generator=torch.Generator("cuda").manual_seed(421))
     wav44k = pipe.decode_audio(result)                          # [B, samples]
+    for chunk in pipe.generate_stream(cond, generator=...):     # the same audio, in chunks
+        ...
 
 The int8 serving configuration: ``pipe.quantize_int8()`` (int8 projections
 and heads), then ``DecodeEngine(pipe.model, kv_int8=True).generate(
@@ -17,7 +19,9 @@ same calls (its extra quality conditioners take ``make_cond_dict``'s
 Text normalization, phonemization and tokenization run on the host
 (``frontend/``); everything numeric runs on ``pipe.device``. Entry points
 run on CUDA unless the caller passes ``device="cpu"``, and raise without a
-GPU otherwise.
+GPU otherwise. On the card each generate replays one captured decode step
+(``engine/graphs.py``); ``DecodeEngine(pipe.model, cuda_graphs=False)``
+runs the same steps eagerly.
 """
 
 from __future__ import annotations
@@ -171,6 +175,55 @@ class ZonosPipeline:
             self.params, prefix, audio_prefix_codes, generator=generator,
             max_new_tokens=max_new_tokens, cfg_scale=cfg_scale,
             sampling_params=sampling_params, disable_eos=disable_eos)
+
+    def generate_stream(self, cond_dict: dict, audio_prefix_codes: torch.Tensor | None = None, *,
+                        generator: torch.Generator, max_new_tokens: int = 86 * 30,
+                        cfg_scale: float = 2.0,
+                        sampling_params: SamplingParams | dict | None = None,
+                        chunk_frames: int = 43, margin_frames: int = 32):
+        """Streaming synthesis: yields ``[B, samples]`` float32 waveform
+        chunks as decoding goes on; their concatenation equals one-shot
+        :meth:`generate` + :meth:`decode_audio` for the same generator
+        state. The codes are the same (``DecodeEngine.generate_stream``),
+        and each emitted span is vocoded with ``margin_frames`` of code
+        context on both sides, then trimmed, so the DAC's edge effects never
+        reach an emitted sample. The decoder is non-causal, so the last
+        ``margin_frames`` decoded frames are withheld until more context
+        arrives; the final chunk vocodes them against the true end.
+        ``margin_frames`` must exceed the decoder's half receptive field in
+        code frames (about 9 for the 44.1 kHz decoder)."""
+        if self.dac_params is None:
+            raise RuntimeError("DAC params not loaded")
+        prefix = self.prepare_conditioning(cond_dict)
+        hop = self.dac.hop
+        emitted = 0  # frames whose samples have been yielded
+
+        def vocode_span(codes_all, start, end, avail):
+            # Decode [start - m, min(avail, end + m)) and trim both contexts.
+            # The window's length rounds up to a multiple of 8 frames by
+            # widening the left context (never less exact), which bounds
+            # the distinct vocoder shapes of a stream.
+            c0 = max(0, start - margin_frames)
+            c1 = min(avail, end + margin_frames)
+            c0 = max(0, c1 - (c1 - c0 + 7) // 8 * 8)
+            with torch.inference_mode():
+                wav = self.dac.decode(self.dac_params, codes_all[:, :, c0:c1].to(self.device))
+            wav = wav[:, 0, :].float().cpu().numpy()
+            off = (start - c0) * hop
+            return wav[:, off: off + (end - start) * hop]
+
+        last = None
+        for res in self.engine.generate_stream(
+                self.params, prefix, audio_prefix_codes, generator=generator,
+                max_new_tokens=max_new_tokens, cfg_scale=cfg_scale,
+                sampling_params=sampling_params, chunk_steps=chunk_frames):
+            last = res
+            stable = max(0, res.valid_length - margin_frames)  # right margin withheld
+            if stable > emitted:
+                yield vocode_span(res.codes, emitted, stable, res.valid_length)
+                emitted = stable
+        if last is not None and last.valid_length > emitted:
+            yield vocode_span(last.codes, emitted, last.valid_length, last.valid_length)
 
     def decode_audio(self, result: GenerateResult | torch.Tensor) -> np.ndarray:
         """Codes -> ``[B, samples]`` float32 waveform at 44.1 kHz (trimmed
