@@ -45,6 +45,23 @@ Phases, each of which fails the run loudly:
    have run on the main path, decode attention 26 times per decode step,
    the standalone stage splices never (the decode-attention calls store
    the columns).
+   Then clone + continuation on the same pipeline: the speaker embedding
+   (``make_speaker_embedding``: the ResNet293 from seed 0, its DSP on the
+   card) of the main path's own 5.00 s WAV at 44.1 kHz, ``encode_audio``
+   of a 5.0 s 24 kHz chirp plus noise (431 frames), then
+   ``make_cond_dict(speaker=...)`` and ``generate(cond,
+   audio_prefix_codes=...)`` of 431 new frames -> DAC -> WAV
+   (``build/chip_smoke_continue.wav``). Held against the port on the CPU:
+   the resamples (1e-5) and the log filterbank (1e-4), the embedding
+   (max |diff| / max |ref| <= 1e-3) and the encoder latents (<= 1e-4) with
+   the same weights, and the codes (at least 99.9% equal; every code that
+   differs from the CPU's argmax given the card's earlier stages scores
+   within 1e-4 of the CPU's best). Before the run, rows 3 and 1 at its
+   shapes against their plain versions (the prefill at B = 2, S = 519,
+   offset 0, T = 960: row 3's two-pass path); then exact launch counts
+   (26 prefill launches, 26 decode launches per step, no splice), graph
+   codes equal to eager, and its speaker, encode, prefill, ms/step and RTF
+   lines.
    Then the int8 serving path on the same weights: the first frame's
    next-token distributions before and after ``pipe.quantize_int8()``
    (mean total-variation distance at most 0.05), and
@@ -90,7 +107,8 @@ Phases, each of which fails the run loudly:
    the solo step's 2 rows, the pooled step's 16 and the prefill's fc1 at
    2 * (cond_len + 1) rows; the prefill attention (row 3, both head dims)
    at the main path's chunk and at long chunks (S = 2048 at offset 0,
-   S = 512 at offset 64) beside SDPA and the flops bound; the pool's kernels at
+   S = 512 at offset 64) beside SDPA and the flops bound, and rows 3 and 1
+   at the continuation's prefill and last step; the pool's kernels at
    16 rows over a 3584-position cache, at the main path's spread of depths
    and at spreads near 1800 and near 3000 positions; the hybrid's kernels
    at its paths' shapes (the fused Mamba step with its 42 planes cycled,
@@ -102,7 +120,9 @@ ms/step, bound, capture time and host reads. The second-to-last line is
 ``{"kernels": [...]}``, the line before it the card's name and power limit,
 and the last line
 ``{"ok": true, "device": {...}}``. Each kernel's ``launches`` in the
-kernels line is one path's count: the pool kernels' that of their own pool
+kernels line is one path's count: ``prefill_attention_continuation`` and
+``decode_attention_continuation`` those of the clone + continuation run,
+the pool kernels' that of their own pool
 run (``stage_splice_rows``: the bf16 pool's), ``qmm_int8``'s the solo int8
 path's; ``qmm_int8_m16_step`` (the pooled step's 105 launches at 16 rows,
 timed as their sum) lists those counted during the int8 pool run's pooled
@@ -279,31 +299,37 @@ def check_prefill(gen, Hq, Hkv, Dh) -> float:
     grid covers at least half of the 132 SMs, else 32-row ones: one batch
     row keeps each chunk of up to 97 positions under that, 17 put it over;
     the 600-position chunk takes 64-row tiles at any batch."""
+    worst = 0.0
+    for S in PREFILL_S:
+        for offset in (0, 64):
+            for Bs in (1, 17) if S <= 128 else (B,):
+                worst = max(worst, check_prefill_case(gen, Bs, S, offset, 768, Hq, Hkv, Dh))
+    log(f"kernel prefill_attention D={Dh} Hq={Hq} Hkv={Hkv}: S {'/'.join(map(str, PREFILL_S))} x "
+        f"offset 0/64 x batch 1 and 17 (32- and 64-row tiles; S = 600 at batch {B}), NaN in every "
+        f"cache row at or past offset + S: max_abs_err {worst:.3e} <= {TOL}")
+    return worst
+
+
+def check_prefill_case(gen, Bs, S, offset, T, Hq, Hkv, Dh) -> float:
+    """Row 3 at one shape against its plain version, every cache row at or
+    past offset + S NaN; returns the max |error|."""
     import torch
 
     from zonos_vibes_tpu_torch.ops.cuda.prefill_attention import (
         prefill_attention, prefill_attention_plain)
 
-    worst, T = 0.0, 768
-    for S in PREFILL_S:
-        for offset in (0, 64):
-            for Bs in (1, 17) if S <= 128 else (B,):
-                q = randn(gen, Bs, S, Hq, Dh)
-                k, v = randn(gen, Bs, T, Hkv * Dh), randn(gen, Bs, T, Hkv * Dh)
-                end = offset + S
-                want = prefill_attention_plain(q, k[:, :end], v[:, :end], offset).float()
-                k[:, end:] = float("nan")
-                v[:, end:] = float("nan")
-                got = prefill_attention(q, k, v, offset).float()
-                e = (got - want).abs().max().item()
-                if not torch.isfinite(got).all() or e > TOL:
-                    raise AssertionError(f"prefill_attention D={Dh} S={S} offset={offset} "
-                                         f"B={Bs}: err {e}")
-                worst = max(worst, e)
-    log(f"kernel prefill_attention D={Dh} Hq={Hq} Hkv={Hkv}: S {'/'.join(map(str, PREFILL_S))} x "
-        f"offset 0/64 x batch 1 and 17 (32- and 64-row tiles; S = 600 at batch {B}), NaN in every "
-        f"cache row at or past offset + S: max_abs_err {worst:.3e} <= {TOL}")
-    return worst
+    q = randn(gen, Bs, S, Hq, Dh)
+    k, v = randn(gen, Bs, T, Hkv * Dh), randn(gen, Bs, T, Hkv * Dh)
+    end = offset + S
+    want = prefill_attention_plain(q, k[:, :end], v[:, :end], offset).float()
+    k[:, end:] = float("nan")
+    v[:, end:] = float("nan")
+    got = prefill_attention(q, k, v, offset).float()
+    e = (got - want).abs().max().item()
+    if not torch.isfinite(got).all() or e > TOL:
+        raise AssertionError(f"prefill_attention D={Dh} S={S} offset={offset} B={Bs} T={T}: "
+                             f"err {e}")
+    return e
 
 
 def check_int8_kernels() -> dict:
@@ -843,10 +869,10 @@ POOL_STEP_BOUND_MS = {"bf16": 0.955, "int8": 0.478, "hybrid": 0.89 + 0.84}
 
 
 def graph_against_eager(label: str, model, params, prefix, graph, want: dict, per_step: dict,
-                        bound_ms: float, card: str, **engine_kw) -> dict:
+                        bound_ms: float, card: str, prefix_codes=None, **engine_kw) -> dict:
     """The eager counterpart of a counted generate that replayed its
-    captured step (``graph``): the same seed and inputs through
-    ``DecodeEngine(cuda_graphs=False)``. Codes, valid lengths and steps must
+    captured step (``graph``): the same seed and inputs (``prefix_codes``:
+    the audio prefix) through ``DecodeEngine(cuda_graphs=False)``. Codes, valid lengths and steps must
     be equal, the eager run's launch counts must equal ``want`` as the graph
     run's do (the eager steps' plus the captured step's ``per_step`` times
     the replays), and the graph run must have replayed every step after its
@@ -860,7 +886,8 @@ def graph_against_eager(label: str, model, params, prefix, graph, want: dict, pe
     engine.generate(params, prefix, generator=torch.Generator("cuda").manual_seed(1),
                     max_new_tokens=8, disable_eos=True)
     build.reset_launches()
-    eager = engine.generate(params, prefix, generator=torch.Generator("cuda").manual_seed(421),
+    eager = engine.generate(params, prefix, prefix_codes,
+                            generator=torch.Generator("cuda").manual_seed(421),
                             max_new_tokens=AUDIO_FRAMES, disable_eos=True)
     launches = dict(build.LAUNCHES)
     steps = graph.steps
@@ -949,13 +976,288 @@ def run_main_path(card: str):
         "prefill_ms": result.prefill_seconds * 1e3,
         "decode_ms_per_step": result.decode_seconds * 1e3 / steps,
         "generate_s": t_gen, "dac_ms": t_dac * 1e3, "rtf": audio_s / (t_gen + t_dac),
-        "launches": launches, "graphs": graphs, "stream": stream,
+        "launches": launches, "graphs": graphs, "stream": stream, "wav": wav[0],
     }
     log(f"e2e ({card}): text -> {audio_s:.2f} s of audio; cond_len {cond_len}, "
         f"{steps} decode steps; prefill {e2e['prefill_ms']:.2f} ms, decode "
         f"{e2e['decode_ms_per_step']:.3f} ms/step, DAC {e2e['dac_ms']:.1f} ms, "
         f"RTF {e2e['rtf']:.3f}; launches {launches}")
     return pipe, cond, e2e
+
+
+# Clone + continuation on the bf16 transformer. The speaker reference is the
+# bf16 main path's own 5.00 s output at 44.1 kHz (the 44.1 -> 16 kHz
+# resample); the audio prefix is 5.0 s of a 24 kHz chirp plus noise from a
+# fixed seed (24 -> 44.1 kHz, 431 frames once padded to the hop).
+PREFIX_SR, PREFIX_SECONDS, PREFIX_SEED = 24000, 5.0, 10
+PREFIX_FRAMES = 431
+# The card against the port on the CPU, both fp32 (TF32 off): max |diff| of
+# the resampled waveforms and of the log filterbank; max |diff| / max |ref|
+# of the 128-d embedding (97 SimAM blocks deep) and of the encoder latents.
+RESAMPLE_TOL, FBANK_TOL, EMBED_TOL, LATENT_TOL = 1e-5, 1e-4, 1e-3, 1e-4
+# RVQ codes: at least this share equal to the CPU's; a code that differs
+# must be a near tie on the CPU, its score within TIE_MARGIN of the best
+# given the same earlier stages (the argmax may flip on such a tie).
+CODES_EQUAL_MIN, TIE_MARGIN = 0.999, 1e-4
+
+
+def prefix_signal():
+    """The continuation's audio prefix: ``[PREFIX_SR * PREFIX_SECONDS]``
+    float32, a chirp from 150 Hz plus noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(PREFIX_SEED)
+    n = int(PREFIX_SR * PREFIX_SECONDS)
+    t = np.arange(n) / PREFIX_SR
+    return (0.5 * np.sin(2 * np.pi * (150.0 + 300.0 * t) * t)
+            + 0.05 * rng.standard_normal(n)).astype(np.float32)
+
+
+def to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_cpu(v) for v in tree]
+    return tree.cpu()
+
+
+def timed(fn):
+    """(result, host ms) of ``fn()`` with the device synchronised."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def check_clone_dsp(ref, prefix, card: str) -> dict:
+    """The DSP on the card against the CPU: the 44.1 -> 16 kHz resample of
+    the speaker reference, the 24 -> 44.1 kHz resample of the prefix and the
+    log filterbank of the 16 kHz reference."""
+    import torch
+
+    from zonos_vibes_tpu_torch.utils import dsp
+
+    errs = {}
+    for name, x, a, b in (("resample_44k_16k", ref, 44100, 16000),
+                          ("resample_24k_44k", prefix, PREFIX_SR, 44100)):
+        xt = torch.from_numpy(x)[None]
+        errs[name] = (dsp.resample(xt.cuda(), a, b).cpu() - dsp.resample(xt, a, b)).abs().max().item()
+    wav16 = dsp.resample(torch.from_numpy(ref)[None], 44100, 16000)
+    errs["log_fbank"] = (dsp.log_fbank(wav16.cuda()).cpu() - dsp.log_fbank(wav16)).abs().max().item()
+    for name, tol in (("resample_44k_16k", RESAMPLE_TOL), ("resample_24k_44k", RESAMPLE_TOL),
+                      ("log_fbank", FBANK_TOL)):
+        if not errs[name] <= tol:
+            raise AssertionError(f"clone DSP {name}: card vs CPU max |diff| {errs[name]} > {tol}")
+    log(f"clone DSP ({card}): card vs CPU max |diff| resample 44.1 -> 16 kHz "
+        f"{errs['resample_44k_16k']:.3e}, 24 -> 44.1 kHz {errs['resample_24k_44k']:.3e} "
+        f"(<= {RESAMPLE_TOL}); log_fbank {errs['log_fbank']:.3e} (<= {FBANK_TOL})")
+    return errs
+
+
+def rvq_against_cpu(dac, params_cpu, latents_cpu, codes) -> dict:
+    """The card's codes against the CPU's RVQ on the CPU's latents. Equal
+    share over all codes (free-running CPU codes); then stage by stage with
+    the card's earlier codes forced, every code that differs from the CPU's
+    argmax must score within ``TIE_MARGIN`` of the CPU's best."""
+    import torch
+
+    from zonos_vibes_tpu_torch.models.dac import rvq_dequantize, rvq_scores
+
+    codes = codes.cpu()
+    with torch.inference_mode():
+        free = dac.model.quantize(params_cpu, latents_cpu)
+        residual, forced_differ, worst = latents_cpu, 0, 0.0
+        for i, q in enumerate(params_cpu["quantizers"]):
+            scores = rvq_scores(q, residual)  # [1, T', N]
+            card = codes[:, i]
+            gap = scores.max(dim=-1).values - scores.gather(-1, card[..., None])[..., 0]
+            differ = card != scores.argmax(dim=-1)
+            forced_differ += int(differ.sum())
+            if differ.any():
+                worst = max(worst, gap[differ].max().item())
+            residual = residual - rvq_dequantize(q, card)
+    equal = (codes == free).float().mean().item()
+    out = {"equal_share": equal, "differ": int((codes != free).sum()),
+           "forced_differ": forced_differ, "worst_tie_gap": worst}
+    if equal < CODES_EQUAL_MIN or worst >= TIE_MARGIN:
+        raise AssertionError(f"RVQ codes card vs CPU: {out} (need share >= {CODES_EQUAL_MIN}, "
+                             f"every differing code within {TIE_MARGIN} of the CPU's best)")
+    return out
+
+
+def run_continuation(pipe, ref, card: str) -> dict:
+    """Phase 3, clone + continuation on the bf16 main path's pipeline:
+    ``make_speaker_embedding`` (the seed-0 ResNet293) of the main path's
+    WAV, ``encode_audio`` of the 24 kHz prefix, ``make_cond_dict(speaker=)``,
+    ``generate(cond, audio_prefix_codes=...)`` of 431 frames with the counts
+    exact, ``decode_audio``; the DSP, embedding, latents and codes held
+    against the CPU, graph codes against eager. Returns the numbers."""
+    import numpy as np
+    import torch
+
+    from zonos_vibes_tpu_torch.ops.cuda import build
+    from zonos_vibes_tpu_torch.serve.sample import wav_bytes
+
+    prefix = prefix_signal()
+    dsp_errs = check_clone_dsp(ref, prefix, card)
+
+    # Voice cloning: the first call also draws the seed-0 weights.
+    _, first_spk_ms = timed(lambda: pipe.make_speaker_embedding(ref, 44100))
+    speaker, spk_ms = timed(lambda: pipe.make_speaker_embedding(ref, 44100))
+    enc = pipe.speaker_encoder
+    _, lda = enc(pipe.speaker_params, ref, 44100)
+    _, lda_cpu = enc(to_cpu(pipe.speaker_params), ref, 44100)
+    embed_rel = ((lda.cpu() - lda_cpu).abs().max() / lda_cpu.abs().max()).item()
+    if (tuple(speaker.shape) != (1, 1, 128) or speaker.dtype != torch.bfloat16
+            or not torch.isfinite(lda).all() or not embed_rel <= EMBED_TOL):
+        raise AssertionError(f"speaker embedding {tuple(speaker.shape)} {speaker.dtype}: card vs "
+                             f"CPU {embed_rel} > {EMBED_TOL}")
+    log(f"clone speaker embedding ({card}): {spk_ms:.2f} ms (first call {first_spk_ms:.2f} ms "
+        f"with the weight draw) for {ref.shape[-1] / 44100:.2f} s at 44.1 kHz -> [1, 1, 128] "
+        f"bf16; card vs CPU max |diff| / max |ref| {embed_rel:.3e} <= {EMBED_TOL}")
+
+    # Audio prefix: DSP, encoder and RVQ on the card.
+    pipe.encode_audio(prefix, PREFIX_SR)
+    codes, enc_ms = timed(lambda: pipe.encode_audio(prefix, PREFIX_SR))
+    lp = codes.shape[-1]
+    if tuple(codes.shape) != (1, 9, PREFIX_FRAMES) or int(codes.min()) < 0 or int(codes.max()) >= 1024:
+        raise AssertionError(f"prefix codes misshapen or out of range: {tuple(codes.shape)}")
+    dac, dac_cpu = pipe.dac, to_cpu(pipe.dac_params)
+    with torch.inference_mode():
+        x = torch.from_numpy(prefix)[None]
+        lat = dac.model.encoder_forward(pipe.dac_params, dac.preprocess(x.cuda(), PREFIX_SR)[:, None])
+        lat_cpu = dac.model.encoder_forward(dac_cpu, dac.preprocess(x, PREFIX_SR)[:, None])
+    lat_rel = ((lat.cpu() - lat_cpu).abs().max() / lat_cpu.abs().max()).item()
+    if not lat_rel <= LATENT_TOL:
+        raise AssertionError(f"encoder latents card vs CPU {lat_rel} > {LATENT_TOL}")
+    rvq = rvq_against_cpu(dac, dac_cpu, lat_cpu, codes)
+    log(f"clone encode ({card}): {enc_ms:.2f} ms (DSP, encoder and RVQ) for {PREFIX_SECONDS} s at "
+        f"{PREFIX_SR} Hz -> codes [1, 9, {lp}]; latents card vs CPU max |diff| / max |ref| "
+        f"{lat_rel:.3e} <= {LATENT_TOL}; codes equal to the CPU's {rvq['equal_share']:.5f} "
+        f"(>= {CODES_EQUAL_MIN}), {rvq['differ']} differ, {rvq['forced_differ']} with the "
+        f"card's earlier stages forced, worst gap {rvq['worst_tie_gap']:.3e} < {TIE_MARGIN}")
+
+    cond = pipe.make_cond_dict(text=TEXT, language="en-us", speaker=speaker)
+    prefix_cond = pipe.prepare_conditioning(cond)
+    cond_len = prefix_cond.shape[1]
+    # Rows 3 and 1 at the shapes this run gives them (disable_eos: 431 + 8
+    # decode steps), against their plain versions first.
+    S = cond_len + lp + 1
+    T, fe, sl = main_path_decode_step(cond_len, AUDIO_FRAMES + 8, lp)
+    errors = check_continuation_kernels(S, T, fe, sl)
+    warm = pipe.generate(cond, codes, generator=torch.Generator("cuda").manual_seed(1),
+                         max_new_tokens=8, disable_eos=True)
+    pipe.decode_audio(warm)
+
+    build.reset_launches()
+    t0 = time.perf_counter()
+    result = pipe.generate(cond, codes, generator=torch.Generator("cuda").manual_seed(421),
+                           max_new_tokens=AUDIO_FRAMES, disable_eos=True)
+    launches = dict(build.LAUNCHES)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wav = pipe.decode_audio(result)
+    torch.cuda.synchronize()
+    t_dac = time.perf_counter() - t0
+
+    steps = result.steps
+    out_codes = result.codes
+    if (tuple(out_codes.shape) != (1, 9, lp + AUDIO_FRAMES) or int(out_codes.min()) < 0
+            or int(out_codes.max()) >= 1024 or not torch.equal(out_codes[..., :lp], codes)):
+        raise AssertionError(f"continuation codes misshapen, out of range or not starting with "
+                             f"the prefix: {tuple(out_codes.shape)}")
+    if result.valid_length != lp + AUDIO_FRAMES:
+        raise AssertionError(f"continuation valid length {result.valid_length}")
+    if wav.shape[-1] != (lp + AUDIO_FRAMES) * dac.hop or not np.isfinite(wav).all():
+        raise AssertionError("continuation waveform misshapen or not finite")
+    want = {"decode_attention": L * steps, "decode_attention_q": 0, "stage_splice": 0,
+            "prefill_attention": L, "qmm_int8": 0, **NO_POOL_LAUNCHES}
+    if launches != want:
+        raise AssertionError(f"continuation launch counts {launches}, expected {want}")
+    out_dir = ROOT / "build"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_continue.wav").write_bytes(wav_bytes(wav[0], dac.sampling_rate))
+    graphs = graph_against_eager("continuation", pipe.model, pipe.params, prefix_cond, result,
+                                 want, {"decode_attention": L}, STEP_BOUND_MS["bf16"], card,
+                                 prefix_codes=codes)
+
+    if steps != AUDIO_FRAMES + 8:
+        raise AssertionError(f"continuation ran {steps} decode steps, not {AUDIO_FRAMES + 8}")
+    new_s = AUDIO_FRAMES * dac.hop / dac.sampling_rate
+    total_s = (spk_ms + enc_ms) / 1e3 + t_gen + t_dac
+    cont = {"cond_len": cond_len, "lp": lp, "S": S, "T": T, "fe": fe, "sl": sl, "steps": steps,
+            "speaker_ms": spk_ms, "encode_ms": enc_ms, "prefill_ms": result.prefill_seconds * 1e3,
+            "decode_ms_per_step": result.decode_seconds * 1e3 / steps, "generate_s": t_gen,
+            "dac_ms": t_dac * 1e3, "rtf": new_s / total_s, "launches": launches,
+            "graphs": graphs, "rvq": rvq, "dsp": dsp_errs, "embed_rel": embed_rel,
+            "latent_rel": lat_rel, "errors": errors}
+    log(f"continuation prefill ({card}): S = {S} positions (cond_len {cond_len} + {lp} prefix "
+        f"frames + 1) at offset 0 in a cache of T = {T}, B = {B}: {cont['prefill_ms']:.2f} ms "
+        f"(host, the engine's prefill with the first frame); prefill_attention {L} launches")
+    log(f"continuation decode ({card}): T = {T}, {steps} steps, graph "
+        f"{graphs['graph_ms_per_step']:.3f} ms/step, eager {graphs['eager_ms_per_step']:.3f} "
+        f"ms/step, bound {STEP_BOUND_MS['bf16']} ms/step; launches {launches}")
+    log(f"continuation RTF ({card}): {cont['rtf']:.3f} = {new_s:.2f} s of new audio / "
+        f"({spk_ms:.1f} ms speaker + {enc_ms:.1f} ms encode + {t_gen * 1e3:.1f} ms generate + "
+        f"{t_dac * 1e3:.1f} ms DAC of {wav.shape[-1] / dac.sampling_rate:.2f} s); "
+        f"build/chip_smoke_continue.wav")
+    return cont
+
+
+def check_continuation_kernels(S: int, T: int, fe: int, sl: int) -> dict:
+    """Phase 2 at the continuation's shapes: row 3 at B = 2, S = its
+    prefill, offset 0, T = its cache (the two-pass path past 128 keys), NaN
+    past offset + S; row 1 at its last decode step's scalars (flushed_end
+    ``fe``, stage_len ``sl``) against the plain version."""
+    import torch
+
+    from zonos_vibes_tpu_torch.ops.cuda.decode_attention import (
+        decode_attention_layered, decode_attention_layered_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    e_pre = check_prefill_case(gen, B, S, 0, T, HQ, HKV, D)
+    x = decode_inputs(gen, T)
+    e_dec = 0.0
+    for layer in (0, 25):
+        sc = torch.tensor([fe, sl, layer], dtype=torch.int32, device="cuda")
+        want = decode_attention_layered_plain(**x, scalars=sc).float()
+        got = decode_attention_layered(**x, scalars=sc).float()
+        e_dec = max(e_dec, (got - want).abs().max().item())
+        if not torch.isfinite(got).all() or e_dec > TOL:
+            raise AssertionError(f"decode_attention at the continuation's step: err {e_dec}")
+    log(f"kernel prefill_attention at the continuation's prefill (B={B}, S={S}, offset 0, T={T}, "
+        f"NaN past S): max_abs_err {e_pre:.3e} <= {TOL}; decode_attention at its last step "
+        f"(T={T}, flushed_end={fe}, stage_len={sl}, layers 0/25): {e_dec:.3e} <= {TOL}")
+    return {"prefill_attention_continuation": e_pre, "decode_attention_continuation": e_dec}
+
+
+def time_continuation_kernels(cont: dict, errors: dict, card: str) -> list[dict]:
+    """Phase 4, rows 3 and 1 at the continuation's shapes: the prefill at S
+    in a cache of T beside causal SDPA, decode attention at the last step."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    S, T = cont["S"], cont["T"]
+    ms, plain, lib, b, by = time_prefill(gen, HQ, HKV, D, S, T, card, long=())[S, 0]
+    rows = [dict(name="prefill_attention_continuation", route="cuda",
+                 source="zonos_vibes_tpu_torch/csrc/prefill_attention.cu",
+                 replaces="zonos_vibes_tpu/ops/pallas/prefill_attention.py:111",
+                 launches=cont["launches"]["prefill_attention"],
+                 max_abs_err=errors["prefill_attention_continuation"], ms=ms, plain_ms=plain,
+                 bound_ms=b, bound_by=by, library_ms=lib)]
+    ms, plain, lib, b, by, held = time_decode(gen, T, cont["fe"], cont["sl"],
+                                              "continuation last step", card)
+    require_stage_write("decode_attention_continuation", held)
+    rows.append(dict(name="decode_attention_continuation", route="cuda",
+                     source="zonos_vibes_tpu_torch/csrc/decode_attention.cu",
+                     replaces="zonos_vibes_tpu/ops/pallas/decode_attention.py:253",
+                     launches=cont["launches"]["decode_attention"],
+                     max_abs_err=errors["decode_attention_continuation"], ms=ms, plain_ms=plain,
+                     bound_ms=b, bound_by=by, library_ms=lib))
+    return rows
 
 
 STREAM_AUDIO_TOL = 1e-3  # fp32 DAC; cuDNN may pick other algorithms for the shorter windows
@@ -1975,11 +2277,11 @@ def time_pooled_hd128(gen, bases, lens, card):
 PREFILL_LONG = ((2048, 0), (512, 64))
 
 
-def time_prefill(gen, Hq, Hkv, Dh, S, T, card) -> dict:
-    """Row 3 at the main path's chunk (S at offset 0 in a cache of T): the
-    kernel, the plain version and SDPA; then the long chunks, kernel and
-    SDPA only. Returns {(S, offset): (kernel, plain or None, library, bound
-    ms, bound_by)}."""
+def time_prefill(gen, Hq, Hkv, Dh, S, T, card, long=PREFILL_LONG) -> dict:
+    """Row 3 at a path's chunk (S at offset 0 in a cache of T): the kernel,
+    the plain version and SDPA; then the ``long`` chunks, kernel and SDPA
+    only. Returns {(S, offset): (kernel, plain or None, library, bound ms,
+    bound_by)}."""
     import torch
     import torch.nn.functional as F
 
@@ -1988,7 +2290,7 @@ def time_prefill(gen, Hq, Hkv, Dh, S, T, card) -> dict:
 
     W_ = Hkv * Dh
     out = {}
-    for S_, offset, T_ in ((S, 0, T), *((s_, o_, s_ + o_) for s_, o_ in PREFILL_LONG)):
+    for S_, offset, T_ in ((S, 0, T), *((s_, o_, s_ + o_) for s_, o_ in long)):
         end = offset + S_
         q = randn(gen, B, S_, Hq, Dh)
         k, v = randn(gen, B, T_, W_), randn(gen, B, T_, W_)
@@ -2019,16 +2321,18 @@ def time_prefill(gen, Hq, Hkv, Dh, S, T, card) -> dict:
     return out
 
 
-def main_path_decode_step(cond_len: int, steps: int) -> tuple[int, int, int]:
-    """(T, flushed_end, stage_len) of the solo main path's last decode step:
-    stage_base = cond_len + 1 plus the flushed stages; the step attends
-    positions [0, cond_len + steps]."""
+def main_path_decode_step(cond_len: int, steps: int, lp: int = 0) -> tuple[int, int, int]:
+    """(T, flushed_end, stage_len) of a solo path's last decode step after
+    an ``lp``-frame audio prefix: stage_base = cond_len + lp + 1 plus the
+    flushed stages; the step attends positions [0, cond_len + lp +
+    steps]."""
     from zonos_vibes_tpu_torch.engine.generate import _find_multiple
 
-    T = cond_len + AUDIO_FRAMES + 9
+    T = cond_len + lp + AUDIO_FRAMES + 9
     T = _find_multiple(T, 512 if T >= 1024 else 8)
-    last_pos = cond_len + steps
-    fe = cond_len + 1 + ((last_pos - cond_len - 1) // STAGE) * STAGE
+    base = cond_len + lp + 1
+    last_pos = cond_len + lp + steps
+    fe = base + ((last_pos - base) // STAGE) * STAGE
     return T, fe, last_pos - fe
 
 
@@ -2442,6 +2746,8 @@ def main() -> int:
     pipe, cond, e2e = run_main_path(card)
     errors.update(check_hybrid_kernels(_solo_cache_len(e2e["cond_len"])))
     check_hybrid_backbone_against_cpu()
+    cont = run_continuation(pipe, e2e["wav"], card)
+    errors.update(cont["errors"])
     pool_bf16 = run_pool(pipe, card, kv_int8=False)
     e2e_int8 = run_int8_path(pipe, cond, card)
     pool_int8 = run_pool(pipe, card, kv_int8=True)
@@ -2454,11 +2760,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     for name, e in write_errors.items():  # each decode row's error, with and without the write
         errors[name] = max(errors[name], e)
-    rows = (time_kernels(e2e, errors, card) + time_int8_kernels(e2e_int8, pool_int8, errors, card)
+    rows = (time_kernels(e2e, errors, card) + time_continuation_kernels(cont, errors, card)
+            + time_int8_kernels(e2e_int8, pool_int8, errors, card)
             + time_pool_kernels(pool_bf16, pool_int8, errors, card)
             + time_hybrid_kernels(hybrid, pool_hybrid, stage_less, errors, card))
     summary = {name: {k: v for k, v in run["graphs"].items() if k != "step_launches"}
-               for name, run in (("bf16", e2e), ("int8", e2e_int8), ("hybrid", hybrid),
+               for name, run in (("bf16", e2e), ("continuation", cont), ("int8", e2e_int8),
+                                 ("hybrid", hybrid),
                                  ("pool_bf16", pool_bf16), ("pool_int8", pool_int8),
                                  ("pool_hybrid", pool_hybrid))}
     log(json.dumps({"graphs": summary, "stream": e2e["stream"], "card": card}))

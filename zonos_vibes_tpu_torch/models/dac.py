@@ -1,7 +1,14 @@
-"""DAC audio codec, decode half (the JAX package's ``models/dac.py``).
+"""DAC audio codec (the JAX package's ``models/dac.py``).
 
-``from_codes`` sums the 9 RVQ stages (codebook lookup, then a 1x1 conv
-8 -> 1024); ``decoder_forward`` is Conv1d(1024 -> 1536, k7), four blocks of
+``encoder_forward`` is Conv1d(1 -> 64, k7), four blocks of three dilated
+residual units (dilation 1, 3, 9) -> Snake -> a strided Conv1d (k = 2s,
+stride s, padding ceil(s / 2), doubling channels; strides 2, 4, 8, 8), then
+Snake -> Conv1d(1024 -> 1024, k3). ``quantize`` is the 9-stage residual
+vector quantizer: each stage projects the residual 1024 -> 8 (1x1 conv),
+takes the nearest codebook entry in l2-normalised space (first index on a
+tie) and subtracts that entry's 8 -> 1024 projection (of the raw codebook
+row). ``from_codes`` sums the 9 stages' projections; ``decoder_forward`` is
+Conv1d(1024 -> 1536, k7), four blocks of
 Snake -> ConvTranspose1d(k = 2s, stride s, halving channels; strides 8, 8, 4,
 2) -> three dilated residual units (dilation 1, 3, 9), then Snake ->
 Conv1d(96 -> 1, k7) -> tanh. Hop 512, 44.1 kHz. Computation is fp32,
@@ -13,7 +20,6 @@ cuDNN would run fp32 convolutions in TF32 unless
 Parameters keep the JAX tree; the conv weights are in PyTorch's layouts
 (``utils/checkpoint.params_from_jax`` converts): conv ``[Cout, Cin, k]``,
 transposed conv ``[Cin, Cout, k]`` (not flipped), Snake alpha ``[C]``.
-The encoder and ``preprocess`` (audio-prefix continuation) are not ported.
 """
 
 from __future__ import annotations
@@ -86,13 +92,32 @@ def _init_res_unit(gen, dim, device):
     }
 
 
+def rvq_scores(q: dict, residual: torch.Tensor) -> torch.Tensor:
+    """One RVQ stage's scores ``[B, T', codebook_size]`` for a residual
+    ``[B, 1024, T']``: ``-(|z|^2 - 2 z.c) + |c|^2`` on the l2-normalised
+    in-projection ``z`` and codebook rows ``c`` (each norm + 1e-12); the
+    code is the argmax."""
+    z = _conv(residual, q["in_proj"]).transpose(1, 2)  # [B, T', 8]
+    zn = z / (z.norm(dim=-1, keepdim=True) + 1e-12)
+    cb = q["codebook"]
+    cbn = cb / (cb.norm(dim=-1, keepdim=True) + 1e-12)
+    return -((zn * zn).sum(-1, keepdim=True) - 2.0 * (zn @ cbn.T)) + (cbn * cbn).sum(-1)
+
+
+def rvq_dequantize(q: dict, idx: torch.Tensor) -> torch.Tensor:
+    """Codes ``[B, T']`` of one stage -> ``[B, 1024, T']``: the raw codebook
+    rows through the stage's out-projection."""
+    return _conv(q["codebook"][idx.long()].transpose(1, 2), q["out_proj"])
+
+
 class DACModel:
     def __init__(self, config: DACConfig | None = None):
         self.config = config or DACConfig()
 
     def init(self, gen: torch.Generator, device="cpu") -> dict:
-        """Random fp32 decoder and quantizer out-projections (the shapes the
-        JAX ``init`` gives them)."""
+        """Random fp32 parameters at the shapes of the JAX ``init``. The
+        decoder and the quantizers' codebooks and out-projections are drawn
+        first, then the encoder and the in-projections."""
         cfg = self.config
         blocks = []
         for i, s in enumerate(cfg.upsampling_ratios):
@@ -111,7 +136,26 @@ class DACModel:
             "codebook": torch.randn((cfg.codebook_size, cfg.codebook_dim), generator=gen,
                                     device=device),
         } for _ in range(cfg.n_codebooks)]
+        enc_blocks = []
+        for i, s in enumerate(cfg.downsampling_ratios):
+            dim = cfg.encoder_hidden_size * (2 ** (i + 1))
+            enc_blocks.append({
+                "res1": _init_res_unit(gen, dim // 2, device),
+                "res2": _init_res_unit(gen, dim // 2, device),
+                "res3": _init_res_unit(gen, dim // 2, device),
+                "snake": torch.ones(dim // 2, device=device),
+                "conv": _init_conv(gen, 2 * s, dim // 2, dim, device),
+            })
+        encoder = {
+            "conv1": _init_conv(gen, 7, 1, cfg.encoder_hidden_size, device),
+            "blocks": enc_blocks,
+            "snake": torch.ones(cfg.hidden_size, device=device),
+            "conv2": _init_conv(gen, 3, cfg.hidden_size, cfg.hidden_size, device),
+        }
+        for q in quantizers:
+            q["in_proj"] = _init_conv(gen, 1, cfg.hidden_size, cfg.codebook_dim, device)
         return {
+            "encoder": encoder,
             "quantizers": quantizers,
             "decoder": {
                 "conv1": _init_conv(gen, 7, cfg.hidden_size, cfg.decoder_hidden_size, device),
@@ -121,12 +165,33 @@ class DACModel:
             },
         }
 
+    def encoder_forward(self, params: dict, audio: torch.Tensor) -> torch.Tensor:
+        """``[B, 1, T] -> [B, 1024, T / hop]`` continuous latents."""
+        p = params["encoder"]
+        x = _conv(audio, p["conv1"], padding=3)
+        for blk, s in zip(p["blocks"], self.config.downsampling_ratios):
+            x = _res_unit(blk["res1"], x, 1)
+            x = _res_unit(blk["res2"], x, 3)
+            x = _res_unit(blk["res3"], x, 9)
+            x = snake(x, blk["snake"])
+            x = F.conv1d(x, blk["conv"]["weight"], blk["conv"]["bias"], stride=s,
+                         padding=-(-s // 2))
+        return _conv(snake(x, p["snake"]), p["conv2"], padding=1)
+
+    def quantize(self, params: dict, latents: torch.Tensor) -> torch.Tensor:
+        """RVQ encode: ``[B, 1024, T'] -> [B, K, T']`` int64 codes."""
+        residual, codes = latents, []
+        for q in params["quantizers"]:
+            idx = rvq_scores(q, residual).argmax(dim=-1)  # [B, T']
+            codes.append(idx)
+            residual = residual - rvq_dequantize(q, idx)
+        return torch.stack(codes, dim=1)
+
     def from_codes(self, params: dict, codes: torch.Tensor) -> torch.Tensor:
         """``[B, K, T'] -> [B, 1024, T']`` summed quantized latents."""
         acc = 0.0
         for i, q in enumerate(params["quantizers"]):
-            zq = q["codebook"][codes[:, i, :].long()].transpose(1, 2)  # [B, 8, T']
-            acc = acc + _conv(zq, q["out_proj"])
+            acc = acc + rvq_dequantize(q, codes[:, i, :])
         return acc
 
     def decoder_forward(self, params: dict, latents: torch.Tensor) -> torch.Tensor:
@@ -142,6 +207,11 @@ class DACModel:
             x = _res_unit(blk["res3"], x, 9)
         x = snake(x, p["snake"])
         return torch.tanh(_conv(x, p["conv2"], padding=3))
+
+    def encode(self, params: dict, audio: torch.Tensor) -> torch.Tensor:
+        """``[B, 1, T]`` float (T a multiple of the hop) -> ``[B, K, T / hop]``
+        int64 codes."""
+        return self.quantize(params, self.encoder_forward(params, audio))
 
     def decode(self, params: dict, codes: torch.Tensor) -> torch.Tensor:
         """``[B, K, T'] -> [B, 1, T' * hop]`` float waveform."""

@@ -2,11 +2,20 @@
 phonemes -> conditioning -> prefill -> staged decode -> codes -> DAC decode.
 
     pipe = ZonosPipeline.from_config(ZONOS_V01_TRANSFORMER)    # on "cuda"
-    cond = pipe.make_cond_dict(text="Hello!", language="en-us")
+    # or ZonosPipeline.from_local("config.json", "model.safetensors", dac_params=...)
+    spk = pipe.make_speaker_embedding(wav, sr)                  # voice cloning
+    cond = pipe.make_cond_dict(text="Hello!", language="en-us", speaker=spk)
     result = pipe.generate(cond, generator=torch.Generator("cuda").manual_seed(421))
     wav44k = pipe.decode_audio(result)                          # [B, samples]
     for chunk in pipe.generate_stream(cond, generator=...):     # the same audio, in chunks
         ...
+    codes = pipe.encode_audio(prefix_wav, sr)                   # continuation
+    result = pipe.generate(cond, codes, generator=...)
+
+The speaker embedding (ResNet293, ``models/speaker.py``) and the audio
+prefix's codes (``DACAutoencoder.preprocess`` + ``encode``) are computed on
+``pipe.device``, their DSP included. Without loaded speaker weights,
+``make_speaker_embedding`` draws random ones from seed 0 on that device.
 
 The int8 serving configuration: ``pipe.quantize_int8()`` (int8 projections
 and heads), then ``DecodeEngine(pipe.model, kv_int8=True).generate(
@@ -38,6 +47,7 @@ from .frontend.phonemize import phonemize
 from .frontend.text import tokenize_phonemes
 from .models.autoencoder import DACAutoencoder
 from .models.dac import DACConfig
+from .models.speaker import SpeakerEncoder
 from .models.zonos import ZonosModel
 from .ops.quant import quantize_zonos_params
 from .ops.sampling import SamplingParams
@@ -61,6 +71,14 @@ _LANGUAGE_TO_ID = {lang: i for i, lang in enumerate(supported_language_codes)}
 DEFAULT_EMOTION = [0.3077, 0.0256, 0.0256, 0.0256, 0.0256, 0.0256, 0.2564, 0.3077]
 
 
+def _to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_device(v, dev) for v in tree]
+    return tree.to(dev)
+
+
 @dataclass
 class ZonosPipeline:
     model: ZonosModel
@@ -68,6 +86,8 @@ class ZonosPipeline:
     device: torch.device
     dac: DACAutoencoder = field(default_factory=DACAutoencoder)
     dac_params: dict | None = None
+    speaker_encoder: SpeakerEncoder | None = None
+    speaker_params: dict | None = None
 
     def __post_init__(self):
         self.engine = DecodeEngine(self.model)
@@ -92,17 +112,44 @@ class ZonosPipeline:
         """Wrap existing port parameters (for example from
         ``utils.checkpoint.params_from_jax``), moved to ``device``."""
         dev = resolve_device(device)
-
-        def to_dev(tree):
-            if isinstance(tree, dict):
-                return {k: to_dev(v) for k, v in tree.items()}
-            if isinstance(tree, (list, tuple)):
-                return [to_dev(v) for v in tree]
-            return tree.to(dev)
-
-        return cls(model=ZonosModel(config), params=to_dev(params), device=dev,
+        return cls(model=ZonosModel(config), params=_to_device(params, dev), device=dev,
                    dac=DACAutoencoder(dac_config),
-                   dac_params=None if dac_params is None else to_dev(dac_params))
+                   dac_params=None if dac_params is None else _to_device(dac_params, dev))
+
+    @classmethod
+    def from_local(cls, config_path: str, model_path: str, dtype=torch.bfloat16, device=None,
+                   **kwargs) -> "ZonosPipeline":
+        """A reference checkpoint pair (``config.json`` + ``model.safetensors``,
+        ``utils.checkpoint.load_zonos_checkpoint``) on ``device``. ``kwargs``
+        are the other fields (``dac``, ``dac_params``, ``speaker_encoder``,
+        ``speaker_params``), as in JAX; parameter trees move to ``device``."""
+        from .utils.checkpoint import load_zonos_checkpoint
+
+        dev = resolve_device(device)
+        config, params = load_zonos_checkpoint(config_path, model_path, dtype)
+        for name in ("dac_params", "speaker_params"):
+            if kwargs.get(name) is not None:
+                kwargs[name] = _to_device(kwargs[name], dev)
+        return cls(model=ZonosModel(config), params=_to_device(params, dev), device=dev,
+                   **kwargs)
+
+    def make_speaker_embedding(self, wav, sr: int) -> torch.Tensor:
+        """``[C, T]`` or ``[T]`` reference audio (array or tensor) -> the
+        ``[1, 1, 128]`` bf16 LDA embedding on ``self.device``."""
+        if self.speaker_encoder is None:
+            self.speaker_encoder = SpeakerEncoder()
+        if self.speaker_params is None:
+            self.speaker_params = self.speaker_encoder.init(
+                torch.Generator(self.device).manual_seed(0), self.device)
+        _, lda = self.speaker_encoder(self.speaker_params, wav, sr)
+        return lda.reshape(1, 1, -1).to(torch.bfloat16)
+
+    def speaker_shape(self) -> tuple:
+        """Shape of a speaker cond entry, ``[1, 1, cond_dim]``."""
+        for s in self.model.prefix_conditioner.specs:
+            if s.name == "speaker":
+                return (1, 1, s.cond_dim)
+        raise ValueError("model has no speaker conditioner")
 
     def quantize_int8(self) -> "ZonosPipeline":
         """Backbone projections and the 9 heads to int8 weight-only storage
@@ -128,8 +175,8 @@ class ZonosPipeline:
         unconditional_keys: Any = frozenset({"vqscore_8", "dnsmos_ovrl"}),
     ) -> dict:
         """The numeric cond dict, phonemized on the host. A ``speaker``
-        embedding is ``[1, 1, 128]``; without one the learned
-        unconditional vector stands in."""
+        embedding (``make_speaker_embedding``) is ``[1, 1, 128]``; without
+        one the learned unconditional vector stands in."""
         language = language.lower()
         if language not in _LANGUAGE_TO_ID:
             raise ValueError(f"Unsupported language: {language}")
@@ -152,10 +199,9 @@ class ZonosPipeline:
                 continue
             if k == "espeak":
                 out[k] = torch.tensor(v, dtype=torch.long, device=self.device)
-            elif k == "speaker":
-                out[k] = v.to(self.device)
             elif k in present:
-                arr = torch.tensor(v, dtype=torch.float32, device=self.device).reshape(1, 1, -1)
+                # The speaker embedding too goes to fp32, as in JAX.
+                arr = torch.as_tensor(v, dtype=torch.float32, device=self.device).reshape(1, 1, -1)
                 if k == "emotion":
                     arr = arr / arr.sum(dim=-1, keepdim=True)
                 out[k] = arr
@@ -237,3 +283,16 @@ class ZonosPipeline:
         if isinstance(result, GenerateResult):
             wav = wav[:, : result.valid_length * self.dac.hop]
         return wav
+
+    def encode_audio(self, wav, sr: int) -> torch.Tensor:
+        """Audio prefix ``[C, T]`` or ``[T]`` at ``sr`` -> ``[1, 9, T']`` int64
+        codes on ``self.device``: mono mix, ``preprocess`` (44.1 kHz, padded
+        to the hop), DAC encode."""
+        if self.dac_params is None:
+            raise RuntimeError("DAC params not loaded")
+        wav = torch.as_tensor(wav, dtype=torch.float32).to(self.device)
+        if wav.ndim == 2:
+            wav = wav.mean(dim=0)
+        with torch.inference_mode():
+            wav = self.dac.preprocess(wav[None, :], sr)
+            return self.dac.encode(self.dac_params, wav[:, None, :])

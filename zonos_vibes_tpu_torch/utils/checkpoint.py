@@ -12,8 +12,16 @@
   layout: conv kernels ``[k, Cin, Cout]`` become PyTorch's
   ``[Cout, Cin, k]``; transposed-conv kernels, stored by JAX pre-flipped as
   ``[k, Cin, Cout]``, become ``conv_transpose1d``'s unflipped
-  ``[Cin, Cout, k]``. The encoder and the quantizers' input projections
-  are dropped: the port decodes only.
+  ``[Cin, Cout, k]``.
+* :func:`speaker_params_from_jax` does the same for the speaker encoder:
+  HWIO kernels ``[kh, kw, Cin, Cout]`` (``[n, kh, kw, Cin, Cout]`` in a
+  stage's stacked tail) become ``[Cout, Cin, kh, kw]`` (``[n, Cout, Cin,
+  kh, kw]``); the rest keeps its ``[in, out]`` layout.
+* :func:`load_zonos_checkpoint` (with :func:`load_zonos_config` and
+  :func:`convert_zonos_state_dict`) and :func:`convert_dac_state_dict`
+  build the port's trees straight from the reference's state dicts, with
+  the JAX package's converters' arithmetic (numpy fp32, then one cast), so
+  that they equal ``params_from_jax`` of that package's converted trees.
 * :func:`load_params_cache` reads the flat ``.npz`` that the JAX package's
   ``utils/checkpoint.save_params_cache`` writes: keys joined with ``::``,
   bf16 entries stored as a uint16 view under an ``@bf16`` suffix, empty
@@ -27,8 +35,12 @@ an int8 embedding table in its bf16 (or fp32) dtype.
 
 from __future__ import annotations
 
+import json
+
 import numpy as np
 import torch
+
+from ..config import ZonosConfig
 
 _SEP = "::"
 
@@ -62,10 +74,18 @@ def _dac_from_jax(tree: dict) -> dict:
         return {"snake1": p["snake1"], "conv1": conv(p["conv1"]),
                 "snake2": p["snake2"], "conv2": conv(p["conv2"])}
 
-    dec = tree["decoder"]
+    enc, dec = tree["encoder"], tree["decoder"]
     return {
-        "quantizers": [{"out_proj": conv(q["out_proj"]), "codebook": q["codebook"]}
-                       for q in tree["quantizers"]],
+        "encoder": {
+            "conv1": conv(enc["conv1"]),
+            "blocks": [{"res1": res_unit(b["res1"]), "res2": res_unit(b["res2"]),
+                        "res3": res_unit(b["res3"]), "snake": b["snake"],
+                        "conv": conv(b["conv"])} for b in enc["blocks"]],
+            "snake": enc["snake"],
+            "conv2": conv(enc["conv2"]),
+        },
+        "quantizers": [{"in_proj": conv(q["in_proj"]), "out_proj": conv(q["out_proj"]),
+                        "codebook": q["codebook"]} for q in tree["quantizers"]],
         "decoder": {
             "conv1": conv(dec["conv1"]),
             "blocks": [{"snake": b["snake"], "conv_t": conv_t(b["conv_t"]),
@@ -77,11 +97,11 @@ def _dac_from_jax(tree: dict) -> dict:
     }
 
 
-def _stack(trees: list[dict]) -> dict:
+def stack_trees(trees: list[dict]) -> dict:
     """Same-structured trees -> one tree with each leaf stacked on axis 0."""
     first = trees[0]
     if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
+        return {k: stack_trees([t[k] for t in trees]) for k in first}
     return torch.stack(trees)
 
 
@@ -93,7 +113,7 @@ def _hybrid_from_jax(backbone: dict) -> dict:
     for kind, pick in (("mamba", True), ("attn", False)):
         group = [lp for lp in layers if ("A_log" in lp) == pick]
         if group:
-            out[kind] = _stack(group)
+            out[kind] = stack_trees(group)
     return out
 
 
@@ -107,6 +127,28 @@ def params_from_jax(tree, device="cpu") -> dict:
     elif isinstance(tree, dict) and isinstance(tree.get("backbone", {}).get("layers"), list):
         tree = {**tree, "backbone": _hybrid_from_jax(tree["backbone"])}
     return _map(tree, lambda t: t.to(device))
+
+
+def speaker_params_from_jax(tree: dict, device="cpu") -> dict:
+    """The JAX speaker encoder's tree (numpy leaves) -> the port's tree on
+    ``device``."""
+    tree = _map(tree, _to_tensor)
+
+    def conv(p):  # [..., kh, kw, Cin, Cout] -> [..., Cout, Cin, kh, kw]
+        w = p["weight"]
+        lead = tuple(range(w.ndim - 4))
+        n = len(lead)
+        return {"weight": w.permute(*lead, n + 3, n + 2, n, n + 1).contiguous(),
+                "bias": p["bias"]}
+
+    def stage(p):
+        return {part: {name: conv(c) for name, c in blk.items()} for part, blk in p.items()}
+
+    out = dict(tree)
+    out["conv1"] = conv(tree["conv1"])
+    for name in ("layer1", "layer2", "layer3", "layer4"):
+        out[name] = stage(tree[name])
+    return _map(out, lambda t: t.to(device))
 
 
 def _unflatten(flat: dict) -> dict:
@@ -146,3 +188,184 @@ def load_params_cache(path: str, device="cpu") -> dict:
             else:
                 flat[k] = torch.from_numpy(v.copy())
     return params_from_jax(_unflatten(flat), device)
+
+
+# ---------------------------------------------------------------------------
+# Reference checkpoints
+# ---------------------------------------------------------------------------
+
+def _np(x) -> np.ndarray:
+    """A state-dict value -> numpy (bf16 widened to fp32)."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    return np.asarray(x)
+
+
+def _cast(x: np.ndarray, dtype) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(x)).to(dtype)
+
+
+def load_zonos_config(config_path: str) -> ZonosConfig:
+    with open(config_path) as f:
+        return ZonosConfig.from_dict(json.load(f))
+
+
+def convert_zonos_state_dict(sd: dict, config: ZonosConfig, dtype=torch.bfloat16) -> dict:
+    """The reference transformer's state dict (tensors or arrays) -> the
+    port's parameter tree (on the CPU): the 9 embeddings and heads stacked,
+    the heads transposed to ``[D, 1025]`` and zero-padded to the head width,
+    linear weights ``[in, out]`` and each layer's tensors stacked on a
+    leading ``[n_layer]`` axis, the layer norms fp32, the rest ``dtype``.
+
+    Reference names: ``embeddings.{k}.weight`` ``[1026, D]``,
+    ``heads.{k}.weight`` ``[1025, D]``, ``backbone.layers.{i}.norm{,2}.*``,
+    ``backbone.layers.{i}.mixer.{in,out}_proj.weight``,
+    ``backbone.layers.{i}.mlp.fc{1,2}.weight``, ``backbone.norm_f.*``,
+    ``prefix_conditioner.conditioners.{j}.*`` (in config order) and
+    ``prefix_conditioner.{norm,project}.*``."""
+    if config.backbone.is_hybrid:
+        raise NotImplementedError("the reference converter covers the transformer only, as in "
+                                  "the JAX package")
+    L, K = config.backbone.n_layer, config.num_codebooks
+
+    def cast(x):
+        return _cast(x, dtype)
+
+    def cast32(x):
+        return _cast(x, torch.float32)
+
+    def linear(key):
+        return cast(_np(sd[key]).T)
+
+    m, hv = config.head_pad_to_multiple, config.head_vocab_size
+    head_pad = 0 if hv % m == 0 else m - hv % m
+    emb = np.stack([_np(sd[f"embeddings.{k}.weight"]) for k in range(K)])
+    heads = np.stack([np.pad(_np(sd[f"heads.{k}.weight"]).T, ((0, 0), (0, head_pad)))
+                      for k in range(K)])
+
+    def stack(fmt, transpose=False):
+        return np.stack([_np(sd[fmt.format(i=i)]).T if transpose else _np(sd[fmt.format(i=i)])
+                         for i in range(L)])
+
+    lp = "backbone.layers.{i}"
+    backbone = {
+        "layers": {
+            "norm1": {"weight": cast32(stack(f"{lp}.norm.weight")),
+                      "bias": cast32(stack(f"{lp}.norm.bias"))},
+            "in_proj": {"weight": cast(stack(f"{lp}.mixer.in_proj.weight", True))},
+            "out_proj": {"weight": cast(stack(f"{lp}.mixer.out_proj.weight", True))},
+            "norm2": {"weight": cast32(stack(f"{lp}.norm2.weight")),
+                      "bias": cast32(stack(f"{lp}.norm2.bias"))},
+            "fc1": {"weight": cast(stack(f"{lp}.mlp.fc1.weight", True))},
+            "fc2": {"weight": cast(stack(f"{lp}.mlp.fc2.weight", True))},
+        },
+        "norm_f": {"weight": cast(_np(sd["backbone.norm_f.weight"])),
+                   "bias": cast(_np(sd["backbone.norm_f.bias"]))},
+    }
+
+    def projection(base):
+        if f"{base}.project.weight" in sd:
+            return {"linear": {"weight": linear(f"{base}.project.weight"),
+                               "bias": cast(_np(sd[f"{base}.project.bias"]))}}
+        if f"{base}.project.0.weight" in sd:
+            return {f"mlp{j}": {"weight": linear(f"{base}.project.{j}.weight"),
+                                "bias": cast(_np(sd[f"{base}.project.{j}.bias"]))}
+                    for j in (0, 2)}
+        return {}
+
+    conds = {}
+    for j, cdict in enumerate(config.prefix_conditioner.conditioners_list):
+        base = f"prefix_conditioner.conditioners.{j}"
+        p: dict = {"project": projection(base)}
+        if f"{base}.uncond_vector" in sd:
+            p["uncond_vector"] = cast(_np(sd[f"{base}.uncond_vector"]))
+        for table in ("phoneme_embedder", "int_embedder"):
+            if f"{base}.{table}.weight" in sd:
+                p[table] = {"weight": cast(_np(sd[f"{base}.{table}.weight"]))}
+        if f"{base}.weight" in sd:  # the Fourier buffer (fp32, never trained)
+            p["weight"] = cast32(_np(sd[f"{base}.weight"]))
+        conds[cdict.get("name", cdict["type"])] = p
+
+    return {
+        "embeddings": {"weight": cast(emb)},
+        "heads": {"weight": cast(heads)},
+        "backbone": backbone,
+        "prefix_conditioner": {
+            "conditioners": conds,
+            "project": projection("prefix_conditioner"),
+            "norm": {"weight": cast(_np(sd["prefix_conditioner.norm.weight"])),
+                     "bias": cast(_np(sd["prefix_conditioner.norm.bias"]))},
+        },
+    }
+
+
+def load_zonos_checkpoint(config_path: str, model_path: str, dtype=torch.bfloat16):
+    """A reference ``config.json`` and ``model.safetensors`` -> (config,
+    parameter tree on the CPU)."""
+    import safetensors.torch
+
+    config = load_zonos_config(config_path)
+    sd = safetensors.torch.load_file(model_path)
+    return config, convert_zonos_state_dict(sd, config, dtype)
+
+
+def _conv_w(sd: dict, key: str) -> np.ndarray:
+    """A conv's ``[Cout, Cin, k]`` (or a transposed conv's ``[Cin, Cout,
+    k]``) weight, weight norm fused: ``weight``, or the ``g`` and ``v`` of
+    ``parametrizations.weight.original0/1``."""
+    if key + ".weight" in sd:
+        return _np(sd[key + ".weight"])
+    g = _np(sd[key + ".parametrizations.weight.original0"])
+    v = _np(sd[key + ".parametrizations.weight.original1"])
+    norm = np.sqrt((v ** 2).sum(axis=(1, 2), keepdims=True))
+    return g * v / np.maximum(norm, 1e-12)
+
+
+def convert_dac_state_dict(sd: dict, config) -> dict:
+    """HF ``transformers`` ``DacModel`` state dict -> the port's fp32 DAC tree
+    (on the CPU), in PyTorch's conv layouts: ``encoder.conv1/2``,
+    ``encoder.block.{i}.{res_unit1..3, snake1, conv1}``, ``encoder.snake1``,
+    ``decoder.conv1/2``, ``decoder.block.{i}.{snake1, conv_t1,
+    res_unit1..3}``, ``decoder.snake1``,
+    ``quantizer.quantizers.{i}.{in_proj, out_proj, codebook}``."""
+
+    f32 = torch.float32
+
+    def snake_a(key):
+        return _cast(_np(sd[key]).reshape(-1), f32)
+
+    def conv(key):
+        return {"weight": _cast(_conv_w(sd, key), f32), "bias": _cast(_np(sd[key + ".bias"]), f32)}
+
+    def res_unit(base):
+        return {"snake1": snake_a(f"{base}.snake1.alpha"), "conv1": conv(f"{base}.conv1"),
+                "snake2": snake_a(f"{base}.snake2.alpha"), "conv2": conv(f"{base}.conv2")}
+
+    def res_units(base):
+        return {f"res{u}": res_unit(f"{base}.res_unit{u}") for u in (1, 2, 3)}
+
+    n = len(config.downsampling_ratios)
+    return {
+        "encoder": {
+            "conv1": conv("encoder.conv1"),
+            "blocks": [{**res_units(f"encoder.block.{i}"),
+                        "snake": snake_a(f"encoder.block.{i}.snake1.alpha"),
+                        "conv": conv(f"encoder.block.{i}.conv1")} for i in range(n)],
+            "snake": snake_a("encoder.snake1.alpha"),
+            "conv2": conv("encoder.conv2"),
+        },
+        "quantizers": [{"in_proj": conv(f"quantizer.quantizers.{i}.in_proj"),
+                        "out_proj": conv(f"quantizer.quantizers.{i}.out_proj"),
+                        "codebook": _cast(_np(sd[f"quantizer.quantizers.{i}.codebook.weight"]),
+                                          f32)}
+                       for i in range(config.n_codebooks)],
+        "decoder": {
+            "conv1": conv("decoder.conv1"),
+            "blocks": [{"snake": snake_a(f"decoder.block.{i}.snake1.alpha"),
+                        "conv_t": conv(f"decoder.block.{i}.conv_t1"),
+                        **res_units(f"decoder.block.{i}")} for i in range(n)],
+            "snake": snake_a("decoder.snake1.alpha"),
+            "conv2": conv("decoder.conv2"),
+        },
+    }
