@@ -38,6 +38,9 @@ Phases, each of which fails the run loudly:
    12 and the head-dim-128 variants of rows 3 and 6, NaN past every bound;
    and the hybrid backbone on the card against the CPU path on a small
    input: solo decode, pooled ring (fp32 and bf16 state) and stage-less.
+   The server's shapes: row 1 at CFG batch 8 and 16, row 3 at batch 8 over
+   a bucket-padded conditioning, ``qmm_int8`` at M = 4 and 8, rows 6 and 8
+   at the 4-slot pool's 8 rows.
 3. End to end: ``ZonosPipeline.from_config(ZONOS_V01_TRANSFORMER)`` with
    random bf16 weights from a seeded generator, text -> about 5 s of codes
    -> DAC -> WAV (written to ``build/chip_smoke.wav``). The launch
@@ -67,6 +70,21 @@ Phases, each of which fails the run loudly:
    (mean total-variation distance at most 0.05), and
    ``DecodeEngine(model, kv_int8=True)`` for the same 5 s -> DAC -> WAV
    (``build/chip_smoke_int8.wav``) with its own exact launch counts.
+   After the clone + continuation run, the HTTP server
+   (``serve/server.py``) on the same pipeline, port 0, the main path's WAV
+   as the speaker: ``warmup`` of (batch 1, cond bucket 128, 430 frames,
+   speaker), then a request in those buckets that must capture nothing;
+   the same greedy payload with an explicit seed twice, identical WAV
+   bytes; 4 and 8 concurrent compatible requests batched into one decode
+   each (ms/step at CFG batch 2, 8 and 16 beside); one stream (time to
+   its first PCM chunk); one continuation from the 5.0 s chirp; the
+   8-slot pool under 8 arrivals 0.5 s apart, 4 of them streams (their
+   chunks from ``make_pool_emit`` on the card; time to first audio and
+   aggregate audio-s/s); ``/healthz``, ``/metrics``, ``/``, a 400 and a
+   404 and 2 requests on a 4-slot pool. After the int8 path, a pooled
+   server on the int8 pipeline with an int8 KV pool serves 2 requests and
+   2 job-path requests in one batch. Every server's ``errors_total``,
+   ``replayed_requests`` and ``pool_admit_failures`` must stay 0.
    After each of the two, the continuous-batching pool on the same weights
    (``engine/pool.py``; bf16 KV after the bf16 path, int8 KV after the int8
    path): ``PoolConfig(slots=8)``, 8 requests of 431 frames joining one per
@@ -113,7 +131,9 @@ Phases, each of which fails the run loudly:
    and at spreads near 1800 and near 3000 positions; the hybrid's kernels
    at its paths' shapes (the fused Mamba step with its 42 planes cycled,
    so each launch reads its state from device memory; no single PyTorch
-   call computes it, so it has no library time).
+   call computes it, so it has no library time); the server's shapes (rows
+   1 and 3 at its batches, ``qmm_int8``'s 105 launches at M = 4 and 8, rows
+   6 and 8 at 8 rows).
 
 Before them a ``{"graphs": ...}`` line gathers each path's eager and graph
 ms/step, bound, capture time and host reads. The second-to-last line is
@@ -128,7 +148,12 @@ path's; ``qmm_int8_m16_step`` (the pooled step's 105 launches at 16 rows,
 timed as their sum) lists those counted during the int8 pool run's pooled
 steps, and ``qmm_int8_m176_fc1`` the fc1 launches of the solo int8 path's
 prefill, one per layer, at 2 * (cond_len + 1) rows; the
-hybrid's those of the hybrid's paths (the fused Mamba step is
+server's lines those of its runs (``decode_attention_b8``/``_b16`` and
+``prefill_attention_b8``: the batches of 4 and 8 requests;
+``decode_attention_pooled_r8``: the 4-slot pool's 2 requests;
+``decode_attention_pooled_q_r8`` and ``qmm_int8_m8_step``: the int8 pool's;
+``qmm_int8_m4_step``: the int8 job-path batch's, its prefill's included),
+the hybrid's those of the hybrid's paths (the fused Mamba step is
 one kernel with two entries, counted under ``ssd_gate_step``: row 9 lists
 the solo path's launches, row 10 the pool's). Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints no
@@ -239,11 +264,11 @@ def randn(gen, *shape):
     return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
 
 
-def decode_inputs(gen, T):
-    return dict(q=randn(gen, B, 1, HQ, D), k_cache=randn(gen, L, B, T, W),
-                v_cache=randn(gen, L, B, T, W), k_stage=randn(gen, L, B, STAGE, W),
-                v_stage=randn(gen, L, B, STAGE, W), k_cur=randn(gen, B, W),
-                v_cur=randn(gen, B, W))
+def decode_inputs(gen, T, Bx=B):
+    return dict(q=randn(gen, Bx, 1, HQ, D), k_cache=randn(gen, L, Bx, T, W),
+                v_cache=randn(gen, L, Bx, T, W), k_stage=randn(gen, L, Bx, STAGE, W),
+                v_stage=randn(gen, L, Bx, STAGE, W), k_cur=randn(gen, Bx, W),
+                v_cur=randn(gen, Bx, W))
 
 
 def check_kernels() -> dict:
@@ -678,6 +703,7 @@ def check_step_kernels_one_launch() -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from zonos_vibes_tpu_torch.ops.cuda import build
     from zonos_vibes_tpu_torch.ops.cuda.mamba_step import ssd_gate_step_layered
     from zonos_vibes_tpu_torch.ops.cuda.qmm import qmm_int8
 
@@ -707,18 +733,29 @@ def check_step_kernels_one_launch() -> None:
         out = call()
         return [out] if state is None else [out, state.clone()]
 
+    # A throwaway first session, so that the profiler's own start-up cannot
+    # cost the counted sessions below a kernel (one run saw 0 kernels in
+    # the first counted session; tools/profiler_first_session.py did not
+    # reproduce it). Each counted session also reads the wrapper's launch
+    # count, which tells a kernel the profiler missed from a missed launch.
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.ones(8, device="cuda").add_(1)
+        torch.cuda.synchronize()
     for name, (prepare, call, _) in calls.items():
         run(name)
         if prepare is not None:
             prepare()
         torch.cuda.synchronize()
+        build.reset_launches()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             call()
             torch.cuda.synchronize()
         kernels = [e.name for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA]
-        if len(kernels) != 1:
-            raise AssertionError(f"{name}: {len(kernels)} device kernels in one call: {kernels}")
+        launched = build.LAUNCHES[name.split()[0]]
+        if len(kernels) != 1 or launched != 1:
+            raise AssertionError(f"{name}: {len(kernels)} device kernels in one call (wrapper "
+                                 f"launches {launched}): {kernels}")
     names = list(calls)
     first = [run(n) for n in names]
     for i in range(300):
@@ -2277,11 +2314,11 @@ def time_pooled_hd128(gen, bases, lens, card):
 PREFILL_LONG = ((2048, 0), (512, 64))
 
 
-def time_prefill(gen, Hq, Hkv, Dh, S, T, card, long=PREFILL_LONG) -> dict:
-    """Row 3 at a path's chunk (S at offset 0 in a cache of T): the kernel,
-    the plain version and SDPA; then the ``long`` chunks, kernel and SDPA
-    only. Returns {(S, offset): (kernel, plain or None, library, bound ms,
-    bound_by)}."""
+def time_prefill(gen, Hq, Hkv, Dh, S, T, card, long=PREFILL_LONG, Bx=B) -> dict:
+    """Row 3 at a path's chunk (S at offset 0 in a cache of T, batch
+    ``Bx``): the kernel, the plain version and SDPA; then the ``long``
+    chunks, kernel and SDPA only. Returns {(S, offset): (kernel, plain or
+    None, library, bound ms, bound_by)}."""
     import torch
     import torch.nn.functional as F
 
@@ -2292,11 +2329,11 @@ def time_prefill(gen, Hq, Hkv, Dh, S, T, card, long=PREFILL_LONG) -> dict:
     out = {}
     for S_, offset, T_ in ((S, 0, T), *((s_, o_, s_ + o_) for s_, o_ in long)):
         end = offset + S_
-        q = randn(gen, B, S_, Hq, Dh)
-        k, v = randn(gen, B, T_, W_), randn(gen, B, T_, W_)
+        q = randn(gen, Bx, S_, Hq, Dh)
+        k, v = randn(gen, Bx, T_, W_), randn(gen, Bx, T_, W_)
         qh = q.transpose(1, 2).contiguous()
-        kh = k[:, :end].view(B, end, Hkv, Dh).transpose(1, 2).contiguous()
-        vh = v[:, :end].view(B, end, Hkv, Dh).transpose(1, 2).contiguous()
+        kh = k[:, :end].view(Bx, end, Hkv, Dh).transpose(1, 2).contiguous()
+        vh = v[:, :end].view(Bx, end, Hkv, Dh).transpose(1, 2).contiguous()
         if offset:  # query i attends keys [0, offset + i]
             mask = (torch.arange(end, device="cuda")[None, :]
                     <= offset + torch.arange(S_, device="cuda")[:, None])
@@ -2307,13 +2344,13 @@ def time_prefill(gen, Hq, Hkv, Dh, S, T, card, long=PREFILL_LONG) -> dict:
         ms = device_ms(lambda: prefill_attention(q, k, v, offset), iters)
         lib = device_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, enable_gqa=True,
                                                                **sdpa), iters)
-        b, by = bound(2 * B * S_ * Hq * Dh * 2 + 2 * B * end * W_ * 2,
-                      4 * B * Hq * Dh * (S_ * offset + S_ * (S_ + 1) / 2))
+        b, by = bound(2 * Bx * S_ * Hq * Dh * 2 + 2 * Bx * end * W_ * 2,
+                      4 * Bx * Hq * Dh * (S_ * offset + S_ * (S_ + 1) / 2))
         plain = None
         if not out:
             plain = device_ms(lambda: prefill_attention_plain(q, k, v, offset), 20)
         out[S_, offset] = (ms, plain, lib, b, by)
-        log(f"time prefill_attention D={Dh} Hq={Hq} Hkv={Hkv} S={S_} offset={offset} T={T_} "
+        log(f"time prefill_attention D={Dh} Hq={Hq} Hkv={Hkv} B={Bx} S={S_} offset={offset} T={T_} "
             f"({card}): kernel_ms {ms:.4f} plain_ms {'-' if plain is None else f'{plain:.4f}'} "
             f"library_ms {lib:.4f} (SDPA, {'masked' if offset else 'causal'}) bound_ms {b:.6f} ({by}); "
             f"kernel / SDPA {ms / lib:.2f}")
@@ -2368,12 +2405,12 @@ def _write_label(held) -> str:
             "stage not written as the plain splice writes it")
 
 
-def time_decode(gen, T, fe, sl, label, card, quant=False):
+def time_decode(gen, T, fe, sl, label, card, quant=False, Bx=B):
     """Row 1 (row 5 with ``quant``: an int8 prefix) at one step's scalars,
-    layer 5 of the 26-layer cache, with its stage write: kernel, plain
-    version and SDPA over the gathered (dequantized) K/V. Returns (ms,
-    plain, library, bound, by, stage write held); the bound counts the
-    stage write's bytes."""
+    layer 5 of the 26-layer cache, CFG batch ``Bx``, with its stage write:
+    kernel, plain version and SDPA over the gathered (dequantized) K/V.
+    Returns (ms, plain, library, bound, by, stage write held); the bound
+    counts the stage write's bytes."""
     import torch
     import torch.nn.functional as F
 
@@ -2382,7 +2419,7 @@ def time_decode(gen, T, fe, sl, label, card, quant=False):
         decode_attention_layered_q_plain)
     from zonos_vibes_tpu_torch.ops.quant import dequantize_rows, quantize_rows
 
-    x = decode_inputs(gen, T)
+    x = decode_inputs(gen, T, Bx)
     sc = torch.tensor([fe, sl, 5], dtype=torch.int32, device="cuda")
     n = fe + sl + 1
     parts = {}
@@ -2393,21 +2430,21 @@ def time_decode(gen, T, fe, sl, label, card, quant=False):
             prefix = dequantize_rows(x[name + "_cache"][5, :, :fe],
                                      x[name + "_scale"][5, :, :fe]).to(torch.bfloat16)
         g = torch.cat([prefix, x[name + "_stage"][5, :, :sl], x[name + "_cur"][:, None]], 1)
-        parts[name] = g.view(B, n, HKV, D).transpose(1, 2).contiguous()
+        parts[name] = g.view(Bx, n, HKV, D).transpose(1, 2).contiguous()
     qg = x["q"].transpose(1, 2).contiguous()
     kernel, plain = ((decode_attention_layered_q, decode_attention_layered_q_plain) if quant
                      else (decode_attention_layered, decode_attention_layered_plain))
     before = stage_planes(x, 5)
     ms = device_ms(lambda: kernel(**x, scalars=sc), 200)
-    held = stage_write_held(x, before, 5, torch.full((B,), sl, dtype=torch.int32, device="cuda"))
+    held = stage_write_held(x, before, 5, torch.full((Bx,), sl, dtype=torch.int32, device="cuda"))
     plain_ms = device_ms(lambda: plain(**x, scalars=sc), 20)
     lib = device_ms(lambda: F.scaled_dot_product_attention(qg, parts["k"], parts["v"],
                                                            enable_gqa=True), 200)
     per_prefix = W + HKV * 4 if quant else W * 2
-    nbytes = (2 * B * fe * per_prefix + 2 * B * (sl + 1) * W * 2 + 2 * B * HQ * D * 2
-              + 2 * B * W * 2)
-    b, by = bound(nbytes, 4 * B * HQ * n * D)
-    log(f"time decode_attention{'_q' if quant else ''} {label} T={T} flushed_end={fe} "
+    nbytes = (2 * Bx * fe * per_prefix + 2 * Bx * (sl + 1) * W * 2 + 2 * Bx * HQ * D * 2
+              + 2 * Bx * W * 2)
+    b, by = bound(nbytes, 4 * Bx * HQ * n * D)
+    log(f"time decode_attention{'_q' if quant else ''} {label} B={Bx} T={T} flushed_end={fe} "
         f"stage_len={sl} ({card}): kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
         f"{lib:.4f} (SDPA, {'dequantized ' if quant else ''}gathered K/V) bound_ms {b:.5f} ({by}); "
         f"kernel / SDPA {ms / lib:.2f}; {_write_label(held)}")
@@ -2526,7 +2563,7 @@ def time_qmm_steps(gen, card, Ms=(2, POOL_M)):
                 f"plain_ms {plain:.4f} library_ms {lib:.5f} (matmul, bf16 weight) bound_ms "
                 f"{b:.5f} ({by})")
     for M, t in step.items():
-        label = "one decode step" if M <= 2 else "one pooled step"
+        label = "one decode step" if M <= 2 else f"one step at M={M}"
         log(f"time qmm_int8 {label} (M={M}), 105 launches ({card}): kernel_ms {t['ms']:.4f} "
             f"plain_ms {t['plain']:.3f} library_ms {t['lib']:.4f} bound_ms {t['bound']:.4f}; "
             f"kernel / library {t['ms'] / t['lib']:.3f}")
@@ -2713,6 +2750,589 @@ def time_pool_kernels(pool_bf16: dict, pool_int8: dict, errors: dict, card: str)
     return rows
 
 
+# The HTTP server (serve/server.py) on the flagship pipeline. Texts of the
+# batched requests: each within the 128-position conditioning bucket of TEXT.
+SERVER_TEXTS = [TEXT, "Four requests share one decode call on the card.",
+                "The batch pads every text to one bucket, on the left.",
+                "A fourth text joins the group before the window closes.",
+                "Eight requests make a batch of sixteen CFG rows.",
+                "Each row decodes its own text at its own length.",
+                "The graph for this shape is captured once and kept.",
+                "The last of the eight, and the batch is full."]
+SERVER_MNT = 430  # the 430-frame bucket (5 s)
+SERVER_COND_BUCKET = 128
+# The measured requests are greedy, and codebook 0's EOS column of the
+# output head is zeroed while they run: random weights otherwise end rows
+# at random frames (10 under the default sampler, 19-269 greedy), where a
+# trained model speaks its text. So each measured row runs the 430-frame
+# budget: a fixed output length, as serving benchmarks on random weights
+# fix it (ignore-EOS), here without a request option JAX's server lacks.
+GREEDY = {"temperature": 0}
+
+
+def _http(port: int, method: str, path: str, payload=None, timeout=600):
+    """One request to the server on ``port``: (status, content type, body,
+    seconds to the first body byte, seconds to the last)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    t0 = time.perf_counter()
+    body = None if payload is None else json.dumps(payload).encode()
+    conn.request(method, path, body=body, headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    first, t_first = resp.read1(65536), time.perf_counter() - t0
+    if resp.headers.get("Transfer-Encoding") == "chunked" and len(first) <= 44:
+        # A stream: the first chunk is the WAV header, the next the first PCM.
+        more = resp.read1(65536)
+        t_first, first = time.perf_counter() - t0, first + more
+    rest = resp.read()
+    t_last = time.perf_counter() - t0
+    conn.close()
+    return resp.status, resp.headers.get("Content-Type"), first + rest, t_first, t_last
+
+
+def _wav_samples(body: bytes, streamed: bool = False):
+    """PCM samples of a WAV body (a stream's header holds no sizes)."""
+    import io
+    import wave
+
+    import numpy as np
+
+    if streamed:
+        if body[:4] != b"RIFF" or body[8:16] != b"WAVEfmt " or body[36:40] != b"data":
+            raise AssertionError("stream: not a WAV header")
+        sr = int.from_bytes(body[24:28], "little")
+        if sr != 44100 or int.from_bytes(body[34:36], "little") != 16 or len(body[44:]) % 2:
+            raise AssertionError(f"stream: {sr} Hz, {len(body[44:])} PCM bytes")
+        return np.frombuffer(body[44:], np.int16)
+    with wave.open(io.BytesIO(body)) as w:
+        if w.getframerate() != 44100 or w.getnchannels() != 1 or w.getsampwidth() != 2:
+            raise AssertionError("not a 44.1 kHz mono 16-bit WAV")
+        return np.frombuffer(w.readframes(w.getnframes()), np.int16)
+
+
+def _require_wav(label, status, ctype, body, min_samples, streamed=False):
+    if status != 200 or ctype != "audio/wav":
+        raise AssertionError(f"{label}: HTTP {status} {ctype}: {body[:200]!r}")
+    pcm = _wav_samples(body, streamed)
+    if pcm.size < min_samples or not (pcm != 0).any():
+        raise AssertionError(f"{label}: {pcm.size} samples (at least {min_samples} expected)")
+    return pcm
+
+
+def _post_all(port, payloads, stagger_s=0.0):
+    """Post each payload from its own thread, ``stagger_s`` apart; returns
+    the answers in order."""
+    import threading
+
+    out = [None] * len(payloads)
+
+    def post(i):
+        out[i] = _http(port, "POST", "/tts", payloads[i])
+
+    threads = []
+    for i in range(len(payloads)):
+        t = threading.Thread(target=post, args=(i,))
+        t.start()
+        threads.append(t)
+        time.sleep(stagger_s)
+    for t in threads:
+        t.join(900)
+    return out
+
+
+def _clean(label, srv, **want) -> dict:
+    """The server's metrics, which must show no error, no replay and no
+    failed pool admit, and equal ``want``."""
+    m = srv.metrics.snapshot()
+    bad = {k: m[k] for k in ("errors_total", "replayed_requests", "pool_admit_failures")
+           if m[k] != 0}
+    bad.update({k: m[k] for k, v in want.items() if m[k] != v})
+    if bad:
+        raise AssertionError(f"server {label}: metrics {bad} (expected 0, or {want}); {m}")
+    return m
+
+
+def _engine_ms_per_step(pipe, texts, speaker) -> tuple:
+    """ms per decode step of the server's greedy group shape (its texts
+    padded to the bucket, CFG batch 2 x len(texts), the 430-frame bucket)
+    through the pipeline's engine with ``disable_eos``, so every shape runs
+    its whole budget: (ms per step, steps), the capture left out."""
+    import torch
+
+    from zonos_vibes_tpu_torch.ops.sampling import SamplingParams
+    from zonos_vibes_tpu_torch.serve.server import DEFAULT_UNCONDITIONAL
+
+    conds = [pipe.make_cond_dict(text=t, speaker=speaker,
+                                 unconditional_keys=tuple(sorted(DEFAULT_UNCONDITIONAL)))
+             for t in texts]
+    prefix = pipe.prepare_conditioning(pipe.merge_cond_dicts(conds, pad_len=SERVER_COND_BUCKET))
+    res = pipe.engine.generate(pipe.params, prefix, generator=torch.Generator("cuda").manual_seed(3),
+                               sampling_params=SamplingParams.from_dict(GREEDY),
+                               max_new_tokens=SERVER_MNT, disable_eos=True)
+    return (res.decode_seconds - res.capture_seconds) * 1e3 / res.steps, res.steps
+
+
+def run_server(pipe, card: str) -> dict:
+    """Phase 3, the HTTP server on the bf16 flagship pipeline (after the
+    clone + continuation run): warmup and the graph cache, batching,
+    streaming, continuation, the pool under staggered arrivals and the
+    surface, with the metrics clean throughout. A default-sampler request
+    ends at EOS on the main path's weights; then codebook 0's EOS column
+    of the head is zeroed (restored at the end) and the measured requests,
+    greedy with distinct texts, each run their 430 frames; every row's
+    frame count is printed beside its times. Returns the numbers and the
+    launch counts of each part."""
+    import numpy as np
+    import torch
+
+    from zonos_vibes_tpu_torch.ops.cuda import build
+    from zonos_vibes_tpu_torch.serve.sample import wav_bytes
+    from zonos_vibes_tpu_torch.serve.server import TTSServer
+
+    out_dir = ROOT / "build"
+    out_dir.mkdir(exist_ok=True)
+    spk_path = str(out_dir / "chip_smoke.wav")  # the main path's 5 s WAV
+    prefix_path = out_dir / "chip_smoke_server_prefix.wav"
+    prefix_path.write_bytes(wav_bytes(prefix_signal(), PREFIX_SR))
+    hop, sr = pipe.dac.hop, pipe.dac.sampling_rate
+    engine = pipe.engine
+    bucket = TTSServer._cond_bucket(int(pipe.make_cond_dict(text=TEXT)["espeak"].shape[1]))
+    if bucket != SERVER_COND_BUCKET:
+        raise AssertionError(f"TEXT's conditioning bucket {bucket} != {SERVER_COND_BUCKET}")
+    stats = {"launches": {}}
+    servers = []
+    torch.cuda.reset_peak_memory_stats()
+    head = pipe.params["heads"]["weight"]  # [codebooks, d_model, vocab]
+    eos = pipe.model.config.eos_token_id
+    eos_column = head[0, :, eos].clone()
+
+    def frames(pcm) -> int:
+        return pcm.size // hop
+
+    def start(**kw):
+        srv = TTSServer(pipe, host="127.0.0.1", port=0, request_timeout_s=600, **kw)
+        srv.start_background()
+        servers.append(srv)
+        return srv, srv._httpd.server_address[1]
+
+    try:
+        # 1. Warmup, then a request in its buckets: no capture.
+        srv, port = start()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv.warmup([(1, SERVER_COND_BUCKET, SERVER_MNT, True)])
+        warm_s = time.perf_counter() - t0
+        capture_ms = engine._entries[-1].runner.capture_seconds * 1e3
+        captures, misses = engine.captures, engine.misses
+        solo = {"text": TEXT, "speaker_audio_path": spk_path, "max_new_tokens": SERVER_MNT}
+        speaker = srv._speaker_embedding(spk_path)  # cached; the worker is idle
+        cond = pipe.make_cond_dict(text=TEXT, speaker=speaker)
+        stats["cond_len"] = pipe.prepare_conditioning(
+            pipe.merge_cond_dicts([cond], pad_len=SERVER_COND_BUCKET)).shape[1]
+        # The warmed-up shape takes the default sampler (warmup's own).
+        status, ctype, body, _, wall = _http(port, "POST", "/tts", solo)
+        pcm = _require_wav("warm", status, ctype, body, hop)
+        if (engine.captures, engine.misses) != (captures, misses):
+            raise AssertionError(f"server: the warmed-up request captured "
+                                 f"({engine.captures - captures} captures, "
+                                 f"{engine.misses - misses} new entries)")
+        warm_frames, warm_wall = frames(pcm), wall
+        head[0, :, eos] = 0  # every measured row runs its budget (GREEDY)
+        # The solo request: greedy, seed 7, twice (the second a cache hit).
+        greedy = {**solo, "seed": 7, "sampling": GREEDY}
+        twice = [_http(port, "POST", "/tts", greedy) for _ in range(2)]
+        if twice[0][2] != twice[1][2]:
+            raise AssertionError("server: the same greedy payload with an explicit seed gave "
+                                 "different WAV bytes")
+        pcm = _require_wav("solo", *twice[1][:3], hop)
+        (out_dir / "chip_smoke_server.wav").write_bytes(twice[1][2])
+        wall = twice[1][4]
+        solo_ms, solo_steps = _engine_ms_per_step(pipe, [TEXT], speaker)
+        stats.update(warmup_s=warm_s, capture_ms=capture_ms, solo_wall_ms=wall * 1e3,
+                     solo_frames=frames(pcm), solo_audio_s=pcm.size / sr,
+                     solo_rtf=pcm.size / sr / wall, solo_ms_per_step=solo_ms)
+        log(f"server warmup ({card}): {warm_s:.3f} s for (batch 1, cond bucket "
+            f"{SERVER_COND_BUCKET}, {SERVER_MNT} frames, speaker): one capture of "
+            f"{capture_ms:.1f} ms; a default-sampler request in those buckets then captured "
+            f"nothing ({warm_frames} frames before EOS, {warm_wall * 1e3:.1f} ms; engine captures "
+            f"{engine.captures}, hits {engine.hits})")
+        log(f"server solo ({card}): /tts {TEXT!r} with the main path's WAV as speaker, greedy, "
+            f"seed 7, twice: identical WAV bytes ({len(twice[0][2])} B); the second (a cache hit) "
+            f"{frames(pcm)} of {SERVER_MNT} frames, {pcm.size / sr:.3f} s of audio in "
+            f"{wall * 1e3:.1f} ms HTTP wall, RTF {pcm.size / sr / wall:.3f}; decode at this "
+            f"shape {solo_ms:.3f} ms/step ({solo_steps} steps, disable_eos)")
+
+        # 2. Batching: 4 and then 8 concurrent compatible requests.
+        bsrv, bport = start(batch_window_s=1.0)
+        for n in (4, 8):
+            build.reset_launches()
+            before = bsrv.metrics.snapshot()["batched_requests"]
+            t0 = time.perf_counter()
+            # No explicit seed: one would isolate each request's group.
+            answers = _post_all(bport, [{**solo, "text": t, "sampling": GREEDY}
+                                        for t in SERVER_TEXTS[:n]])
+            wall = time.perf_counter() - t0
+            stats["launches"][f"batch{n}"] = dict(build.LAUNCHES)
+            for i, (status, ctype, body, _, _) in enumerate(answers):
+                _require_wav(f"batch {n} row {i}", status, ctype, body, hop)
+                if n == 4:
+                    (out_dir / f"chip_smoke_server_batch_row{i}.wav").write_bytes(body)
+            batched = bsrv.metrics.snapshot()["batched_requests"] - before
+            if batched != n - 1:
+                raise AssertionError(f"server batch {n}: {batched} requests batched, not {n - 1}")
+            ms, steps = _engine_ms_per_step(pipe, SERVER_TEXTS[:n], speaker)
+            row_frames = [frames(_wav_samples(a[2])) for a in answers]
+            audio = sum(row_frames) * hop / sr
+            stats[f"batch{n}"] = dict(ms_per_step=ms, wall_s=wall, audio_s=audio,
+                                      audio_per_s=audio / wall, frames=row_frames)
+            log(f"server batch {n} ({card}): {n} concurrent greedy requests, {batched} batched "
+                f"into one decode of CFG batch {2 * n}; at this shape {ms:.3f} ms/step ({steps} "
+                f"steps, disable_eos) against {solo_ms:.3f} at CFG batch 2; frames per row "
+                f"{row_frames}: {audio:.2f} s of audio in {wall:.3f} s wall "
+                f"({audio / wall:.3f} audio-s/s); launches {stats['launches'][f'batch{n}']}")
+        _clean("batching", bsrv)
+
+        # 3. Streaming: time to the first PCM chunk.
+        status, ctype, body, first, wall = _http(port, "POST", "/tts",
+                                                 {**greedy, "stream": True})
+        pcm = _require_wav("stream", status, ctype, body, hop, streamed=True)
+        (out_dir / "chip_smoke_server_stream.wav").write_bytes(
+            wav_bytes(pcm.astype(np.float32) / 32767.0, sr))
+        stats.update(stream_first_ms=first * 1e3, stream_wall_ms=wall * 1e3,
+                     stream_frames=frames(pcm), stream_audio_s=pcm.size / sr)
+        log(f"server stream ({card}): the solo greedy payload streamed: first PCM chunk after "
+            f"{first * 1e3:.1f} ms, all {frames(pcm)} frames ({pcm.size / sr:.3f} s of audio) "
+            f"after {wall * 1e3:.1f} ms; the chunks form a 44.1 kHz 16-bit WAV "
+            f"(build/chip_smoke_server_stream.wav)")
+
+        # 4. Continuation from the 5 s chirp.
+        status, ctype, body, _, wall = _http(port, "POST", "/tts",
+                                             {**greedy, "prefix_audio_path": str(prefix_path)})
+        pcm = _require_wav("continuation", status, ctype, body, PREFIX_FRAMES * hop)
+        (out_dir / "chip_smoke_server_continue.wav").write_bytes(body)
+        stats.update(continuation_wall_ms=wall * 1e3, continuation_audio_s=pcm.size / sr)
+        log(f"server continuation ({card}): prefix {prefix_path.name} ({PREFIX_FRAMES} frames), "
+            f"{pcm.size / sr:.3f} s of audio (prefix and continuation) in {wall * 1e3:.1f} ms")
+        stats["solo_metrics"] = _clean("solo", srv)
+
+        # 5. The pool, 8 slots: 8 requests 0.5 s apart, 4 of them streaming.
+        psrv, pport = start(pooled=True, pool_slots=POOL_SLOTS)
+        build.reset_launches()
+        payloads = [{"text": t, "speaker_audio_path": spk_path, "max_new_tokens": SERVER_MNT,
+                     "sampling": GREEDY, "seed": 100 + i, "stream": i % 2 == 1}
+                    for i, t in enumerate(POOL_TEXTS)]
+        t0 = time.perf_counter()
+        answers = _post_all(pport, payloads, stagger_s=0.5)
+        wall = time.perf_counter() - t0
+        stats["launches"]["pool8"] = dict(build.LAUNCHES)
+        ttfa, row_frames = [], []
+        for i, (status, ctype, body, first, last) in enumerate(answers):
+            pcm = _require_wav(f"pool row {i}", status, ctype, body, hop,
+                               streamed=payloads[i]["stream"])
+            ttfa.append(first if payloads[i]["stream"] else last)
+            row_frames.append(frames(pcm))
+        audio = sum(row_frames) * hop / sr
+        _clean("pool", psrv, pooled_requests=8)
+        stats["pool"] = dict(ttfa_ms=[t * 1e3 for t in ttfa], frames=row_frames, audio_s=audio,
+                             wall_s=wall, audio_per_s=audio / wall)
+        log(f"server pool ({card}): 8 slots, 8 greedy requests 0.5 s apart (rows 1/3/5/7 "
+            f"streaming), pooled_requests 8, pool_admit_failures 0; time to first audio per "
+            f"request {', '.join(f'{t * 1e3:.1f}' for t in ttfa)} ms (streams: first PCM "
+            f"chunk; the others: the whole WAV); frames per row {row_frames}: {audio:.2f} s of "
+            f"audio in {wall:.3f} s wall: {audio / wall:.3f} audio-s/s; launches "
+            f"{stats['launches']['pool8']}")
+        psrv.shutdown()
+        servers.remove(psrv)
+        del psrv
+        torch.cuda.empty_cache()
+
+        # 6. The surface, on a pooled server at its default 4 slots.
+        ssrv, sport = start(pooled=True)
+        for path in ("/healthz", "/metrics", "/"):
+            status = _http(sport, "GET", path)[0]
+            if status != 200:
+                raise AssertionError(f"server GET {path}: HTTP {status}")
+        for payload, want in (({"text": ""}, 400),
+                              ({"text": "x", "speaker_audio_path": "/no/such/file.wav"}, 404)):
+            status = _http(sport, "POST", "/tts", payload)[0]
+            if status != want:
+                raise AssertionError(f"server {payload}: HTTP {status}, not {want}")
+        build.reset_launches()
+        for status, ctype, body, _, _ in _post_all(sport, [{**solo, "text": t}
+                                                           for t in SERVER_TEXTS[:2]], 0.5):
+            _require_wav("pool4", status, ctype, body, hop)
+        stats["launches"]["pool4"] = dict(build.LAUNCHES)
+        _clean("surface", ssrv, pooled_requests=2)
+        log(f"server surface ({card}): /healthz, /metrics, / 200; empty text 400; a missing "
+            f"speaker path 404; 2 requests through the 4-slot pool, launches "
+            f"{stats['launches']['pool4']}")
+        stats.update(entries=len(engine._entries), resident_bytes=engine.resident_bytes,
+                     peak_bytes=torch.cuda.max_memory_allocated())
+        log(f"server memory ({card}): the engine's graph cache holds {len(engine._entries)} "
+            f"entries, resident_bytes {engine.resident_bytes} (bound {engine.cache_bytes}); "
+            f"device memory peak over the server phase {stats['peak_bytes']} B allocated "
+            f"(torch.cuda.max_memory_allocated), of {torch.cuda.get_device_properties(0).total_memory} B")
+    finally:
+        for s in servers:
+            s.shutdown()
+        head[0, :, eos] = eos_column
+    for name in ("solo_frames", "stream_frames"):
+        if stats[name] != SERVER_MNT:
+            raise AssertionError(f"server: {name} {stats[name]}, not the {SERVER_MNT}-frame budget")
+    for run in ("batch4", "batch8", "pool"):
+        if stats[run]["frames"] != [SERVER_MNT] * len(stats[run]["frames"]):
+            raise AssertionError(f"server {run}: frames {stats[run]['frames']}, not "
+                                 f"{SERVER_MNT} each")
+    return stats
+
+
+def run_server_int8(pipe, card: str) -> dict:
+    """Phase 3, the server on the int8 pipeline (after the int8 path): a
+    pooled server with an int8 KV pool (4 slots) serves 2 requests, and 2
+    requests whose repetition window exceeds the pool's take the job path
+    as one batch (``qmm_int8`` at M = 4)."""
+    from zonos_vibes_tpu_torch.ops.cuda import build
+    from zonos_vibes_tpu_torch.serve.server import TTSServer
+
+    spk_path = str(ROOT / "build" / "chip_smoke.wav")
+    hop = pipe.dac.hop
+    srv = TTSServer(pipe, host="127.0.0.1", port=0, request_timeout_s=600, pooled=True,
+                    pool_kv_int8=True, batch_window_s=1.0)
+    srv.start_background()
+    port = srv._httpd.server_address[1]
+    stats = {"launches": {}}
+    try:
+        base = {"speaker_audio_path": spk_path, "max_new_tokens": SERVER_MNT}
+        build.reset_launches()
+        for status, ctype, body, _, _ in _post_all(port, [{**base, "text": t}
+                                                          for t in SERVER_TEXTS[:2]], 0.5):
+            _require_wav("int8 pool", status, ctype, body, hop)
+        stats["launches"]["pool4_int8"] = dict(build.LAUNCHES)
+        build.reset_launches()
+        job = {**base, "sampling": {"linear": 0.5, "conf": 0.4, "repetition_penalty_window": 9}}
+        for status, ctype, body, _, _ in _post_all(port, [{**job, "text": t}
+                                                          for t in SERVER_TEXTS[2:4]]):
+            _require_wav("int8 job", status, ctype, body, hop)
+        stats["launches"]["batch2_int8"] = dict(build.LAUNCHES)
+        m = _clean("int8", srv, pooled_requests=2, batched_requests=1)
+        if not srv._pool_jobs["default"].kv_int8:
+            raise AssertionError("int8 server: the pool's KV is not int8")
+    finally:
+        srv.shutdown()
+    log(f"server int8 ({card}): int8 weights, int8 KV pool at 4 slots: 2 pooled requests, "
+        f"launches {stats['launches']['pool4_int8']}; 2 job-path requests (repetition window 9 "
+        f"> the pool's 8) in one batch of CFG batch 4, launches "
+        f"{stats['launches']['batch2_int8']}; metrics {m}")
+    return stats
+
+def server_decode_step(cond_len: int, steps: int) -> tuple[int, int, int]:
+    """(T, flushed_end, stage_len) of a server request's last decode step
+    (the 430-frame bucket, no audio prefix)."""
+    from zonos_vibes_tpu_torch.engine.generate import _find_multiple
+
+    T = cond_len + SERVER_MNT + 9
+    T = _find_multiple(T, 512 if T >= 1024 else 8)
+    base = cond_len + 1
+    last_pos = cond_len + steps
+    fe = base + ((last_pos - base) // STAGE) * STAGE
+    return T, fe, last_pos - fe
+
+
+SERVER_POOL_BASES = [0, 1, 255, 256, 500, 1800, 3000, 3456]
+SERVER_POOL_LENS = [0, 1, 5, 127, 127, 0, 5, 1]
+
+
+def check_server_kernels() -> dict:
+    """Phase 2, the kernels at the shapes the server gives them: row 1 at
+    CFG batch 8 and 16 (4 and 8 batched requests), row 3 at batch 8 over a
+    conditioning left-padded to its bucket, ``qmm_int8`` at M = 4 and 8
+    (the int8 job path's batch of 2, the 4-slot pool's step), rows 6 and 8
+    at the 4-slot pool's 8 rows over its 3584-position cache."""
+    import torch
+
+    from zonos_vibes_tpu_torch.ops import quant
+    from zonos_vibes_tpu_torch.ops.cuda.decode_attention import (
+        decode_attention_layered, decode_attention_layered_plain,
+        decode_attention_pooled_staged, decode_attention_pooled_staged_plain,
+        decode_attention_pooled_staged_q, decode_attention_pooled_staged_q_plain)
+    from zonos_vibes_tpu_torch.ops.cuda.qmm import qmm_int8, qmm_int8_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    err = {}
+    for Bx in (8, 16):
+        x = decode_inputs(gen, 1024, Bx)
+        worst = 0.0
+        for fe in (0, 1, 131, 512, 896):
+            for sl in (0, 5, 127):
+                for layer in (0, 25):
+                    sc = torch.tensor([fe, sl, layer], dtype=torch.int32, device="cuda")
+                    got = decode_attention_layered(**x, scalars=sc).float()
+                    want = decode_attention_layered_plain(**x, scalars=sc).float()
+                    e = (got - want).abs().max().item()
+                    if not torch.isfinite(got).all() or e > TOL:
+                        raise AssertionError(f"decode_attention B={Bx} fe={fe} sl={sl} "
+                                             f"l={layer}: err {e}")
+                    worst = max(worst, e)
+        err[f"decode_attention_b{Bx}"] = worst
+        log(f"kernel decode_attention B={Bx}: 30 cases (flushed_end 0/1/131/512/896, stage_len "
+            f"0/5/127, layer 0/25, T=1024) max_abs_err {worst:.3e} <= {TOL}")
+        del x
+
+    worst = 0.0
+    for S in (SERVER_COND_BUCKET + 4, SERVER_COND_BUCKET + 1, 65, 33):
+        worst = max(worst, check_prefill_case(gen, 8, S, 0, 576, HQ, HKV, D))
+    err["prefill_attention_b8"] = worst
+    log(f"kernel prefill_attention B=8: S {SERVER_COND_BUCKET + 4}/{SERVER_COND_BUCKET + 1}/65/33 "
+        f"at offset 0, T=576, NaN in every cache row at or past S: max_abs_err {worst:.3e} <= {TOL}")
+
+    shapes = [(name, 1, k, n, torch.bfloat16) for name, (k, n) in PROJECTIONS.items()]
+    shapes.append(("heads", *HEADS_SHAPE, torch.float32))
+    for M in (4, 8):
+        worst = 0.0
+        for name, G, K, N, out_dtype in shapes:
+            wq = quant.quantize_weight(randn(gen, G, K, N) / K ** 0.5)
+            rtol, atol = QMM_TOL["fp32" if out_dtype == torch.float32 else "bf16"]
+            x = randn(gen, M, K)
+            got = qmm_int8(x, wq["weight_int8"], wq["scale"], out_dtype)
+            want = qmm_int8_plain(x, wq["weight_int8"], wq["scale"], out_dtype)
+            diff = (got.float() - want.float()).abs()
+            if (got.shape != want.shape or got.dtype != out_dtype or not torch.isfinite(got).all()
+                    or (diff > atol + rtol * want.float().abs()).any()):
+                raise AssertionError(f"qmm_int8 {name} M={M}: max |err| {diff.max().item()}")
+            worst = max(worst, diff.max().item())
+        err[f"qmm_int8_m{M}"] = worst
+        log(f"kernel qmm_int8 M={M}: in_proj/out_proj/fc1/fc2 and the 9 heads, max_abs_err "
+            f"{worst:.3e} within |err| <= atol + rtol |y| {QMM_TOL}")
+
+    for name, kernel, plain, tol, quantize in (
+            ("decode_attention_pooled", decode_attention_pooled_staged,
+             decode_attention_pooled_staged_plain, TOL, False),
+            ("decode_attention_pooled_q", decode_attention_pooled_staged_q,
+             decode_attention_pooled_staged_q_plain, Q_TOL, True)):
+        x = pool_decode_inputs(gen, POOL_T, SERVER_POOL_BASES, SERVER_POOL_LENS)
+        if quantize:
+            x = quantized(x)
+        worst = worst_rel = 0.0
+        for layer in (0, 25):
+            got = kernel(**x, layer=layer).float()
+            want = plain(**x, layer=layer).float()
+            e, rel = (got - want).abs().max().item(), row_rel_err(got, want)
+            if not torch.isfinite(got).all() or e > tol or rel > POOL_ROW_TOL[name]:
+                raise AssertionError(f"{name} 8 rows layer={layer}: err {e}, per-row {rel}")
+            worst, worst_rel = max(worst, e), max(worst_rel, rel)
+        err[f"{name}_r8"] = worst
+        log(f"kernel {name} B=8: T={POOL_T}, bases {SERVER_POOL_BASES}, lens "
+            f"{SERVER_POOL_LENS}, layers 0/25, NaN past each base: max_abs_err {worst:.3e} <= "
+            f"{tol}; per row {worst_rel:.3e} <= {POOL_ROW_TOL[name]}")
+        del x
+    return err
+
+
+def check_server_shapes(cond_len: int) -> dict:
+    """Phase 2 at the shapes the server ran (after the server phase, as
+    its conditioning length is known then): row 3 at CFG batch 8 and 16
+    (4 and 8 batched requests), S = cond_len + 1 at offset 0 in the
+    430-frame bucket's cache T, NaN past S; row 1 at CFG batch 8 and 16 in
+    that cache at the first decode step's and the last step's scalars
+    (flushed_end, stage_len), layers 0/25. Returns each check's max
+    |error| under the keys of the kernels line."""
+    import torch
+
+    from zonos_vibes_tpu_torch.ops.cuda.decode_attention import (
+        decode_attention_layered, decode_attention_layered_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    S = cond_len + 1
+    T, fe, sl = server_decode_step(cond_len, SERVER_MNT + 8)
+    err = {}
+    for Bx in (8, 16):
+        err[f"prefill_attention_b{Bx}"] = check_prefill_case(gen, Bx, S, 0, T, HQ, HKV, D)
+        x = decode_inputs(gen, T, Bx)
+        worst = 0.0
+        for f, l in ((S, 0), (fe, sl)):
+            for layer in (0, 25):
+                sc = torch.tensor([f, l, layer], dtype=torch.int32, device="cuda")
+                got = decode_attention_layered(**x, scalars=sc).float()
+                want = decode_attention_layered_plain(**x, scalars=sc).float()
+                e = (got - want).abs().max().item()
+                if not torch.isfinite(got).all() or e > TOL:
+                    raise AssertionError(f"decode_attention at the server's B={Bx} T={T} "
+                                         f"flushed_end={f} stage_len={l} l={layer}: err {e}")
+                worst = max(worst, e)
+        err[f"decode_attention_b{Bx}"] = worst
+        del x
+        log(f"kernel prefill_attention at the server's batched prefill (B={Bx}, S={S}, offset 0, "
+            f"T={T}, NaN past S): max_abs_err {err[f'prefill_attention_b{Bx}']:.3e} <= {TOL}; "
+            f"decode_attention at its first and last steps (B={Bx}, T={T}, flushed_end/stage_len "
+            f"{S}/0 and {fe}/{sl}, layers 0/25): {worst:.3e} <= {TOL}")
+    torch.cuda.empty_cache()
+    return err
+
+
+def _launched(stats: dict, run: str, name: str) -> int:
+    n = stats["launches"][run].get(name, 0)
+    if n <= 0:
+        raise AssertionError(f"server {run}: {name} was not launched")
+    return n
+
+
+def time_server_kernels(srv: dict, srv_int8: dict, errors: dict, card: str) -> list[dict]:
+    """Phase 4, the kernels at the server's shapes: rows 1 and 3 at the
+    batched requests' (CFG batch 8 and 16) last step and prefill, ``qmm_int8``'s 105 launches at
+    M = 4 and 8 summed, rows 6 and 8 at the 4-slot pool's 8 rows."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    cond_len = srv["cond_len"]
+    T, fe, sl = server_decode_step(cond_len, SERVER_MNT + 8)
+    rows = []
+    decode = dict(route="cuda", source="zonos_vibes_tpu_torch/csrc/decode_attention.cu")
+    for Bx, run in ((8, "batch4"), (16, "batch8")):
+        ms, plain, lib, b, by, held = time_decode(gen, T, fe, sl, "server batch last step", card,
+                                                  Bx=Bx)
+        require_stage_write("decode_attention", held)
+        rows.append(dict(name=f"decode_attention_b{Bx}",
+                         replaces="zonos_vibes_tpu/ops/pallas/decode_attention.py:253",
+                         launches=_launched(srv, run, "decode_attention"),
+                         max_abs_err=errors[f"decode_attention_b{Bx}"], ms=ms, plain_ms=plain,
+                         bound_ms=b, bound_by=by, library_ms=lib, **decode))
+        torch.cuda.empty_cache()
+    for Bx, run in ((8, "batch4"), (16, "batch8")):
+        ms, plain, lib, b, by = time_prefill(gen, HQ, HKV, D, cond_len + 1, T, card, long=(),
+                                             Bx=Bx)[cond_len + 1, 0]
+        rows.append(dict(name=f"prefill_attention_b{Bx}", route="cuda",
+                         source="zonos_vibes_tpu_torch/csrc/prefill_attention.cu",
+                         replaces="zonos_vibes_tpu/ops/pallas/prefill_attention.py:111",
+                         launches=_launched(srv, run, "prefill_attention"),
+                         max_abs_err=errors[f"prefill_attention_b{Bx}"], ms=ms, plain_ms=plain,
+                         bound_ms=b, bound_by=by, library_ms=lib))
+    step, _ = time_qmm_steps(gen, card, Ms=(4, 8))
+    for M, run in ((4, "batch2_int8"), (8, "pool4_int8")):
+        t = step[M]
+        rows.append(dict(name=f"qmm_int8_m{M}_step", route="cuda",
+                         source="zonos_vibes_tpu_torch/csrc/qmm_int8.cu",
+                         replaces="zonos_vibes_tpu/ops/pallas/qmm.py:46",
+                         launches=_launched(srv_int8, run, "qmm_int8"),
+                         max_abs_err=errors[f"qmm_int8_m{M}"], ms=t["ms"], plain_ms=t["plain"],
+                         bound_ms=t["bound"], bound_by="bytes", library_ms=t["lib"]))
+    lens = [(23 * b) % STAGE for b in range(8)]
+    bases = [cond_len + 200 + 37 * b for b in range(8)]
+    for name, quant, line, stats, run in (
+            ("decode_attention_pooled", False, 790, srv, "pool4"),
+            ("decode_attention_pooled_q", True, 1011, srv_int8, "pool4_int8")):
+        ms, plain, lib, b, by, held = time_pooled(gen, quant, "server 4-slot pool", bases, lens,
+                                                  card)
+        require_stage_write(name, held)
+        rows.append(dict(name=f"{name}_r8",
+                         replaces=f"zonos_vibes_tpu/ops/pallas/decode_attention.py:{line}",
+                         launches=_launched(stats, run, name), max_abs_err=errors[f"{name}_r8"],
+                         ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib,
+                         **decode))
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -2735,6 +3355,7 @@ def main() -> int:
     errors = check_kernels()
     errors.update(check_int8_kernels())
     errors.update(check_pool_kernels())
+    errors.update(check_server_kernels())
     check_decode_one_launch()
     write_errors = check_stage_write()
     check_step_kernels_one_launch()
@@ -2748,8 +3369,12 @@ def main() -> int:
     check_hybrid_backbone_against_cpu()
     cont = run_continuation(pipe, e2e["wav"], card)
     errors.update(cont["errors"])
+    server = run_server(pipe, card)
+    for name, e in check_server_shapes(server["cond_len"]).items():
+        errors[name] = max(errors.get(name, 0.0), e)
     pool_bf16 = run_pool(pipe, card, kv_int8=False)
     e2e_int8 = run_int8_path(pipe, cond, card)
+    server_int8 = run_server_int8(pipe, card)
     pool_int8 = run_pool(pipe, card, kv_int8=True)
     del pipe
     torch.cuda.empty_cache()
@@ -2763,13 +3388,17 @@ def main() -> int:
     rows = (time_kernels(e2e, errors, card) + time_continuation_kernels(cont, errors, card)
             + time_int8_kernels(e2e_int8, pool_int8, errors, card)
             + time_pool_kernels(pool_bf16, pool_int8, errors, card)
-            + time_hybrid_kernels(hybrid, pool_hybrid, stage_less, errors, card))
+            + time_hybrid_kernels(hybrid, pool_hybrid, stage_less, errors, card)
+            + time_server_kernels(server, server_int8, errors, card))
     summary = {name: {k: v for k, v in run["graphs"].items() if k != "step_launches"}
                for name, run in (("bf16", e2e), ("continuation", cont), ("int8", e2e_int8),
                                  ("hybrid", hybrid),
                                  ("pool_bf16", pool_bf16), ("pool_int8", pool_int8),
                                  ("pool_hybrid", pool_hybrid))}
     log(json.dumps({"graphs": summary, "stream": e2e["stream"], "card": card}))
+    log(json.dumps({"server": {k: v for k, v in server.items() if k not in ("launches",
+                                                                            "solo_metrics")},
+                    "card": card}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

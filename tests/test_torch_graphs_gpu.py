@@ -1,5 +1,5 @@
 """The port's CUDA-graph decode (``engine/graphs.py``) against its eager
-decode, on the card.
+decode, and the decode engine's cache of captured steps, on the card.
 
 Full widths, cut depth: the flagship transformer with 4 layers and the
 hybrid with 8 (attention at layers 3 and 7), random bf16 weights from a
@@ -286,3 +286,105 @@ def test_captured_pdl_launches_keep_programmatic_edges(dev):
     edges = sorted((e.type, e.from_port) for e in data)
     # CU_GRAPH_DEPENDENCY_TYPE_PROGRAMMATIC = 1 from CU_GRAPH_KERNEL_NODE_PORT_PROGRAMMATIC = 1.
     assert edges == [(0, 0), (0, 0), (0, 0), (1, 1), (1, 1)]
+
+
+# -- the engine's cache (one entry, one capture, per static signature) ------
+
+def _cached_generate(engine, pipe, params, sampler, seed, text=TEXT, batch=1,
+                     max_new_tokens=140):
+    sampling, disable_eos = SAMPLERS[sampler]
+    conds = [pipe.make_cond_dict(text=text[: len(text) - 3 * i]) for i in range(batch)]
+    prefix = pipe.prepare_conditioning(pipe.merge_cond_dicts(conds, pad_len=64))
+    gen = torch.Generator("cuda").manual_seed(seed)
+    res = engine.generate(params, prefix, generator=gen, max_new_tokens=max_new_tokens,
+                          sampling_params=sampling, disable_eos=disable_eos)
+    return res, gen
+
+
+@pytest.mark.parametrize("sampler", list(SAMPLERS))
+@pytest.mark.parametrize("path", ["bf16", "int8", "hybrid"])
+def test_second_generate_with_the_key_captures_nothing(paths, path, sampler):
+    """A second generate with the same key replays the first's graph (no
+    capture, every step replayed) and gives the codes of a fresh engine's
+    run for the same seed; the caller's generator ends where that run's
+    did. A third with another seed differs (sampled) and still captures
+    nothing."""
+    pipe, params, kwargs, per_step, _ = paths[path]
+    engine = DecodeEngine(pipe.model, **kwargs)
+    first, _ = _cached_generate(engine, pipe, params, sampler, 5)
+    assert first.capture_seconds > 0 and first.replays == first.steps - 1
+    hit, hit_gen = _cached_generate(engine, pipe, params, sampler, 6)
+    fresh, fresh_gen = _cached_generate(DecodeEngine(pipe.model, **kwargs), pipe, params,
+                                        sampler, 6)
+    assert (engine.captures, engine.misses, engine.hits) == (1, 1, 1)
+    assert hit.capture_seconds == 0 and hit.replays == hit.steps
+    assert hit.step_launches == per_step
+    assert torch.equal(hit.codes, fresh.codes) and hit.steps == fresh.steps
+    assert torch.equal(hit_gen.get_state(), fresh_gen.get_state())
+    if sampler == "default":
+        assert not torch.equal(hit.codes, first.codes)
+
+
+def test_second_generate_stream_with_the_key_captures_nothing(paths):
+    pipe, params, kwargs, _, _ = paths["bf16"]
+    engine = DecodeEngine(pipe.model)
+    prefix = pipe.prepare_conditioning(pipe.make_cond_dict(text=TEXT))
+    kw = dict(max_new_tokens=140, sampling_params=SAMPLERS["default"][0], chunk_steps=43)
+    runs = [list(engine.generate_stream(params, prefix,
+                                        generator=torch.Generator("cuda").manual_seed(5), **kw))
+            for _ in range(2)]
+    assert runs[0][-1].capture_seconds > 0 and runs[1][-1].capture_seconds == 0
+    assert (engine.captures, engine.hits) == (1, 1)
+    assert torch.equal(runs[0][-1].codes, runs[1][-1].codes)
+
+
+@pytest.mark.parametrize("path", ["bf16", "int8", "hybrid"])
+def test_nan_in_the_entry_between_generates_changes_nothing(paths, path):
+    """Every buffer of the entry (cache, stage, scales, SSM and conv state,
+    delayed codes, counters, device scalars, logit bias) set to NaN (or
+    garbage for integers) between two generates: the second's codes equal
+    a fresh engine's (the transformer's stage flushes once, at 128 steps)."""
+    pipe, params, kwargs, _, _ = paths[path]
+    engine = DecodeEngine(pipe.model, **kwargs)
+    _cached_generate(engine, pipe, params, "default", 5)
+    (entry,) = engine._entries
+    s = entry.state
+    with torch.inference_mode():
+        for t in [*s.cache.values(), s.delayed, s.remaining, s.stopping, s.stop_offset,
+                  s.offset_t, s.stage_scalars, entry.logit_bias]:
+            if t is not None:
+                t.fill_(float("nan") if t.is_floating_point()
+                        else (-7 if t.dtype != torch.bool else 1))
+    hit, _ = _cached_generate(engine, pipe, params, "default", 6)
+    fresh, _ = _cached_generate(DecodeEngine(pipe.model, **kwargs), pipe, params, "default", 6)
+    assert engine.hits == 1 and hit.capture_seconds == 0
+    assert torch.equal(hit.codes, fresh.codes)
+
+
+@pytest.mark.parametrize("path", ["bf16", "hybrid"])
+def test_batch_4_rows_are_valid(paths, path):
+    """A CFG batch of 8 rows (4 texts, left-padded to one bucket) through
+    the graph: codes in range and every row's frames, and a second batch-4
+    run with the key replays it to the same codes."""
+    pipe, params, kwargs, _, _ = paths[path]
+    engine = DecodeEngine(pipe.model, **kwargs)
+    res, _ = _cached_generate(engine, pipe, params, "greedy", 5, batch=4, max_new_tokens=60)
+    assert res.codes.shape == (4, 9, 60) and res.replays == res.steps - 1
+    assert int(res.codes.min()) >= 0 and int(res.codes.max()) < 1024
+    assert res.valid_lengths.tolist() == [60] * 4
+    again, _ = _cached_generate(engine, pipe, params, "greedy", 6, batch=4, max_new_tokens=60)
+    assert again.capture_seconds == 0 and torch.equal(again.codes, res.codes)
+
+
+@pytest.mark.parametrize("head_dim", [16, 64, 128])
+def test_rope_table_on_the_card_equals_the_cpu(dev, head_dim):
+    """The frequencies and the table on the card are the CPU's bits, and
+    the table is within 2e-7 of its definition."""
+    from rope_oracle import rope_table_fp64  # tests/, on the path of its test modules
+    from zonos_vibes_tpu_torch.ops.rope import rope_freqs, rope_table
+
+    assert torch.equal(rope_freqs(head_dim, device=dev).cpu(), rope_freqs(head_dim))
+    table = rope_table(head_dim, device=dev)
+    assert table.device.type == "cuda" and torch.equal(table.cpu(), rope_table(head_dim))
+    exact, _, _ = rope_table_fp64(head_dim)
+    np.testing.assert_allclose(table.cpu().numpy(), exact, rtol=0, atol=2e-7)

@@ -16,6 +16,7 @@ from zonos_vibes_tpu.ops import mlp as jmlp
 from zonos_vibes_tpu.ops import norms as jnorms
 from zonos_vibes_tpu.ops import rope as jrope
 from zonos_vibes_tpu.ops import sampling as jsamp
+from tests.rope_oracle import rope_table_fp64
 from zonos_vibes_tpu.ops.attention import NEG_INF as JAX_NEG_INF
 from zonos_vibes_tpu_torch.ops import delay_pattern, mlp, norms, rope, sampling
 from zonos_vibes_tpu_torch.ops.attention import NEG_INF
@@ -25,27 +26,17 @@ def test_neg_inf_is_bit_identical():
     assert NEG_INF == JAX_NEG_INF
 
 
-def _rope_table_fp64(head_dim, positions=16384):
-    """The table's definition evaluated independently: fp32 frequencies
-    (numpy's fp32 pow, then a reciprocal), fp32 angles, cos and sin in fp64;
-    with each frequency's fp32 unit in the last place."""
-    exps = np.arange(0, head_dim, 2, dtype=np.float32) / np.float32(head_dim)
-    freqs = np.float32(1.0) / np.float32(10000.0) ** exps
-    angles = np.arange(positions, dtype=np.float32)[:, None] * freqs  # fp32 products
-    cos, sin = np.cos(angles.astype(np.float64)), np.sin(angles.astype(np.float64))
-    table = np.stack([np.repeat(cos, 2, -1), np.stack([-sin, sin], -1).reshape(positions, -1)], 1)
-    return table, np.spacing(freqs), angles
-
-
-def test_rope_table_and_apply():
+@pytest.mark.parametrize("head_dim", [16, 64, 128])
+def test_rope_table_and_apply(head_dim):
     rng = np.random.default_rng(0)
-    x = rng.standard_normal((2, 5, 4, 16)).astype(np.float32)
+    x = rng.standard_normal((2, 5, 4, head_dim)).astype(np.float32)
     pos = rng.integers(0, 16384, size=(2, 5))
-    table = rope.rope_table(16)
-    want_table = np.array(jrope.expand_rope_table(jrope.rope_table(16)))
-    # The port's table against its definition: fp32 cos/sin of the same fp32
-    # angles, within a few fp32 roundings.
-    exact, freq_ulp, angles = _rope_table_fp64(16)
+    table = rope.rope_table(head_dim)
+    want_table = np.array(jrope.expand_rope_table(jrope.rope_table(head_dim)))
+    # The port's table against its definition, evaluated by the same numpy
+    # arithmetic (so this holds the layout and signs; the values are held
+    # independently by test_rope_table_against_mpmath).
+    exact, freq_ulp, angles = rope_table_fp64(head_dim)
     np.testing.assert_allclose(table.numpy(), exact, rtol=0, atol=2e-7)
     # Against JAX's table: XLA's fp32 pow and reciprocal are not correctly
     # rounded, and how they round depends on how XLA compiles them (fused or
@@ -60,6 +51,44 @@ def test_rope_table_and_apply():
     got = rope.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), torch.from_numpy(want_table))
     want = jrope.apply_rope(jnp.asarray(x), jnp.asarray(pos), jnp.asarray(want_table))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
+
+
+def _fp32_nearest(x):
+    """The fp32 value nearest to the mpmath number ``x``."""
+    import mpmath
+
+    c = np.float32(float(x))
+    return min((np.nextafter(c, np.float32(-np.inf)), c, np.nextafter(c, np.float32(np.inf))),
+               key=lambda v: abs(mpmath.mpf(float(v)) - x))
+
+
+@pytest.mark.parametrize("head_dim", [16, 64, 128])
+def test_rope_table_against_mpmath(head_dim):
+    """The table's values from an evaluation that shares no arithmetic with
+    the port's: each frequency ``1 / 10000 ** (2i / D)`` at 40 digits is
+    the correctly rounded fp32 one (bit for bit); at 272 positions spread
+    over all 16,384 (every 2048-position block), each cos and sin at 40
+    digits of the fp32 angle ``fp32(p * freq)`` is within half an fp32 ulp
+    of 1 (2**-25, plus the float64 evaluation's own error) of the table."""
+    import mpmath
+
+    mpmath.mp.dps = 40
+    freqs = rope.rope_freqs(head_dim).numpy()
+    want = np.array([_fp32_nearest(1 / mpmath.mpf(10000) ** (mpmath.mpf(i) / head_dim))
+                     for i in range(0, head_dim, 2)], np.float32)
+    np.testing.assert_array_equal(freqs.view(np.int32), want.view(np.int32))
+    rng = np.random.default_rng(0)
+    pos = np.unique(np.concatenate([np.arange(8), rng.choice(16384, 256, replace=False),
+                                    np.arange(16376, 16384)]))
+    assert len(np.unique(pos // 2048)) == 8
+    # A product of an integer below 2**24 and an fp32 is exact in float64:
+    # one rounding to fp32 gives the correctly rounded fp32 product.
+    angles = (pos[:, None].astype(np.float64) * freqs.astype(np.float64)).astype(np.float32)
+    cos = np.array([[float(mpmath.cos(mpmath.mpf(float(a)))) for a in row] for row in angles])
+    sin = np.array([[float(mpmath.sin(mpmath.mpf(float(a)))) for a in row] for row in angles])
+    exact = np.stack([np.repeat(cos, 2, -1), np.stack([-sin, sin], -1).reshape(len(pos), -1)], 1)
+    table = rope.rope_table(head_dim).numpy()[pos].astype(np.float64)
+    assert np.abs(table - exact).max() <= 2.0 ** -25 + 2e-16
 
 
 def test_layer_norm():

@@ -12,6 +12,15 @@ counterpart of JAX compiling the loop. The host keeps an exact mirror of
 ``offset`` (every step advances it by one) and of the flushed-prefix
 length.
 
+JAX compiles the loop once per static signature (model, prefix length,
+``max_new_tokens``, ``cfg_scale``, sampling, ``disable_eos``, ``kv_int8``,
+``state_bf16``, and the shapes: batch and conditioning length). The engine
+keeps one cache entry per such key, the parameter tree and the device
+added (:class:`DecodeEngine`): the step's state tensors, its logit bias, its
+own generator and the captured step, so a request with a key seen before
+prefills into the entry's tensors in place and replays the graph it has,
+capturing nothing.
+
 The loop stops on exactly the step where JAX's ``while_loop`` stops: it
 runs while ``max(remaining) > 0``, and ``remaining`` clamps to 9 when
 codebook 0 emits EOS. The host reads ``max(remaining)`` only when the
@@ -25,6 +34,7 @@ the cache directly, and the loop never flushes.
 from __future__ import annotations
 
 import functools
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Iterator
@@ -93,18 +103,38 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _reset_cache(cache: dict) -> None:
+    """Return a cache to its freshly allocated contents, in place: int8
+    scales at 1 (``models/backbone.allocate_kv_cache``), every other plane
+    (K/V, stages, the hybrid's conv and SSM state) at 0. Nothing of the
+    previous request survives for a later step to read."""
+    for name, t in cache.items():
+        t.fill_(1 if name.endswith("_scale") else 0)
+
+
+def _fill_logit_bias(bias: torch.Tensor, eos: int, disable_eos: bool) -> None:
+    """EOS only from codebook 0; ``disable_eos`` forbids it everywhere."""
+    bias.zero_()
+    bias[:, 0 if disable_eos else 1:, eos] = NEG_INF
+
+
 def _prefill_state(model: ZonosModel, params: dict, prefix_conditioning: torch.Tensor,
                    audio_prefix_codes: torch.Tensor, generator: torch.Generator,
                    max_new_tokens: int, cfg_scale: float, sampling: SamplingParams | None,
                    disable_eos: bool, kv_int8: bool, knobs: dict | None = None,
-                   state_bf16: bool = False) -> DecodeState:
+                   state_bf16: bool = False, into: DecodeState | None = None) -> DecodeState:
     """Cache, delay pattern, prefill, and the first frame. As in JAX the
     first frame is sampled without the EOS bias unless ``disable_eos``.
 
     ``knobs`` (pool joins, ``ops/sampling.knobs_from_params``) replace
     ``cfg_scale`` and ``sampling``: the CFG mix takes the knob's scale per
     row and the first frame is drawn by the runtime-knob sampler, its Exp(1)
-    noise from ``generator``."""
+    noise from ``generator``.
+
+    ``into`` (a cache entry's state, of the same shapes) receives the
+    result in place: its cache is reset to fresh contents and prefilled,
+    its device tensors overwritten, its host fields reset; every tensor
+    keeps its storage, so a graph captured over them stays valid."""
     cfg = model.config
     K = cfg.num_codebooks
     two_b, cond_len, _ = prefix_conditioning.shape
@@ -115,9 +145,13 @@ def _prefill_state(model: ZonosModel, params: dict, prefix_conditioning: torch.T
     seq_len = _find_multiple(seq_len, 512 if seq_len >= 1024 else 8)
     dev = prefix_conditioning.device
 
-    rope = model.rope_for(dev)
-    cache = model.allocate_cache(two_b, seq_len, prefix_conditioning.dtype, dev, kv_int8,
-                                 state_bf16)
+    if into is None:
+        rope = model.rope_for(dev)
+        cache = model.allocate_cache(two_b, seq_len, prefix_conditioning.dtype, dev, kv_int8,
+                                     state_bf16)
+    else:
+        rope, cache = into.rope, into.cache
+        _reset_cache(cache)
     codes = torch.full((batch, K, audio_seq_len), UNKNOWN_TOKEN, dtype=torch.long, device=dev)
     codes[..., :lp] = audio_prefix_codes
     delayed = apply_delay_pattern(codes, cfg.masked_token_id)
@@ -145,7 +179,7 @@ def _prefill_state(model: ZonosModel, params: dict, prefix_conditioning: torch.T
     if stage_base is not None:
         stage_scalars = torch.tensor([[stage_base, 0, l] for l in range(cache["k_stage"].shape[0])],
                                      dtype=torch.int32, device=dev)
-    return DecodeState(
+    fresh = DecodeState(
         delayed=delayed, cache=cache, offset=offset0,
         remaining=torch.full((batch,), max_steps, dtype=torch.long, device=dev),
         stopping=torch.zeros((batch,), dtype=torch.bool, device=dev),
@@ -154,6 +188,20 @@ def _prefill_state(model: ZonosModel, params: dict, prefix_conditioning: torch.T
         offset_t=torch.full((1,), offset0, dtype=torch.long, device=dev),
         stage_scalars=stage_scalars,
     )
+    if into is None:
+        return fresh
+    for name in _STATE_TENSORS:
+        dst = getattr(into, name)
+        if dst is not None:
+            dst.copy_(getattr(fresh, name))
+    into.offset, into.stage_base = offset0, stage_base
+    into.guaranteed, into.done, into.host_reads = 0, False, 0
+    return into
+
+
+# The device tensors of a DecodeState besides its cache: what a step reads
+# and writes at a fixed address.
+_STATE_TENSORS = ("delayed", "remaining", "stopping", "stop_offset", "offset_t", "stage_scalars")
 
 
 def _decode_step(model, params, s: DecodeState, cond_len, cfg_scale, sampling, logit_bias,
@@ -267,6 +315,35 @@ def _finalize(model: ZonosModel, s: DecodeState):
     return torch.where(t < valid_lengths[:, None, None], out, 0), valid_length, valid_lengths
 
 
+@dataclass(eq=False)
+class _Entry:
+    """One static signature's decode state at fixed addresses: the step's
+    tensors, its logit bias, its own generator and its runner (with the
+    captured graph, on the card). ``params`` keeps the tree alive, so its
+    ``id`` in the key stays unique while the entry lives."""
+    key: tuple
+    state: DecodeState
+    logit_bias: torch.Tensor
+    generator: torch.Generator
+    runner: StepGraph
+    params: dict
+    nbytes: int
+    busy: bool = True
+    captured: bool = False  # its graph's capture has been counted
+
+
+def _state_bytes(s: DecodeState, *extra: torch.Tensor) -> int:
+    tensors = [*s.cache.values(), *(getattr(s, n) for n in _STATE_TENSORS), *extra]
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _default_generator(dev: torch.device) -> torch.Generator:
+    if dev.type == "cuda":
+        return torch.cuda.default_generators[
+            dev.index if dev.index is not None else torch.cuda.current_device()]
+    return torch.default_generator
+
+
 class DecodeEngine:
     """User-facing generate API over a :class:`ZonosModel`.
 
@@ -277,9 +354,27 @@ class DecodeEngine:
     stores the SSM state in bf16; the recurrence still computes in fp32.
 
     ``cuda_graphs`` (default: on for inputs on the card, off on the CPU)
-    captures one decode step per call, after the prefill and one eager
-    step, and replays it; ``False`` runs the same step eagerly, for
-    comparisons. Asking for graphs with inputs on the CPU raises."""
+    captures one decode step per cache entry, after the prefill and one
+    eager step, and replays it; ``False`` runs the same step eagerly, for
+    comparisons. Asking for graphs with inputs on the CPU raises.
+
+    The cache (module docstring): a ``generate`` or a ``generate_stream``
+    iterator checks out a free entry of its key, or makes one, and gives it
+    back when it ends (a stream also when it is closed or dropped). Two
+    runs at once never share an entry. The entry's generator takes the
+    caller's generator state before the prefill and hands its state back
+    after the run, so the codes and the caller's generator end as an
+    uncached run's would. Free entries are evicted, least recently used
+    first, while the entries hold more than ``cache_bytes``; :meth:`clear`
+    drops them all. Without graphs an entry still keeps its tensors.
+    ``captures``, ``hits``, ``misses`` and ``resident_bytes`` count the
+    graphs captured, the runs that reused an entry, the entries made and
+    the bytes of state held."""
+
+    # The bound on the bytes of state the entries hold, kept by evicting free
+    # entries: an entry of the flagship at CFG batch 16 and the 2580-frame
+    # bucket holds ~2.6 GB of bf16 KV.
+    cache_bytes = 16 << 30
 
     def __init__(self, model: ZonosModel, kv_int8: bool = False, state_bf16: bool = False,
                  cuda_graphs: bool | None = None):
@@ -287,11 +382,32 @@ class DecodeEngine:
         self.kv_int8 = kv_int8
         self.state_bf16 = state_bf16
         self.cuda_graphs = cuda_graphs
+        self.captures = 0
+        self.hits = 0
+        self.misses = 0
+        self.resident_bytes = 0
+        self._entries: list[_Entry] = []  # least recently used first
+        self._lock = threading.Lock()
+
+    def clear(self) -> None:
+        """Drop every entry (and with it the parameter trees they keep);
+        entries in use are dropped when their runs give them back."""
+        with self._lock:
+            self._entries.clear()
+            self.resident_bytes = 0
+
+    def _evict(self) -> None:
+        for e in [e for e in self._entries if not e.busy]:
+            if self.resident_bytes <= self.cache_bytes:
+                break
+            self._entries.remove(e)
+            self.resident_bytes -= e.nbytes
 
     def _start(self, params, prefix_conditioning, audio_prefix_codes, generator,
                max_new_tokens, cfg_scale, sampling_params,
-               disable_eos) -> tuple[DecodeState, StepGraph]:
-        """Checks, the prefill and the step's runner."""
+               disable_eos) -> tuple[_Entry, torch.Generator]:
+        """Checks, then the prefill into a checked-out entry; returns the
+        entry and the caller's generator."""
         if cfg_scale == 1.0:
             raise NotImplementedError("cfg_scale == 1 is not supported (as in the reference)")
         if sampling_params is None:
@@ -303,20 +419,73 @@ class DecodeEngine:
         if graphs and dev.type != "cuda":
             raise ValueError(f"cuda_graphs=True needs inputs on a CUDA device, got {dev}")
         cfg = self.model.config
+        two_b, cond_len = prefix_conditioning.shape[:2]
         if audio_prefix_codes is None:
-            audio_prefix_codes = torch.zeros((prefix_conditioning.shape[0] // 2,
-                                              cfg.num_codebooks, 0), dtype=torch.long, device=dev)
-        s = _prefill_state(self.model, params, prefix_conditioning, audio_prefix_codes,
-                           generator, max_new_tokens, cfg_scale, sampling_params, disable_eos,
+            audio_prefix_codes = torch.zeros((two_b // 2, cfg.num_codebooks, 0),
+                                             dtype=torch.long, device=dev)
+        caller = generator if generator is not None else _default_generator(dev)
+        # JAX's statics (generate.py:356-362) and shapes, the tree and the device.
+        key = (id(params), audio_prefix_codes.shape[-1], int(max_new_tokens), float(cfg_scale),
+               sampling_params, bool(disable_eos), self.kv_int8, self.state_bf16, two_b,
+               cond_len, prefix_conditioning.dtype, dev, graphs)
+        with self._lock:
+            entry = next((e for e in reversed(self._entries) if not e.busy and e.key == key),
+                         None)
+            if entry is not None:
+                entry.busy = True
+                self._entries.remove(entry)
+                self._entries.append(entry)
+                self.hits += 1
+                self._evict()
+        if entry is not None:
+            try:
+                entry.generator.set_state(caller.get_state())
+                _prefill_state(self.model, params, prefix_conditioning, audio_prefix_codes,
+                               entry.generator, max_new_tokens, cfg_scale, sampling_params,
+                               disable_eos, self.kv_int8, state_bf16=self.state_bf16,
+                               into=entry.state)
+                _fill_logit_bias(entry.logit_bias, cfg.eos_token_id, disable_eos)
+            except BaseException:
+                self._finish(entry, None)
+                raise
+            entry.runner.replays, entry.runner.capture_seconds = 0, 0.0
+            return entry, caller
+        # A miss: a fresh state, its own generator (on the card the graph
+        # registers it) and a step over them. Outside a capture
+        # ``set_state`` writes the seed and offset into the generator's
+        # state object, the one a graph registered, where
+        # ``graphsafe_set_state`` would swap that object out.
+        gen = torch.Generator(dev)
+        gen.set_state(caller.get_state())
+        s = _prefill_state(self.model, params, prefix_conditioning, audio_prefix_codes, gen,
+                           max_new_tokens, cfg_scale, sampling_params, disable_eos,
                            self.kv_int8, state_bf16=self.state_bf16)
-        logit_bias = torch.zeros((s.delayed.shape[0], cfg.num_codebooks, self.model.head_out_dim),
+        logit_bias = torch.empty((s.delayed.shape[0], cfg.num_codebooks, self.model.head_out_dim),
                                  dtype=torch.float32, device=dev)
-        # EOS only from codebook 0; disable_eos forbids it everywhere.
-        logit_bias[:, 0 if disable_eos else 1:, cfg.eos_token_id] = NEG_INF
-        step = functools.partial(_decode_step, self.model, params, s,
-                                 prefix_conditioning.shape[1], cfg_scale, sampling_params,
-                                 logit_bias, generator)
-        return s, StepGraph(step, dev, graphs, generator)
+        _fill_logit_bias(logit_bias, cfg.eos_token_id, disable_eos)
+        step = functools.partial(_decode_step, self.model, params, s, cond_len, cfg_scale,
+                                 sampling_params, logit_bias, gen)
+        entry = _Entry(key, s, logit_bias, gen, StepGraph(step, dev, graphs, gen), params,
+                       _state_bytes(s, logit_bias))
+        with self._lock:
+            self._entries.append(entry)
+            self.misses += 1
+            self.resident_bytes += entry.nbytes
+            self._evict()
+        return entry, caller
+
+    def _finish(self, entry: _Entry, caller: torch.Generator | None) -> None:
+        """Hand the generator state back to the caller and the entry back
+        to the cache."""
+        if caller is not None:
+            caller.set_state(entry.generator.get_state())
+        with self._lock:
+            if entry.runner.graph is not None and not entry.captured:
+                entry.captured = True
+                self.captures += 1
+            entry.busy = False
+            if entry in self._entries:
+                self._evict()
 
     def _result(self, s: DecodeState, runner: StepGraph, steps: int, prefill_s: float,
                 decode_s: float) -> GenerateResult:
@@ -335,13 +504,18 @@ class DecodeEngine:
         dev = prefix_conditioning.device
         with torch.inference_mode():
             t0 = time.perf_counter()
-            s, runner = self._start(params, prefix_conditioning, audio_prefix_codes, generator,
-                                    max_new_tokens, cfg_scale, sampling_params, disable_eos)
-            _sync(dev)
-            t1 = time.perf_counter()
-            steps = _decode_segment(s, runner, prefix_conditioning.shape[1], disable_eos)
-            _sync(dev)
-            return self._result(s, runner, steps, t1 - t0, time.perf_counter() - t1)
+            entry, caller = self._start(params, prefix_conditioning, audio_prefix_codes,
+                                        generator, max_new_tokens, cfg_scale, sampling_params,
+                                        disable_eos)
+            try:
+                _sync(dev)
+                t1 = time.perf_counter()
+                s, runner = entry.state, entry.runner
+                steps = _decode_segment(s, runner, prefix_conditioning.shape[1], disable_eos)
+                _sync(dev)
+                return self._result(s, runner, steps, t1 - t0, time.perf_counter() - t1)
+            finally:
+                self._finish(entry, caller)
 
     def generate_stream(self, params: dict, prefix_conditioning: torch.Tensor,
                         audio_prefix_codes: torch.Tensor | None = None, *,
@@ -353,27 +527,36 @@ class DecodeEngine:
         """Yield a cumulative :class:`GenerateResult` every ``chunk_steps``
         decode steps (~0.5 s of audio at 43). The codes equal
         :meth:`generate`'s for the same generator state; stop consuming the
-        iterator to abort (nothing runs after the last yield consumed)."""
+        iterator to abort (nothing runs after the last yield consumed). The
+        iterator holds its cache entry from its first ``next`` until it
+        ends, is closed or is dropped."""
         if chunk_steps < 1:
             raise ValueError(f"chunk_steps must be positive, got {chunk_steps}")
         dev = prefix_conditioning.device
         cond_len = prefix_conditioning.shape[1]
         with torch.inference_mode():
             t0 = time.perf_counter()
-            s, runner = self._start(params, prefix_conditioning, audio_prefix_codes, generator,
-                                    max_new_tokens, cfg_scale, sampling_params, disable_eos)
-            _sync(dev)
-            prefill_s, steps, decode_s = time.perf_counter() - t0, 0, 0.0
-        while True:
+            entry, caller = self._start(params, prefix_conditioning, audio_prefix_codes,
+                                        generator, max_new_tokens, cfg_scale, sampling_params,
+                                        disable_eos)
+        s, runner = entry.state, entry.runner
+        try:
             with torch.inference_mode():
-                t0 = time.perf_counter()
-                steps += _decode_segment(s, runner, cond_len, disable_eos, chunk_steps)
                 _sync(dev)
-                decode_s += time.perf_counter() - t0
-                result = self._result(s, runner, steps, prefill_s, decode_s)
-            yield result
+            prefill_s, steps, decode_s = time.perf_counter() - t0, 0, 0.0
+            while True:
+                with torch.inference_mode():
+                    t0 = time.perf_counter()
+                    steps += _decode_segment(s, runner, cond_len, disable_eos, chunk_steps)
+                    _sync(dev)
+                    decode_s += time.perf_counter() - t0
+                    result = self._result(s, runner, steps, prefill_s, decode_s)
+                yield result
+                with torch.inference_mode():
+                    if not s.done and s.guaranteed == 0:
+                        _refill(s, disable_eos)
+                if s.done:
+                    return
+        finally:
             with torch.inference_mode():
-                if not s.done and s.guaranteed == 0:
-                    _refill(s, disable_eos)
-            if s.done:
-                return
+                self._finish(entry, caller)

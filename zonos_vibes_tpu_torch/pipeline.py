@@ -11,6 +11,7 @@ phonemes -> conditioning -> prefill -> staged decode -> codes -> DAC decode.
         ...
     codes = pipe.encode_audio(prefix_wav, sr)                   # continuation
     result = pipe.generate(cond, codes, generator=...)
+    batch = pipe.merge_cond_dicts([cond_a, cond_b], pad_len=64)  # server batching
 
 The speaker embedding (ResNet293, ``models/speaker.py``) and the audio
 prefix's codes (``DACAutoencoder.preprocess`` + ``encode``) are computed on
@@ -29,8 +30,9 @@ Text normalization, phonemization and tokenization run on the host
 (``frontend/``); everything numeric runs on ``pipe.device``. Entry points
 run on CUDA unless the caller passes ``device="cpu"``, and raise without a
 GPU otherwise. On the card each generate replays one captured decode step
-(``engine/graphs.py``); ``DecodeEngine(pipe.model, cuda_graphs=False)``
-runs the same steps eagerly.
+(``engine/graphs.py``), captured once per static signature and kept in
+``pipe.engine``'s cache; ``DecodeEngine(pipe.model, cuda_graphs=False)``
+runs the same steps eagerly. Phases are timed into ``utils/tracing``.
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ from .models.speaker import SpeakerEncoder
 from .models.zonos import ZonosModel
 from .ops.quant import quantize_zonos_params
 from .ops.sampling import SamplingParams
+from .utils import tracing
 from .utils.device import resolve_device
 
 # 108 eSpeak language codes, in the order of the language-id conditioner.
@@ -154,9 +157,11 @@ class ZonosPipeline:
     def quantize_int8(self) -> "ZonosPipeline":
         """Backbone projections and the 9 heads to int8 weight-only storage
         (``ops/quant.quantize_zonos_params``), as the JAX pipeline's
-        ``quantize_int8``. The pipeline's own engine keeps an exact KV cache.
-        Returns self."""
+        ``quantize_int8``. The pipeline's own engine keeps an exact KV cache;
+        its graph cache is cleared, so it keeps no entry (nor the bf16 tree
+        such an entry holds) alive. Returns self."""
         self.params = quantize_zonos_params(self.params)
+        self.engine.clear()
         return self
 
     def make_cond_dict(
@@ -173,6 +178,7 @@ class ZonosPipeline:
         dnsmos_ovrl: float = 4.0,
         speaker_noised: bool = False,
         unconditional_keys: Any = frozenset({"vqscore_8", "dnsmos_ovrl"}),
+        _phoneme_ids: list | None = None,  # precomputed (the batch path)
     ) -> dict:
         """The numeric cond dict, phonemized on the host. A ``speaker``
         embedding (``make_speaker_embedding``) is ``[1, 1, 128]``; without
@@ -182,7 +188,11 @@ class ZonosPipeline:
             raise ValueError(f"Unsupported language: {language}")
         emotion = emotion if emotion is not None else list(DEFAULT_EMOTION)
         vqscore_8 = vqscore_8 if vqscore_8 is not None else [0.78] * 8
-        phoneme_ids, _ = tokenize_phonemes(phonemize([text], [language]))
+        if _phoneme_ids is not None:
+            phoneme_ids = _phoneme_ids
+        else:
+            with tracing.phase("phonemize"):
+                phoneme_ids, _ = tokenize_phonemes(phonemize([text], [language]))
         cond: dict[str, Any] = {
             "espeak": phoneme_ids, "speaker": speaker, "emotion": emotion, "fmax": fmax,
             "pitch_std": pitch_std, "speaking_rate": speaking_rate,
@@ -207,6 +217,50 @@ class ZonosPipeline:
                 out[k] = arr
         return out
 
+    def make_batch_cond_dict(self, texts: list[str], languages: list[str] | str = "en-us",
+                             speaker: torch.Tensor | None = None, **kwargs) -> dict:
+        """Batched conditioning of texts of different lengths: phoneme ids
+        LEFT-padded to the longest (``frontend/text.tokenize_phonemes``);
+        the other entries are the first text's, broadcast over the batch,
+        except the language ids, stacked ``[B, 1, 1]``."""
+        if isinstance(languages, str):
+            languages = [languages] * len(texts)
+        if len(texts) != len(languages):
+            raise ValueError("texts and languages length mismatch")
+        languages = [lang.lower() for lang in languages]
+        for lang in languages:
+            if lang not in _LANGUAGE_TO_ID:
+                raise ValueError(f"Unsupported language: {lang}")
+        phoneme_ids, _ = tokenize_phonemes(phonemize(texts, languages))
+        base = self.make_cond_dict(text=texts[0], language=languages[0], speaker=speaker,
+                                   _phoneme_ids=[phoneme_ids[0]], **kwargs)
+        base["espeak"] = torch.tensor(phoneme_ids, dtype=torch.long, device=self.device)
+        if "language_id" in base:
+            base["language_id"] = torch.tensor(
+                [[[_LANGUAGE_TO_ID[lang]]] for lang in languages], dtype=torch.float32,
+                device=self.device)
+        return base
+
+    @staticmethod
+    def merge_cond_dicts(conds: list[dict], pad_len: int | None = None) -> dict:
+        """Per-request cond dicts (batch 1 each, the same keys: group
+        requests by their unconditional keys first) -> one batched dict.
+        Phoneme ids are LEFT-padded with PAD (0) to the longest row, or to
+        ``pad_len`` if that is longer (the server's length buckets)."""
+        keys = set(conds[0])
+        for c in conds[1:]:
+            if set(c) != keys:
+                raise ValueError("cond dicts have mismatched keys")
+        ph = [c["espeak"] for c in conds]
+        longest = max(p.shape[1] for p in ph)
+        if pad_len is not None:
+            longest = max(longest, pad_len)
+        out = {"espeak": torch.stack([torch.nn.functional.pad(p[0], (longest - p.shape[1], 0))
+                                      for p in ph])}
+        for k in keys - {"espeak"}:
+            out[k] = torch.cat([c[k] for c in conds], dim=0)
+        return out
+
     def prepare_conditioning(self, cond_dict: dict, uncond_dict: dict | None = None):
         with torch.inference_mode():
             return self.model.prepare_conditioning(self.params, cond_dict, uncond_dict)
@@ -214,13 +268,33 @@ class ZonosPipeline:
     def generate(self, cond_dict: dict, audio_prefix_codes: torch.Tensor | None = None, *,
                  generator: torch.Generator, max_new_tokens: int = 86 * 30,
                  cfg_scale: float = 2.0, sampling_params: SamplingParams | dict | None = None,
-                 disable_eos: bool = False) -> GenerateResult:
-        """DAC codes for ``cond_dict``; ``generator`` lies on ``self.device``."""
-        prefix = self.prepare_conditioning(cond_dict)
-        return self.engine.generate(
-            self.params, prefix, audio_prefix_codes, generator=generator,
-            max_new_tokens=max_new_tokens, cfg_scale=cfg_scale,
-            sampling_params=sampling_params, disable_eos=disable_eos)
+                 disable_eos: bool = False, callback=None,
+                 callback_interval: int = 43) -> GenerateResult:
+        """DAC codes for ``cond_dict``; ``generator`` lies on ``self.device``.
+        ``callback(frames_done, step, max_steps)`` is the abort hook: called
+        every ``callback_interval`` decode steps (between segments of
+        ``DecodeEngine.generate_stream``), it stops the generation when it
+        returns False, and what exists so far is returned."""
+        with tracing.phase("conditioning"):
+            prefix = self.prepare_conditioning(cond_dict)
+        with tracing.phase("generate"):
+            kw = dict(generator=generator, max_new_tokens=max_new_tokens, cfg_scale=cfg_scale,
+                      sampling_params=sampling_params, disable_eos=disable_eos)
+            if callback is None:
+                result = self.engine.generate(self.params, prefix, audio_prefix_codes, **kw)
+            else:
+                result, step = None, 0
+                it = self.engine.generate_stream(self.params, prefix, audio_prefix_codes,
+                                                 chunk_steps=callback_interval, **kw)
+                try:
+                    for result in it:
+                        step = min(step + callback_interval, max_new_tokens)
+                        if callback(int(result.valid_length), step, max_new_tokens) is False:
+                            break
+                finally:
+                    it.close()
+        tracing.add_counter("audio_seconds", result.valid_length / 86.1328)
+        return result
 
     def generate_stream(self, cond_dict: dict, audio_prefix_codes: torch.Tensor | None = None, *,
                         generator: torch.Generator, max_new_tokens: int = 86 * 30,
@@ -259,15 +333,19 @@ class ZonosPipeline:
             return wav[:, off: off + (end - start) * hop]
 
         last = None
-        for res in self.engine.generate_stream(
-                self.params, prefix, audio_prefix_codes, generator=generator,
-                max_new_tokens=max_new_tokens, cfg_scale=cfg_scale,
-                sampling_params=sampling_params, chunk_steps=chunk_frames):
-            last = res
-            stable = max(0, res.valid_length - margin_frames)  # right margin withheld
-            if stable > emitted:
-                yield vocode_span(res.codes, emitted, stable, res.valid_length)
-                emitted = stable
+        it = self.engine.generate_stream(
+            self.params, prefix, audio_prefix_codes, generator=generator,
+            max_new_tokens=max_new_tokens, cfg_scale=cfg_scale,
+            sampling_params=sampling_params, chunk_steps=chunk_frames)
+        try:
+            for res in it:
+                last = res
+                stable = max(0, res.valid_length - margin_frames)  # right margin withheld
+                if stable > emitted:
+                    yield vocode_span(res.codes, emitted, stable, res.valid_length)
+                    emitted = stable
+        finally:
+            it.close()  # gives the engine's cache entry back when the caller stops early
         if last is not None and last.valid_length > emitted:
             yield vocode_span(last.codes, emitted, last.valid_length, last.valid_length)
 
@@ -277,9 +355,9 @@ class ZonosPipeline:
         if self.dac_params is None:
             raise RuntimeError("DAC params not loaded")
         codes = result.codes if isinstance(result, GenerateResult) else result
-        with torch.inference_mode():
+        with tracing.phase("vocode"), torch.inference_mode():
             wav = self.dac.decode(self.dac_params, codes.to(self.device))
-        wav = wav[:, 0, :].float().cpu().numpy()
+            wav = wav[:, 0, :].float().cpu().numpy()
         if isinstance(result, GenerateResult):
             wav = wav[:, : result.valid_length * self.dac.hop]
         return wav
