@@ -40,7 +40,11 @@ Phases, each of which fails the run loudly:
    input: solo decode, pooled ring (fp32 and bf16 state) and stage-less.
    The server's shapes: row 1 at CFG batch 8 and 16, row 3 at batch 8 over
    a bucket-padded conditioning, ``qmm_int8`` at M = 4 and 8, rows 6 and 8
-   at the 4-slot pool's 8 rows.
+   at the 4-slot pool's 8 rows. The packed-int4 matmul (``qmm_int4``) on
+   quantized weights at fc1, fc2 and int4full's attention shapes (128-row
+   groups; fc2 also ungrouped and in 64-row groups) at M = 1, 2, 4, 8, 16,
+   176 and 320, bit-equal on a second launch; ``qmm_int8`` at the hybrid's
+   Mamba and attention shapes.
 3. End to end: ``ZonosPipeline.from_config(ZONOS_V01_TRANSFORMER)`` with
    random bf16 weights from a seeded generator, text -> about 5 s of codes
    -> DAC -> WAV (written to ``build/chip_smoke.wav``). The launch
@@ -104,6 +108,21 @@ Phases, each of which fails the run loudly:
    against the ring mode's from the same state; with plain attention the
    two modes must agree exactly, and with each stage-less column written
    one position off they must differ by more than the limit.
+   Quantization: a fresh flagship transformer (seed 421) runs the quality
+   gate (``tools/quality_quant_torch.py``: 86 greedy frames, one
+   teacher-forced prefill per mode, TVD and margin-weighted top-8 overlap,
+   one ``{"gate": ...}`` line each) for int8, int4, int4real (the packed
+   leaves through ``qmm_int4``, within 0.005 mean TVD of int4), int4fc1,
+   int4full, int4awq and int4gptq (~45 s of GPTQ); then ``quantize_int4()``
+   and text -> 5 s WAV (``build/chip_smoke_int4.wav``; 52 ``qmm_int4`` and
+   53 ``qmm_int8`` launches per forward) and its 8-slot pool
+   (``build/chip_smoke_pool_int4_row{s}.wav``). After the hybrid's bf16
+   phases, the gate's int8 on the hybrid, then ``quantize_int8()`` on it:
+   text -> 5 s WAV (``build/chip_smoke_hybrid_int8.wav``; 109 ``qmm_int8``
+   launches per forward) and its pool with an fp32 and with a bf16 SSM
+   state. Each prints ms/step (graphs and eager), the bound computed from
+   its parameter bytes, capture ms, RTF, parameter bytes and the device
+   memory peak.
    Every solo path and every pool runs twice on the same seed and inputs:
    through its entry point, which on the card captures one decode step as
    a CUDA graph and replays it (``engine/graphs.py``), and eagerly
@@ -133,10 +152,15 @@ Phases, each of which fails the run loudly:
    so each launch reads its state from device memory; no single PyTorch
    call computes it, so it has no library time); the server's shapes (rows
    1 and 3 at its batches, ``qmm_int8``'s 105 launches at M = 4 and 8, rows
-   6 and 8 at 8 rows).
+   6 and 8 at 8 rows); ``qmm_int4`` at every int4 shape at M = 2 and 16
+   and fc1 at the prefill's M, beside its bound and the matmul on a
+   dequantized bf16 copy, and the int4-MLP step's 52 launches summed; the
+   int8 hybrid step's 109 ``qmm_int8`` launches at M = 2 and 16 summed.
 
 Before them a ``{"graphs": ...}`` line gathers each path's eager and graph
-ms/step, bound, capture time and host reads. The second-to-last line is
+ms/step, bound, capture time and host reads, and a ``{"quantized": ...,
+"gate": ...}`` line the quantized paths' parameter bytes, memory peaks,
+quantize seconds, RTF and bounds, and every gate mode's measures. The second-to-last line is
 ``{"kernels": [...]}``, the line before it the card's name and power limit,
 and the last line
 ``{"ok": true, "device": {...}}``. Each kernel's ``launches`` in the
@@ -155,9 +179,13 @@ server's lines those of its runs (``decode_attention_b8``/``_b16`` and
 ``qmm_int8_m4_step``: the int8 job-path batch's, its prefill's included),
 the hybrid's those of the hybrid's paths (the fused Mamba step is
 one kernel with two entries, counted under ``ssd_gate_step``: row 9 lists
-the solo path's launches, row 10 the pool's). Without a CUDA device, or without the
-rest of the repository beside it, the script exits non-zero and prints no
-result. It imports nothing of JAX.
+the solo path's launches, row 10 the pool's); ``qmm_int4`` and
+``qmm_int4_m2_step`` the int4-MLP solo path's, ``qmm_int4_m16_step`` its
+pool's pooled steps', ``qmm_int4_m176_fc1`` one prefill's 26;
+``qmm_int8_hybrid_m2_step`` the int8 hybrid's solo path's,
+``qmm_int8_hybrid_m16_step`` its fp32-state pool's pooled steps'. Without a
+CUDA device, or without the rest of the repository beside it, the script
+exits non-zero and prints no result. It imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -211,7 +239,7 @@ ISOLATION_FRAMES = 86
 # The transformer's paths launch none of the hybrid's kernels, and its solo
 # paths none of the pool's.
 NO_HYBRID_LAUNCHES = {"decode_attention_unstaged": 0, "decode_attention_pooled_unstaged": 0,
-                      "ssd_gate_step": 0}
+                      "ssd_gate_step": 0, "qmm_int4": 0}
 NO_POOL_LAUNCHES = {"decode_attention_pooled": 0, "decode_attention_pooled_q": 0,
                     "stage_splice_rows": 0, **NO_HYBRID_LAUNCHES}
 # Per-row (base, ring length) pairs for the pooled kernels' checks: empty,
@@ -952,6 +980,18 @@ def graph_against_eager(label: str, model, params, prefix, graph, want: dict, pe
     return out
 
 
+def flagship_transformer():
+    """The flagship transformer pipeline with the main path's random bf16
+    weights (seed 421) on the card."""
+    import torch
+
+    from zonos_vibes_tpu_torch.config import ZONOS_V01_TRANSFORMER
+    from zonos_vibes_tpu_torch.pipeline import ZonosPipeline
+
+    return ZonosPipeline.from_config(ZONOS_V01_TRANSFORMER, device="cuda",
+                                     generator=torch.Generator("cuda").manual_seed(421))
+
+
 def run_main_path(card: str):
     """Phase 3: text -> codes -> WAV through the pipeline, counted. Returns
     the pipeline, the cond dict and the numbers."""
@@ -1378,6 +1418,75 @@ def first_frame_logits(pipe, prefix, kv_int8: bool):
         return model.compute_logits(pipe.params, hidden, cache, 0, 2.0, rope)
 
 
+def run_quantized_solo(pipe, prefix, label: str, prefill: dict, per_step: dict,
+                       bound_ms: float, card: str, engine=None, **engine_kw) -> dict:
+    """Phase 3, one quantized path solo on the pipeline's current weights:
+    text -> codes -> WAV through ``engine`` (the pipeline's by default)
+    after a warm-up, its launch counts held to ``prefill`` plus ``per_step``
+    times the decode steps, then the same seed eagerly
+    (``graph_against_eager``, ``engine_kw`` passed on). Returns the e2e
+    numbers."""
+    import numpy as np
+    import torch
+
+    from zonos_vibes_tpu_torch.ops.cuda import build
+    from zonos_vibes_tpu_torch.serve.sample import wav_bytes
+
+    engine = engine or pipe.engine
+    warm = engine.generate(pipe.params, prefix, generator=torch.Generator("cuda").manual_seed(1),
+                           max_new_tokens=8, disable_eos=True)
+    pipe.decode_audio(warm)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    result = engine.generate(pipe.params, prefix,
+                             generator=torch.Generator("cuda").manual_seed(421),
+                             max_new_tokens=AUDIO_FRAMES, disable_eos=True)
+    launches = dict(build.LAUNCHES)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    wav = pipe.decode_audio(result)
+    torch.cuda.synchronize()
+    t_dac = time.perf_counter() - t0
+
+    codes, steps = result.codes, result.steps
+    if (codes.shape != (1, 9, AUDIO_FRAMES) or int(codes.min()) < 0 or int(codes.max()) >= 1024
+            or result.valid_length != AUDIO_FRAMES):
+        raise AssertionError(f"{label}: codes {tuple(codes.shape)}, valid {result.valid_length}")
+    if wav.size == 0 or not np.isfinite(wav).all():
+        raise AssertionError(f"{label}: waveform empty or not finite")
+    want = {k: prefill.get(k, 0) + per_step.get(k, 0) * steps for k in launches}
+    if launches != want:
+        raise AssertionError(f"{label} launch counts {launches}, expected {want}")
+    out_dir = ROOT / "build"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / f"chip_smoke_{label.replace(' ', '_')}.wav").write_bytes(
+        wav_bytes(wav[0], pipe.dac.sampling_rate))
+    graphs = graph_against_eager(label, pipe.model, pipe.params, prefix, result, want, per_step,
+                                 bound_ms, card, **engine_kw)
+
+    audio_s = wav.shape[-1] / pipe.dac.sampling_rate
+    e2e = {
+        "cond_len": prefix.shape[1], "steps": steps, "audio_s": audio_s,
+        "prefill_ms": result.prefill_seconds * 1e3,
+        "decode_ms_per_step": result.decode_seconds * 1e3 / steps,
+        "generate_s": t_gen, "dac_ms": t_dac * 1e3, "rtf": audio_s / (t_gen + t_dac),
+        "launches": launches, "graphs": graphs, "memory_peak": peak,
+        "param_bytes": param_bytes(pipe.params), "bound_ms": bound_ms,
+    }
+    log(f"e2e {label} ({card}): text -> {audio_s:.2f} s of audio; cond_len {e2e['cond_len']}, "
+        f"{steps} decode steps; prefill {e2e['prefill_ms']:.2f} ms, decode "
+        f"{graphs['graph_ms_per_step']:.3f} ms/step with graphs (eager "
+        f"{graphs['eager_ms_per_step']:.3f}; bound {bound_ms:.3f}), capture "
+        f"{graphs['capture_ms']:.1f} ms, DAC {e2e['dac_ms']:.1f} ms, RTF {e2e['rtf']:.3f}; "
+        f"parameters {e2e['param_bytes'] / 2**30:.3f} GiB, device memory peak "
+        f"{peak / 2**30:.3f} GiB; launches per decode step {per_step}; launches {launches}")
+    return e2e
+
+
 def run_int8_path(pipe, cond, card: str) -> dict:
     """Phase 3, the int8 serving path on the bf16 run's weights: the first
     frame's distributions before and after ``quantize_int8``, then text ->
@@ -1388,11 +1497,8 @@ def run_int8_path(pipe, cond, card: str) -> dict:
     import torch
 
     from zonos_vibes_tpu_torch.engine.generate import DecodeEngine
-    from zonos_vibes_tpu_torch.ops.cuda import build
-    from zonos_vibes_tpu_torch.serve.sample import wav_bytes
 
     prefix = pipe.prepare_conditioning(cond)
-    cond_len = prefix.shape[1]
     ref = first_frame_logits(pipe, prefix, kv_int8=False)
     bf16_bytes, bf16_alloc = param_bytes(pipe.params), torch.cuda.memory_allocated()
     t0 = time.perf_counter()
@@ -1413,64 +1519,27 @@ def run_int8_path(pipe, cond, card: str) -> dict:
     if not np.isfinite(mean_tvd) or mean_tvd > TVD_LIMIT:
         raise AssertionError(f"int8 first-frame TVD {mean_tvd} > {TVD_LIMIT}")
 
-    engine = DecodeEngine(pipe.model, kv_int8=True)
-    warm = engine.generate(pipe.params, prefix, generator=torch.Generator("cuda").manual_seed(1),
-                           max_new_tokens=8, disable_eos=True)
-    pipe.decode_audio(warm)
-
-    build.reset_launches()
-    t0 = time.perf_counter()
-    result = engine.generate(pipe.params, prefix,
-                             generator=torch.Generator("cuda").manual_seed(421),
-                             max_new_tokens=AUDIO_FRAMES, disable_eos=True)
-    launches = dict(build.LAUNCHES)
-    t_gen = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    wav = pipe.decode_audio(result)
-    torch.cuda.synchronize()
-    t_dac = time.perf_counter() - t0
-
-    codes, steps = result.codes, result.steps
-    if codes.shape != (1, 9, AUDIO_FRAMES) or int(codes.min()) < 0 or int(codes.max()) >= 1024:
-        raise AssertionError(f"int8 codes out of range or misshapen: {tuple(codes.shape)}")
-    if result.valid_length != AUDIO_FRAMES:
-        raise AssertionError(f"int8 valid length {result.valid_length} != {AUDIO_FRAMES}")
-    if wav.size == 0 or not np.isfinite(wav).all():
-        raise AssertionError("int8 waveform empty or not finite")
     # 4 projections per layer and one launch for the 9 heads per forward.
-    want = {"decode_attention": 0, "decode_attention_q": L * steps, "stage_splice": 0,
-            "prefill_attention": L, "qmm_int8": (4 * L + 1) * (steps + 1), **NO_POOL_LAUNCHES}
-    if launches != want:
-        raise AssertionError(f"int8 launch counts {launches}, expected {want}")
-    out_dir = ROOT / "build"
-    out_dir.mkdir(exist_ok=True)
-    (out_dir / "chip_smoke_int8.wav").write_bytes(wav_bytes(wav[0], pipe.dac.sampling_rate))
-    graphs = graph_against_eager("int8", pipe.model, pipe.params, prefix, result, want,
-                                 {"decode_attention_q": L, "qmm_int8": 4 * L + 1},
-                                 STEP_BOUND_MS["int8"], card, kv_int8=True)
-
-    audio_s = wav.shape[-1] / pipe.dac.sampling_rate
-    e2e = {
-        "cond_len": cond_len, "steps": steps, "audio_s": audio_s,
-        "prefill_ms": result.prefill_seconds * 1e3,
-        "decode_ms_per_step": result.decode_seconds * 1e3 / steps,
-        "generate_s": t_gen, "dac_ms": t_dac * 1e3, "rtf": audio_s / (t_gen + t_dac),
-        "launches": launches, "tvd": mean_tvd, "graphs": graphs,
-    }
-    log(f"e2e int8 ({card}): text -> {audio_s:.2f} s of audio; cond_len {cond_len}, "
-        f"{steps} decode steps; prefill {e2e['prefill_ms']:.2f} ms, decode "
-        f"{e2e['decode_ms_per_step']:.3f} ms/step, DAC {e2e['dac_ms']:.1f} ms, "
-        f"RTF {e2e['rtf']:.3f}; launches {launches}")
+    per = qmm_per_forward("int8", False)
+    e2e = run_quantized_solo(pipe, prefix, "int8", {"prefill_attention": L, **per},
+                             {"decode_attention_q": L, **per}, STEP_BOUND_MS["int8"], card,
+                             engine=DecodeEngine(pipe.model, kv_int8=True), kv_int8=True)
+    e2e["tvd"] = mean_tvd
     return e2e
 
 
-def run_pool(pipe, card: str, kv_int8: bool, hybrid: bool = False) -> dict:
+def run_pool(pipe, card: str, kv_int8: bool, hybrid: bool = False, quant: str | None = None,
+             state_bf16: bool = False) -> dict:
     """Phase 3, the continuous-batching pool at flagship width on the
     pipeline's current weights: row 0 alone for 3 segments (the isolation
     reference), then the counted staggered pool of 8 requests, one joining
     per segment, until every row finishes. With ``hybrid`` (the hybrid
     pipeline) the result also holds a copy of the pool's state right after
-    the last join (``snapshot``), for the stage-less pooled phase."""
+    the last join (``snapshot``), for the stage-less pooled phase.
+    ``quant`` names the weights when they are not those of the path:
+    ``"int4"`` (``quantize_int4()``'s transformer) or ``"int8"`` (the
+    hybrid's ``quantize_int8()``); ``state_bf16`` stores the hybrid's SSM
+    state in bf16."""
     import numpy as np
     import torch
 
@@ -1479,11 +1548,15 @@ def run_pool(pipe, card: str, kv_int8: bool, hybrid: bool = False) -> dict:
     from zonos_vibes_tpu_torch.ops.sampling import SamplingParams
     from zonos_vibes_tpu_torch.serve.sample import wav_bytes
 
-    label = ("hybrid pool bf16" if hybrid else
+    state = " bf16 state" if state_bf16 else ""
+    label = (f"hybrid pool int8 weights{state}" if hybrid and quant == "int8" else
+             f"hybrid pool bf16{state}" if hybrid else
+             "pool int4 MLP" if quant == "int4" else
              "pool int8 KV, int8 weights" if kv_int8 else "pool bf16")
     model, params = pipe.model, pipe.params
     bcfg = model.config.backbone
     n_attn = len(bcfg.attn_layer_idx) if hybrid else bcfg.n_layer
+    per_forward = qmm_per_forward(quant or ("int8" if kv_int8 else None), hybrid)
     pc = plib.PoolConfig(slots=POOL_SLOTS)
     conds = [pipe.prepare_conditioning(pipe.make_cond_dict(text=t, language="en-us"))
              for t in POOL_TEXTS]
@@ -1491,12 +1564,12 @@ def run_pool(pipe, card: str, kv_int8: bool, hybrid: bool = False) -> dict:
     def join(pool, s):
         req, knobs = plib.prefill_request(
             model, params, conds[s], torch.Generator("cuda").manual_seed(100 + s), AUDIO_FRAMES,
-            2.0, SamplingParams(min_p=0.1), kv_int8=kv_int8)
+            2.0, SamplingParams(min_p=0.1), kv_int8=kv_int8, state_bf16=state_bf16)
         plib.join(pool, req, s, conds[s].shape[1], 1000 + s, knobs)
 
     def new_pool(graphs: bool = True):
-        pool = plib.make_pool(model, pc, conds[0].dtype, kv_int8=kv_int8, device="cuda",
-                              cuda_graphs=graphs)
+        pool = plib.make_pool(model, pc, conds[0].dtype, kv_int8=kv_int8, state_bf16=state_bf16,
+                              device="cuda", cuda_graphs=graphs)
         if pool["cache"]["k"].shape[2] != POOL_T:
             raise AssertionError(f"pool cache length {pool['cache']['k'].shape[2]} != {POOL_T}")
         return pool
@@ -1518,7 +1591,8 @@ def run_pool(pipe, card: str, kv_int8: bool, hybrid: bool = False) -> dict:
         out = {"kv_bytes": sum(t.numel() * t.element_size() for t in pool["cache"].values())}
         torch.cuda.synchronize()
         build.reset_launches()
-        joins = steps = step_qmm = segments = 0
+        joins = steps = segments = 0
+        step_qmm = dict.fromkeys(QMM_KERNELS, 0)  # each kernel's launches in the pooled steps
         t_join = t_steps = 0.0
         t_window = time.perf_counter()
         for seg in range(POOL_SLOTS + AUDIO_FRAMES // POOL_SEGMENT + 4):
@@ -1535,10 +1609,11 @@ def run_pool(pipe, card: str, kv_int8: bool, hybrid: bool = False) -> dict:
             elif all(plib.row_finished(pool, s) for s in range(POOL_SLOTS)):
                 break
             t0 = time.perf_counter()
-            qmm_before = build.LAUNCHES["qmm_int8"]
+            before = dict(build.LAUNCHES)
             steps += plib.pool_steps(model, params, pool, POOL_SEED, POOL_SEGMENT)
             segments += 1
-            step_qmm += build.LAUNCHES["qmm_int8"] - qmm_before
+            for name in QMM_KERNELS:
+                step_qmm[name] += build.LAUNCHES[name] - before[name]
             torch.cuda.synchronize()
             t_steps += time.perf_counter() - t0
             if seg == POOL_SLOTS - 1:  # every row joined: the spread the kernels are timed at
@@ -1568,18 +1643,19 @@ def run_pool(pipe, card: str, kv_int8: bool, hybrid: bool = False) -> dict:
     kv_bytes, alloc, bases_mid = run["kv_bytes"], run["alloc"], run["bases_mid"]
     want = {"decode_attention": 0, "decode_attention_q": 0, "stage_splice": 0,
             "prefill_attention": n_attn * joins,
-            "qmm_int8": (4 * L + 1) * (joins + steps) * kv_int8,
             "decode_attention_pooled": 0 if kv_int8 else n_attn * steps,
             "decode_attention_pooled_q": L * steps if kv_int8 else 0,
             "stage_splice_rows": 0, **NO_HYBRID_LAUNCHES}
+    for name in QMM_KERNELS:
+        want[name] = per_forward.get(name, 0) * (joins + steps)
     if hybrid:
         want["ssd_gate_step"] = (bcfg.n_layer - n_attn) * steps
-    if launches != want or step_qmm != (4 * L + 1) * steps * kv_int8:
-        raise AssertionError(f"{label} launch counts {launches} ({step_qmm} qmm_int8 in the "
-                             f"pooled steps), expected {want}")
-    per_step = {k: v // steps for k, v in want.items() if k != "prefill_attention" and v}
-    if kv_int8:
-        per_step["qmm_int8"] = 4 * L + 1
+    if launches != want or step_qmm != {k: per_forward.get(k, 0) * steps for k in QMM_KERNELS}:
+        raise AssertionError(f"{label} launch counts {launches} ({step_qmm} in the pooled "
+                             f"steps), expected {want}")
+    per_step = {k: v // steps for k, v in want.items()
+                if k not in ("prefill_attention", *QMM_KERNELS) and v}
+    per_step.update({k: v for k, v in per_forward.items() if v})
     if (eager["launches"] != want or eager["steps"] != steps or eager["replays"]
             or any(r != per_step for r in run["step_launches"])
             or run["replays"] != steps - run["graphs"]):
@@ -1596,13 +1672,16 @@ def run_pool(pipe, card: str, kv_int8: bool, hybrid: bool = False) -> dict:
               "capture_ms": run["capture_ms"], "graphs": run["graphs"],
               "reads_per_segment": run["host_reads"] / run["segments"],
               "reads": run["host_reads"], "eager_reads": eager["host_reads"],
-              "bound_ms": POOL_STEP_BOUND_MS["hybrid" if hybrid else "int8" if kv_int8 else "bf16"],
+              "bound_ms": (step_bound_ms(pipe, POOL_M, state_bf16) if quant else
+                           POOL_STEP_BOUND_MS["hybrid" if hybrid else "int8" if kv_int8
+                                              else "bf16"]),
               "replays": run["replays"]}
     log(f"graphs {label} ({card}): {steps} pooled steps, every row's codes equal to the eager "
         f"run's; eager {graphs['eager_ms_per_step']:.3f} ms/step, graph "
         f"{graphs['graph_ms_per_step']:.3f} ms/step ({run['graphs']} graphs captured in "
         f"{graphs['capture_ms']:.1f} ms, not in the figure), bound {graphs['bound_ms']:.3f} "
-        f"ms/step (weights{' and fp32 state' if hybrid else ''}); host reads {run['host_reads']} "
+        f"ms/step (weights{' and the SSM state' if hybrid else ''}); host reads "
+        f"{run['host_reads']} "
         f"(eager {eager['host_reads']}) in {run['segments']} segments of {steps} steps; "
         f"{run['replays']} replays of {per_step} "
         f"+ the eager steps' launches = {want}")
@@ -1622,7 +1701,8 @@ def run_pool(pipe, card: str, kv_int8: bool, hybrid: bool = False) -> dict:
         wav = pipe.decode_audio(codes[None])[0]
         if wav.size == 0 or not np.isfinite(wav).all():
             raise AssertionError(f"{label} row {s}: waveform empty or not finite")
-        suffix = "_hybrid" if hybrid else "_int8" if kv_int8 else ""
+        suffix = ("_hybrid" if hybrid else "_int8" if kv_int8 else "") + (
+            f"_{quant}" if quant else "") + ("_state_bf16" if state_bf16 else "")
         (out_dir / f"chip_smoke_pool{suffix}_row{s}.wav").write_bytes(
             wav_bytes(wav, pipe.dac.sampling_rate))
         frames.append(valid)
@@ -1670,7 +1750,7 @@ SSM_STATE_TOL = {"fp32": (1e-5, 1e-5), "bf16": (8e-3, 1e-2)}  # (rtol, atol); bf
 # about 2x from each.
 STAGELESS_LOGIT_TOL = 0.15
 NO_TRANSFORMER_LAUNCHES = {"decode_attention": 0, "decode_attention_q": 0, "stage_splice": 0,
-                           "qmm_int8": 0, "decode_attention_pooled_q": 0}
+                           "qmm_int8": 0, "decode_attention_pooled_q": 0, "qmm_int4": 0}
 
 
 def within(got, want, rtol: float, atol: float) -> bool:
@@ -2592,7 +2672,8 @@ def time_int8_kernels(e2e: dict, pool_int8: dict, errors: dict, card: str) -> li
     # The pooled step's 105 launches at M = 16, timed as their sum; launches:
     # those counted during the int8 pool run's pooled steps.
     t = step[POOL_M]
-    rows.append(dict(name="qmm_int8_m16_step", launches=pool_int8["step_qmm_launches"],
+    rows.append(dict(name="qmm_int8_m16_step",
+                     launches=pool_int8["step_qmm_launches"]["qmm_int8"],
                      ms=t["ms"], plain_ms=t["plain"], bound_ms=t["bound"], bound_by="bytes",
                      library_ms=t["lib"], **source))
     # fc1 at the prefill's M; launches: one per layer in each of the solo
@@ -3333,6 +3414,313 @@ def time_server_kernels(srv: dict, srv_int8: dict, errors: dict, card: str) -> l
     return rows
 
 
+# -- Quantization: int4 on the transformer, int8 on the hybrid, the gate ------
+
+# Packed-int4 projections: (K, N, groups of 128 rows). fc1 and fc2 are
+# quantize_int4()'s; int4full adds the attention projections.
+INT4_SHAPES = {"in_proj": (2048, 3072, 16), "out_proj": (2048, 2048, 16),
+               "fc1": (2048, 16384, 16), "fc2": (8192, 2048, 64)}
+# The hybrid's projections at int8 (K, N, launches per forward): 42 Mamba
+# layers' in_proj and out_proj, 6 attention layers' in_proj, out_proj, fc1
+# and fc2.
+HYBRID_PROJECTIONS = {"mamba_in_proj": (2048, 8512, H_M), "mamba_out_proj": (4096, 2048, H_M),
+                      "attn_in_proj": (2048, 3072, H_LA), "attn_out_proj": (2048, 2048, H_LA),
+                      "fc1": (2048, 16384, H_LA), "fc2": (8192, 2048, H_LA)}
+# The quality gate (tools/quality_quant_torch.py) at flagship width: the
+# modes JAX measured (quality_r4.jsonl, quality_r5.jsonl), `int4real`
+# through the packed leaves and qmm_int4, and the hybrid's int8.
+GATE_STEPS = 86
+GATE_MODES = ("int8", "int4", "int4real", "int4fc1", "int4full", "int4awq", "int4gptq")
+GATE_HYBRID_MODES = ("int8",)
+GATE_REAL_TOL = 0.005  # |mean TVD of int4real - of int4|: one bf16 rounding of each weight
+GATE_TVD_MAX = 0.5  # a mode past this has lost the model (random weights: int4full ~0.12)
+
+
+QMM_KERNELS = ("qmm_int8", "qmm_int4")
+
+
+def qmm_per_forward(quant: str | None, hybrid: bool) -> dict:
+    """``qmm_int8`` / ``qmm_int4`` launches per backbone forward (and the
+    heads' one) of the path's weights."""
+    if quant is None:
+        return {}
+    if hybrid:  # quantize_int8() on the hybrid: every projection int8
+        return {"qmm_int8": sum(n for _, _, n in HYBRID_PROJECTIONS.values()) + 1}
+    if quant == "int4":  # quantize_int4(mixed=True): fc1/fc2 int4, the rest int8
+        return {"qmm_int8": 2 * L + 1, "qmm_int4": 2 * L}
+    return {"qmm_int8": 4 * L + 1}
+
+
+def step_bound_ms(pipe, rows: int, state_bf16: bool = False) -> float:
+    """The least time one decode step of ``rows`` CFG rows could take on
+    the pipeline's current weights: the backbone's and the heads' bytes read
+    once at 3.35 TB/s, and for the hybrid its SSM state read and written."""
+    nbytes = param_bytes(pipe.params["backbone"]) + param_bytes(pipe.params["heads"])
+    if pipe.model.config.backbone.is_hybrid:
+        nbytes += 2 * H_M * rows * M_N * M_HP * (2 if state_bf16 else 4)
+    return nbytes / PEAK_BYTES_PER_S * 1e3
+
+
+def check_int4_kernels() -> dict:
+    """Phase 2: ``qmm_int4`` against its plain version on quantized random
+    weights (128-row groups, the clip search) at every int4 projection, at
+    the M of every path: 1 and 2 (solo), 4 and 8 (server batches, 4-slot
+    pools), 16 (the 8-slot pool), 176 (a prefill: 2 * (cond_len + 1)) and
+    320 (the gate's teacher-forced pass); also ungrouped and 64-row groups
+    at fc2. Then ``qmm_int8`` at the hybrid's projection shapes."""
+    import torch
+
+    from zonos_vibes_tpu_torch.ops import quant
+    from zonos_vibes_tpu_torch.ops.cuda.qmm import (qmm_int4, qmm_int4_plain, qmm_int8,
+                                                    qmm_int8_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    err = {}
+    rtol, atol = QMM_TOL["bf16"]
+    worst, cases = 0.0, 0
+    shapes = [(name, k, n, k // g) for name, (k, n, g) in INT4_SHAPES.items()]
+    shapes += [("fc2 ungrouped", 8192, 2048, None), ("fc2 g64", 8192, 2048, 64)]
+    for name, K, N, group in shapes:
+        leaf = quant.quantize_weight(randn(gen, K, N) / K ** 0.5, bits=4, group_size=group,
+                                     clip_search=True)
+        for M in (1, 2, 4, 8, POOL_M, 176, 320):
+            x = randn(gen, M, K)
+            for out_dtype in (torch.bfloat16, torch.float32) if M in (2, 176) else (
+                    torch.bfloat16,):
+                got = qmm_int4(x, leaf["weight_int4"], leaf["scale"], out_dtype)
+                want = qmm_int4_plain(x, leaf["weight_int4"], leaf["scale"], out_dtype)
+                r, a = QMM_TOL["fp32" if out_dtype == torch.float32 else "bf16"]
+                diff = (got.float() - want.float()).abs()
+                if (got.shape != want.shape or not torch.isfinite(got).all()
+                        or (diff > a + r * want.float().abs()).any()):
+                    raise AssertionError(f"qmm_int4 {name} M={M} {out_dtype}: max |err| "
+                                         f"{diff.max().item()}")
+                if not torch.equal(qmm_int4(x, leaf["weight_int4"], leaf["scale"], out_dtype),
+                                   got):
+                    raise AssertionError(f"qmm_int4 {name} M={M}: a second launch differs")
+                worst, cases = max(worst, diff.max().item()), cases + 1
+    err["qmm_int4"] = worst
+    log(f"kernel qmm_int4: {cases} cases ({', '.join(n for n, *_ in shapes)}; M 1/2/4/8/"
+        f"{POOL_M}/176/320; bf16 out, fp32 too at M 2/176) max_abs_err {worst:.3e} within "
+        f"|err| <= atol + rtol |y| {QMM_TOL}; each bit-equal on a second launch")
+    worst, cases = 0.0, 0
+    for name, (K, N, _) in HYBRID_PROJECTIONS.items():
+        if name in ("attn_out_proj", "fc1", "fc2"):
+            continue  # the transformer's shapes, held above in check_int8_kernels
+        wq = quant.quantize_weight(randn(gen, 1, K, N) / K ** 0.5)
+        for M in (1, 2, POOL_M, 2 * 93):
+            x = randn(gen, M, K)
+            got = qmm_int8(x, wq["weight_int8"], wq["scale"])
+            want = qmm_int8_plain(x, wq["weight_int8"], wq["scale"], torch.bfloat16)
+            diff = (got.float() - want.float()).abs()
+            if not torch.isfinite(got).all() or (diff > atol + rtol * want.float().abs()).any():
+                raise AssertionError(f"qmm_int8 {name} M={M}: max |err| {diff.max().item()}")
+            worst, cases = max(worst, diff.max().item()), cases + 1
+    err["qmm_int8_hybrid"] = worst
+    log(f"kernel qmm_int8 at the hybrid's shapes: {cases} cases (Mamba in_proj 2048x8512, "
+        f"out_proj 4096x2048, attention in_proj 2048x3072; M 1/2/{POOL_M}/186) max_abs_err "
+        f"{worst:.3e} within {QMM_TOL['bf16']}")
+    return err
+
+
+def _gate_tool():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("quality_quant_torch",
+                                                  ROOT / "tools" / "quality_quant_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_gate(pipe, card: str, modes, label: str) -> dict:
+    """Phase 3, the quality gate at flagship width on the pipeline's bf16
+    weights (``tools/quality_quant_torch.py``): the reference's greedy
+    codes for GATE_STEPS frames, one teacher-forced prefill per mode, TVD
+    and margin-weighted top-8 overlap. One ``{"gate": ...}`` line per mode.
+    Every measure must be finite, no mean TVD past GATE_TVD_MAX, and
+    ``int4real`` (packed leaves through ``qmm_int4``) within GATE_REAL_TOL of
+    ``int4`` (the fake quantization)."""
+    import math
+
+    import torch
+
+    from zonos_vibes_tpu_torch.ops.cuda import build
+
+    tool = _gate_tool()
+    model, params = pipe.model, pipe.params
+    cond = model.prepare_conditioning(
+        params, {"espeak": torch.tensor(tool.PHONEMES, device="cuda")})
+    out = {}
+    t0 = time.perf_counter()
+    build.reset_launches()
+    for res in tool.run(model, params, cond, modes, GATE_STEPS):
+        torch.cuda.synchronize()
+        res["seconds_since_start"] = time.perf_counter() - t0
+        out[res["mode"]] = res
+        log(json.dumps({"gate": {**res, "backbone": label}, "card": card}))
+        if not all(math.isfinite(v) for v in res.values() if isinstance(v, float)) or (
+                res["tv_distance_mean"] > GATE_TVD_MAX):
+            raise AssertionError(f"gate {label} {res['mode']}: {res}")
+    if "int4real" in out:
+        gap = abs(out["int4real"]["tv_distance_mean"] - out["int4"]["tv_distance_mean"])
+        if gap > GATE_REAL_TOL or build.LAUNCHES["qmm_int4"] <= 0:
+            raise AssertionError(f"gate: int4real vs int4 mean TVD {gap} > {GATE_REAL_TOL}, or "
+                                 f"no qmm_int4 launch ({build.LAUNCHES['qmm_int4']})")
+        log(f"gate {label}: int4real (qmm_int4, {build.LAUNCHES['qmm_int4']} launches) vs int4 "
+            f"(fake) mean TVD {gap:.6f} <= {GATE_REAL_TOL}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_quantized_path(pipe, card: str) -> dict:
+    """Phase 3, the flagship's other quantization: ``quantize_int4()``
+    (fc1/fc2 int4, 52 ``qmm_int4`` launches per decode step) on the
+    transformer, ``quantize_int8()`` (109 ``qmm_int8`` launches per
+    forward) on the hybrid; then ``run_quantized_solo``."""
+    import gc
+
+    import torch
+
+    hybrid = pipe.model.config.backbone.is_hybrid
+    label = "hybrid int8" if hybrid else "int4"
+    prefix = pipe.prepare_conditioning(pipe.make_cond_dict(text=TEXT, language="en-us"))
+    bf16_bytes = param_bytes(pipe.params)
+    t0 = time.perf_counter()
+    (pipe.quantize_int8 if hybrid else pipe.quantize_int4)()
+    gc.collect()
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    per = qmm_per_forward("int8" if hybrid else "int4", hybrid)
+    if hybrid:
+        prefill = {"prefill_attention": H_LA, **per}
+        per_step = {"decode_attention_unstaged": H_LA, "ssd_gate_step": H_M, **per}
+    else:
+        layers = pipe.params["backbone"]["layers"]
+        if "weight_int4" not in layers["fc1"] or "weight_int8" not in layers["in_proj"]:
+            raise AssertionError("quantize_int4: fc1 not int4 or in_proj not int8")
+        prefill = {"prefill_attention": L, **per}
+        per_step = {"decode_attention": L, **per}
+    log(f"{label}: quantize {t_quant:.2f} s; Zonos parameters {bf16_bytes / 2**30:.3f} GiB "
+        f"bf16 -> {param_bytes(pipe.params) / 2**30:.3f} GiB")
+    e2e = run_quantized_solo(pipe, prefix, label, prefill, per_step, step_bound_ms(pipe, 2),
+                             card)
+    e2e["quantize_s"] = t_quant
+    return e2e
+
+
+def time_qmm4(gen, K, N, groups, layers, Ms) -> dict:
+    """``qmm_int4`` at each M in ``Ms``: {M: (kernel, plain, library, bound
+    ms, bound_by)}, the weights of ``layers`` layers cycled (each launch
+    reads its weight from device memory, as a decode step does). The
+    library call is the matmul on a dequantized bf16 copy."""
+    import itertools
+
+    import torch
+
+    from zonos_vibes_tpu_torch.ops import quant
+    from zonos_vibes_tpu_torch.ops.cuda.qmm import qmm_int4, qmm_int4_plain
+
+    leaf = quant.quantize_weight(randn(gen, layers, K, N) / K ** 0.5, bits=4,
+                                 group_size=K // groups, clip_search=True)
+    w, scale = leaf["weight_int4"], leaf["scale"]
+    lib_w = quant.dequantize_weight(leaf, torch.bfloat16)
+    idx = itertools.cycle(range(layers))
+    out = {}
+    for M in Ms:
+        x = randn(gen, M, K)
+        ms = device_ms(lambda: qmm_int4(x, w[(l := next(idx))], scale[l]), 26 * 8)
+        plain = device_ms(lambda: qmm_int4_plain(x, w[(l := next(idx))], scale[l],
+                                                 torch.bfloat16), 26)
+        lib = device_ms(lambda: torch.matmul(x, lib_w[next(idx)]), 26 * 8)
+        out[M] = (ms, plain, lib, *bound(M * K * 2 + K * N // 2 + groups * N * 4 + M * N * 2,
+                                         2 * M * K * N))
+    del leaf, w, scale, lib_w
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_quant_kernels(e2e4: dict, pool4: dict, e2eh: dict, poolh: dict, errors: dict,
+                       card: str) -> list[dict]:
+    """Phase 4, ``qmm_int4`` at every int4 shape at M = 2 and 16 (and fc1 at
+    the prefill's M) beside its plain version, its bound and the matmul on
+    a dequantized bf16 copy; the int4-MLP step's 52 launches at M = 2 and 16
+    summed; ``qmm_int8``'s 109 launches of the int8 hybrid's step at M = 2
+    and 16 summed."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rows = []
+    step = {M: dict(ms=0.0, plain=0.0, lib=0.0, bound=0.0) for M in (2, POOL_M)}
+    fc1 = None
+    for name, (K, N, groups) in INT4_SHAPES.items():
+        layers = L if name in ("fc1", "fc2") else 4
+        times = time_qmm4(gen, K, N, groups, layers, (2, POOL_M))
+        for M, (ms, plain, lib, b, by) in times.items():
+            log(f"time qmm_int4 {name} M={M} {K}x{N} in {groups} groups ({card}): kernel_ms "
+                f"{ms:.5f} plain_ms {plain:.4f} library_ms {lib:.5f} (matmul, dequantized bf16 "
+                f"weight) bound_ms {b:.5f} ({by}); kernel / bound {ms / b:.2f}")
+            if name in ("fc1", "fc2"):
+                for key, v in zip(("ms", "plain", "lib", "bound"), (ms, plain, lib, b)):
+                    step[M][key] += L * v
+        if name == "fc1":
+            fc1 = times[2]
+    source = dict(route="cuda", source="zonos_vibes_tpu_torch/csrc/qmm_int4.cu",
+                  replaces="zonos_vibes_tpu/ops/quant.py:321 (XLA s4 dot, not a Pallas kernel)",
+                  max_abs_err=errors["qmm_int4"])
+    # Launches: those counted on the int4 solo path (52 per forward) and in
+    # the int4 pool's pooled steps; the solo path's prefill forwards are its
+    # counted launches less those of its decode steps.
+    launches = e2e4["launches"]["qmm_int4"]
+    prefills = launches // (2 * L) - e2e4["steps"]
+    ms, plain, lib, b, by = fc1
+    rows.append(dict(name="qmm_int4", launches=launches, ms=ms, plain_ms=plain, bound_ms=b,
+                     bound_by=by, library_ms=lib, **source))
+    for M, name, n in ((2, "qmm_int4_m2_step", launches - 2 * L * prefills),
+                       (POOL_M, "qmm_int4_m16_step", pool4["step_qmm_launches"]["qmm_int4"])):
+        t = step[M]
+        log(f"time qmm_int4 one step at M={M}, 52 launches (fc1 + fc2 x 26) ({card}): kernel_ms "
+            f"{t['ms']:.4f} plain_ms {t['plain']:.3f} library_ms {t['lib']:.4f} bound_ms "
+            f"{t['bound']:.4f}; kernel / bound {t['ms'] / t['bound']:.2f}")
+        rows.append(dict(name=name, launches=n, ms=t["ms"], plain_ms=t["plain"],
+                         bound_ms=t["bound"], bound_by="bytes", library_ms=t["lib"], **source))
+    M = 2 * (e2e4["cond_len"] + 1)
+    ms, plain, lib, b, by = time_qmm4(gen, *INT4_SHAPES["fc1"], L, (M,))[M]
+    log(f"time qmm_int4 fc1 prefill M={M} ({card}): kernel_ms {ms:.4f} plain_ms {plain:.4f} "
+        f"library_ms {lib:.4f} bound_ms {b:.5f} ({by})")
+    rows.append(dict(name=f"qmm_int4_m{M}_fc1", launches=L * prefills, ms=ms, plain_ms=plain,
+                     bound_ms=b, bound_by=by, library_ms=lib, **source))
+
+    hstep = {M: dict(ms=0.0, plain=0.0, lib=0.0, bound=0.0) for M in (2, POOL_M)}
+    for name, (K, N, count) in HYBRID_PROJECTIONS.items():
+        times = time_qmm(gen, 1, K, N, torch.bfloat16, min(count, 8), tuple(hstep))
+        for M, (ms, plain, lib, b, by) in times.items():
+            log(f"time qmm_int8 hybrid {name} M={M} {K}x{N} ({card}): kernel_ms {ms:.5f} "
+                f"plain_ms {plain:.4f} library_ms {lib:.5f} bound_ms {b:.5f} ({by})")
+            for key, v in zip(("ms", "plain", "lib", "bound"), (ms, plain, lib, b)):
+                hstep[M][key] += count * v
+    heads = time_qmm(gen, *HEADS_SHAPE, torch.float32, 1, tuple(hstep))
+    for M, (ms, plain, lib, b, _) in heads.items():
+        for key, v in zip(("ms", "plain", "lib", "bound"), (ms, plain, lib, b)):
+            hstep[M][key] += v
+    source8 = dict(route="cuda", source="zonos_vibes_tpu_torch/csrc/qmm_int8.cu",
+                   replaces="zonos_vibes_tpu/ops/pallas/qmm.py:46",
+                   max_abs_err=max(errors["qmm_int8_hybrid"], errors["qmm_int8"]))
+    per = qmm_per_forward("int8", True)["qmm_int8"]
+    solo = e2eh["launches"]["qmm_int8"]
+    solo -= per * (solo // per - e2eh["steps"])  # less the prefill forwards' launches
+    for M, name, n in ((2, "qmm_int8_hybrid_m2_step", solo),
+                       (POOL_M, "qmm_int8_hybrid_m16_step",
+                        poolh["step_qmm_launches"]["qmm_int8"])):
+        t = hstep[M]
+        log(f"time qmm_int8 one hybrid step at M={M}, {per} launches ({card}): kernel_ms "
+            f"{t['ms']:.4f} plain_ms {t['plain']:.3f} library_ms {t['lib']:.4f} bound_ms "
+            f"{t['bound']:.4f}; kernel / library {t['ms'] / t['lib']:.3f}")
+        rows.append(dict(name=name, launches=n, ms=t["ms"], plain_ms=t["plain"],
+                         bound_ms=t["bound"], bound_by="bytes", library_ms=t["lib"], **source8))
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -3356,6 +3744,7 @@ def main() -> int:
     errors.update(check_int8_kernels())
     errors.update(check_pool_kernels())
     errors.update(check_server_kernels())
+    errors.update(check_int4_kernels())
     check_decode_one_launch()
     write_errors = check_stage_write()
     check_step_kernels_one_launch()
@@ -3378,9 +3767,20 @@ def main() -> int:
     pool_int8 = run_pool(pipe, card, kv_int8=True)
     del pipe
     torch.cuda.empty_cache()
+    pipe = flagship_transformer()
+    gate = {"transformer": run_gate(pipe, card, GATE_MODES, "transformer")}
+    e2e_int4 = run_quantized_path(pipe, card)
+    pool_int4 = run_pool(pipe, card, kv_int8=False, quant="int4")
+    del pipe
+    torch.cuda.empty_cache()
     pipe, hybrid = run_hybrid_path(card)
     pool_hybrid = run_pool(pipe, card, kv_int8=False, hybrid=True)
     stage_less = run_stage_less(pipe, pool_hybrid, card)
+    gate["hybrid"] = run_gate(pipe, card, GATE_HYBRID_MODES, "hybrid")
+    hybrid_int8 = run_quantized_path(pipe, card)
+    pool_hybrid_int8 = run_pool(pipe, card, kv_int8=False, hybrid=True, quant="int8")
+    pool_hybrid_int8_sb = run_pool(pipe, card, kv_int8=False, hybrid=True, quant="int8",
+                                   state_bf16=True)
     del pipe
     torch.cuda.empty_cache()
     for name, e in write_errors.items():  # each decode row's error, with and without the write
@@ -3389,12 +3789,21 @@ def main() -> int:
             + time_int8_kernels(e2e_int8, pool_int8, errors, card)
             + time_pool_kernels(pool_bf16, pool_int8, errors, card)
             + time_hybrid_kernels(hybrid, pool_hybrid, stage_less, errors, card)
-            + time_server_kernels(server, server_int8, errors, card))
+            + time_server_kernels(server, server_int8, errors, card)
+            + time_quant_kernels(e2e_int4, pool_int4, hybrid_int8, pool_hybrid_int8, errors,
+                                 card))
     summary = {name: {k: v for k, v in run["graphs"].items() if k != "step_launches"}
                for name, run in (("bf16", e2e), ("continuation", cont), ("int8", e2e_int8),
-                                 ("hybrid", hybrid),
+                                 ("hybrid", hybrid), ("int4", e2e_int4),
+                                 ("hybrid_int8", hybrid_int8),
                                  ("pool_bf16", pool_bf16), ("pool_int8", pool_int8),
-                                 ("pool_hybrid", pool_hybrid))}
+                                 ("pool_hybrid", pool_hybrid), ("pool_int4", pool_int4),
+                                 ("pool_hybrid_int8", pool_hybrid_int8),
+                                 ("pool_hybrid_int8_state_bf16", pool_hybrid_int8_sb))}
+    quantized = {name: {k: run[k] for k in ("param_bytes", "memory_peak", "quantize_s", "rtf",
+                                            "bound_ms")}
+                 for name, run in (("int4", e2e_int4), ("hybrid_int8", hybrid_int8))}
+    log(json.dumps({"quantized": quantized, "gate": gate, "card": card}))
     log(json.dumps({"graphs": summary, "stream": e2e["stream"], "card": card}))
     log(json.dumps({"server": {k: v for k, v in server.items() if k not in ("launches",
                                                                             "solo_metrics")},

@@ -97,10 +97,22 @@ def test_npz_round_trip_dac_layouts(tmp_path):
 
 
 def test_int4_entries_raise(tmp_path):
+    """An ``@s4`` entry loads (it raised before int4 was ported): JAX's
+    widened int8 values in its grouped ``[L, G, K / G, N]`` shape become the
+    port's packed leaf with scales ``[L, G, 1, N]``, the same weight."""
+    rng = np.random.default_rng(4)
+    q = rng.integers(-7, 8, size=(2, 3, 8, 6)).astype(np.int8)  # 2 layers, 3 groups of 8
+    scale = rng.uniform(0.01, 0.1, size=(2, 3, 1, 6)).astype(np.float32)
     path = tmp_path / "s4.npz"
-    np.savez(path, **{"backbone::fc1::weight_int4@s4": np.zeros((2, 2), np.int8)})
-    with pytest.raises(NotImplementedError):
-        load_params_cache(str(path))
+    np.savez(path, **{"backbone::layers::fc1::weight_int4@s4": q,
+                      "backbone::layers::fc1::scale": scale})
+    leaf = load_params_cache(str(path))["backbone"]["layers"]["fc1"]
+    assert leaf["weight_int4"].dtype == torch.uint8 and leaf["weight_int4"].shape == (2, 24, 3)
+    assert leaf["scale"].shape == (2, 3, 1, 6)
+    from zonos_vibes_tpu_torch.ops.quant import dequantize_weight
+
+    np.testing.assert_array_equal(dequantize_weight(leaf, torch.float32).numpy(),
+                                  (q * scale).reshape(2, 24, 6))
 
 
 def test_port_imports_nothing_of_jax():

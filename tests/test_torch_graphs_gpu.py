@@ -76,6 +76,18 @@ def paths(dev):
                  {"decode_attention_pooled_q": 4, "qmm_int8": 4 * 4 + 1}),
         "hybrid": (hy, hy.params, {}, {"decode_attention_unstaged": 2, "ssd_gate_step": 6},
                    {"decode_attention_pooled": 2, "ssd_gate_step": 6}),
+        # quantize_int4(mixed=True): in_proj, out_proj and the heads int8,
+        # fc1 and fc2 packed int4.
+        "int4": (tf, quantize_zonos_params(tf.params, mlp_bits=4), {},
+                 {"decode_attention": 4, "qmm_int8": 2 * 4 + 1, "qmm_int4": 2 * 4},
+                 {"decode_attention_pooled": 4, "qmm_int8": 2 * 4 + 1, "qmm_int4": 2 * 4}),
+        # quantize_int8() on the hybrid: 6 Mamba and 2 attention layers' in
+        # and out projections, the attention layers' MLP, the heads.
+        "hybrid_int8": (hy, quantize_zonos_params(hy.params), {"state_bf16": True},
+                        {"decode_attention_unstaged": 2, "ssd_gate_step": 6,
+                         "qmm_int8": 2 * 6 + 4 * 2 + 1},
+                        {"decode_attention_pooled": 2, "ssd_gate_step": 6,
+                         "qmm_int8": 2 * 6 + 4 * 2 + 1}),
     }
 
 
@@ -90,7 +102,7 @@ def _generate(pipe, params, kwargs, graphs, sampler, max_new_tokens=140, seed=5)
 
 
 @pytest.mark.parametrize("sampler", list(SAMPLERS))
-@pytest.mark.parametrize("path", ["bf16", "int8", "hybrid"])
+@pytest.mark.parametrize("path", ["bf16", "int8", "hybrid", "int4", "hybrid_int8"])
 def test_graph_codes_equal_eager(paths, path, sampler):
     """140 frames: the transformer's stage flushes once (at 128 steps)
     between replays."""
@@ -152,9 +164,10 @@ def _pool_run(pipe, params, kwargs, graphs):
     variants) joining at segments 0, 1 and 2, until all finish."""
     model = pipe.model
     kv_int8 = kwargs.get("kv_int8", False)
+    state_bf16 = kwargs.get("state_bf16", False)
     pc = plib.PoolConfig(slots=4, max_new_tokens=120)
-    pool = plib.make_pool(model, pc, torch.bfloat16, kv_int8=kv_int8, device="cuda",
-                          cuda_graphs=graphs)
+    pool = plib.make_pool(model, pc, torch.bfloat16, kv_int8=kv_int8, state_bf16=state_bf16,
+                          device="cuda", cuda_graphs=graphs)
     ptrs = _pointers(pool)
     samplers = [SamplingParams(temperature=0.0), SamplingParams(min_p=0.1),
                 SamplingParams(top_k=50)]
@@ -165,7 +178,7 @@ def _pool_run(pipe, params, kwargs, graphs):
             prefix = pipe.prepare_conditioning(pipe.make_cond_dict(text=TEXT[: 20 + 5 * seg]))
             req, knobs = plib.prefill_request(
                 model, params, prefix, torch.Generator("cuda").manual_seed(100 + seg), 120, 2.0,
-                samplers[seg], kv_int8=kv_int8)
+                samplers[seg], kv_int8=kv_int8, state_bf16=state_bf16)
             plib.join(pool, req, seg, prefix.shape[1], 1000 + seg, knobs)
         elif all(plib.row_finished(pool, s) for s in range(len(samplers))):
             break
@@ -176,7 +189,7 @@ def _pool_run(pipe, params, kwargs, graphs):
     return state, steps, dict(build.LAUNCHES), pool["graphs"]
 
 
-@pytest.mark.parametrize("path", ["bf16", "int8", "hybrid"])
+@pytest.mark.parametrize("path", ["bf16", "int8", "hybrid", "int4", "hybrid_int8"])
 def test_pool_graph_rows_equal_eager(paths, path):
     pipe, params, kwargs, _, per_step = paths[path]
     eager, eager_steps, eager_launches, _ = _pool_run(pipe, params, kwargs, False)

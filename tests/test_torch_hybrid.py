@@ -284,8 +284,11 @@ def test_routing_and_refusals():
     with pytest.raises(NotImplementedError):  # int8 KV on the hybrid, as in JAX
         tmodel.allocate_cache(2, 16, torch.float32, "cpu", kv_int8=True)
     params = tmodel.init(torch.Generator().manual_seed(0), torch.float32, "cpu")
-    with pytest.raises(NotImplementedError):  # the int8 hybrid is queued
-        quantize_zonos_params(params)
+    q = quantize_zonos_params(params)  # the int8 hybrid: Mamba and attention projections
+    for kind in ("mamba", "attn"):
+        assert q["backbone"][kind]["in_proj"]["weight_int8"].dtype == torch.int8
+        assert q["backbone"][kind]["out_proj"]["scale"].shape[-2] == 1
+    assert q["backbone"]["mamba"]["conv1d"] is params["backbone"]["mamba"]["conv1d"]
     cache = tmodel.allocate_cache(2, 16, torch.float32, "cpu", state_bf16=True)
     assert cache["ssm"].dtype == torch.bfloat16 and "k_stage" not in cache
     ring = tmodel.allocate_cache(2, 16, torch.float32, "cpu", pool_ring=True)

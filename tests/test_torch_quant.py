@@ -114,16 +114,28 @@ def test_quantize_kv_matches_jax():
 
 
 def test_unported_modes_raise():
-    w = torch.zeros(4, 16, 16)
-    params = {"layers": {"fc1": {"weight": w}, "fc2": {"weight": w}}}
-    with pytest.raises(NotImplementedError):
-        quant.quantize_weight(w, bits=4)
-    for kw in (dict(bits=4), dict(mlp_bits=4), dict(fc2_bits=4), dict(gptq=True),
-               dict(awq_energy=np.ones((4, 8)))):
-        with pytest.raises(NotImplementedError):
-            quant.quantize_backbone_params(params, **kw)
-    with pytest.raises(NotImplementedError):
-        quant.proj_matmul(torch.zeros(1, 16), {"weight_int4": w[0], "scale": w[0, :1]})
+    """Every JAX mode is ported; what raises are the two refusals where JAX
+    goes on silently: ``capture_fc2`` during decode (JAX's decode scan
+    mis-shapes the K/V columns it emits), and an AWQ energy the fold would
+    skip (fc2 not int4, or the hybrid backbone). Also widths JAX lacks."""
+    model = ZonosModel(TTINY)
+    params = model.init(torch.Generator().manual_seed(0), torch.float32, "cpu")
+    cache = model.allocate_cache(2, 16, torch.float32, "cpu")
+    with pytest.raises(ValueError, match="decode"):
+        model.backbone.forward(params["backbone"], torch.zeros(2, 1, 64), cache, 3,
+                               model.rope_for("cpu"), 0, capture_fc2=True)
+    energy = torch.ones(2, 128)
+    for kw in (dict(bits=8), dict(bits=8, mlp_bits=4, fc2_bits=8), dict(bits=4, fc2_bits=8)):
+        with pytest.raises(ValueError, match="fc2"):
+            quant.quantize_zonos_params(params, awq_energy=energy, **kw)
+    hybrid = {"mamba": {"in_proj": {"weight": torch.zeros(1, 8, 8)}}, "norm_f": {}}
+    with pytest.raises(ValueError, match="hybrid"):
+        quant.quantize_backbone_params(hybrid, bits=8, mlp_bits=4, awq_energy=energy)
+    with pytest.raises(ValueError):
+        quant.quantize_weight(torch.zeros(16, 16), bits=2)
+    # The modes themselves run: int4 fc2 with the fold.
+    out = quant.quantize_zonos_params(params, mlp_bits=4, awq_energy=energy)
+    assert "weight_int4" in out["backbone"]["layers"]["fc2"]
 
 
 # -- kernel row 4: the int8 matmul's plain version ----------------------------

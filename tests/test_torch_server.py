@@ -754,23 +754,59 @@ def test_compilation_cache_flag_is_documented_as_ignored(capsys):
     assert "compiles no programs" in out
 
 
-@pytest.mark.parametrize("argv,item", [(["--int4-mlp"], "item 5"),
-                                       (["--heartbeat-interval-s", "5"], "item 6")])
-def test_unported_flags_raise(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
-        tserver.main(["--device", "cpu", *argv])
+@pytest.mark.parametrize("argv,item", [
+    pytest.param(["--int4-mlp"], "int4", id="argv0-item 5"),
+    pytest.param(["--heartbeat-interval-s", "5"], "item 6", id="argv1-item 6")])
+def test_unported_flags_raise(monkeypatch, pipe, hybrid, argv, item):
+    """``--heartbeat-interval-s`` names queue 1 item 6 (the parallel layer);
+    ``--int4-mlp`` quantizes every pipeline, as JAX's server does, and the
+    server answers on both."""
+    if item == "item 6":
+        with pytest.raises(NotImplementedError, match=item):
+            tserver.main(["--device", "cpu", *argv])
+        return
+    pipes = _main_pipelines(monkeypatch, pipe, hybrid, argv)
+    for p in pipes.values():
+        layers = p.params["backbone"].get("layers", p.params["backbone"].get("attn"))
+        assert "weight_int4" in layers["fc1"] and "weight_int4" in layers["fc2"]
+        assert "weight_int8" in layers["in_proj"] and "weight_int8" in p.params["heads"]
 
 
-def test_int8_on_a_hybrid_pipeline_raises(monkeypatch, hybrid):
-    """``--int8`` with a hybrid checkpoint names queue 1 item 4 before any
-    weight is quantized."""
+def _main_pipelines(monkeypatch, pipe, hybrid, flags):
+    """``main`` with a transformer checkpoint and a hybrid one (stand-ins for
+    ``from_local``) and ``flags``; the server it builds answers a request
+    for each model. Returns the server's pipelines by model name."""
     from zonos_vibes_tpu_torch import pipeline as tpipeline
 
-    monkeypatch.setattr(tpipeline.ZonosPipeline, "from_local",
-                        classmethod(lambda cls, *a, **k: dataclasses.replace(hybrid)))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tserver.main(["--device", "cpu", "--config", "c.json", "--weights", "w.safetensors",
-                      "--int8"])
+    built = []
+    monkeypatch.setattr(tpipeline.ZonosPipeline, "from_local", classmethod(
+        lambda cls, config, *a, **k: dataclasses.replace(hybrid if config == "h.json" else pipe)))
+    monkeypatch.setattr(tserver.TTSServer, "serve_forever", lambda self: built.append(self))
+    tserver.main(["--device", "cpu", "--host", "127.0.0.1", "--port", "0", "--config", "c.json",
+                  "--weights", "w.safetensors", "--hybrid-config", "h.json", "--hybrid-weights",
+                  "h.safetensors", *flags])
+    (srv,) = built
+    srv.request_timeout_s = 300
+    srv.start_background()
+    try:
+        for model in ("default", "hybrid"):
+            status, ctype, body = _post(_url(srv), {"text": "Quantized.", "model": model,
+                                                    "max_new_tokens": 6, "emotion": EMO})
+            assert status == 200 and ctype == "audio/wav", body[:200]
+            assert _frames(body) > 0
+    finally:
+        srv.shutdown()
+    return srv.pipelines
+
+
+def test_int8_on_a_hybrid_pipeline_raises(monkeypatch, pipe, hybrid):
+    """``--int8`` quantizes the hybrid pipeline too (its Mamba and attention
+    projections and heads to int8), and the server answers on it."""
+    pipes = _main_pipelines(monkeypatch, pipe, hybrid, ["--int8"])
+    bb = pipes["hybrid"].params["backbone"]
+    for kind in ("mamba", "attn"):
+        assert "weight_int8" in bb[kind]["in_proj"] and "weight_int8" in bb[kind]["out_proj"]
+    assert "weight_int8" in pipes["default"].params["backbone"]["layers"]["fc2"]
 
 
 # -- parity with the JAX server ------------------------------------------------

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Sweeps the launch plans of the two decode-step kernels on one NVIDIA GPU:
-``qmm_int8`` at M = 2 (the int8 solo step's projections and heads) and the
-fused Mamba-2 step (rows 9/10), at the main path's shapes.
+"""Sweeps the launch plans of the decode-step kernels on one NVIDIA GPU:
+``qmm_int8`` at M = 2 (the int8 solo step's projections and heads), the
+fused Mamba-2 step (rows 9/10) and ``qmm_int4`` at M = 2 and 16 (the
+int4-MLP solo and pooled steps), at the main path's shapes.
 
-    python3 tools/sweep_decode_plans.py [--only qmm|mamba]
+    python3 tools/sweep_decode_plans.py [--only qmm|mamba|qmm4]
 
 For ``qmm_int8`` it times every (tile width, cluster size) of 32/64 x
 1/2/4/8 that gives 32-1100 blocks, at in_proj, out_proj, fc1, fc2 and the
@@ -12,7 +13,10 @@ planned launch back to back and behind a PyTorch elementwise kernel that
 writes its x (the pair's time less the elementwise kernel's alone), which
 shows the programmatic dependent launch's overlap behind any predecessor.
 For the Mamba step it times each column tile of ``ops/cuda/mamba_step.py::
-TILES`` at B = 2 and 16 with an fp32 and a bf16 state. Times are
+TILES`` at B = 2 and 16 with an fp32 and a bf16 state. For ``qmm_int4``
+every (tile width, cluster size) of 32/64 x 1/2/4/8 whose x fits the
+kernel's shared memory, at fc1, fc2 and the attention projections in
+128-row groups, each in place of ``ops/cuda/qmm.py::int4_plan``'s. Times are
 ``chip_smoke.py``'s ``device_ms`` over weights or planes cycled so that each
 launch reads from device memory (the heads' one weight, 21 MB, stays in L2,
 as in ``chip_smoke.py`` phase 4). Prints one line per plan, then one JSON
@@ -120,9 +124,57 @@ def sweep_mamba(cs_mod, gen, card) -> dict:
     return result
 
 
+def sweep_qmm4(cs_mod, gen, card) -> dict:
+    import torch
+
+    from zonos_vibes_tpu_torch.ops import quant
+    from zonos_vibes_tpu_torch.ops.cuda import qmm
+
+    planned = qmm.int4_plan
+    result = {}
+    try:
+        for name, (K, N, groups) in cs_mod.INT4_SHAPES.items():
+            layers = cs_mod.L if name in ("fc1", "fc2") else 4
+            leaf = quant.quantize_weight(cs_mod.randn(gen, layers, K, N) / K ** 0.5, bits=4,
+                                         group_size=K // groups)
+            w, scale = leaf["weight_int4"], leaf["scale"]
+            idx = itertools.cycle(range(layers))
+            for M in (2, cs_mod.POOL_M):
+                x = cs_mod.randn(gen, M, K)
+                mc = planned(M, K, N)[0]
+
+                def call():
+                    i = next(idx)
+                    return qmm.qmm_int4(x, w[i], scale[i])
+
+                for tn, cl in itertools.product(qmm.TILES, (1, 2, 4, 8)):
+                    stage_rows = qmm.INT4_STAGE_BYTES // (tn // 2)
+                    rows = -(-K // (cl * stage_rows)) * stage_rows
+                    blocks = cl * -(-N // tn) * -(-M // mc)
+                    if (not 32 <= blocks <= 2200 or (cl - 1) * rows >= K
+                            or 2 * mc * rows > 2 * qmm.INT4_X_BYTES):
+                        continue
+                    qmm.int4_plan = lambda *_, p=(mc, tn, cl, rows): p
+                    ms = cs_mod.device_ms(call, 26 * 8)
+                    result[f"{name}_m{M}_tn{tn}_cs{cl}_ms"] = ms
+                    print(f"qmm_int4 {name} M={M} tile {tn} cluster {cl} ({blocks} blocks, "
+                          f"{tn // 2 * rows // 1024} KB a block; {card}): {ms:.5f} ms", flush=True)
+                qmm.int4_plan = planned
+                ms = cs_mod.device_ms(call, 26 * 8)
+                result[f"{name}_m{M}_planned_ms"] = ms
+                print(f"qmm_int4 {name} M={M} planned {planned(M, K, N)} ({card}): {ms:.5f} ms",
+                      flush=True)
+            del leaf, w, scale
+            torch.cuda.empty_cache()
+    finally:
+        qmm.int4_plan = planned
+    return result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("qmm", "mamba"), default=None, help="sweep one kernel")
+    ap.add_argument("--only", choices=("qmm", "mamba", "qmm4"), default=None,
+                    help="sweep one kernel")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     import torch
@@ -138,6 +190,8 @@ def main() -> int:
         result["qmm"] = sweep_qmm(cs_mod, gen, card)
     if args.only in (None, "mamba"):
         result["mamba"] = sweep_mamba(cs_mod, gen, card)
+    if args.only in (None, "qmm4"):
+        result["qmm4"] = sweep_qmm4(cs_mod, gen, card)
     print(json.dumps(result))
     return 0
 

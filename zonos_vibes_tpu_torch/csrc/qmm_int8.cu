@@ -68,7 +68,8 @@
 //    for larger M. A block covers BM rows x 128 columns; each of its 4 warps
 //    owns 32 columns and all BM rows.
 //  * Split-K through a workspace: the rows of W are cut into splits of a
-//    multiple of 128 until the grid holds at least one block per SM, and up
+//    multiple of 128 until the grid holds at least one block per SM (the
+//    card's count, passed in by the host), and up
 //    to two while each split keeps >= 512 rows (more splits cost more partials to
 //    sum; this rule was the fastest of those timed, `PERF.md`, row 4). The
 //    last block of an output tile to arrive sums the fp32 partials in split
@@ -102,7 +103,7 @@ namespace {
 
 constexpr int COLS_PER_THREAD = 16;  // one 16-byte load of a W row
 constexpr int TILE_N = 128;          // the tensor-core kernel's columns per block
-constexpr int SMS = 132;             // SMs of an H100
+constexpr int MAX_DEVICES = 64;      // devices whose shared-memory attribute is tracked
 constexpr int MT = 2;                // the CUDA-core kernel's rows: the CFG pair
 // CUDA-core kernel: 8 warps, a ring of STAGES stages of STAGE_BYTES.
 constexpr int DEC_THREADS = 256;
@@ -346,12 +347,15 @@ cudaError_t launch_decode(const __nv_bfloat16* x, const int8_t* w, const float* 
   const int smem = NSTAGE * STAGE_BYTES + (rows + RS - 1) / RS * RS * 4;
   if (smem + MT * TN * 4 > MAX_BLOCK_SMEM) return cudaErrorInvalidValue;
   auto* kernel = qmm_int8_decode_kernel<OutT, TN, NSTAGE>;
-  static int configured_smem = 0;
-  if (smem > configured_smem) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  static int configured_smem[MAX_DEVICES] = {};  // per device: the attribute set so far
+  if (smem > configured_smem[dev]) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
-    configured_smem = smem;
+    configured_smem[dev] = smem;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cs, (N + TN - 1) / TN, G);
@@ -370,7 +374,7 @@ cudaError_t launch_decode(const __nv_bfloat16* x, const int8_t* w, const float* 
   attr[1].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = cs > 1 ? 2 : 1;  // a launch without clusters is cheaper to dispatch
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, x, w, scale, out, M, K, N, G, rows);
+  e = cudaLaunchKernelEx(&cfg, kernel, x, w, scale, out, M, K, N, G, rows);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
@@ -379,7 +383,8 @@ struct MmaPlan {
   int bm, mblocks, ntiles, splits, rows;
 };
 
-MmaPlan make_mma_plan(int M, int K, int N, int G) {
+// `sms`: the card's SM count.
+MmaPlan make_mma_plan(int M, int K, int N, int G, int sms) {
   MmaPlan p;
   p.bm = M <= 16 ? 16 : 64;
   p.mblocks = (M + p.bm - 1) / p.bm;
@@ -387,8 +392,8 @@ MmaPlan make_mma_plan(int M, int K, int N, int G) {
   // At least one block per SM, and up to two while each split keeps >= 512
   // rows: more splits cost more partials to sum, fewer leave bytes unasked.
   const int base = p.mblocks * p.ntiles * G;
-  const int fill = (SMS + base - 1) / base;
-  const int deep = min(2 * SMS / base, K / 512);
+  const int fill = (sms + base - 1) / base;
+  const int deep = min(2 * sms / base, K / 512);
   const int want = max(1, min(max(fill, deep), (K + MMA_SPLIT - 1) / MMA_SPLIT));
   p.rows = ((K + want - 1) / want + MMA_SPLIT - 1) / MMA_SPLIT * MMA_SPLIT;
   p.splits = (K + p.rows - 1) / p.rows;
@@ -595,12 +600,16 @@ cudaError_t launch_mma(const __nv_bfloat16* x, const int8_t* w, const float* sca
                        float* ws, int* counters, int M, int K, int N, int G, const MmaPlan& p,
                        cudaStream_t s) {
   constexpr int SMEM = MMA_STAGES * mma_stage_bytes<BM>();
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(qmm_int8_mma_kernel<OutT, BM, X_VEC>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  static unsigned long long configured = 0;  // devices whose attribute is set
+  if (!(configured >> dev & 1ull)) {
+    e = cudaFuncSetAttribute(qmm_int8_mma_kernel<OutT, BM, X_VEC>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (e != cudaSuccess) return e;
-    configured = true;
+    configured |= 1ull << dev;
   }
   const dim3 grid(p.mblocks, p.ntiles, G * p.splits);
   qmm_int8_mma_kernel<OutT, BM, X_VEC><<<grid, MMA_THREADS, SMEM, s>>>(
@@ -610,14 +619,14 @@ cudaError_t launch_mma(const __nv_bfloat16* x, const int8_t* w, const float* sca
 
 template <typename OutT>
 cudaError_t launch(const void* x, const void* w, const void* scale, void* out, void* ws,
-                   void* counters, int M, int K, int N, int G, cudaStream_t s) {
+                   void* counters, int M, int K, int N, int G, int sms, cudaStream_t s) {
   const auto* xp = static_cast<const __nv_bfloat16*>(x);
   const auto* wp = static_cast<const int8_t*>(w);
   const auto* sp = static_cast<const float*>(scale);
   auto* op = static_cast<OutT*>(out);
   auto* wsp = static_cast<float*>(ws);
   auto* cp = static_cast<int*>(counters);
-  const MmaPlan p = make_mma_plan(M, K, N, G);
+  const MmaPlan p = make_mma_plan(M, K, N, G, sms);
   const bool vec = K % 8 == 0;
   if (p.bm == 16)
     return vec ? launch_mma<OutT, 16, true>(xp, wp, sp, op, wsp, cp, M, K, N, G, p, s)
@@ -639,29 +648,31 @@ cudaError_t launch_decode_tn(const void* x, const void* w, const void* scale, vo
 
 }  // namespace
 
-// The tensor-core path (M > 2). Output tiles of a launch: the counters it
-// needs.
-extern "C" int zvt_qmm_int8_tiles(int M, int K, int N, int G) {
-  const MmaPlan p = make_mma_plan(M, K, N, G);
+// The tensor-core path (M > 2) on a card of `sms` SMs. Output tiles of a
+// launch: the counters it needs.
+extern "C" int zvt_qmm_int8_tiles(int M, int K, int N, int G, int sms) {
+  const MmaPlan p = make_mma_plan(M, K, N, G, sms);
   return p.mblocks * p.ntiles * G;
 }
 
 // The tensor-core path's fp32 workspace floats (0 when the rows are not split).
-extern "C" int zvt_qmm_int8_workspace(int M, int K, int N, int G) {
-  const MmaPlan p = make_mma_plan(M, K, N, G);
+extern "C" int zvt_qmm_int8_workspace(int M, int K, int N, int G, int sms) {
+  const MmaPlan p = make_mma_plan(M, K, N, G, sms);
   return p.splits > 1 ? p.mblocks * p.ntiles * G * p.splits * p.bm * TILE_N : 0;
 }
 
-// M > 2, on tensor cores. out_f32: 1 for an fp32 output, 0 for bf16.
+// M > 2, on tensor cores, planned for a card of `sms` SMs (the same count
+// as zvt_qmm_int8_tiles and zvt_qmm_int8_workspace were given). out_f32: 1
+// for an fp32 output, 0 for bf16.
 extern "C" int zvt_qmm_int8(const void* x, const void* w, const void* scale, void* out,
                             void* ws, void* counters, int M, int K, int N, int G, int out_f32,
-                            void* stream) {
-  if (M <= MT || K <= 0 || N <= 0 || G <= 0 || N % COLS_PER_THREAD != 0)
+                            int sms, void* stream) {
+  if (M <= MT || K <= 0 || N <= 0 || G <= 0 || N % COLS_PER_THREAD != 0 || sms <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      out_f32 ? launch<float>(x, w, scale, out, ws, counters, M, K, N, G, s)
-              : launch<__nv_bfloat16>(x, w, scale, out, ws, counters, M, K, N, G, s);
+      out_f32 ? launch<float>(x, w, scale, out, ws, counters, M, K, N, G, sms, s)
+              : launch<__nv_bfloat16>(x, w, scale, out, ws, counters, M, K, N, G, sms, s);
   return (int)err;
 }
 

@@ -18,7 +18,7 @@ A flush is then one contiguous copy per (layer, row). With ``kv_int8`` the
 flushed prefix is int8 with fp32 per-(position, kv head) scales ``k_scale``,
 ``v_scale`` ``[L, B, T, Hkv]`` (JAX keeps ``[L, B, Hkv, T]``), quantized once
 per flush and once per prefill; the stage and the current column stay
-exact. The projections take float or int8 weights (``ops/quant``).
+exact. The projections take float, int8 or int4 weights (``ops/quant``).
 
 The continuous-batching pool's decode (``positions`` and ``pool_base``
 given) gives every row its own position: the stage is each row's ring, row
@@ -35,8 +35,8 @@ On a CUDA device the decode step runs ``ops/cuda``'s decode-attention kernel
 also stores the layer's columns into their stage slot (JAX splices them
 after the layer scan; no layer reads another's stage plane within a step,
 so the stage is the same), prefill runs the prefill-attention kernel per
-layer, and int8 projections run the int8 matmul kernel; on the CPU the same
-wrappers run their plain versions.
+layer, and int8 and int4 projections run the int8 and packed-int4 matmul
+kernels; on the CPU the same wrappers run their plain versions.
 """
 
 from __future__ import annotations
@@ -148,9 +148,10 @@ def _dequantized_layer(cache: dict, name: str, layer: int, offset: int,
     return out
 
 
-def _block(lp: dict, cfg: BackboneConfig, x, attend, positions, table):
+def _block(lp: dict, cfg: BackboneConfig, x, attend, positions, table, energy=None):
     """One block over this layer's parameters ``lp``; ``attend(q, k, v)``
-    returns ``[B, S, Hq, Dh]``."""
+    returns ``[B, S, Hq, Dh]``. With a list ``energy``, the fc2 input's
+    per-channel sum of squares over (B, S) is appended to it (fp32)."""
     B, S, _ = x.shape
     Hq, Hkv, Dh = cfg.num_heads, cfg.num_heads_kv, cfg.head_dim
     h = layer_norm(x, lp["norm1"]["weight"], lp["norm1"]["bias"], cfg.norm_epsilon)
@@ -160,14 +161,17 @@ def _block(lp: dict, cfg: BackboneConfig, x, attend, positions, table):
     y = attend(q, k, v.reshape(B, S, Hkv, Dh))
     x = x + proj_matmul(y.reshape(B, S, Hq * Dh), lp["out_proj"])
     h = layer_norm(x, lp["norm2"]["weight"], lp["norm2"]["bias"], cfg.norm_epsilon)
-    return x + proj_matmul(swiglu_mid(h, lp["fc1"]), lp["fc2"])
+    mid = swiglu_mid(h, lp["fc1"])
+    if energy is not None:
+        energy.append((mid.float() ** 2).sum(dim=(0, 1)))
+    return x + proj_matmul(mid, lp["fc2"])
 
 
 def transformer_forward(params: dict, cfg: BackboneConfig, hidden: torch.Tensor, cache: dict,
                         offset: int | torch.Tensor, rope: torch.Tensor,
                         stage_base: int | torch.Tensor | None = None, *,
                         positions: torch.Tensor | None = None,
-                        pool_base: torch.Tensor | None = None):
+                        pool_base: torch.Tensor | None = None, capture_fc2: bool = False):
     """Layer stack and final LayerNorm; updates ``cache`` in place.
 
     ``hidden [B, S, D]``. With ``S > 1`` (prefill) the chunk is written at
@@ -194,6 +198,12 @@ def transformer_forward(params: dict, cfg: BackboneConfig, hidden: torch.Tensor,
     With an int8 cache a prefill attends over a scratch holding the layer's
     dequantized positions ``[0, offset)`` and the exact chunk; the chunk is
     quantized into the cache after.
+
+    ``capture_fc2`` (a prefill only: quantization calibration for
+    ``ops/quant.awq_fold``) returns ``(hidden, energy)`` with ``energy [L,
+    F]`` fp32, each layer's fc2-input sum of squares over (B, S), as JAX's
+    ``capture_fc2``. During decode it raises: JAX's decode scan then
+    mis-shapes the K/V columns it emits.
     """
     B, S, _ = hidden.shape
     layers = params["layers"]
@@ -206,6 +216,9 @@ def transformer_forward(params: dict, cfg: BackboneConfig, hidden: torch.Tensor,
     if (pooled and S != 1) or (ring and not pooled):
         raise ValueError("pooled decode runs one token per row: pass positions (and "
                          "pool_base for ring mode) with S == 1")
+    if capture_fc2 and (S == 1 or pooled):
+        raise ValueError("capture_fc2 reads a prefill's fc2 inputs; it is not supported "
+                         "during decode")
     if pooled:
         if ring:
             bases = pool_base.to(torch.int32).contiguous()
@@ -287,9 +300,10 @@ def transformer_forward(params: dict, cfg: BackboneConfig, hidden: torch.Tensor,
                     k.reshape(B, W), v.reshape(B, W), scalars[l])
             return attend
 
+    energy = [] if capture_fc2 else None
     for l in range(L):
         lp = {name: {k: t[l] for k, t in leaf.items()} for name, leaf in layers.items()}
-        hidden = _block(lp, cfg, hidden, attend_for(l), positions, rope)
+        hidden = _block(lp, cfg, hidden, attend_for(l), positions, rope, energy)
 
     if pooled and not ring:
         # Each row's columns at its own position (clamped, as JAX's
@@ -299,7 +313,8 @@ def transformer_forward(params: dict, cfg: BackboneConfig, hidden: torch.Tensor,
         cache["k"][:, rows, idx] = k_cols
         cache["v"][:, rows, idx] = v_cols
     nf = params["norm_f"]
-    return layer_norm(hidden, nf["weight"], nf["bias"], cfg.norm_epsilon)
+    out = layer_norm(hidden, nf["weight"], nf["bias"], cfg.norm_epsilon)
+    return (out, torch.stack(energy)) if capture_fc2 else out
 
 
 class TransformerBackbone:
@@ -317,6 +332,7 @@ class TransformerBackbone:
         return allocate_kv_cache(self.cfg, batch, max_seqlen, dtype, device, kv_int8)
 
     def forward(self, params, hidden, cache, offset, rope, stage_base=None, *, positions=None,
-                pool_base=None):
+                pool_base=None, capture_fc2=False):
         return transformer_forward(params, self.cfg, hidden, cache, offset, rope, stage_base,
-                                   positions=positions, pool_base=pool_base)
+                                   positions=positions, pool_base=pool_base,
+                                   capture_fc2=capture_fc2)

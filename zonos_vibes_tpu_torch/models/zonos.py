@@ -111,6 +111,20 @@ class ZonosModel:
             return None
         return rope_table(self.config.backbone.head_dim, device=device)
 
+    def backbone_forward(self, params: dict, hidden, cache: dict, offset, rope,
+                         capture_fc2: bool = False):
+        """The backbone over ``hidden`` (a prefill or a whole teacher-forced
+        sequence), the cache updated in place; with ``capture_fc2`` (the
+        transformer only) also the ``[L, F]`` fc2-input energies for
+        ``ops/quant.awq_fold``."""
+        if capture_fc2:
+            if self.config.backbone.is_hybrid:
+                raise ValueError("capture_fc2 is a transformer calibration tap; the hybrid "
+                                 "has no AWQ fold")
+            return self.backbone.forward(params["backbone"], hidden, cache, offset, rope,
+                                         capture_fc2=True)
+        return self.backbone.forward(params["backbone"], hidden, cache, offset, rope)
+
     def compute_logits(self, params: dict, hidden, cache: dict, offset, cfg_scale,
                        rope, stage_base=None, *, positions=None, pool_base=None):
         """Backbone -> last position -> heads -> CFG mix -> pad mask.

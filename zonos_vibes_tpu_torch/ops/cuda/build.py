@@ -30,7 +30,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "zonos_vibes_tpu_torch"
 SOURCES = ("decode_attention.cu", "stage_write.cu", "prefill_attention.cu", "qmm_int8.cu",
-           "mamba_step.cu")
+           "mamba_step.cu", "qmm_int4.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -40,7 +40,7 @@ LAUNCHES = {"decode_attention": 0, "decode_attention_q": 0, "stage_splice": 0,
             "prefill_attention": 0, "qmm_int8": 0, "decode_attention_pooled": 0,
             "decode_attention_pooled_q": 0, "stage_splice_rows": 0,
             "decode_attention_unstaged": 0, "decode_attention_pooled_unstaged": 0,
-            "ssd_gate_step": 0}
+            "ssd_gate_step": 0, "qmm_int4": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,10 +50,11 @@ _SIGNATURES = {
     "zvt_stage_splice": (_P, _P, _P, _I, _I, _I, _P),
     "zvt_stage_splice_rows": (_P, _P, _P, _I, _I, _I, _I, _P),
     "zvt_prefill_attention": (_P,) * 4 + (_I,) * 7 + (_P,),
-    "zvt_qmm_int8": (_P,) * 6 + (_I,) * 5 + (_P,),
+    "zvt_qmm_int8": (_P,) * 6 + (_I,) * 6 + (_P,),
     "zvt_qmm_int8_decode": (_P,) * 4 + (_I,) * 8 + (_P,),
-    "zvt_qmm_int8_tiles": (_I,) * 4,
-    "zvt_qmm_int8_workspace": (_I,) * 4,
+    "zvt_qmm_int8_tiles": (_I,) * 5,
+    "zvt_qmm_int8_workspace": (_I,) * 5,
+    "zvt_qmm_int4": (_P,) * 4 + (_I,) * 9 + (_P,),
     "zvt_ssd_gate_step": (_P, _I, _I) + (_P,) * 11 + (_I,) * 6 + (_F, _P),
 }
 

@@ -1,5 +1,5 @@
-"""int8 weight-streaming matmul: the CUDA kernel's wrapper and its plain
-version.
+"""int8 and packed-int4 weight-streaming matmuls: the CUDA kernels' wrappers
+and their plain versions.
 
 Counterpart of ``zonos_vibes_tpu/ops/pallas/qmm.py::qmm_int8_pallas``:
 ``x @ W_int8`` with fp32 accumulation, the per-output-channel fp32 scale
@@ -20,6 +20,19 @@ is allocated but the output, and nothing is kept between calls. At
 (allocated per call) under one int32 counter per output tile (a zeroed
 buffer kept per device, which the kernel leaves zeroed), so those launches
 must stay on one stream.
+
+``qmm_int4`` (``csrc/qmm_int4.cu``) is the counterpart of the XLA ``s4`` dot
+of the JAX package's ``ops/quant.proj_matmul`` (not a Pallas kernel):
+``x @ W_int4`` with the weight packed two values to a byte (``uint8 [K, N /
+2]``, the even column in the low nibble, two's complement in [-7, 7]) and
+fp32 scales per group of ``K / NG`` rows and column (``[NG, 1, N]``; NG = 1
+for an ungrouped weight). The kernel sums each thread's slice of a group's
+rows in fp32 and multiplies that partial by the group's scale; the scaled
+partials are summed in fp32 in a fixed order and the result rounds once. The
+plain version (:func:`qmm_int4_plain`) scales each finished group sum
+instead: the two differ by fp32 rounding only. One
+kernel serves every M: chunks of at most 16 rows of ``x`` per block
+(:func:`int4_plan`), nothing allocated but the output.
 """
 
 from __future__ import annotations
@@ -41,20 +54,41 @@ _COUNTERS: dict[torch.device, torch.Tensor] = {}
 # the grid within MAX_PER_SM blocks per SM.
 TILES = (32, 64)
 MAX_CLUSTER = 8
-SMS = 132
+SMS = 132  # the H100 SXM's; a launch plans for its own card's count
 MAX_PER_SM = 3
 BLOCK_BYTES = 128 * 1024
 STAGE_BYTES = 4096
 
+# The int4 kernel's plan: a block of 256 threads holds MC rows of x (one of
+# INT4_CHUNKS) and a tile of 32 or 64 columns; its stages are 8 KB of tile
+# rows; a block walks at most INT4_BLOCK_BYTES of the packed weight and
+# stages at most INT4_X_BYTES of x, and K is split inside a cluster past
+# either. At 16 rows a block's time is its CUDA cores' (x 16 FMAs per
+# weight): 64-column tiles, and K split until the grid has a block per SM.
+# From a sweep of every tile and cluster size at the int4 shapes on an H100
+# (`tools/sweep_decode_plans.py --only qmm4`, `PERF.md`, the `qmm_int4` row):
+# at M = 2 this plan was within 5% of the best; at M = 16 the rule for 16
+# rows took fc2 from 0.0986 to 0.0700 ms and the attention projections
+# from 0.037 to 0.023.
+INT4_CHUNKS = (2, 4, 8, 16)
+INT4_STAGE_BYTES = 8192
+INT4_BLOCK_BYTES = 64 * 1024
+INT4_X_BYTES = 64 * 1024
 
-def decode_plan(M: int, K: int, N: int, G: int) -> tuple[int, int, int]:
-    """``(tile width, cluster size, rows per block)`` of an ``M <= 2`` launch,
-    from the shapes alone: ``G * ceil(N / tile)`` clusters of ``cluster``
-    blocks, block ``r`` of a cluster summing rows ``[r * rows, (r + 1) *
-    rows)`` of ``K`` (a multiple of a stage's rows)."""
+
+@functools.cache
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def decode_plan(M: int, K: int, N: int, G: int, sms: int = SMS) -> tuple[int, int, int]:
+    """``(tile width, cluster size, rows per block)`` of an ``M <= 2`` launch on
+    a card of ``sms`` SMs, from the shapes alone: ``G * ceil(N / tile)``
+    clusters of ``cluster`` blocks, block ``r`` of a cluster summing rows
+    ``[r * rows, (r + 1) * rows)`` of ``K`` (a multiple of a stage's rows)."""
     if not 0 < M <= 2:
         raise ValueError(f"decode_plan: M must be 1 or 2, got {M}")
-    tn = next((t for t in TILES if -(-N // t) * G <= MAX_PER_SM * SMS), TILES[-1])
+    tn = next((t for t in TILES if -(-N // t) * G <= MAX_PER_SM * sms), TILES[-1])
     cs = 1
     while cs < MAX_CLUSTER and tn * -(-K // cs) > BLOCK_BYTES:
         cs *= 2
@@ -63,11 +97,42 @@ def decode_plan(M: int, K: int, N: int, G: int) -> tuple[int, int, int]:
     return tn, cs, -(-per_block // stage_rows) * stage_rows
 
 
+def int4_plan(M: int, K: int, N: int, sms: int = SMS) -> tuple[int, int, int, int]:
+    """``(rows of x per block, tile width, cluster size, rows of K per block)``
+    of a ``qmm_int4`` launch on a card of ``sms`` SMs: ``ceil(M / mc) *
+    ceil(N / tile)`` clusters of ``cluster`` blocks, block ``r`` of a cluster
+    summing rows ``[r * rows, (r + 1) * rows)`` of ``K`` (a multiple of a
+    stage's rows)."""
+    if M <= 0 or K <= 0 or N <= 0:
+        raise ValueError(f"int4_plan: positive shapes expected, got {(M, K, N)}")
+    mc = next((c for c in INT4_CHUNKS if c >= M), INT4_CHUNKS[-1])
+    chunks = -(-M // mc)
+    cs = 1
+    if mc == INT4_CHUNKS[-1]:
+        tn = TILES[-1]
+        stage_rows = INT4_STAGE_BYTES // (tn // 2)
+        while (cs < MAX_CLUSTER and -(-N // tn) * chunks * cs < sms
+               and 2 * cs * stage_rows <= K):
+            cs *= 2
+    else:
+        tn = next((t for t in TILES if -(-N // t) * chunks <= MAX_PER_SM * sms), TILES[-1])
+        stage_rows = INT4_STAGE_BYTES // (tn // 2)
+    while cs < MAX_CLUSTER and (tn // 2 * -(-K // cs) > INT4_BLOCK_BYTES
+                                or 2 * mc * -(-K // cs) > INT4_X_BYTES):
+        cs *= 2
+    per_block = -(-K // cs)
+    rows = -(-per_block // stage_rows) * stage_rows
+    if 2 * mc * rows > 2 * INT4_X_BYTES:
+        raise ValueError(f"int4_plan: K = {K} is too long for one cluster")
+    return mc, tn, cs, rows
+
+
 @functools.cache
-def _plan(M: int, K: int, N: int, G: int) -> tuple[int, int]:
+def _plan(M: int, K: int, N: int, G: int, sms: int) -> tuple[int, int]:
     """(output tiles, workspace floats) of an ``M > 2`` launch."""
     lib = build.load()
-    return lib.zvt_qmm_int8_tiles(M, K, N, G), lib.zvt_qmm_int8_workspace(M, K, N, G)
+    return (lib.zvt_qmm_int8_tiles(M, K, N, G, sms),
+            lib.zvt_qmm_int8_workspace(M, K, N, G, sms))
 
 
 def _counters(dev: torch.device, n: int) -> torch.Tensor:
@@ -118,16 +183,90 @@ def qmm_int8(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"qmm_int8: kernel takes N a multiple of 16, got {N}")
     out = torch.empty((M, G, N), dtype=out_dtype, device=dev)
     out_f32 = int(out_dtype == torch.float32)
+    sms = _sm_count(dev)
     if M <= 2:
         rc = build.load().zvt_qmm_int8_decode(
             x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(), M, K, N, G, out_f32,
-            *decode_plan(M, K, N, G), build.stream_handle(dev))
+            *decode_plan(M, K, N, G, sms), build.stream_handle(dev))
     else:
-        tiles, ws_floats = _plan(M, K, N, G)
+        tiles, ws_floats = _plan(M, K, N, G, sms)
         ws = torch.empty((max(ws_floats, 1),), dtype=torch.float32, device=dev)
         rc = build.load().zvt_qmm_int8(
             x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(), ws.data_ptr(),
-            _counters(dev, tiles).data_ptr(), M, K, N, G, out_f32, build.stream_handle(dev))
+            _counters(dev, tiles).data_ptr(), M, K, N, G, out_f32, sms,
+            build.stream_handle(dev))
     build.check_status("qmm_int8", rc)
     build.LAUNCHES["qmm_int8"] += 1
+    return out
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """int8 values in [-8, 7] ``[..., N]`` (N even) -> ``uint8 [..., N / 2]``,
+    column ``2j`` in the low nibble of byte ``j``, ``2j + 1`` in the high."""
+    if q.shape[-1] % 2:
+        raise ValueError(f"pack_int4: an even last axis expected, got {tuple(q.shape)}")
+    u = (q.to(torch.int16) & 0xF).to(torch.uint8)
+    return u[..., 0::2] | (u[..., 1::2] << 4)
+
+
+def unpack_int4(w: torch.Tensor) -> torch.Tensor:
+    """``uint8 [..., N / 2]`` -> the int8 values ``[..., N]`` (:func:`pack_int4`'s
+    inverse)."""
+    nib = torch.stack([w & 0xF, w >> 4], dim=-1).flatten(-2).to(torch.int8)
+    return nib - 16 * (nib >= 8).to(torch.int8)
+
+
+def qmm_int4_plain(x, w, scale, out_dtype) -> torch.Tensor:
+    """The same function in PyTorch: per group, the fp32 product of ``x``'s
+    slice and the unpacked weight (every bf16 x int4 product is exact in
+    fp32), times the group's scale; the groups summed in fp32; one rounding.
+    (The kernel scales partials over slices of a group instead: fp32
+    rounding apart, the same sum.)"""
+    q = unpack_int4(w).float()  # [K, N]
+    NG, K, N = scale.shape[0], q.shape[0], q.shape[1]
+    y = torch.einsum("mgk,gkn->mgn", x.float().reshape(-1, NG, K // NG),
+                     q.reshape(NG, K // NG, N))
+    return (y * scale[:, 0]).sum(dim=1).to(out_dtype)
+
+
+def qmm_int4(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+             out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``out[m] = sum_g (x[m, group g] @ q[group g]) * scale[g]``.
+
+    Args:
+      x: ``[M, K]`` activations.
+      w: ``uint8 [K, N / 2]`` packed int4 weights (:func:`pack_int4`).
+      scale: ``[NG, 1, N]`` fp32 scales of NG groups of ``K / NG`` rows.
+      out_dtype: bf16 or fp32 (default: ``x.dtype``).
+    Returns ``[M, N]``. CPU tensors take the plain version; CUDA tensors
+    launch the kernel (``x`` bf16, ``N`` a multiple of 32) or raise.
+    """
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    if x.ndim != 2 or w.ndim != 2 or w.shape[0] != x.shape[1]:
+        raise ValueError(f"qmm_int4: x [M, K] and w [K, N/2] expected, got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    M, K = x.shape
+    N = 2 * w.shape[1]
+    if (w.dtype != torch.uint8 or scale.dtype != torch.float32 or scale.ndim != 3
+            or scale.shape[1:] != (1, N) or K % scale.shape[0]):
+        raise ValueError(f"qmm_int4: w must be uint8 and scale fp32 [NG, 1, {N}] with NG "
+                         f"dividing K = {K}, got {w.dtype}, {scale.dtype} {tuple(scale.shape)}")
+    if out_dtype not in _OUT_DTYPES or not x.dtype.is_floating_point:
+        raise ValueError(f"qmm_int4: float x and a bf16 or fp32 output expected, got "
+                         f"{x.dtype} -> {out_dtype}")
+    if all(t.device.type == "cpu" for t in (x, w, scale)):
+        return qmm_int4_plain(x, w, scale, out_dtype)
+    dev = build.require_cuda("qmm_int4", x, w, scale)
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"qmm_int4: kernel takes bf16 x, got {x.dtype}")
+    if N % 32:
+        raise ValueError(f"qmm_int4: kernel takes N a multiple of 32 (a 16-byte row copy), "
+                         f"got {N}")
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    rc = build.load().zvt_qmm_int4(
+        x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(), M, K, N, scale.shape[0],
+        int(out_dtype == torch.float32), *int4_plan(M, K, N, _sm_count(dev)),
+        build.stream_handle(dev))
+    build.check_status("qmm_int4", rc)
+    build.LAUNCHES["qmm_int4"] += 1
     return out

@@ -19,8 +19,12 @@ prefix's codes (``DACAutoencoder.preprocess`` + ``encode``) are computed on
 ``make_speaker_embedding`` draws random ones from seed 0 on that device.
 
 The int8 serving configuration: ``pipe.quantize_int8()`` (int8 projections
-and heads), then ``DecodeEngine(pipe.model, kv_int8=True).generate(
-pipe.params, pipe.prepare_conditioning(cond), ...)`` for the int8 KV cache.
+and heads, on either backbone), then ``DecodeEngine(pipe.model,
+kv_int8=True).generate(pipe.params, pipe.prepare_conditioning(cond), ...)``
+for the int8 KV cache (the transformer's). ``pipe.quantize_int4()``: the MLP
+as packed int4 in 128-row groups, the rest int8 (``mixed=False``: every
+backbone projection int4); other widths through
+``ops/quant.quantize_zonos_params``.
 The hybrid backbone: ``ZonosPipeline.from_config(ZONOS_V01_HYBRID)``, the
 same calls (its extra quality conditioners take ``make_cond_dict``'s
 ``vqscore_8``, ``ctc_loss``, ``dnsmos_ovrl`` and ``speaker_noised``);
@@ -155,12 +159,24 @@ class ZonosPipeline:
         raise ValueError("model has no speaker conditioner")
 
     def quantize_int8(self) -> "ZonosPipeline":
-        """Backbone projections and the 9 heads to int8 weight-only storage
+        """Backbone projections (the transformer's, or the hybrid's Mamba and
+        attention layers') and the 9 heads to int8 weight-only storage
         (``ops/quant.quantize_zonos_params``), as the JAX pipeline's
         ``quantize_int8``. The pipeline's own engine keeps an exact KV cache;
         its graph cache is cleared, so it keeps no entry (nor the bf16 tree
         such an entry holds) alive. Returns self."""
         self.params = quantize_zonos_params(self.params)
+        self.engine.clear()
+        return self
+
+    def quantize_int4(self, mixed: bool = True) -> "ZonosPipeline":
+        """The backbone's MLP (fc1, fc2) as packed int4 in 128-row groups with
+        the clip search, as the JAX pipeline's ``quantize_int4``: with
+        ``mixed`` the attention (or Mamba) projections and the heads are
+        int8, else every backbone projection is int4 (the heads stay int8).
+        The graph cache is cleared, as by :meth:`quantize_int8`. Returns
+        self."""
+        self.params = quantize_zonos_params(self.params, bits=8 if mixed else 4, mlp_bits=4)
         self.engine.clear()
         return self
 

@@ -1111,9 +1111,10 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--warmup", action="store_true",
                     help="capture the default request shapes' decode graphs before serving")
     ap.add_argument("--int8", action="store_true",
-                    help="int8 weight-only backbone and heads (transformer only)")
+                    help="int8 weight-only backbone and heads (either backbone)")
     ap.add_argument("--int4-mlp", action="store_true",
-                    help="MLP weights as int4: not ported yet (ROADMAP.md queue 1, item 5)")
+                    help="MLP weights as packed int4 in 128-row groups, the rest int8 "
+                         "(every pipeline; takes precedence over --int8)")
     ap.add_argument("--compilation-cache", default=None, metavar="DIR",
                     help="accepted for the JAX server's command line and ignored: the port "
                          "compiles no programs (CUDA graphs are captured in the process, "
@@ -1129,8 +1130,6 @@ def main(argv: list[str] | None = None) -> None:
                     help="pooled Mamba SSM state stored in bf16, fp32 compute (hybrid pools)")
     args = ap.parse_args(argv)
 
-    if args.int4_mlp:
-        raise _not_yet("--int4-mlp", "5")
     if args.heartbeat_interval_s > 0:
         raise _not_yet("--heartbeat-interval-s", "6")
 
@@ -1153,10 +1152,10 @@ def main(argv: list[str] | None = None) -> None:
     extra = None
     if args.hybrid_config and args.hybrid_weights:
         extra = {"hybrid": load(args.hybrid_config, args.hybrid_weights, 1)}
-    if args.int8:
-        for p in [pipeline, *(extra or {}).values()]:
-            if p.model.config.backbone.is_hybrid:
-                raise _not_yet("--int8 on a hybrid pipeline", "4")
+    for p in [pipeline, *(extra or {}).values()]:
+        if args.int4_mlp:
+            p.quantize_int4(mixed=True)
+        elif args.int8:
             p.quantize_int8()
 
     srv = TTSServer(

@@ -24,13 +24,21 @@
   that they equal ``params_from_jax`` of that package's converted trees.
 * :func:`load_params_cache` reads the flat ``.npz`` that the JAX package's
   ``utils/checkpoint.save_params_cache`` writes: keys joined with ``::``,
-  bf16 entries stored as a uint16 view under an ``@bf16`` suffix, empty
-  nodes marked ``@emptydict`` / ``@emptylist``. An ``@s4`` (int4) entry
-  raises ``NotImplementedError`` until the int4 slice is ported.
+  bf16 entries stored as a uint16 view under an ``@bf16`` suffix, int4
+  weights widened to int8 under an ``@s4`` suffix, empty nodes marked
+  ``@emptydict`` / ``@emptylist``. :func:`save_params_cache` writes the
+  port's tree in the same format, int4 leaves in JAX's shapes, so JAX's
+  loader reads it back (the hybrid's backbone as the port's stacked-by-kind
+  tree).
 
 Both carry the JAX package's int8 leaves (``ops/quant``) as they are:
 ``weight_int8`` int8, ``scale`` fp32, and the 0-d ``act_dtype`` marker of
-an int8 embedding table in its bf16 (or fp32) dtype.
+an int8 embedding table in its bf16 (or fp32) dtype. JAX's int4 leaves
+(``weight_int4`` as ``[..., G, K / G, N]`` with scale ``[..., G, 1, N]``
+when grouped, ``[..., K, N]`` with ``[..., 1, N]`` when not; ml_dtypes
+``int4`` or int8 values) become the port's packed leaves (``ops/quant``);
+which of JAX's two shapes a leaf has is read from its place in the tree
+(stacked transformer layers, or one hybrid layer).
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ import numpy as np
 import torch
 
 from ..config import ZonosConfig
+from ..ops.cuda.qmm import pack_int4, unpack_int4
 
 _SEP = "::"
 
@@ -51,7 +60,55 @@ def _to_tensor(x) -> torch.Tensor:
     arr = np.asarray(x)
     if arr.dtype.name == "bfloat16":  # ml_dtypes' bf16, as jax.device_get returns it
         return torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
+    if arr.dtype.name == "int4":  # ml_dtypes' int4 (a JAX s4 array)
+        arr = arr.astype(np.int8)
     return torch.from_numpy(np.array(arr))  # a writable copy
+
+
+def _int4_from_jax(tree, lead: int):
+    """JAX's int4 leaves under ``tree`` (``lead`` stacked axes) -> the port's."""
+    if isinstance(tree, (list, tuple)):
+        return [_int4_from_jax(v, lead) for v in tree]
+    if not isinstance(tree, dict):
+        return tree
+    if "weight_int4" not in tree:
+        return {k: _int4_from_jax(v, lead) for k, v in tree.items()}
+    q, scale = tree["weight_int4"].to(torch.int8), tree["scale"].float()
+    if q.ndim == lead + 2:  # ungrouped [..., K, N], scale [..., 1, N]
+        scale = scale.unsqueeze(-3)
+    else:  # grouped [..., G, K / G, N]
+        q = q.flatten(-3, -2)
+    return {**tree, "weight_int4": pack_int4(q), "scale": scale}
+
+
+def _int4_to_jax(tree):
+    """The port's int4 leaves -> JAX's shapes, int8 values (for ``@s4``)."""
+    if isinstance(tree, (list, tuple)):
+        return [_int4_to_jax(v) for v in tree]
+    if not isinstance(tree, dict):
+        return tree
+    if "weight_int4" not in tree:
+        return {k: _int4_to_jax(v) for k, v in tree.items()}
+    q, scale = unpack_int4(tree["weight_int4"]), tree["scale"]
+    G = scale.shape[-3]
+    if G == 1:
+        return {**tree, "weight_int4": q, "scale": scale.squeeze(-3)}
+    return {**tree, "weight_int4": q.unflatten(-2, (G, -1)), "scale": scale}
+
+
+def _backbone_int4_from_jax(backbone: dict) -> dict:
+    """A backbone's int4 leaves: the transformer's stacked layers, the JAX
+    hybrid's per-layer list or the port's stacked-by-kind hybrid."""
+    out = dict(backbone)
+    layers = backbone.get("layers")
+    if isinstance(layers, list):
+        out["layers"] = [_int4_from_jax(lp, 0) for lp in layers]
+    elif isinstance(layers, dict):
+        out["layers"] = _int4_from_jax(layers, 1)
+    for kind in ("mamba", "attn"):
+        if kind in backbone:
+            out[kind] = _int4_from_jax(backbone[kind], 1)
+    return out
 
 
 def _map(tree, fn):
@@ -122,6 +179,10 @@ def params_from_jax(tree, device="cpu") -> dict:
     tree = _map(tree, _to_tensor)
     if isinstance(tree, dict) and "decoder" in tree and "quantizers" in tree:
         tree = _dac_from_jax(tree)
+    if isinstance(tree, dict) and isinstance(tree.get("backbone"), dict):
+        tree = {**tree, "backbone": _backbone_int4_from_jax(tree["backbone"])}
+    elif isinstance(tree, dict) and ("layers" in tree or "mamba" in tree or "attn" in tree):
+        tree = _backbone_int4_from_jax(tree)
     if isinstance(tree, dict) and isinstance(tree.get("layers"), list):
         tree = _hybrid_from_jax(tree)
     elif isinstance(tree, dict) and isinstance(tree.get("backbone", {}).get("layers"), list):
@@ -176,18 +237,52 @@ def _unflatten(flat: dict) -> dict:
 
 
 def load_params_cache(path: str, device="cpu") -> dict:
-    """Read a JAX ``save_params_cache`` file into the port's tree."""
+    """Read a JAX ``save_params_cache`` file (or the port's) into the port's
+    tree."""
     flat = {}
     with np.load(path) as data:
         for k in data.files:
             v = data[k]
-            if k.endswith("@s4"):
-                raise NotImplementedError(f"{k}: int4 weights are not ported yet")
             if k.endswith("@bf16"):
                 flat[k[: -len("@bf16")]] = torch.from_numpy(v.copy()).view(torch.bfloat16)
+            elif k.endswith("@s4"):
+                flat[k[: -len("@s4")]] = torch.from_numpy(v.astype(np.int8))
             else:
                 flat[k] = torch.from_numpy(v.copy())
     return params_from_jax(_unflatten(flat), device)
+
+
+def _flatten(tree, prefix: str = "") -> dict:
+    if isinstance(tree, dict):
+        if not tree:
+            return {prefix + "@emptydict": np.zeros((), np.int8)}
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        if not tree:
+            return {prefix + "@emptylist": np.zeros((), np.int8)}
+        items = ((str(i), v) for i, v in enumerate(tree))
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(_flatten(v, f"{prefix}{_SEP}{k}" if prefix else str(k)))
+    return out
+
+
+def save_params_cache(path: str, params: dict) -> None:
+    """Write the port's tree as the JAX package's ``save_params_cache``
+    does: keys joined with ``::``, bf16 as a uint16 view under ``@bf16``,
+    int4 weights unpacked to int8 in JAX's shapes under ``@s4``, empty
+    nodes as ``@emptydict`` / ``@emptylist``."""
+    out = {}
+    for k, v in _flatten(_int4_to_jax(params)).items():
+        if k.endswith(_SEP + "weight_int4"):
+            out[k + "@s4"] = v.cpu().numpy()
+        elif isinstance(v, torch.Tensor) and v.dtype == torch.bfloat16:
+            out[k + "@bf16"] = v.cpu().view(torch.uint16).numpy()
+        else:
+            out[k] = v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+    np.savez(path, **out)
 
 
 # ---------------------------------------------------------------------------
