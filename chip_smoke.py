@@ -152,9 +152,10 @@ Phases, each of which fails the run loudly:
    so each launch reads its state from device memory; no single PyTorch
    call computes it, so it has no library time); the server's shapes (rows
    1 and 3 at its batches, ``qmm_int8``'s 105 launches at M = 4 and 8, rows
-   6 and 8 at 8 rows); ``qmm_int4`` at every int4 shape at M = 2 and 16
-   and fc1 at the prefill's M, beside its bound and the matmul on a
-   dequantized bf16 copy, and the int4-MLP step's 52 launches summed; the
+   6 and 8 at 8 rows); ``qmm_int4`` at every int4 shape at M = 2, 4, 8 and
+   16 and fc1 at the prefill's M, beside its bound, the matmul on a
+   dequantized bf16 copy and PR 12's time in brackets, and the int4-MLP
+   step's 52 launches summed at each of those M; the
    int8 hybrid step's 109 ``qmm_int8`` launches at M = 2 and 16 summed.
 
 Before them a ``{"graphs": ...}`` line gathers each path's eager and graph
@@ -3640,26 +3641,39 @@ def time_qmm4(gen, K, N, groups, layers, Ms) -> dict:
     return out
 
 
+# qmm_int4's times before its redesign on the tensor cores (PR 12's
+# CUDA-core kernel; PERF.md, the int4 row; NVIDIA H100 80GB HBM3, 700 W),
+# printed in brackets beside this run's: (shape or "step", M) -> ms.
+QMM4_PR12_MS = {("fc1", 2): 0.02149, ("fc2", 2): 0.01759, ("fc1", POOL_M): 0.08195,
+                ("step", 2): 1.0161, ("step", POOL_M): 3.9182, ("fc1", 176): 0.8513}
+
+
+def _pr12(key) -> str:
+    return f" (PR 12: {QMM4_PR12_MS[key]})" if key in QMM4_PR12_MS else ""
+
+
 def time_quant_kernels(e2e4: dict, pool4: dict, e2eh: dict, poolh: dict, errors: dict,
                        card: str) -> list[dict]:
-    """Phase 4, ``qmm_int4`` at every int4 shape at M = 2 and 16 (and fc1 at
-    the prefill's M) beside its plain version, its bound and the matmul on
-    a dequantized bf16 copy; the int4-MLP step's 52 launches at M = 2 and 16
-    summed; ``qmm_int8``'s 109 launches of the int8 hybrid's step at M = 2
-    and 16 summed."""
+    """Phase 4, ``qmm_int4`` at every int4 shape at M = 2, 4, 8 and 16 (and
+    fc1 at the prefill's M) beside its plain version, its bound and the
+    matmul on a dequantized bf16 copy; the int4-MLP step's 52 launches at
+    M = 2, 4, 8 and 16 summed (4 and 8: the server's batches and 4-slot
+    pools, logged; the kernels line holds the paths this run drives);
+    ``qmm_int8``'s 109 launches of the int8 hybrid's step at M = 2 and 16
+    summed."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(13)
     rows = []
-    step = {M: dict(ms=0.0, plain=0.0, lib=0.0, bound=0.0) for M in (2, POOL_M)}
+    step = {M: dict(ms=0.0, plain=0.0, lib=0.0, bound=0.0) for M in (2, 4, 8, POOL_M)}
     fc1 = None
     for name, (K, N, groups) in INT4_SHAPES.items():
         layers = L if name in ("fc1", "fc2") else 4
-        times = time_qmm4(gen, K, N, groups, layers, (2, POOL_M))
+        times = time_qmm4(gen, K, N, groups, layers, tuple(step))
         for M, (ms, plain, lib, b, by) in times.items():
             log(f"time qmm_int4 {name} M={M} {K}x{N} in {groups} groups ({card}): kernel_ms "
-                f"{ms:.5f} plain_ms {plain:.4f} library_ms {lib:.5f} (matmul, dequantized bf16 "
-                f"weight) bound_ms {b:.5f} ({by}); kernel / bound {ms / b:.2f}")
+                f"{ms:.5f}{_pr12((name, M))} plain_ms {plain:.4f} library_ms {lib:.5f} (matmul, "
+                f"dequantized bf16 weight) bound_ms {b:.5f} ({by}); kernel / bound {ms / b:.2f}")
             if name in ("fc1", "fc2"):
                 for key, v in zip(("ms", "plain", "lib", "bound"), (ms, plain, lib, b)):
                     step[M][key] += L * v
@@ -3676,18 +3690,22 @@ def time_quant_kernels(e2e4: dict, pool4: dict, e2eh: dict, poolh: dict, errors:
     ms, plain, lib, b, by = fc1
     rows.append(dict(name="qmm_int4", launches=launches, ms=ms, plain_ms=plain, bound_ms=b,
                      bound_by=by, library_ms=lib, **source))
-    for M, name, n in ((2, "qmm_int4_m2_step", launches - 2 * L * prefills),
-                       (POOL_M, "qmm_int4_m16_step", pool4["step_qmm_launches"]["qmm_int4"])):
-        t = step[M]
+    step_rows = {2: ("qmm_int4_m2_step", launches - 2 * L * prefills),
+                 POOL_M: ("qmm_int4_m16_step", pool4["step_qmm_launches"]["qmm_int4"])}
+    for M, t in step.items():
         log(f"time qmm_int4 one step at M={M}, 52 launches (fc1 + fc2 x 26) ({card}): kernel_ms "
-            f"{t['ms']:.4f} plain_ms {t['plain']:.3f} library_ms {t['lib']:.4f} bound_ms "
-            f"{t['bound']:.4f}; kernel / bound {t['ms'] / t['bound']:.2f}")
-        rows.append(dict(name=name, launches=n, ms=t["ms"], plain_ms=t["plain"],
-                         bound_ms=t["bound"], bound_by="bytes", library_ms=t["lib"], **source))
+            f"{t['ms']:.4f}{_pr12(('step', M))} plain_ms {t['plain']:.3f} library_ms "
+            f"{t['lib']:.4f} bound_ms {t['bound']:.4f}; kernel / bound {t['ms'] / t['bound']:.2f}"
+            f", kernel / library {t['ms'] / t['lib']:.3f}")
+        if M in step_rows:
+            name, n = step_rows[M]
+            rows.append(dict(name=name, launches=n, ms=t["ms"], plain_ms=t["plain"],
+                             bound_ms=t["bound"], bound_by="bytes", library_ms=t["lib"],
+                             **source))
     M = 2 * (e2e4["cond_len"] + 1)
     ms, plain, lib, b, by = time_qmm4(gen, *INT4_SHAPES["fc1"], L, (M,))[M]
-    log(f"time qmm_int4 fc1 prefill M={M} ({card}): kernel_ms {ms:.4f} plain_ms {plain:.4f} "
-        f"library_ms {lib:.4f} bound_ms {b:.5f} ({by})")
+    log(f"time qmm_int4 fc1 prefill M={M} ({card}): kernel_ms {ms:.4f}{_pr12(('fc1', M))} "
+        f"plain_ms {plain:.4f} library_ms {lib:.4f} bound_ms {b:.5f} ({by})")
     rows.append(dict(name=f"qmm_int4_m{M}_fc1", launches=L * prefills, ms=ms, plain_ms=plain,
                      bound_ms=b, bound_by=by, library_ms=lib, **source))
 

@@ -19,6 +19,7 @@ import torch
 
 from zonos_vibes_tpu_torch.ops import quant
 from zonos_vibes_tpu_torch.ops.cuda import build
+from zonos_vibes_tpu_torch.ops.cuda import qmm as qmm_mod
 from zonos_vibes_tpu_torch.ops.cuda.qmm import (
     int4_plan,
     pack_int4,
@@ -35,10 +36,12 @@ pytestmark = pytest.mark.gpu
 # once, possibly to the neighbouring bf16 step.
 QMM_TOL = {torch.bfloat16: dict(rtol=8e-3, atol=1e-2), torch.float32: dict(rtol=1e-5, atol=1e-4)}
 # (K, N, groups): fc1, fc2, the transformer's in_proj and out_proj, the
-# hybrid's Mamba in_proj and out_proj, and ragged cases.
+# hybrid's Mamba in_proj and out_proj, and ragged cases (N = 32 and 96 at
+# a tile's edge; K = 300: x's rows not 16-byte aligned, groups of 100).
 INT4_SHAPES = [(2048, 16384, 16), (8192, 2048, 64), (2048, 3072, 16), (2048, 2048, 16),
                (2048, 8512, 16), (4096, 2048, 32), (2048, 16384, 32), (8192, 2048, 128),
-               (2048, 2048, 1), (8192, 2048, 1), (200, 96, 2), (96, 32, 1)]
+               (2048, 2048, 1), (8192, 2048, 1), (200, 96, 2), (96, 32, 1), (512, 96, 4),
+               (1024, 32, 8), (300, 64, 3)]
 MS = [1, 2, 3, 4, 8, 16, 17, 176, 320]
 
 
@@ -142,8 +145,58 @@ def test_int4_plan_fits_the_card(dev):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for K, N, _ in INT4_SHAPES:
         for M in MS:
-            mc, tn, cs, rows = int4_plan(M, K, N, sms)
-            assert cs * rows >= K and 2 * mc * rows <= 128 * 1024
+            bm, tn, cs, rows = int4_plan(M, K, N, sms)
+            assert cs * rows >= K and (cs - 1) * rows < K and rows % 64 == 0 and cs <= 8
+
+
+# (K, NG): group sizes of 96 and 384 (a group crosses a 64-row stage and a
+# split of K), 40 and 24 (a group ends inside a k16 step), 8 (two groups end
+# inside one step), 32 and 64 (splits are whole 64-row stages, so these
+# groups end at a stage's edge or inside one).
+GROUPED = [(3072, 32), (1152, 3), (2560, 64), (2400, 100), (512, 64), (2048, 64), (2048, 32)]
+
+
+@pytest.mark.parametrize("cs", [1, 3, 8])
+@pytest.mark.parametrize("M", [2, 8, 16, 176])
+@pytest.mark.parametrize("K,NG", GROUPED)
+def test_qmm_int4_groups_across_splits(dev, monkeypatch, K, NG, M, cs):
+    """Group boundaries inside k16 steps, stages and splits of K: the
+    planned row tile and tile width with K forced into ``cs`` splits."""
+    N = 256
+    bm, tn, _, _ = int4_plan(M, K, N)
+    rows = -(-K // (cs * 64)) * 64
+    if (cs - 1) * rows >= K:
+        pytest.skip(f"{cs} splits of {rows} rows leave a rank without rows at K = {K}")
+    monkeypatch.setattr(qmm_mod, "int4_plan", lambda *_: (bm, tn, cs, rows))
+    gen = torch.Generator(device=dev).manual_seed(K + NG + M + cs)
+    x, w, scale = _case(gen, M, K, N, NG, dev)
+    for out_dtype in (torch.bfloat16, torch.float32):
+        got = qmm_int4(x, w, scale, out_dtype)
+        want = qmm_int4_plain(x, w, scale, out_dtype)
+        torch.testing.assert_close(got.float(), want.float(), **QMM_TOL[out_dtype])
+        assert torch.equal(qmm_int4(x, w, scale, out_dtype), got)
+
+
+@pytest.mark.parametrize("M", [1, 2, 4, 8])
+@pytest.mark.parametrize("K,N,NG", [(2048, 16384, 16), (8192, 2048, 64)])
+def test_qmm_int4_small_m_dispatch(dev, monkeypatch, M, K, N, NG):
+    """fc1 and fc2 at the solo step's and small batches' M through every row
+    tile the plan can take there (x as the n8 operand, one m16 tile, and the
+    CUDA-core kernel at M <= 2), each within the tolerance of the plain
+    version."""
+    gen = torch.Generator(device=dev).manual_seed(M + N)
+    x, w, scale = _case(gen, M, K, N, NG, dev)
+    want = qmm_int4_plain(x, w, scale, torch.float32)
+    planned = qmm_int4(x, w, scale, torch.float32)
+    torch.testing.assert_close(planned, want, **QMM_TOL[torch.float32])
+    plans = [(8, 128, 4, -(-K // 256) * 64), (16, 128, 4, -(-K // 256) * 64)]
+    if M <= 2:
+        stage_rows = qmm_mod.INT4_CC_STAGE_BYTES // 32
+        plans.append((2, 64, 2, -(-K // (2 * stage_rows)) * stage_rows))
+    for plan in plans:
+        monkeypatch.setattr(qmm_mod, "int4_plan", lambda *_, p=plan: p)
+        got = qmm_int4(x, w, scale, torch.float32)
+        torch.testing.assert_close(got, want, **QMM_TOL[torch.float32])
 
 
 # -- qmm_int8 at the hybrid's projection shapes -------------------------------

@@ -186,25 +186,26 @@ def test_qmm_int4_plain_matches_jax_proj_matmul(M, group):
 
 
 def test_int4_plan():
-    """The kernel's launch plan from the shapes and the SM count: chunks of
-    2/4/8/16 rows of x, whole 8 KB stages, K covered, x within its shared
-    memory; the flagship's decode shapes as swept on the card."""
+    """The kernel's launch plan from the shapes and the SM count: row tiles
+    of 8 (x as mma's n8 operand), 16 or 64 rows fitted to M, tiles of
+    64/128/256 columns, whole 64-row stages, K covered, no rank without rows;
+    the flagship's decode and prefill shapes as swept on the card."""
     from zonos_vibes_tpu_torch.ops.cuda import qmm as qmm_mod
 
     for K, N in ((2048, 3072), (2048, 2048), (2048, 16384), (8192, 2048), (2048, 8512),
                  (4096, 2048), (200, 96)):
         for M in (1, 2, 3, 4, 8, 16, 17, 176, 320):
-            mc, tn, cs, rows = qmm_mod.int4_plan(M, K, N)
-            assert mc == min(c for c in (2, 4, 8, 16) if c >= min(M, 16))
-            assert tn in (32, 64) and cs in (1, 2, 4, 8)
-            assert rows % (qmm_mod.INT4_STAGE_BYTES // (tn // 2)) == 0
+            bm, tn, cs, rows = qmm_mod.int4_plan(M, K, N)
+            assert bm == (2 if M <= qmm_mod.INT4_CC_M else 8 if M <= qmm_mod.INT4_XB_M
+                          else 16 if M <= 16 else 64)
+            assert tn in (qmm_mod.INT4_CC_TILES if bm == 2 else qmm_mod.INT4_TILES)
+            assert 1 <= cs <= 8 and rows % qmm_mod.INT4_BK == 0
             assert cs * rows >= K and (cs - 1) * rows < K
-            assert 2 * mc * rows <= 2 * qmm_mod.INT4_X_BYTES
-    assert qmm_mod.int4_plan(2, 2048, 16384) == (2, 64, 1, 2048)
-    assert qmm_mod.int4_plan(2, 8192, 2048) == (2, 32, 2, 4096)
+    assert qmm_mod.int4_plan(2, 2048, 16384) == (8, 128, 4, 512)
+    assert qmm_mod.int4_plan(2, 8192, 2048) == (8, 64, 8, 1024)
     assert qmm_mod.int4_plan(16, 8192, 2048) == (16, 64, 8, 1024)
-    assert qmm_mod.int4_plan(16, 2048, 3072) == (16, 64, 4, 512)
-    assert qmm_mod.int4_plan(16, 2048, 3072, sms=16) == (16, 64, 1, 2048)  # the card's count
+    assert qmm_mod.int4_plan(176, 2048, 16384) == (64, 128, 1, 2048)
+    assert qmm_mod.int4_plan(16, 2048, 3072, sms=16) == (16, 128, 2, 1024)  # the card's count
     with pytest.raises(ValueError):
         qmm_mod.int4_plan(0, 64, 64)
 

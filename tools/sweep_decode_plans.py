@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Sweeps the launch plans of the decode-step kernels on one NVIDIA GPU:
 ``qmm_int8`` at M = 2 (the int8 solo step's projections and heads), the
-fused Mamba-2 step (rows 9/10) and ``qmm_int4`` at M = 2 and 16 (the
-int4-MLP solo and pooled steps), at the main path's shapes.
+fused Mamba-2 step (rows 9/10) and ``qmm_int4`` at M = 2 to 176 (the
+int4-MLP solo step, server batches, the pooled step and the prefill), at
+the main path's shapes.
 
     python3 tools/sweep_decode_plans.py [--only qmm|mamba|qmm4]
 
@@ -14,9 +15,12 @@ writes its x (the pair's time less the elementwise kernel's alone), which
 shows the programmatic dependent launch's overlap behind any predecessor.
 For the Mamba step it times each column tile of ``ops/cuda/mamba_step.py::
 TILES`` at B = 2 and 16 with an fp32 and a bf16 state. For ``qmm_int4``
-every (tile width, cluster size) of 32/64 x 1/2/4/8 whose x fits the
-kernel's shared memory, at fc1, fc2 and the attention projections in
-128-row groups, each in place of ``ops/cuda/qmm.py::int4_plan``'s. Times are
+at M = 2, 4, 8, 16 and 176, every (row tile, tile width, cluster size) of
+the tensor-core kernel (x as mma's n8 operand at M <= 8, its m16 operand
+from 4 rows up; tiles 64/128/256; clusters 1/2/4/8) and at M = 2 of the
+CUDA-core kernel (tiles 32/64), at fc1, fc2 and the attention projections in
+128-row groups, each in place of ``ops/cuda/qmm.py::int4_plan``'s, and the
+best beside the planned. Times are
 ``chip_smoke.py``'s ``device_ms`` over weights or planes cycled so that each
 launch reads from device memory (the heads' one weight, 21 MB, stays in L2,
 as in ``chip_smoke.py`` phase 4). Prints one line per plan, then one JSON
@@ -124,7 +128,27 @@ def sweep_mamba(cs_mod, gen, card) -> dict:
     return result
 
 
-def sweep_qmm4(cs_mod, gen, card) -> dict:
+def _qmm4_plans(qmm, M: int, K: int, N: int):
+    """Every plan of ``qmm_int4`` at (M, K, N) beside ``int4_plan``'s: the
+    tensor-core kernel with x as the n8 operand (bm 8, M <= 8) or the m16
+    operand (bm 16 up to 16 rows, 64 beyond) over each tile width and
+    cluster size, and at M <= 2 the CUDA-core kernel (bm 2) over its tile
+    widths and cluster sizes."""
+    bms = [8, 16] if M <= 8 else [16] if M <= 16 else [64]
+    for bm, tn, cl in itertools.product(bms, qmm.INT4_TILES, (1, 2, 4, 8)):
+        rows = -(-K // (cl * qmm.INT4_BK)) * qmm.INT4_BK
+        blocks = cl * -(-N // tn) * -(-M // bm)
+        if 16 <= blocks <= 4400 and (cl - 1) * rows < K:
+            yield (bm, tn, cl, rows), blocks
+    if M <= 2:
+        for tn, cl in itertools.product(qmm.INT4_CC_TILES, (1, 2, 4, 8)):
+            stage_rows = qmm.INT4_CC_STAGE_BYTES // (tn // 2)
+            rows = -(-K // (cl * stage_rows)) * stage_rows
+            if (cl - 1) * rows < K and 4 * rows <= 2 * qmm.INT4_CC_BLOCK_BYTES:
+                yield (2, tn, cl, rows), cl * -(-N // tn)
+
+
+def sweep_qmm4(cs_mod, gen, card, Ms=(2, 4, 8, 16, 176)) -> dict:
     import torch
 
     from zonos_vibes_tpu_torch.ops import quant
@@ -139,31 +163,28 @@ def sweep_qmm4(cs_mod, gen, card) -> dict:
                                          group_size=K // groups)
             w, scale = leaf["weight_int4"], leaf["scale"]
             idx = itertools.cycle(range(layers))
-            for M in (2, cs_mod.POOL_M):
+            for M in Ms:
                 x = cs_mod.randn(gen, M, K)
-                mc = planned(M, K, N)[0]
 
                 def call():
                     i = next(idx)
                     return qmm.qmm_int4(x, w[i], scale[i])
 
-                for tn, cl in itertools.product(qmm.TILES, (1, 2, 4, 8)):
-                    stage_rows = qmm.INT4_STAGE_BYTES // (tn // 2)
-                    rows = -(-K // (cl * stage_rows)) * stage_rows
-                    blocks = cl * -(-N // tn) * -(-M // mc)
-                    if (not 32 <= blocks <= 2200 or (cl - 1) * rows >= K
-                            or 2 * mc * rows > 2 * qmm.INT4_X_BYTES):
-                        continue
-                    qmm.int4_plan = lambda *_, p=(mc, tn, cl, rows): p
+                best = None
+                for plan, blocks in _qmm4_plans(qmm, M, K, N):
+                    qmm.int4_plan = lambda *_, p=plan: p
                     ms = cs_mod.device_ms(call, 26 * 8)
-                    result[f"{name}_m{M}_tn{tn}_cs{cl}_ms"] = ms
-                    print(f"qmm_int4 {name} M={M} tile {tn} cluster {cl} ({blocks} blocks, "
-                          f"{tn // 2 * rows // 1024} KB a block; {card}): {ms:.5f} ms", flush=True)
+                    bm, tn, cl, rows = plan
+                    result[f"{name}_m{M}_bm{bm}_tn{tn}_cs{cl}_ms"] = ms
+                    best = min(best or (ms, plan), (ms, plan))
+                    print(f"qmm_int4 {name} M={M} bm {bm} tile {tn} cluster {cl} ({blocks} "
+                          f"blocks, {rows} rows a block; {card}): {ms:.5f} ms", flush=True)
                 qmm.int4_plan = planned
                 ms = cs_mod.device_ms(call, 26 * 8)
                 result[f"{name}_m{M}_planned_ms"] = ms
-                print(f"qmm_int4 {name} M={M} planned {planned(M, K, N)} ({card}): {ms:.5f} ms",
-                      flush=True)
+                result[f"{name}_m{M}_best"] = [best[0], list(best[1])]
+                print(f"qmm_int4 {name} M={M} planned {planned(M, K, N)} ({card}): {ms:.5f} ms; "
+                      f"best {best[1]} {best[0]:.5f} ms", flush=True)
             del leaf, w, scale
             torch.cuda.empty_cache()
     finally:

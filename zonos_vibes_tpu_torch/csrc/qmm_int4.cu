@@ -1,6 +1,5 @@
 // Packed-int4 weight-streaming matmul with grouped scales:
-//   out[m, n] = sum_g scale[g, n] * sum_{k in group g} x[m, k] * q[k, n],
-// with each group's inner sum cut into slices (see Arithmetic).
+//   out[m, n] = sum_g scale[g, n] * sum_{k in group g} x[m, k] * q[k, n].
 //
 // Replaces: not a Pallas kernel. The JAX package stores int4 weights as XLA
 //   `s4` arrays and leaves the product to XLA (zonos_vibes_tpu/ops/quant.py
@@ -11,62 +10,75 @@
 //   activations by packed int4 without first writing a dequantized copy of
 //   the weight, which would read four times the bytes.
 //
-// Arithmetic: every bf16 x int4 product is exact in fp32. A thread sums in
-// fp32 the products of its slice of a group's rows (a group of 128 rows is
-// cut into up to 16 slices at M = 2, see Design) and multiplies that partial
-// by the group's fp32 scale (one fma into its totals); the scaled partials of
-// all slices and groups are then summed in fp32 in a fixed order, and the
-// result rounds once to the output type (bf16 for the projections, fp32 for
-// the quality gate). So the scale multiplies each slice's partial, not the
-// finished group sum as in the plain version (qmm_int4_plain): the two differ
-// by fp32 rounding only. An ungrouped weight is one group of K rows.
+// Arithmetic (JAX's): every bf16 x int4 product is exact in fp32. The tensor
+// cores sum a group's products in fp32 into a group accumulator; at the
+// group's end its fp32 scale multiplies that sum into the totals (one fma),
+// and the accumulator restarts. A split of K (below) ends a group early: the
+// splits' scaled partials are summed in fp32 in rank order. The result rounds
+// once to the output type (bf16 for the projections, fp32 for the quality
+// gate). The plain version (qmm_int4_plain) scales each finished group sum
+// and sums the groups: the two differ by fp32 rounding only. An ungrouped
+// weight is one group of K rows.
 //
-// What bounds it on the H100: the work's least time is its device-memory
-// bytes at the decode's M (2, 4, 8, 16): a packed fc1 (2048 x 16384, 16.8
-// MB) takes >= 5 us at 3.35 TB/s. This design is bound instead by the CUDA
-// cores' instruction issue: every weight costs ~3 instructions to become an
-// exact float and M FMAs, so at M = 2 a launch runs ~4-7x its byte bound
-// and at M = 16 ~15-30x (PERF.md, the qmm_int4 row). At the prefill's M
-// (hundreds of rows) it rereads the weight once per 16 rows (from L2 for
-// the most part). Tensor-core tiles are the redesign (ROADMAP).
+// What bounds it on the H100: at the decode's M (1-16 rows of x) device-memory
+// bytes: a packed fc1 (2048 x 16384, 16.8 MB) takes >= 5 us at 3.35 TB/s, and
+// each weight serves at most 32 flops. At the prefill's M (176, 320) the
+// tensor cores (fc1 at M = 176: 11.8 GFLOP, 12 us at 989 TFLOP/s). The
+// previous design (CUDA cores, PR 12) was bound by neither but by instruction
+// issue: ~3 instructions to widen each weight and M FMAs (PERF.md, the
+// qmm_int4 row). This one moves the multiply-adds to mma.sync and widens a
+// pair of weights in 3 instructions, so at M <= 16 the issue slots stay below
+// the bytes' time and at the prefill's M below the tensor cores'.
 //
-// Design (simple first; the M <= 2 decode shape of qmm_int8.cu's CUDA-core
-// kernel, generalised to chunks of MC rows of x):
-//  * A block covers TN (32 or 64) columns, a stretch of `rows` rows of K and
-//    MC (2, 4, 8 or 16) rows of x; grid (cs, N / TN, ceil(M / MC)). Where a
-//    tile's rows exceed a block's budget, K is split inside a thread-block
-//    cluster of cs blocks whose fp32 partials meet in distributed shared
-//    memory in rank order (deterministic; nothing but the output reaches
-//    device memory). The host plans (MC, TN, cs, rows) from the shapes and
-//    the card's SM count (ops/cuda/qmm.py::int4_plan).
-//  * Weight layout: uint8 [K, N / 2], byte j of a row holding column 2j in
-//    its low nibble and 2j + 1 in its high nibble, each a two's-complement
-//    value in [-7, 7]. A stage of 8 KB of tile rows is copied by 16-byte
-//    cp.async.cg copies into a ring of NSTAGE = 4 stages, three in flight
-//    (24 KB a block); rows past K or columns past N are zero-filled,
+// Design:
+//  * A block is W warps (2, 4 or 8) over TN = 32 W columns, one tile of BM
+//    rows of x and a stretch of `rows` rows of K; grid (cs, N / TN,
+//    ceil(M / BM)). Each warp owns 32 columns and all BM rows. Where the tiles
+//    alone would leave SMs idle, K is split inside a thread-block cluster of
+//    cs blocks whose fp32 partials meet in distributed shared memory in rank
+//    order (deterministic; no workspace, no counters: nothing but the output
+//    reaches device memory). The host plans (BM, TN, cs, rows) from the shapes
+//    and the card's SM count (ops/cuda/qmm.py::int4_plan).
+//  * Row tiles fitted to M, by the operand x takes in mma.sync m16n8k16:
+//    - BM = 8 (M <= 8, the solo step and small batches): x is the n8 operand
+//      (B), the weight the m16 operand (A): 16 columns per mma, no padded rows
+//      of x multiplied beyond 8;
+//    - BM = 16 (the 8-slot pool's M = 16): x is the m16 operand, one row tile;
+//    - BM = 64 (prefills): x the m16 operand, four row tiles per warp.
+//  * Weight layout: uint8 [K, N / 2], byte j of a row holding column 2j in its
+//    low nibble and 2j + 1 in its high nibble, each a two's-complement value
+//    in [-7, 7] (the layout the checkpoints hold: nothing is repacked). A stage
+//    is BK = 64 rows of the tile (TN / 2 bytes each, 16 bytes of padding to
+//    the pitch against bank conflicts) and BM x 64 of x, copied by 16-byte
+//    cp.async.cg copies into a ring of NSTAGE stages, NSTAGE - 1 in flight.
+//    Rows past K, columns past N and rows of x past M are zero-filled,
 //    reading nothing.
-//  * The block's rows are cut into RSC contiguous slices; thread t owns
-//    slice t / CG and CPT = 32 / MC columns of it (MC x CPT = 32 sums), so a
-//    thread walks its rows in order and crosses a group boundary at most
-//    once every group: there it multiplies its fp32 group partial by the
-//    group's scale into its totals. A stage holds RPS rows of every slice,
-//    interleaved so that a warp's threads read neighbouring rows.
-//  * x's rows of the block are staged once in shared memory, transposed to
-//    [row of K][MC] bf16, so one vector load gives a row's MC values.
-//  * Nibble -> fp32 exactly without the integer-to-float conversion: the
-//    nibble with its sign bit flipped (value + 8) becomes the low mantissa
-//    bits of 2^23, and one subtraction of 2^23 + 8 gives the value.
-//  * The slices of a warp meet by shuffles, the warps in shared memory (the
-//    drained ring), in a fixed order; then the cluster, as above.
-//  * Programmatic dependent launch, as qmm_int8's M <= 2 kernel: the launch
-//    may be scheduled while the previous kernel finishes and waits for it
-//    (griddepcontrol.wait) before its first read.
-//  * No host synchronisation and no allocation: a launch can be captured in
-//    a CUDA graph. The shared-memory attribute is set once per device.
+//  * Widening in registers ("nibble trick"): ldmatrix.trans of the packed
+//    tile read as 16-bit elements gives lane (g = lane / 4, t = lane % 4) the
+//    element g of k rows 2t and 2t + 1, i.e. the four columns 4g..4g+3 of
+//    each row in its two halves. For nibble j, (v >> 4j) & 0x000F000F
+//    ^ 0x43084308 (one shift, one lop3) is the bf16 pair 128 + (q ^ 8) of
+//    both rows (q's nibble in the low mantissa bits of 128.0, its sign bit
+//    flipped), and one bf16x2 subtraction of 136 gives q exactly. That
+//    register is a B fragment (BM 16/64: n8 tile j, whose column g is the
+//    true column 4g + j) or half an A fragment (BM 8: nibbles 2p and 2p + 1
+//    give the m16 tile's rows g and g + 8). The permutation is undone where
+//    scales are read and partials written, never in memory: a thread's
+//    columns come out contiguous (BM 16/64: 8t..8t+7 of its warp's 32; BM 8:
+//    4g..4g+3).
+//  * Groups: a k16 step lies inside one group unless the group size is not a
+//    multiple of 16; there the step is taken once per group it touches with
+//    x's other k rows masked to zero. The scales of a thread's columns for the
+//    next group are loaded as the current one is flushed.
+//  * Programmatic dependent launch: the launch may be scheduled while the
+//    previous kernel finishes and waits for it (griddepcontrol.wait) before
+//    its first read.
+//  * No host synchronisation and no allocation: a launch can be captured in a
+//    CUDA graph. The shared-memory attribute is set once per device.
 //
 // Layouts (row-major): x bf16 [M, K]; w uint8 [K, N / 2]; scale fp32 [NG, N]
 // (NG groups of K / NG rows); out [M, N] of OutT. N must be a multiple of 32
-// (a 16-byte copy is 32 columns), K a multiple of NG.
+// (a 16-byte copy is 32 columns, one warp's), K a multiple of NG.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -77,21 +89,16 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int STAGE_BYTES = 8192;
+constexpr int BK = 64;                  // rows of K per stage
 constexpr int NSTAGE = 4;
+constexpr int MAX_THREADS = 512;        // two warps per 32 columns: TN = 256
+constexpr int X_PITCH = BK + 8;         // bf16 per staged x row
 constexpr int MAX_CLUSTER = 8;          // portable cluster size
 constexpr int MAX_BLOCK_SMEM = 232448;  // shared memory a block can have (227 KB)
 constexpr int MAX_DEVICES = 64;
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
-// Nibble i of v (each nibble's sign bit already flipped) as an exact float.
-__device__ __forceinline__ float nibble_to_float(uint32_t v, int i) {
-  return __uint_as_float(((v >> (4 * i)) & 0xFu) | 0x4B000000u) - 8388616.0f;  // 2^23 + 8
-}
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
@@ -117,71 +124,384 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// The CPT / 2 bytes of a thread's columns of one tile row, nibble signs flipped.
-template <int CPT>
-__device__ __forceinline__ void load_w(const uint8_t* p, uint32_t* wv) {
-  if constexpr (CPT == 16) {
-    const uint2 v = *reinterpret_cast<const uint2*>(p);
-    wv[0] = v.x ^ 0x88888888u;
-    wv[1] = v.y ^ 0x88888888u;
-  } else if constexpr (CPT == 8) {
-    wv[0] = *reinterpret_cast<const uint32_t*>(p) ^ 0x88888888u;
-  } else if constexpr (CPT == 4) {
-    wv[0] = uint32_t(*reinterpret_cast<const uint16_t*>(p)) ^ 0x8888u;
-  } else {
-    wv[0] = uint32_t(*p) ^ 0x88u;
-  }
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
 }
 
-// A row's MC bf16 values of x (staged [row][MC]) as floats.
-template <int MC>
-__device__ __forceinline__ void load_x(const uint16_t* p, float* xf) {
-  uint32_t v[MC / 2];
-  if constexpr (MC == 2) {
-    v[0] = *reinterpret_cast<const uint32_t*>(p);
-  } else if constexpr (MC == 4) {
-    const uint2 a = *reinterpret_cast<const uint2*>(p);
-    v[0] = a.x;
-    v[1] = a.y;
-  } else {
-#pragma unroll
-    for (int i = 0; i < MC / 8; ++i) {
-      const uint4 a = reinterpret_cast<const uint4*>(p)[i];
-      v[4 * i] = a.x;
-      v[4 * i + 1] = a.y;
-      v[4 * i + 2] = a.z;
-      v[4 * i + 3] = a.w;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < MC / 2; ++i) {
-    xf[2 * i] = __uint_as_float(v[i] << 16);
-    xf[2 * i + 1] = __uint_as_float(v[i] & 0xffff0000u);
-  }
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
 }
 
-// One cluster of gridDim.x blocks per (column tile, chunk of MC rows of x);
-// block `rank` of the cluster sums rows [rank * rows, (rank + 1) * rows) of
-// K. A launch without clusters (cs = 1) is a cluster of one block.
-template <typename OutT, int MC, int TN>
-__global__ void __launch_bounds__(THREADS) qmm_int4_kernel(
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Nibble j of both 16-bit halves of v as the exact bf16 pair of int4 values:
+// 128 + (q ^ 8) by mask and xor (one lop3), then - 136.
+__device__ __forceinline__ uint32_t widen(uint32_t v, int j) {
+  const uint32_t biased = ((v >> (4 * j)) & 0x000F000Fu) ^ 0x43084308u;
+  const __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&biased),
+                                   __nv_bfloat162(__ushort_as_bfloat16(0x4308),
+                                                  __ushort_as_bfloat16(0x4308)));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// The bf16 pair of x at k rows (k, k + 1) of a fragment, each half kept only
+// inside rows [lo, hi).
+__device__ __forceinline__ uint32_t mask_pair(uint32_t v, int k, int lo, int hi) {
+  return v & ((lo <= k && k < hi ? 0x0000FFFFu : 0u) |
+              (lo <= k + 1 && k + 1 < hi ? 0xFFFF0000u : 0u));
+}
+
+// One cluster of gridDim.x blocks per (column tile, tile of BM rows of x);
+// block `rank` of the cluster sums rows [rank * rows, (rank + 1) * rows) of K
+// (rows a multiple of BK). blockDim.x = 2 TN: two warps per 32 columns, which
+// split each stage's k rows (BM 8, 16: one k32 half each) or the columns' n8
+// tiles (BM 64: tiles 2 wz and 2 wz + 1, all 64 rows).
+template <typename OutT, int BM>
+__global__ void __launch_bounds__(MAX_THREADS) qmm_int4_kernel(
     const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
     const float* __restrict__ scale, OutT* __restrict__ out, int M, int K, int N, int NG,
     int rows) {
-  constexpr int CPT = 32 / MC;          // columns of a thread
-  constexpr int RB = TN / 2;            // bytes of a tile row
-  constexpr int CG = TN / CPT;          // threads side by side on a row
-  constexpr int RSC = THREADS / CG;     // row slices of a block
-  constexpr int SR = STAGE_BYTES / RB;  // tile rows of a stage
-  constexpr int RPS = SR / RSC;         // rows of each slice in a stage
-  constexpr int CPR = RB / 16;          // 16-byte copies of a tile row
-  constexpr int COPIES = STAGE_BYTES / 16;
-  constexpr int NW = (CPT + 7) / 8;     // 32-bit words of a thread's row bytes
-  static_assert(CG <= 32 && 32 % CG == 0, "a row's threads lie in one warp");
-  static_assert(WARPS * MC * TN * 4 <= NSTAGE * STAGE_BYTES, "the reduction fits the ring");
+  constexpr bool XB = BM == 8;                 // x is the n8 operand
+  constexpr bool KSPLIT = BM <= 16;            // the warp pair splits k
+  constexpr bool JSPLIT = !KSPLIT;             // or the 32 columns' n8 tiles
+  constexpr int MT = XB ? 1 : BM / 16;         // m16 tiles of x a warp multiplies
+  constexpr int NACC = XB || JSPLIT ? 2 : 4;   // accumulator tiles of a warp
+  constexpr int NSC = XB || JSPLIT ? 4 : 8;    // a thread's columns
   extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* ring = smem;                                                   // [NSTAGE][SR][RB]
-  uint16_t* xs = reinterpret_cast<uint16_t*>(smem + NSTAGE * STAGE_BYTES);  // [rows][MC]
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int cs = static_cast<int>(cluster.num_blocks());
+  const int TN = blockDim.x / 2;
+  const int WP = TN / 2 + 16;                   // bytes per staged weight row
+  const int stage_bytes = BK * WP + BM * X_PITCH * 2;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int wn = (tid >> 5) % (TN / 32);        // the warp's 32 columns
+  const int wz = (tid >> 5) / (TN / 32);        // and its half of k (or of x's rows)
+  const int gid = lane >> 2;
+  const int t4 = lane & 3;
+  const int n0 = blockIdx.y * TN;
+  const int m0 = blockIdx.z * BM;
+  const int mr = min(BM, M - m0);               // rows of x in this tile
+  const int k_begin = rank * rows;
+  const int k_end = min(K, k_begin + rows);
+  const int nk = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
+  const int gs = K / NG;
+  const size_t pitch = static_cast<size_t>(N) / 2;
+  const bool x_vec = K % 8 == 0;                // x rows 16-byte aligned: cp.async
+  const bool cols_ok = n0 + wn * 32 < N;        // N % 32 == 0: all 32 in or all out
+  // The thread's first column: NSC contiguous ones (BM 64: two pairs, 4 apart).
+  const int col = n0 + wn * 32 + (XB ? 4 * gid : 8 * t4 + (JSPLIT ? 2 * wz : 0));
+  const uint16_t* xb = reinterpret_cast<const uint16_t*>(x);
+  // A stage's BK x TN / 32 16-byte weight copies are one per thread: row wr_
+  // of the stage, bytes wc_ of the tile row.
+  const int wr_ = tid / (TN / 32);
+  const int wc_ = (tid % (TN / 32)) * 16;
+  const bool wcol_ok = n0 + 2 * wc_ < N;
+  const uint8_t* wsrc = w + (static_cast<size_t>(k_begin) + wr_) * pitch + n0 / 2 + wc_;
+  const uint32_t wdst = static_cast<uint32_t>(__cvta_generic_to_shared(smem)) + wr_ * WP + wc_;
+
+  // Rows of x past M are never copied: zero them in every stage once.
+  for (int i = tid; i < NSTAGE * (BM - mr) * X_PITCH; i += blockDim.x) {
+    const int s = i / ((BM - mr) * X_PITCH);
+    const int e = i % ((BM - mr) * X_PITCH);
+    reinterpret_cast<uint16_t*>(smem + s * stage_bytes + BK * WP)[mr * X_PITCH + e] = 0;
+  }
+  // Programmatic dependent launch: the block may start while the previous
+  // kernel on the stream finishes, and reads nothing before it is done.
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+
+  // Stage s: the packed weight tile [BK][WP] then the x tile [BM][X_PITCH].
+  auto load = [&](int it) {
+    const int slot = it % NSTAGE;
+    const bool ok = wcol_ok && k_begin + it * BK + wr_ < k_end;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(wdst + slot * stage_bytes),
+                 "l"(ok ? wsrc + static_cast<size_t>(it) * BK * pitch : w), "r"(ok ? 16 : 0)
+                 : "memory");
+    uint16_t* xt = reinterpret_cast<uint16_t*>(smem + slot * stage_bytes + BK * WP);
+    const int k0 = k_begin + it * BK;
+    if (x_vec) {
+      for (int c = tid; c < mr * (BK / 8); c += blockDim.x) {
+        const int r = c / (BK / 8);
+        const int kc = (c % (BK / 8)) * 8;
+        const bool okx = k0 + kc < k_end;
+        cp_async16(xt + r * X_PITCH + kc,
+                   xb + (okx ? static_cast<size_t>(m0 + r) * K + k0 + kc : 0), okx);
+      }
+    } else {
+      for (int e = tid; e < mr * BK; e += blockDim.x) {
+        const int r = e / BK;
+        const int kc = e % BK;
+        xt[r * X_PITCH + kc] =
+            k0 + kc < k_end ? xb[static_cast<size_t>(m0 + r) * K + k0 + kc] : uint16_t(0);
+      }
+    }
+  };
+
+  float acc[MT][NACC][4], tot[MT][NACC][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int j = 0; j < NACC; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = tot[i][j][e] = 0.f;
+    }
+  }
+  int g = k_begin / gs;         // the group being summed
+  int bnext = (g + 1) * gs;     // and its end
+  float sc[NSC] = {};           // its scales for the thread's columns
+  auto load_scales = [&]() {
+    if (g < NG && cols_ok) {
+      const float* p = scale + static_cast<size_t>(g) * N + col;
+      if constexpr (JSPLIT) {  // columns col, col + 1 and col + 4, col + 5
+        const float2 u = *reinterpret_cast<const float2*>(p);
+        const float2 v = *reinterpret_cast<const float2*>(p + 4);
+        sc[0] = u.x;
+        sc[1] = u.y;
+        sc[2] = v.x;
+        sc[3] = v.y;
+      } else {
+#pragma unroll
+        for (int q = 0; q < NSC / 4; ++q) {
+          const float4 v = reinterpret_cast<const float4*>(p)[q];
+          sc[4 * q] = v.x;
+          sc[4 * q + 1] = v.y;
+          sc[4 * q + 2] = v.z;
+          sc[4 * q + 3] = v.w;
+        }
+      }
+    }
+  };
+  // The finished group's sum times its scales into the totals; then the next
+  // group's scales.
+  auto flush = [&]() {
+    if (g < NG) {
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+#pragma unroll
+        for (int j = 0; j < NACC; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            // BM 8: tile p = j holds columns 2p (e 0, 1) and 2p + 1 (e 2, 3);
+            // BM 16: tile j holds columns j (e 0, 2) and 4 + j (e 1, 3); BM
+            // 64: tile 2 wz + j holds columns j and 4 + j of the thread's.
+            float s;
+            if constexpr (XB)
+              s = sc[2 * j + (e >> 1)];
+            else if constexpr (JSPLIT)
+              s = sc[j + 2 * (e & 1)];
+            else
+              s = sc[j + 4 * (e & 1)];
+            tot[i][j][e] = fmaf(acc[i][j][e], s, tot[i][j][e]);
+            acc[i][j][e] = 0.f;
+          }
+        }
+      }
+    }
+    ++g;
+    bnext += gs;
+    load_scales();
+  };
+  load_scales();
+
+#pragma unroll
+  for (int s = 0; s < NSTAGE - 1; ++s) {
+    if (s < nk) load(s);
+    cp_async_commit();
+  }
+  for (int it = 0; it < nk; ++it) {
+    cp_async_wait<NSTAGE - 2>();
+    __syncthreads();  // stage `it` has landed; every warp is past stage it - 1
+    if (it + NSTAGE - 1 < nk) load(it + NSTAGE - 1);
+    cp_async_commit();
+    const uint8_t* wt = smem + (it % NSTAGE) * stage_bytes;
+    const uint16_t* xt = reinterpret_cast<const uint16_t*>(wt + BK * WP);
+#pragma unroll
+    for (int kq = 0; kq < (KSPLIT ? 1 : 2); ++kq) {
+      const int kk = KSPLIT ? 32 * wz : 32 * kq;  // the warp's k32 chunk of the stage
+      const int kb0 = k_begin + it * BK + kk;
+      if (kb0 >= k_end) break;
+      // Lane l addresses row kk + l: matrices k 0-7, 8-15, 16-23, 24-31 of the
+      // warp's 32 columns (16 bytes a row).
+      uint32_t wr[4];
+      ldmatrix_x4_trans(wr, wt + (kk + lane) * WP + wn * 16);
+      uint32_t xq[4];
+      if constexpr (XB)  // x rows 0-7 at k 0-7, 8-15, 16-23, 24-31: B fragments
+        ldmatrix_x4(xq, xt + (lane & 7) * X_PITCH + kk + (lane >> 3) * 8);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int kb = kb0 + 16 * h;  // this k16 step's first row
+        if (kb >= k_end) break;
+        const uint32_t w0 = wr[2 * h], w1 = wr[2 * h + 1];
+        uint32_t a[MT][4];
+        if constexpr (!XB) {
+#pragma unroll
+          for (int i = 0; i < MT; ++i)
+            ldmatrix_x4(a[i], xt + (i * 16 + (lane & 15)) * X_PITCH + kk + 16 * h +
+                                  (lane >> 4) * 8);
+        }
+        // The step's products into the group accumulators, x's k rows outside
+        // [lo, hi) (relative to kb) masked out unless the step is whole.
+        auto step = [&](bool whole, int lo, int hi) {
+          if constexpr (XB) {
+            uint32_t b[2] = {xq[2 * h], xq[2 * h + 1]};
+            if (!whole) {
+              b[0] = mask_pair(b[0], 2 * t4, lo, hi);
+              b[1] = mask_pair(b[1], 2 * t4 + 8, lo, hi);
+            }
+            // m16 tile p: rows g <- column 4g + 2p, rows g + 8 <- 4g + 2p + 1.
+#pragma unroll
+            for (int p = 0; p < 2; ++p) {
+              const uint32_t ap[4] = {widen(w0, 2 * p), widen(w0, 2 * p + 1), widen(w1, 2 * p),
+                                      widen(w1, 2 * p + 1)};
+              mma_bf16(acc[0][p], ap, b);
+            }
+          } else {
+            uint32_t am[MT][4];
+#pragma unroll
+            for (int i = 0; i < MT; ++i) {
+#pragma unroll
+              for (int q = 0; q < 4; ++q)
+                am[i][q] = whole ? a[i][q] : mask_pair(a[i][q], 2 * t4 + 8 * (q >> 1), lo, hi);
+            }
+            // n8 tile j: column g <- column 4g + j (BM 64: tiles 2 wz + j).
+#pragma unroll
+            for (int j = 0; j < NACC; ++j) {
+              const int jt = JSPLIT ? 2 * wz + j : j;
+              const uint32_t b[2] = {widen(w0, jt), widen(w1, jt)};
+#pragma unroll
+              for (int i = 0; i < MT; ++i) mma_bf16(acc[i][j], am[i], b);
+            }
+          }
+        };
+
+        // Groups that ended before this step (in the other warp's rows).
+        while (bnext <= kb) flush();
+        if (kb + 16 <= bnext) {  // the step lies in group g
+          step(true, 0, 16);
+          if (kb + 16 == bnext) flush();
+        } else {  // a group ends inside the step
+          int lo = 0;
+          for (;;) {
+            const int hi = min(16, bnext - kb);
+            step(false, lo, hi);
+            if (kb + hi == bnext) flush();
+            if (hi == 16) break;
+            lo = hi;
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  flush();  // the warp's last, unfinished group (g past NG: nothing)
+
+  // The warps' partials in the drained ring ([2][BM][TN] for a k split, the
+  // pair summed in order; [BM][TN] for a row split), then the cluster's
+  // partials meet in distributed shared memory: block `rank` sums its 1/cs
+  // share of the tile's outputs over the ranks in order.
+  __syncthreads();
+  float* part = reinterpret_cast<float*>(smem);
+  if constexpr (XB) {  // rows 2t, 2t + 1; columns 4g..4g+3
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      *reinterpret_cast<float4*>(part + ((wz * BM) + 2 * t4 + e) * TN + wn * 32 + 4 * gid) =
+          make_float4(tot[0][0][e], tot[0][0][2 + e], tot[0][1][e], tot[0][1][2 + e]);
+  } else if constexpr (KSPLIT) {  // rows g, g + 8; columns 8t..8t+7
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float* p = part + (wz * BM + gid + 8 * hf) * TN + wn * 32 + 8 * t4;
+      *reinterpret_cast<float4*>(p) = make_float4(tot[0][0][2 * hf], tot[0][1][2 * hf],
+                                                  tot[0][2][2 * hf], tot[0][3][2 * hf]);
+      *reinterpret_cast<float4*>(p + 4) =
+          make_float4(tot[0][0][2 * hf + 1], tot[0][1][2 * hf + 1], tot[0][2][2 * hf + 1],
+                      tot[0][3][2 * hf + 1]);
+    }
+  } else {  // rows 16 i + g, + 8; columns 8t + 2 wz, + 1 and + 4, + 5
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float* p = part + (i * 16 + gid + 8 * hf) * TN + wn * 32 + 8 * t4 + 2 * wz;
+        *reinterpret_cast<float2*>(p) = make_float2(tot[i][0][2 * hf], tot[i][1][2 * hf]);
+        *reinterpret_cast<float2*>(p + 4) =
+            make_float2(tot[i][0][2 * hf + 1], tot[i][1][2 * hf + 1]);
+      }
+    }
+  }
+  __syncthreads();
+  if constexpr (KSPLIT) {  // the pair's k halves, in order
+    for (int e = tid; e < mr * TN; e += blockDim.x) part[e] += part[BM * TN + e];
+  }
+  if (cs > 1) {
+    cluster_arrive();
+    cluster_wait();
+  } else {
+    __syncthreads();
+  }
+  const int total = mr * TN;
+  const int per = (total + cs - 1) / cs;
+  for (int e = rank * per + tid; e < min(total, (rank + 1) * per); e += blockDim.x) {
+    float sum = 0.f;
+    if (cs > 1) {
+      float v[MAX_CLUSTER];
+#pragma unroll
+      for (int q = 0; q < MAX_CLUSTER; ++q)
+        v[q] = q < cs ? *cluster.map_shared_rank(part + e, q) : 0.f;
+#pragma unroll
+      for (int q = 0; q < MAX_CLUSTER; ++q) sum += v[q];
+    } else {
+      sum = part[e];
+    }
+    const int n = n0 + e % TN;
+    if (n < N) store(out + static_cast<size_t>(m0 + e / TN) * N + n, sum);
+  }
+  if (cs > 1) {  // no block leaves while another still reads its partial
+    cluster_arrive();
+    cluster_wait();
+  }
+}
+
+// The CUDA-core kernel for M <= 2 (bm = 2 in the plan): PR 12's design, a
+// block of 256 threads over TN (32 or 64) columns and `rows` rows of K cut
+// into slices, each thread 16 columns of both rows of x in fp32 FMAs, with
+// the weights widened as above (a bf16 pair per lop3 and subtraction, then
+// its two halves as floats). Kept beside the tensor-core kernel so that the
+// plan can take whichever is faster at M <= 2.
+constexpr int CC_THREADS = 256;
+constexpr int CC_STAGE_BYTES = 8192;
+
+template <typename OutT, int TN>
+__global__ void __launch_bounds__(CC_THREADS) qmm_int4_cc_kernel(
+    const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
+    const float* __restrict__ scale, OutT* __restrict__ out, int M, int K, int N, int NG,
+    int rows) {
+  constexpr int MC = 2;
+  constexpr int CPT = 16;                  // columns of a thread
+  constexpr int RB = TN / 2;               // bytes of a tile row
+  constexpr int CG = TN / CPT;             // threads side by side on a row
+  constexpr int RSC = CC_THREADS / CG;     // row slices of a block
+  constexpr int SR = CC_STAGE_BYTES / RB;  // tile rows of a stage
+  constexpr int RPS = SR / RSC;            // rows of each slice in a stage
+  constexpr int CPR = RB / 16;             // 16-byte copies of a tile row
+  constexpr int COPIES = CC_STAGE_BYTES / 16;
+  constexpr int WARPS = CC_THREADS / 32;
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint8_t* ring = smem;                                                        // [NSTAGE][SR][RB]
+  uint32_t* xs = reinterpret_cast<uint32_t*>(smem + NSTAGE * CC_STAGE_BYTES);  // [rows] pairs
   float* red = reinterpret_cast<float*>(smem);  // [WARPS][MC][TN], once the ring is drained
   __shared__ __align__(16) float part[MC * TN];  // the block's partial, read by the cluster
 
@@ -192,7 +512,6 @@ __global__ void __launch_bounds__(THREADS) qmm_int4_kernel(
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int n0 = blockIdx.y * TN;
-  const int m0 = blockIdx.z * MC;
   const int k0 = rank * rows;
   const int k1 = min(K, k0 + rows);
   const int sl = rows / RSC;  // rows of a slice (a multiple of RPS)
@@ -200,16 +519,13 @@ __global__ void __launch_bounds__(THREADS) qmm_int4_kernel(
   const int gs = K / NG;
   const size_t pitch = static_cast<size_t>(N) / 2;
 
-  // Programmatic dependent launch: the block may start while the previous
-  // kernel on the stream finishes, and reads nothing before it is done.
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   // Stage s holds rows [s * RPS, (s + 1) * RPS) of every slice: tile row
-  // ri of the stage is row ri / RSC of slice ri % RSC, so the threads of a
-  // warp read neighbouring rows (no bank conflicts).
+  // ri of the stage is row ri / RSC of slice ri % RSC.
   auto issue = [&](int s) {
-    uint8_t* dst = ring + (s % NSTAGE) * STAGE_BYTES;
+    uint8_t* dst = ring + (s % NSTAGE) * CC_STAGE_BYTES;
 #pragma unroll
-    for (int c = tid; c < COPIES; c += THREADS) {
+    for (int c = tid; c < COPIES; c += CC_THREADS) {
       const int ri = c / CPR;
       const int cb = (c % CPR) * 16;
       const int k = k0 + (ri % RSC) * sl + s * RPS + ri / RSC;
@@ -222,16 +538,14 @@ __global__ void __launch_bounds__(THREADS) qmm_int4_kernel(
     if (s < nst) issue(s);
     cp_async_commit();
   }
-  // While the first stages are in flight: x's rows of the block, zero past
-  // k1 and past M, transposed to [row][MC] and ordered as the stages order
-  // their rows (row t of slice r at t * RSC + r).
+  // x's rows of the block as (row 0, row 1) bf16 pairs, zero past k1 and M,
+  // ordered as the stages order their rows (row t of slice r at t * RSC + r).
   const uint16_t* xb = reinterpret_cast<const uint16_t*>(x);
-  for (int i = tid; i < MC * rows; i += THREADS) {
-    const int m = i / rows;
-    const int kl = i - m * rows;
+  for (int kl = tid; kl < rows; kl += CC_THREADS) {
     const int k = k0 + kl;
-    xs[((kl % sl) * RSC + kl / sl) * MC + m] =
-        m0 + m < M && k < k1 ? xb[static_cast<size_t>(m0 + m) * K + k] : uint16_t(0);
+    uint32_t v = 0;
+    if (k < k1) v = xb[k] | (M > 1 ? uint32_t(xb[K + k]) << 16 : 0u);
+    xs[(kl % sl) * RSC + kl / sl] = v;
   }
 
   const int rc = tid / CG;   // this thread's slice
@@ -246,24 +560,17 @@ __global__ void __launch_bounds__(THREADS) qmm_int4_kernel(
 #pragma unroll
     for (int c = 0; c < CPT; ++c) acc[m][c] = tot[m][c] = 0.f;
   }
-  // The finished group's partial times its scale, into the totals.
   auto flush = [&]() {
     if (g < NG && col0 < N) {
       float sc[CPT];
-      const float* sp = scale + static_cast<size_t>(g) * N + col0;
-      if constexpr (CPT >= 4) {
+      const float4* sp = reinterpret_cast<const float4*>(scale + static_cast<size_t>(g) * N + col0);
 #pragma unroll
-        for (int c = 0; c < CPT; c += 4) {
-          const float4 v = *reinterpret_cast<const float4*>(sp + c);
-          sc[c] = v.x;
-          sc[c + 1] = v.y;
-          sc[c + 2] = v.z;
-          sc[c + 3] = v.w;
-        }
-      } else {
-        const float2 v = *reinterpret_cast<const float2*>(sp);
-        sc[0] = v.x;
-        sc[1] = v.y;
+      for (int c = 0; c < CPT / 4; ++c) {
+        const float4 v = sp[c];
+        sc[4 * c] = v.x;
+        sc[4 * c + 1] = v.y;
+        sc[4 * c + 2] = v.z;
+        sc[4 * c + 3] = v.w;
       }
 #pragma unroll
       for (int m = 0; m < MC; ++m) {
@@ -279,25 +586,31 @@ __global__ void __launch_bounds__(THREADS) qmm_int4_kernel(
   };
 
   for (int it = 0; it < nst; ++it) {
-    cp_async_wait<NSTAGE - 2>();  // this thread's copies of stage `it` have landed
-    __syncthreads();              // and everyone's; every thread is past stage it - 1
+    cp_async_wait<NSTAGE - 2>();
+    __syncthreads();
     if (it + NSTAGE - 1 < nst) issue(it + NSTAGE - 1);
     cp_async_commit();
-    const uint8_t* st = ring + (it % NSTAGE) * STAGE_BYTES + rc * RB + cgi * (CPT / 2);
-    const uint16_t* xr = xs + static_cast<size_t>(it * RPS * RSC + rc) * MC;
+    const uint8_t* st = ring + (it % NSTAGE) * CC_STAGE_BYTES + rc * RB + cgi * (CPT / 2);
+    const uint32_t* xr = xs + it * RPS * RSC + rc;
 #pragma unroll 2
     for (int j = 0; j < RPS; ++j) {
-      uint32_t wv[NW];
-      load_w<CPT>(st + j * RSC * RB, wv);
-      float xf[MC];
-      load_x<MC>(xr + j * RSC * MC, xf);
-      float wf[CPT];
+      const uint2 wv = *reinterpret_cast<const uint2*>(st + j * RSC * RB);
+      const uint32_t xp = xr[j * RSC];
+      const float x0 = __uint_as_float(xp << 16);
+      const float x1 = __uint_as_float(xp & 0xffff0000u);
+      const uint32_t words[2] = {wv.x, wv.y};
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) wf[c] = nibble_to_float(wv[c / 8], c % 8);
+      for (int q = 0; q < 2; ++q) {
 #pragma unroll
-      for (int m = 0; m < MC; ++m) {
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) acc[m][c] = fmaf(xf[m], wf[c], acc[m][c]);
+        for (int i = 0; i < 4; ++i) {
+          const uint32_t p = widen(words[q], i);  // columns 8q + i, 8q + i + 4
+          const float lo = __uint_as_float(p << 16);
+          const float hi = __uint_as_float(p & 0xffff0000u);
+          acc[0][8 * q + i] = fmaf(x0, lo, acc[0][8 * q + i]);
+          acc[1][8 * q + i] = fmaf(x1, lo, acc[1][8 * q + i]);
+          acc[0][8 * q + i + 4] = fmaf(x0, hi, acc[0][8 * q + i + 4]);
+          acc[1][8 * q + i + 4] = fmaf(x1, hi, acc[1][8 * q + i + 4]);
+        }
       }
       if (--left == 0) {
         flush();
@@ -307,10 +620,8 @@ __global__ void __launch_bounds__(THREADS) qmm_int4_kernel(
     }
   }
   cp_async_wait<0>();
-  flush();  // the slice's last, unfinished group
+  flush();
 
-  // The slices of a warp with the same column group meet by shuffles, then
-  // the warps in shared memory (the drained ring), in a fixed order.
 #pragma unroll
   for (int off = CG; off < 32; off <<= 1) {
 #pragma unroll
@@ -328,15 +639,12 @@ __global__ void __launch_bounds__(THREADS) qmm_int4_kernel(
     }
   }
   __syncthreads();
-  for (int e = tid; e < MC * TN; e += THREADS) {
+  for (int e = tid; e < MC * TN; e += CC_THREADS) {
     float sum = 0.f;
 #pragma unroll
     for (int wi = 0; wi < WARPS; ++wi) sum += red[wi * MC * TN + e];
     part[e] = sum;
   }
-
-  // The cluster's partials meet in distributed shared memory: block `rank`
-  // sums its 1/cs slice of the tile's outputs over the ranks in order.
   if (cs > 1) {
     cluster_arrive();
     cluster_wait();
@@ -344,7 +652,7 @@ __global__ void __launch_bounds__(THREADS) qmm_int4_kernel(
     __syncthreads();
   }
   const int per = MC * TN / cs;
-  for (int e = rank * per + tid; e < (rank + 1) * per; e += THREADS) {
+  for (int e = rank * per + tid; e < (rank + 1) * per; e += CC_THREADS) {
     float sum = 0.f;
     if (cs > 1) {
       float v[MAX_CLUSTER];
@@ -356,28 +664,61 @@ __global__ void __launch_bounds__(THREADS) qmm_int4_kernel(
     } else {
       sum = part[e];
     }
-    const int m = m0 + e / TN;
+    const int m = e / TN;
     const int n = n0 + e % TN;
     if (m < M && n < N) store(out + static_cast<size_t>(m) * N + n, sum);
   }
-  if (cs > 1) {  // no block leaves while another still reads its partial
+  if (cs > 1) {
     cluster_arrive();
     cluster_wait();
   }
 }
 
-template <int MC, int TN>
-constexpr int stage_rows() {
-  return STAGE_BYTES / (TN / 2);
+template <typename OutT, int TN>
+cudaError_t launch_cc(const void* x, const void* w, const void* scale, void* out, int M, int K,
+                      int N, int NG, int cs, int rows, cudaStream_t s) {
+  if (M > 2 || rows % (CC_STAGE_BYTES / (TN / 2)) != 0) return cudaErrorInvalidValue;
+  const int smem = NSTAGE * CC_STAGE_BYTES + rows * 4;
+  if (smem + 2 * TN * 4 > MAX_BLOCK_SMEM) return cudaErrorInvalidValue;
+  auto* kernel = qmm_int4_cc_kernel<OutT, TN>;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  static int configured_smem[MAX_DEVICES] = {};
+  if (smem > configured_smem[dev]) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    configured_smem[dev] = smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs, (N + TN - 1) / TN, 1);
+  cfg.blockDim = dim3(CC_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  attr[1].id = cudaLaunchAttributeClusterDimension;
+  attr[1].val.clusterDim.x = cs;
+  attr[1].val.clusterDim.y = 1;
+  attr[1].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cs > 1 ? 2 : 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const __nv_bfloat16*>(x),
+                         static_cast<const uint8_t*>(w), static_cast<const float*>(scale),
+                         static_cast<OutT*>(out), M, K, N, NG, rows);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-template <typename OutT, int MC, int TN>
+template <typename OutT, int BM>
 cudaError_t launch(const void* x, const void* w, const void* scale, void* out, int M, int K,
-                   int N, int NG, int cs, int rows, cudaStream_t s) {
-  if (rows % stage_rows<MC, TN>() != 0) return cudaErrorInvalidValue;
-  const int smem = NSTAGE * STAGE_BYTES + rows * MC * 2;
-  if (smem + MC * TN * 4 > MAX_BLOCK_SMEM) return cudaErrorInvalidValue;
-  auto* kernel = qmm_int4_kernel<OutT, MC, TN>;
+                   int N, int NG, int tn, int cs, int rows, cudaStream_t s) {
+  const int ring = NSTAGE * (BK * (tn / 2 + 16) + BM * X_PITCH * 2);
+  const int part = (BM <= 16 ? 2 : 1) * BM * tn * 4;  // the warps' partials
+  const int smem = ring > part ? ring : part;
+  if (smem > MAX_BLOCK_SMEM) return cudaErrorInvalidValue;
+  auto* kernel = qmm_int4_kernel<OutT, BM>;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -389,8 +730,8 @@ cudaError_t launch(const void* x, const void* w, const void* scale, void* out, i
     configured_smem[dev] = smem;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cs, (N + TN - 1) / TN, (M + MC - 1) / MC);
-  cfg.blockDim = dim3(THREADS);
+  cfg.gridDim = dim3(cs, (N + tn - 1) / tn, (M + BM - 1) / BM);
+  cfg.blockDim = dim3(2 * tn);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
   cudaLaunchAttribute attr[2];
@@ -408,40 +749,36 @@ cudaError_t launch(const void* x, const void* w, const void* scale, void* out, i
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-template <typename OutT, int MC>
-cudaError_t launch_tn(const void* x, const void* w, const void* scale, void* out, int M, int K,
-                      int N, int NG, int tn, int cs, int rows, cudaStream_t s) {
-  return tn == 64 ? launch<OutT, MC, 64>(x, w, scale, out, M, K, N, NG, cs, rows, s)
-                  : launch<OutT, MC, 32>(x, w, scale, out, M, K, N, NG, cs, rows, s);
-}
-
 template <typename OutT>
-cudaError_t launch_mc(const void* x, const void* w, const void* scale, void* out, int M, int K,
-                      int N, int NG, int mc, int tn, int cs, int rows, cudaStream_t s) {
-  switch (mc) {
-    case 2: return launch_tn<OutT, 2>(x, w, scale, out, M, K, N, NG, tn, cs, rows, s);
-    case 4: return launch_tn<OutT, 4>(x, w, scale, out, M, K, N, NG, tn, cs, rows, s);
-    case 8: return launch_tn<OutT, 8>(x, w, scale, out, M, K, N, NG, tn, cs, rows, s);
-    default: return launch_tn<OutT, 16>(x, w, scale, out, M, K, N, NG, tn, cs, rows, s);
+cudaError_t launch_bm(const void* x, const void* w, const void* scale, void* out, int M, int K,
+                      int N, int NG, int bm, int tn, int cs, int rows, cudaStream_t s) {
+  switch (bm) {
+    case 2:
+      return tn == 64 ? launch_cc<OutT, 64>(x, w, scale, out, M, K, N, NG, cs, rows, s)
+                      : launch_cc<OutT, 32>(x, w, scale, out, M, K, N, NG, cs, rows, s);
+    case 8: return launch<OutT, 8>(x, w, scale, out, M, K, N, NG, tn, cs, rows, s);
+    case 16: return launch<OutT, 16>(x, w, scale, out, M, K, N, NG, tn, cs, rows, s);
+    default: return launch<OutT, 64>(x, w, scale, out, M, K, N, NG, tn, cs, rows, s);
   }
 }
 
 }  // namespace
 
-// As planned by ops/cuda/qmm.py::int4_plan: chunks of mc (2, 4, 8 or 16)
-// rows of x, tiles of tn (32 or 64) columns, clusters of cs (1, 2, 4 or 8)
-// blocks, `rows` rows of K per block (a multiple of a stage's rows, cs *
-// rows >= K). out_f32: 1 for an fp32 output, 0 for bf16.
+// As planned by ops/cuda/qmm.py::int4_plan: tiles of bm rows of x (8: x is
+// mma's n8 operand; 16 or 64: its m16 operand; 2: the CUDA-core kernel, M <=
+// 2, tn 32 or 64), tn (64, 128 or 256) columns, clusters of cs (1-8) blocks, `rows` rows of K per block (a multiple
+// of 64, cs * rows >= K). out_f32: 1 for an fp32 output, 0 for bf16.
 extern "C" int zvt_qmm_int4(const void* x, const void* w, const void* scale, void* out, int M,
-                            int K, int N, int NG, int out_f32, int mc, int tn, int cs, int rows,
+                            int K, int N, int NG, int out_f32, int bm, int tn, int cs, int rows,
                             void* stream) {
   if (M <= 0 || K <= 0 || N <= 0 || N % 32 != 0 || NG <= 0 || K % NG != 0 ||
-      (mc != 2 && mc != 4 && mc != 8 && mc != 16) || (tn != 32 && tn != 64) || cs <= 0 ||
-      cs > MAX_CLUSTER || (cs & (cs - 1)) != 0 || rows <= 0 || (long long)cs * rows < K)
+      (bm != 2 && bm != 8 && bm != 16 && bm != 64) ||
+      (bm == 2 ? tn != 32 && tn != 64 : tn != 64 && tn != 128 && tn != 256) || cs <= 0 ||
+      cs > MAX_CLUSTER || rows <= 0 || rows % BK != 0 || (long long)cs * rows < K)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      out_f32 ? launch_mc<float>(x, w, scale, out, M, K, N, NG, mc, tn, cs, rows, s)
-              : launch_mc<__nv_bfloat16>(x, w, scale, out, M, K, N, NG, mc, tn, cs, rows, s);
+      out_f32 ? launch_bm<float>(x, w, scale, out, M, K, N, NG, bm, tn, cs, rows, s)
+              : launch_bm<__nv_bfloat16>(x, w, scale, out, M, K, N, NG, bm, tn, cs, rows, s);
   return (int)err;
 }

@@ -26,13 +26,15 @@ of the JAX package's ``ops/quant.proj_matmul`` (not a Pallas kernel):
 ``x @ W_int4`` with the weight packed two values to a byte (``uint8 [K, N /
 2]``, the even column in the low nibble, two's complement in [-7, 7]) and
 fp32 scales per group of ``K / NG`` rows and column (``[NG, 1, N]``; NG = 1
-for an ungrouped weight). The kernel sums each thread's slice of a group's
-rows in fp32 and multiplies that partial by the group's scale; the scaled
-partials are summed in fp32 in a fixed order and the result rounds once. The
-plain version (:func:`qmm_int4_plain`) scales each finished group sum
-instead: the two differ by fp32 rounding only. One
-kernel serves every M: chunks of at most 16 rows of ``x`` per block
-(:func:`int4_plan`), nothing allocated but the output.
+for an ungrouped weight). The kernel runs on the tensor cores (``mma.sync``,
+the packed weight widened to bf16 in registers): each group's products are
+summed in fp32 and multiplied by the group's scale, the groups (and the
+splits of K, which meet in a thread-block cluster) summed in fp32 in a fixed
+order, and the result rounds once. The plain version
+(:func:`qmm_int4_plain`) scales each finished group sum: the two differ by
+fp32 rounding only. :func:`int4_plan` fits the row tile to M (x as mma's n8
+operand up to 8 rows, its m16 operand beyond) and sizes the splits from the
+shapes and the SM count; nothing is allocated but the output.
 """
 
 from __future__ import annotations
@@ -59,21 +61,24 @@ MAX_PER_SM = 3
 BLOCK_BYTES = 128 * 1024
 STAGE_BYTES = 4096
 
-# The int4 kernel's plan: a block of 256 threads holds MC rows of x (one of
-# INT4_CHUNKS) and a tile of 32 or 64 columns; its stages are 8 KB of tile
-# rows; a block walks at most INT4_BLOCK_BYTES of the packed weight and
-# stages at most INT4_X_BYTES of x, and K is split inside a cluster past
-# either. At 16 rows a block's time is its CUDA cores' (x 16 FMAs per
-# weight): 64-column tiles, and K split until the grid has a block per SM.
-# From a sweep of every tile and cluster size at the int4 shapes on an H100
-# (`tools/sweep_decode_plans.py --only qmm4`, `PERF.md`, the `qmm_int4` row):
-# at M = 2 this plan was within 5% of the best; at M = 16 the rule for 16
-# rows took fc2 from 0.0986 to 0.0700 ms and the attention projections
-# from 0.037 to 0.023.
-INT4_CHUNKS = (2, 4, 8, 16)
-INT4_STAGE_BYTES = 8192
-INT4_BLOCK_BYTES = 64 * 1024
-INT4_X_BYTES = 64 * 1024
+# The int4 kernel's plan (`csrc/qmm_int4.cu`): a block is tn / 32 warps over
+# tn columns (one of INT4_TILES) and a tile of bm rows of x: 8 where x is
+# mma's n8 operand (M <= INT4_XB_M), 16 or 64 where it is the m16 operand
+# (one row tile up to 16 rows, four beyond). K is split inside a cluster of
+# up to MAX_CLUSTER blocks, in whole stages of INT4_BK rows, until the grid
+# holds INT4_FILL blocks per SM at the decode's M (bytes bound) or one per
+# SM at the prefill's (operations bound), while each split keeps at least
+# INT4_MIN_ROWS rows. M <= INT4_CC_M takes the CUDA-core kernel instead
+# (bm = 2), planned as in PR 12.
+INT4_XB_M = 8
+INT4_CC_M = 0
+INT4_TILES = (64, 128, 256)
+INT4_BK = 64
+INT4_FILL = 2
+INT4_MIN_ROWS = 256
+INT4_CC_TILES = (32, 64)
+INT4_CC_STAGE_BYTES = 8192
+INT4_CC_BLOCK_BYTES = 64 * 1024
 
 
 @functools.cache
@@ -99,32 +104,33 @@ def decode_plan(M: int, K: int, N: int, G: int, sms: int = SMS) -> tuple[int, in
 
 def int4_plan(M: int, K: int, N: int, sms: int = SMS) -> tuple[int, int, int, int]:
     """``(rows of x per block, tile width, cluster size, rows of K per block)``
-    of a ``qmm_int4`` launch on a card of ``sms`` SMs: ``ceil(M / mc) *
+    of a ``qmm_int4`` launch on a card of ``sms`` SMs: ``ceil(M / bm) *
     ceil(N / tile)`` clusters of ``cluster`` blocks, block ``r`` of a cluster
-    summing rows ``[r * rows, (r + 1) * rows)`` of ``K`` (a multiple of a
-    stage's rows)."""
+    summing rows ``[r * rows, (r + 1) * rows)`` of ``K`` (whole stages), no
+    block of a cluster without rows. A pure function of its arguments."""
     if M <= 0 or K <= 0 or N <= 0:
         raise ValueError(f"int4_plan: positive shapes expected, got {(M, K, N)}")
-    mc = next((c for c in INT4_CHUNKS if c >= M), INT4_CHUNKS[-1])
-    chunks = -(-M // mc)
-    cs = 1
-    if mc == INT4_CHUNKS[-1]:
-        tn = TILES[-1]
-        stage_rows = INT4_STAGE_BYTES // (tn // 2)
-        while (cs < MAX_CLUSTER and -(-N // tn) * chunks * cs < sms
-               and 2 * cs * stage_rows <= K):
+    if M <= INT4_CC_M:
+        tn = next((t for t in INT4_CC_TILES if -(-N // t) <= MAX_PER_SM * sms),
+                  INT4_CC_TILES[-1])
+        cs = 1
+        while cs < MAX_CLUSTER and tn // 2 * -(-K // cs) > INT4_CC_BLOCK_BYTES:
             cs *= 2
-    else:
-        tn = next((t for t in TILES if -(-N // t) * chunks <= MAX_PER_SM * sms), TILES[-1])
-        stage_rows = INT4_STAGE_BYTES // (tn // 2)
-    while cs < MAX_CLUSTER and (tn // 2 * -(-K // cs) > INT4_BLOCK_BYTES
-                                or 2 * mc * -(-K // cs) > INT4_X_BYTES):
+        stage_rows = INT4_CC_STAGE_BYTES // (tn // 2)
+        rows = -(-(-(-K // cs)) // stage_rows) * stage_rows
+        return 2, tn, -(-K // rows), rows
+    bm = 8 if M <= INT4_XB_M else 16 if M <= 16 else 64
+    tiles = -(-M // bm)
+    tn = INT4_TILES[1]
+    if -(-N // tn) * tiles * MAX_CLUSTER < INT4_FILL * sms:
+        tn = INT4_TILES[0]
+    target = (INT4_FILL if bm < 64 else 1) * sms
+    cs = 1
+    while (cs < MAX_CLUSTER and -(-N // tn) * tiles * cs < target
+           and K // (2 * cs) >= INT4_MIN_ROWS):
         cs *= 2
-    per_block = -(-K // cs)
-    rows = -(-per_block // stage_rows) * stage_rows
-    if 2 * mc * rows > 2 * INT4_X_BYTES:
-        raise ValueError(f"int4_plan: K = {K} is too long for one cluster")
-    return mc, tn, cs, rows
+    rows = -(-(-(-K // cs)) // INT4_BK) * INT4_BK
+    return bm, tn, -(-K // rows), rows
 
 
 @functools.cache
