@@ -38,10 +38,8 @@ SMS = [132, 114, 16]  # H100 SXM, H100 PCIe, a small card
 MAX_THREADS, MAX_CLUSTER, MAX_SMEM, MAX_GRID_YZ = 512, 8, 232448, 65535
 
 
-def _smem(bm: int, tn: int, rows: int) -> int:
+def _smem(bm: int, tn: int) -> int:
     """The dynamic shared memory of a launch, as ``csrc/qmm_int4.cu`` sizes it."""
-    if bm == 2:  # the CUDA-core kernel: its ring and x's pairs, plus its static partial
-        return 4 * qmm.INT4_CC_STAGE_BYTES + 4 * rows + 2 * tn * 4
     ring = 4 * (qmm.INT4_BK * (tn // 2 + 16) + bm * (qmm.INT4_BK + 8) * 2)
     return max(ring, (2 if bm <= 16 else 1) * bm * tn * 4)  # and the warps' partials
 
@@ -51,18 +49,16 @@ def _smem(bm: int, tn: int, rows: int) -> int:
 def test_int4_plan_covers_k_once_and_fits_the_card(K, N, sms):
     for M in MS:
         bm, tn, cs, rows = int4_plan(M, K, N, sms)
-        stage = (qmm.INT4_CC_STAGE_BYTES // (tn // 2)) if bm == 2 else qmm.INT4_BK
         starts = [r * rows for r in range(cs)]
-        assert all(s % stage == 0 for s in starts)
+        assert all(s % qmm.INT4_BK == 0 for s in starts)
         covered = np.zeros(K, dtype=np.int64)
         for s in starts:
             assert s < K  # no rank of a cluster without rows
             covered[s:min(K, s + rows)] += 1
         assert (covered == 1).all()
-        assert 1 <= cs <= MAX_CLUSTER and (tn if bm == 2 else 2 * tn) <= MAX_THREADS
-        assert _smem(bm, tn, rows) <= MAX_SMEM
+        assert 1 <= cs <= MAX_CLUSTER and 2 * tn <= MAX_THREADS
+        assert _smem(bm, tn) <= MAX_SMEM
         assert -(-N // tn) <= MAX_GRID_YZ and -(-M // bm) <= MAX_GRID_YZ
-        assert bm != 2 or M <= 2
 
 
 def test_int4_plan_is_a_pure_function_of_the_shapes():
@@ -72,9 +68,8 @@ def test_int4_plan_is_a_pure_function_of_the_shapes():
     assert [int4_plan(M, K, N, sms) for K, N in SHAPES for M in MS for sms in SMS] == before
     # The row tile follows M: x as the n8 operand up to 8 rows, then one or
     # four m16 tiles.
-    assert [int4_plan(M, 2048, 16384)[0] for M in (1, 2, 4, 8, 16, 176)] == [
-        2 if M <= qmm.INT4_CC_M else 8 if M <= 8 else 16 if M <= 16 else 64
-        for M in (1, 2, 4, 8, 16, 176)]
+    assert [int4_plan(M, 2048, 16384)[0] for M in (1, 2, 4, 8, 16, 17, 176)] == [
+        8, 8, 8, 8, 16, 64, 64]
 
 
 def _bf16_bits_to_float(bits: np.ndarray) -> np.ndarray:

@@ -177,23 +177,38 @@ def test_qmm_int4_groups_across_splits(dev, monkeypatch, K, NG, M, cs):
         assert torch.equal(qmm_int4(x, w, scale, out_dtype), got)
 
 
+@pytest.mark.parametrize("cs", [1, 3, 8])
+@pytest.mark.parametrize("M", [17, 64, 176, 320])
+@pytest.mark.parametrize("K,N,NG", [(2048, 16384, 16), (2048, 256, 32), (1152, 96, 3),
+                                    (2048, 384, 1)])
+def test_qmm_int4_prefill_tiles(dev, monkeypatch, K, N, NG, M, cs):
+    """The prefill's row tile of 64 at 128 columns, which groups of whole
+    64-row stages (128-, 64- and 384-row groups, ungrouped) send to the
+    warpgroup (wgmma) kernel, with K forced into ``cs`` splits; N = 96 and
+    384 leave a tile's columns past N."""
+    rows = -(-K // (cs * 64)) * 64
+    monkeypatch.setattr(qmm_mod, "int4_plan", lambda *_: (64, 128, cs, rows))
+    gen = torch.Generator(device=dev).manual_seed(K + N + M + cs)
+    x, w, scale = _case(gen, M, K, N, NG, dev)
+    for out_dtype in (torch.bfloat16, torch.float32):
+        got = qmm_int4(x, w, scale, out_dtype)
+        want = qmm_int4_plain(x, w, scale, out_dtype)
+        torch.testing.assert_close(got.float(), want.float(), **QMM_TOL[out_dtype])
+        assert torch.equal(qmm_int4(x, w, scale, out_dtype), got)
+
+
 @pytest.mark.parametrize("M", [1, 2, 4, 8])
 @pytest.mark.parametrize("K,N,NG", [(2048, 16384, 16), (8192, 2048, 64)])
 def test_qmm_int4_small_m_dispatch(dev, monkeypatch, M, K, N, NG):
-    """fc1 and fc2 at the solo step's and small batches' M through every row
-    tile the plan can take there (x as the n8 operand, one m16 tile, and the
-    CUDA-core kernel at M <= 2), each within the tolerance of the plain
-    version."""
+    """fc1 and fc2 at the solo step's and small batches' M through both row
+    tiles the plan can take there (x as the n8 operand, or one m16 tile),
+    each within the tolerance of the plain version."""
     gen = torch.Generator(device=dev).manual_seed(M + N)
     x, w, scale = _case(gen, M, K, N, NG, dev)
     want = qmm_int4_plain(x, w, scale, torch.float32)
     planned = qmm_int4(x, w, scale, torch.float32)
     torch.testing.assert_close(planned, want, **QMM_TOL[torch.float32])
-    plans = [(8, 128, 4, -(-K // 256) * 64), (16, 128, 4, -(-K // 256) * 64)]
-    if M <= 2:
-        stage_rows = qmm_mod.INT4_CC_STAGE_BYTES // 32
-        plans.append((2, 64, 2, -(-K // (2 * stage_rows)) * stage_rows))
-    for plan in plans:
+    for plan in [(8, 128, 4, -(-K // 256) * 64), (16, 128, 4, -(-K // 256) * 64)]:
         monkeypatch.setattr(qmm_mod, "int4_plan", lambda *_, p=plan: p)
         got = qmm_int4(x, w, scale, torch.float32)
         torch.testing.assert_close(got, want, **QMM_TOL[torch.float32])

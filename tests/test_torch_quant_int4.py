@@ -196,16 +196,16 @@ def test_int4_plan():
                  (4096, 2048), (200, 96)):
         for M in (1, 2, 3, 4, 8, 16, 17, 176, 320):
             bm, tn, cs, rows = qmm_mod.int4_plan(M, K, N)
-            assert bm == (2 if M <= qmm_mod.INT4_CC_M else 8 if M <= qmm_mod.INT4_XB_M
-                          else 16 if M <= 16 else 64)
-            assert tn in (qmm_mod.INT4_CC_TILES if bm == 2 else qmm_mod.INT4_TILES)
+            assert bm == (8 if M <= qmm_mod.INT4_XB_M else 16 if M <= 16 else 64)
+            assert tn in qmm_mod.INT4_TILES
             assert 1 <= cs <= 8 and rows % qmm_mod.INT4_BK == 0
             assert cs * rows >= K and (cs - 1) * rows < K
-    assert qmm_mod.int4_plan(2, 2048, 16384) == (8, 128, 4, 512)
+    assert qmm_mod.int4_plan(2, 2048, 16384) == (8, 128, 2, 1024)
     assert qmm_mod.int4_plan(2, 8192, 2048) == (8, 64, 8, 1024)
     assert qmm_mod.int4_plan(16, 8192, 2048) == (16, 64, 8, 1024)
+    assert qmm_mod.int4_plan(16, 2048, 3072) == (16, 128, 8, 256)
     assert qmm_mod.int4_plan(176, 2048, 16384) == (64, 128, 1, 2048)
-    assert qmm_mod.int4_plan(16, 2048, 3072, sms=16) == (16, 128, 2, 1024)  # the card's count
+    assert qmm_mod.int4_plan(16, 2048, 3072, sms=16) == (16, 128, 1, 2048)  # the card's count
     with pytest.raises(ValueError):
         qmm_mod.int4_plan(0, 64, 64)
 

@@ -16,9 +16,8 @@ shows the programmatic dependent launch's overlap behind any predecessor.
 For the Mamba step it times each column tile of ``ops/cuda/mamba_step.py::
 TILES`` at B = 2 and 16 with an fp32 and a bf16 state. For ``qmm_int4``
 at M = 2, 4, 8, 16 and 176, every (row tile, tile width, cluster size) of
-the tensor-core kernel (x as mma's n8 operand at M <= 8, its m16 operand
-from 4 rows up; tiles 64/128/256; clusters 1/2/4/8) and at M = 2 of the
-CUDA-core kernel (tiles 32/64), at fc1, fc2 and the attention projections in
+the kernel (x as mma's n8 operand at M <= 8, its m16 operand from 4 rows up;
+tiles 64/128/256; clusters 1/2/4/8), at fc1, fc2 and the attention projections in
 128-row groups, each in place of ``ops/cuda/qmm.py::int4_plan``'s, and the
 best beside the planned. Times are
 ``chip_smoke.py``'s ``device_ms`` over weights or planes cycled so that each
@@ -129,23 +128,15 @@ def sweep_mamba(cs_mod, gen, card) -> dict:
 
 
 def _qmm4_plans(qmm, M: int, K: int, N: int):
-    """Every plan of ``qmm_int4`` at (M, K, N) beside ``int4_plan``'s: the
-    tensor-core kernel with x as the n8 operand (bm 8, M <= 8) or the m16
-    operand (bm 16 up to 16 rows, 64 beyond) over each tile width and
-    cluster size, and at M <= 2 the CUDA-core kernel (bm 2) over its tile
-    widths and cluster sizes."""
+    """Every plan of ``qmm_int4`` at (M, K, N) beside ``int4_plan``'s: x as
+    the n8 operand (bm 8, M <= 8) or the m16 operand (bm 16 from 4 rows up to
+    16, 64 beyond), over each tile width and cluster size."""
     bms = [8, 16] if M <= 8 else [16] if M <= 16 else [64]
     for bm, tn, cl in itertools.product(bms, qmm.INT4_TILES, (1, 2, 4, 8)):
         rows = -(-K // (cl * qmm.INT4_BK)) * qmm.INT4_BK
         blocks = cl * -(-N // tn) * -(-M // bm)
         if 16 <= blocks <= 4400 and (cl - 1) * rows < K:
             yield (bm, tn, cl, rows), blocks
-    if M <= 2:
-        for tn, cl in itertools.product(qmm.INT4_CC_TILES, (1, 2, 4, 8)):
-            stage_rows = qmm.INT4_CC_STAGE_BYTES // (tn // 2)
-            rows = -(-K // (cl * stage_rows)) * stage_rows
-            if (cl - 1) * rows < K and 4 * rows <= 2 * qmm.INT4_CC_BLOCK_BYTES:
-                yield (2, tn, cl, rows), cl * -(-N // tn)
 
 
 def sweep_qmm4(cs_mod, gen, card, Ms=(2, 4, 8, 16, 176)) -> dict:

@@ -20,39 +20,50 @@
 // and sums the groups: the two differ by fp32 rounding only. An ungrouped
 // weight is one group of K rows.
 //
-// What bounds it on the H100: at the decode's M (1-16 rows of x) device-memory
-// bytes: a packed fc1 (2048 x 16384, 16.8 MB) takes >= 5 us at 3.35 TB/s, and
-// each weight serves at most 32 flops. At the prefill's M (176, 320) the
-// tensor cores (fc1 at M = 176: 11.8 GFLOP, 12 us at 989 TFLOP/s). The
-// previous design (CUDA cores, PR 12) was bound by neither but by instruction
-// issue: ~3 instructions to widen each weight and M FMAs (PERF.md, the
-// qmm_int4 row). This one moves the multiply-adds to mma.sync and widens a
-// pair of weights in 3 instructions, so at M <= 16 the issue slots stay below
-// the bytes' time and at the prefill's M below the tensor cores'.
+// What bounds it on the H100: at the decode's M (1-16 rows of x) the work's
+// least time is its device-memory bytes (a packed fc1, 2048 x 16384, is 16.8
+// MB: >= 5 us at 3.35 TB/s; each weight serves at most 32 flops); at the
+// prefill's M (176, 320) the tensor cores (fc1 at M = 176: 11.8 GFLOP, 12 us
+// at 989 TFLOP/s). PR 12's design (CUDA cores) was bound by neither but by
+// instruction issue: ~3 instructions to widen each weight and M FMAs a
+// weight. This one widens a pair of weights in 3 instructions and leaves the
+// multiply-adds to mma.sync. What bounds it now (PERF.md, the qmm_int4 row;
+// tools/probe_qmm_int4.py times the kernel without its compute and without
+// its refills): at M <= 16 not the bytes but each block's serial chain per
+// stage (the barrier, the fragment loads and widening, the mma chain, the
+// group flush) and a launch's fixed cost; at the prefill's M the mma.sync
+// work, with the copies of x, which each column tile stages again, mostly
+// not overlapped with it. wgmma with a widened bf16 tile in shared memory is
+// the next step there (ROADMAP).
 //
 // Design:
-//  * A block is W warps (2, 4 or 8) over TN = 32 W columns, one tile of BM
-//    rows of x and a stretch of `rows` rows of K; grid (cs, N / TN,
-//    ceil(M / BM)). Each warp owns 32 columns and all BM rows. Where the tiles
-//    alone would leave SMs idle, K is split inside a thread-block cluster of
-//    cs blocks whose fp32 partials meet in distributed shared memory in rank
-//    order (deterministic; no workspace, no counters: nothing but the output
-//    reaches device memory). The host plans (BM, TN, cs, rows) from the shapes
-//    and the card's SM count (ops/cuda/qmm.py::int4_plan).
+//  * A block is 2 TN / 32 warps over TN (64, 128 or 256) columns, one tile of
+//    BM rows of x and a stretch of `rows` rows of K; grid (cs, N / TN,
+//    ceil(M / BM)). Two warps share each 32 columns: at BM 8 and 16 they
+//    split each stage's k rows (a k32 half each; the pair's partials are
+//    summed in order at the end), at BM 64 the columns' four n8 tiles (two
+//    each, all 64 rows), so that no weight is widened twice in a block and a
+//    thread keeps at most 128 registers. Where the tiles alone leave SMs
+//    idle, K is split inside a thread-block cluster of cs blocks whose fp32
+//    partials meet in distributed shared memory in rank order
+//    (deterministic; no workspace, no counters: nothing but the output
+//    reaches device memory). The host plans (BM, TN, cs, rows) from the
+//    shapes and the card's SM count (ops/cuda/qmm.py::int4_plan).
 //  * Row tiles fitted to M, by the operand x takes in mma.sync m16n8k16:
 //    - BM = 8 (M <= 8, the solo step and small batches): x is the n8 operand
 //      (B), the weight the m16 operand (A): 16 columns per mma, no padded rows
-//      of x multiplied beyond 8;
+//      of x multiplied beyond 8 (PR 12's CUDA-core kernel, given the same
+//      widening, was 3-6% slower at fc1 and fc2 at M = 2 and was removed);
 //    - BM = 16 (the 8-slot pool's M = 16): x is the m16 operand, one row tile;
 //    - BM = 64 (prefills): x the m16 operand, four row tiles per warp.
 //  * Weight layout: uint8 [K, N / 2], byte j of a row holding column 2j in its
 //    low nibble and 2j + 1 in its high nibble, each a two's-complement value
 //    in [-7, 7] (the layout the checkpoints hold: nothing is repacked). A stage
 //    is BK = 64 rows of the tile (TN / 2 bytes each, 16 bytes of padding to
-//    the pitch against bank conflicts) and BM x 64 of x, copied by 16-byte
-//    cp.async.cg copies into a ring of NSTAGE stages, NSTAGE - 1 in flight.
-//    Rows past K, columns past N and rows of x past M are zero-filled,
-//    reading nothing.
+//    the pitch against bank conflicts; one 16-byte cp.async.cg copy per thread,
+//    its address computed once) and BM x 64 of x, in a ring of NSTAGE stages,
+//    NSTAGE - 1 in flight. Rows past K, columns past N and rows of x past M
+//    are zero-filled, reading nothing.
 //  * Widening in registers ("nibble trick"): ldmatrix.trans of the packed
 //    tile read as 16-bit elements gives lane (g = lane / 4, t = lane % 4) the
 //    element g of k rows 2t and 2t + 1, i.e. the four columns 4g..4g+3 of
@@ -156,11 +167,95 @@ __device__ __forceinline__ uint32_t widen(uint32_t v, int j) {
   return *reinterpret_cast<const uint32_t*>(&r);
 }
 
+// A shared-memory matrix descriptor for wgmma, no swizzle (K-major core
+// matrices of 8 rows x 16 bytes): lbo the bytes between the two core matrices
+// of a k16 step, sbo between consecutive 8-row groups.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return static_cast<uint64_t>((a & 0x3FFFFu) >> 4) | static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32;
+}
+
+// d[64] += A (64 x 16) x B (16 x 128), both K-major in shared memory: one
+// warpgroup's wgmma m64n128k16, bf16 in, fp32 accumulate.
+__device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
 // The bf16 pair of x at k rows (k, k + 1) of a fragment, each half kept only
 // inside rows [lo, hi).
 __device__ __forceinline__ uint32_t mask_pair(uint32_t v, int k, int lo, int hi) {
   return v & ((lo <= k && k < hi ? 0x0000FFFFu : 0u) |
               (lo <= k + 1 && k + 1 < hi ? 0xFFFF0000u : 0u));
+}
+
+// The tile's partial [mr][TN] in each block's shared memory (`part`), summed
+// over the cluster's ranks in order through distributed shared memory, block
+// `rank` taking a 1/cs share of the outputs, and rounded once into out.
+template <typename OutT>
+__device__ __forceinline__ void finish(cg::cluster_group& cluster, const float* part, int rank,
+                                       int cs, int mr, int TN, int m0, int n0, int N,
+                                       OutT* __restrict__ out) {
+  if (cs > 1) {
+    cluster_arrive();
+    cluster_wait();
+  } else {
+    __syncthreads();
+  }
+  const int total = mr * TN;
+  const int per = (total + cs - 1) / cs;
+  for (int e = rank * per + threadIdx.x; e < min(total, (rank + 1) * per); e += blockDim.x) {
+    float sum = 0.f;
+    if (cs > 1) {
+      float v[MAX_CLUSTER];
+#pragma unroll
+      for (int q = 0; q < MAX_CLUSTER; ++q)
+        v[q] = q < cs ? *cluster.map_shared_rank(const_cast<float*>(part) + e, q) : 0.f;
+#pragma unroll
+      for (int q = 0; q < MAX_CLUSTER; ++q) sum += v[q];
+    } else {
+      sum = part[e];
+    }
+    const int n = n0 + e % TN;
+    if (n < N) store(out + static_cast<size_t>(m0 + e / TN) * N + n, sum);
+  }
+  if (cs > 1) {  // no block leaves while another still reads its partial
+    cluster_arrive();
+    cluster_wait();
+  }
 }
 
 // One cluster of gridDim.x blocks per (column tile, tile of BM rows of x);
@@ -446,269 +541,7 @@ __global__ void __launch_bounds__(MAX_THREADS) qmm_int4_kernel(
   if constexpr (KSPLIT) {  // the pair's k halves, in order
     for (int e = tid; e < mr * TN; e += blockDim.x) part[e] += part[BM * TN + e];
   }
-  if (cs > 1) {
-    cluster_arrive();
-    cluster_wait();
-  } else {
-    __syncthreads();
-  }
-  const int total = mr * TN;
-  const int per = (total + cs - 1) / cs;
-  for (int e = rank * per + tid; e < min(total, (rank + 1) * per); e += blockDim.x) {
-    float sum = 0.f;
-    if (cs > 1) {
-      float v[MAX_CLUSTER];
-#pragma unroll
-      for (int q = 0; q < MAX_CLUSTER; ++q)
-        v[q] = q < cs ? *cluster.map_shared_rank(part + e, q) : 0.f;
-#pragma unroll
-      for (int q = 0; q < MAX_CLUSTER; ++q) sum += v[q];
-    } else {
-      sum = part[e];
-    }
-    const int n = n0 + e % TN;
-    if (n < N) store(out + static_cast<size_t>(m0 + e / TN) * N + n, sum);
-  }
-  if (cs > 1) {  // no block leaves while another still reads its partial
-    cluster_arrive();
-    cluster_wait();
-  }
-}
-
-// The CUDA-core kernel for M <= 2 (bm = 2 in the plan): PR 12's design, a
-// block of 256 threads over TN (32 or 64) columns and `rows` rows of K cut
-// into slices, each thread 16 columns of both rows of x in fp32 FMAs, with
-// the weights widened as above (a bf16 pair per lop3 and subtraction, then
-// its two halves as floats). Kept beside the tensor-core kernel so that the
-// plan can take whichever is faster at M <= 2.
-constexpr int CC_THREADS = 256;
-constexpr int CC_STAGE_BYTES = 8192;
-
-template <typename OutT, int TN>
-__global__ void __launch_bounds__(CC_THREADS) qmm_int4_cc_kernel(
-    const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
-    const float* __restrict__ scale, OutT* __restrict__ out, int M, int K, int N, int NG,
-    int rows) {
-  constexpr int MC = 2;
-  constexpr int CPT = 16;                  // columns of a thread
-  constexpr int RB = TN / 2;               // bytes of a tile row
-  constexpr int CG = TN / CPT;             // threads side by side on a row
-  constexpr int RSC = CC_THREADS / CG;     // row slices of a block
-  constexpr int SR = CC_STAGE_BYTES / RB;  // tile rows of a stage
-  constexpr int RPS = SR / RSC;            // rows of each slice in a stage
-  constexpr int CPR = RB / 16;             // 16-byte copies of a tile row
-  constexpr int COPIES = CC_STAGE_BYTES / 16;
-  constexpr int WARPS = CC_THREADS / 32;
-  extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* ring = smem;                                                        // [NSTAGE][SR][RB]
-  uint32_t* xs = reinterpret_cast<uint32_t*>(smem + NSTAGE * CC_STAGE_BYTES);  // [rows] pairs
-  float* red = reinterpret_cast<float*>(smem);  // [WARPS][MC][TN], once the ring is drained
-  __shared__ __align__(16) float part[MC * TN];  // the block's partial, read by the cluster
-
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int cs = static_cast<int>(cluster.num_blocks());
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int n0 = blockIdx.y * TN;
-  const int k0 = rank * rows;
-  const int k1 = min(K, k0 + rows);
-  const int sl = rows / RSC;  // rows of a slice (a multiple of RPS)
-  const int nst = rows / SR;
-  const int gs = K / NG;
-  const size_t pitch = static_cast<size_t>(N) / 2;
-
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-  // Stage s holds rows [s * RPS, (s + 1) * RPS) of every slice: tile row
-  // ri of the stage is row ri / RSC of slice ri % RSC.
-  auto issue = [&](int s) {
-    uint8_t* dst = ring + (s % NSTAGE) * CC_STAGE_BYTES;
-#pragma unroll
-    for (int c = tid; c < COPIES; c += CC_THREADS) {
-      const int ri = c / CPR;
-      const int cb = (c % CPR) * 16;
-      const int k = k0 + (ri % RSC) * sl + s * RPS + ri / RSC;
-      const bool ok = k < k1 && n0 + 2 * cb < N;
-      cp_async16(dst + ri * RB + cb, w + (ok ? k * pitch + n0 / 2 + cb : 0), ok);
-    }
-  };
-#pragma unroll
-  for (int s = 0; s < NSTAGE - 1; ++s) {
-    if (s < nst) issue(s);
-    cp_async_commit();
-  }
-  // x's rows of the block as (row 0, row 1) bf16 pairs, zero past k1 and M,
-  // ordered as the stages order their rows (row t of slice r at t * RSC + r).
-  const uint16_t* xb = reinterpret_cast<const uint16_t*>(x);
-  for (int kl = tid; kl < rows; kl += CC_THREADS) {
-    const int k = k0 + kl;
-    uint32_t v = 0;
-    if (k < k1) v = xb[k] | (M > 1 ? uint32_t(xb[K + k]) << 16 : 0u);
-    xs[(kl % sl) * RSC + kl / sl] = v;
-  }
-
-  const int rc = tid / CG;   // this thread's slice
-  const int cgi = tid % CG;  // and column group
-  const int col0 = n0 + cgi * CPT;
-  const int ks = k0 + rc * sl;  // the slice's first row
-  int g = ks / gs;
-  int left = gs - ks % gs;  // rows of group g still to come
-  float acc[MC][CPT], tot[MC][CPT];
-#pragma unroll
-  for (int m = 0; m < MC; ++m) {
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[m][c] = tot[m][c] = 0.f;
-  }
-  auto flush = [&]() {
-    if (g < NG && col0 < N) {
-      float sc[CPT];
-      const float4* sp = reinterpret_cast<const float4*>(scale + static_cast<size_t>(g) * N + col0);
-#pragma unroll
-      for (int c = 0; c < CPT / 4; ++c) {
-        const float4 v = sp[c];
-        sc[4 * c] = v.x;
-        sc[4 * c + 1] = v.y;
-        sc[4 * c + 2] = v.z;
-        sc[4 * c + 3] = v.w;
-      }
-#pragma unroll
-      for (int m = 0; m < MC; ++m) {
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) tot[m][c] = fmaf(acc[m][c], sc[c], tot[m][c]);
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < MC; ++m) {
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[m][c] = 0.f;
-    }
-  };
-
-  for (int it = 0; it < nst; ++it) {
-    cp_async_wait<NSTAGE - 2>();
-    __syncthreads();
-    if (it + NSTAGE - 1 < nst) issue(it + NSTAGE - 1);
-    cp_async_commit();
-    const uint8_t* st = ring + (it % NSTAGE) * CC_STAGE_BYTES + rc * RB + cgi * (CPT / 2);
-    const uint32_t* xr = xs + it * RPS * RSC + rc;
-#pragma unroll 2
-    for (int j = 0; j < RPS; ++j) {
-      const uint2 wv = *reinterpret_cast<const uint2*>(st + j * RSC * RB);
-      const uint32_t xp = xr[j * RSC];
-      const float x0 = __uint_as_float(xp << 16);
-      const float x1 = __uint_as_float(xp & 0xffff0000u);
-      const uint32_t words[2] = {wv.x, wv.y};
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const uint32_t p = widen(words[q], i);  // columns 8q + i, 8q + i + 4
-          const float lo = __uint_as_float(p << 16);
-          const float hi = __uint_as_float(p & 0xffff0000u);
-          acc[0][8 * q + i] = fmaf(x0, lo, acc[0][8 * q + i]);
-          acc[1][8 * q + i] = fmaf(x1, lo, acc[1][8 * q + i]);
-          acc[0][8 * q + i + 4] = fmaf(x0, hi, acc[0][8 * q + i + 4]);
-          acc[1][8 * q + i + 4] = fmaf(x1, hi, acc[1][8 * q + i + 4]);
-        }
-      }
-      if (--left == 0) {
-        flush();
-        ++g;
-        left = gs;
-      }
-    }
-  }
-  cp_async_wait<0>();
-  flush();
-
-#pragma unroll
-  for (int off = CG; off < 32; off <<= 1) {
-#pragma unroll
-    for (int m = 0; m < MC; ++m) {
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) tot[m][c] += __shfl_xor_sync(0xffffffffu, tot[m][c], off);
-    }
-  }
-  __syncthreads();
-  if (lane < CG) {
-#pragma unroll
-    for (int m = 0; m < MC; ++m) {
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) red[(warp * MC + m) * TN + cgi * CPT + c] = tot[m][c];
-    }
-  }
-  __syncthreads();
-  for (int e = tid; e < MC * TN; e += CC_THREADS) {
-    float sum = 0.f;
-#pragma unroll
-    for (int wi = 0; wi < WARPS; ++wi) sum += red[wi * MC * TN + e];
-    part[e] = sum;
-  }
-  if (cs > 1) {
-    cluster_arrive();
-    cluster_wait();
-  } else {
-    __syncthreads();
-  }
-  const int per = MC * TN / cs;
-  for (int e = rank * per + tid; e < (rank + 1) * per; e += CC_THREADS) {
-    float sum = 0.f;
-    if (cs > 1) {
-      float v[MAX_CLUSTER];
-#pragma unroll
-      for (int q = 0; q < MAX_CLUSTER; ++q)
-        v[q] = q < cs ? *cluster.map_shared_rank(part + e, q) : 0.f;
-#pragma unroll
-      for (int q = 0; q < MAX_CLUSTER; ++q) sum += v[q];
-    } else {
-      sum = part[e];
-    }
-    const int m = e / TN;
-    const int n = n0 + e % TN;
-    if (m < M && n < N) store(out + static_cast<size_t>(m) * N + n, sum);
-  }
-  if (cs > 1) {
-    cluster_arrive();
-    cluster_wait();
-  }
-}
-
-template <typename OutT, int TN>
-cudaError_t launch_cc(const void* x, const void* w, const void* scale, void* out, int M, int K,
-                      int N, int NG, int cs, int rows, cudaStream_t s) {
-  if (M > 2 || rows % (CC_STAGE_BYTES / (TN / 2)) != 0) return cudaErrorInvalidValue;
-  const int smem = NSTAGE * CC_STAGE_BYTES + rows * 4;
-  if (smem + 2 * TN * 4 > MAX_BLOCK_SMEM) return cudaErrorInvalidValue;
-  auto* kernel = qmm_int4_cc_kernel<OutT, TN>;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  static int configured_smem[MAX_DEVICES] = {};
-  if (smem > configured_smem[dev]) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    configured_smem[dev] = smem;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cs, (N + TN - 1) / TN, 1);
-  cfg.blockDim = dim3(CC_THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[2];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  attr[1].id = cudaLaunchAttributeClusterDimension;
-  attr[1].val.clusterDim.x = cs;
-  attr[1].val.clusterDim.y = 1;
-  attr[1].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = cs > 1 ? 2 : 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const __nv_bfloat16*>(x),
-                         static_cast<const uint8_t*>(w), static_cast<const float*>(scale),
-                         static_cast<OutT*>(out), M, K, N, NG, rows);
-  return e != cudaSuccess ? e : cudaGetLastError();
+  finish(cluster, part, rank, cs, mr, TN, m0, n0, N, out);
 }
 
 template <typename OutT, int BM>
@@ -749,31 +582,216 @@ cudaError_t launch(const void* x, const void* w, const void* scale, void* out, i
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
+// The prefill's kernel (BM = 64 rows of x, TN = 128 columns; groups of whole
+// stages): one warpgroup per block. Each stage's packed tile is widened once,
+// by all four warps (ldmatrix.trans and the nibble trick as above), into a
+// bf16 tile in shared memory, K-major in core matrices of 8 columns x 8 rows
+// of k, 8-column groups BSTRIDE bytes apart (16 bytes of padding: the
+// widening's 4-byte stores meet no bank conflict). x is staged K-major in core
+// matrices too, by its 16-byte copies. Four wgmma m64n128k16 per stage read
+// both from shared memory; the stage's products are waited for only where a
+// group ends (its sum times the scales into the totals) and before a tile or
+// ring slot is reused, two stages later.
+template <typename OutT>
+__global__ void __launch_bounds__(128) qmm_int4_wgmma_kernel(
+    const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
+    const float* __restrict__ scale, OutT* __restrict__ out, int M, int K, int N, int NG,
+    int rows) {
+  constexpr int TN = 128;
+  constexpr int WP = TN / 2 + 16;             // bytes per staged packed row
+  constexpr int STAGE = BK * WP + 64 * BK * 2;  // packed tile, then x [64][BK] in core matrices
+  constexpr int BSTRIDE = 8 * 128 + 16;       // bytes between 8-column groups of the widened tile
+  constexpr int BTILE = TN / 8 * BSTRIDE;
+  extern __shared__ __align__(128) uint8_t smem[];  // ring [NSTAGE][STAGE], widened [2][BTILE]
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int cs = static_cast<int>(cluster.num_blocks());
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int gid = lane >> 2;
+  const int t4 = lane & 3;
+  const int n0 = blockIdx.y * TN;
+  const int m0 = blockIdx.z * 64;
+  const int mr = min(64, M - m0);
+  const int k_begin = rank * rows;
+  const int k_end = min(K, k_begin + rows);
+  const int nk = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
+  const int gs = K / NG;
+  const size_t pitch = static_cast<size_t>(N) / 2;
+  const uint16_t* xb = reinterpret_cast<const uint16_t*>(x);
+
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  // Stage it: 2 weight copies and 4 x copies a thread (zero past K, M, N).
+  auto load = [&](int it) {
+    uint8_t* wt = smem + (it % NSTAGE) * STAGE;
+    uint8_t* xt = wt + BK * WP;
+    const int k0 = k_begin + it * BK;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int r = tid / 4 + 32 * q;
+      const int cb = (tid % 4) * 16;
+      const bool ok = k0 + r < k_end && n0 + 2 * cb < N;
+      cp_async16(wt + r * WP + cb, w + (ok ? (k0 + r) * pitch + n0 / 2 + cb : 0), ok);
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int c = tid + 128 * q;
+      const int r = c >> 3;
+      const int kc = c & 7;
+      const bool ok = r < mr && k0 + 8 * kc < k_end;
+      cp_async16(xt + ((r >> 3) * 8 + kc) * 128 + (r & 7) * 16,
+                 xb + (ok ? static_cast<size_t>(m0 + r) * K + k0 + 8 * kc : 0), ok);
+    }
+  };
+
+  // d[4c + e]: rows 16 warp + g (e 0, 1) and + 8 (e 2, 3), column 8c + 2t + (e & 1).
+  float acc[64], tot[64], sc[32] = {};
+#pragma unroll
+  for (int e = 0; e < 64; ++e) acc[e] = tot[e] = 0.f;
+  int g = k_begin / gs;
+  int bnext = (g + 1) * gs;
+  auto load_scales = [&]() {
+    if (g < NG) {
+#pragma unroll
+      for (int c = 0; c < 16; ++c) {
+        const int n = n0 + 8 * c + 2 * t4;
+        const float2 v = n < N ? *reinterpret_cast<const float2*>(scale + static_cast<size_t>(g) * N + n)
+                               : make_float2(0.f, 0.f);
+        sc[2 * c] = v.x;
+        sc[2 * c + 1] = v.y;
+      }
+    }
+  };
+  auto flush = [&]() {
+    if (g < NG) {
+#pragma unroll
+      for (int e = 0; e < 64; ++e) {
+        tot[e] = fmaf(acc[e], sc[2 * (e >> 2) + (e & 1)], tot[e]);
+        acc[e] = 0.f;
+      }
+    }
+    ++g;
+    bnext += gs;
+    load_scales();
+  };
+  load_scales();
+
+#pragma unroll
+  for (int s = 0; s < NSTAGE - 2; ++s) {
+    if (s < nk) load(s);
+    cp_async_commit();
+  }
+  for (int it = 0; it < nk; ++it) {
+    cp_async_wait<NSTAGE - 3>();  // this thread's copies of stage it have landed
+    wgmma_wait<1>();              // stage it - 2's products: its slot and tile are free
+    __syncthreads();
+    if (it + NSTAGE - 2 < nk) load(it + NSTAGE - 2);
+    cp_async_commit();
+    const uint8_t* wt = smem + (it % NSTAGE) * STAGE;
+    uint8_t* bt = smem + NSTAGE * STAGE + (it % 2) * BTILE;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {  // warp: 32 columns, k rows 32q..32q+31
+      uint32_t wr[4];
+      ldmatrix_x4_trans(wr, wt + (32 * q + lane) * WP + warp * 16);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = warp * 32 + 4 * gid + j;
+          *reinterpret_cast<uint32_t*>(bt + (n >> 3) * BSTRIDE + (4 * q + i) * 128 +
+                                       (n & 7) * 16 + 4 * t4) = widen(wr[i], j);
+        }
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    wgmma_fence();
+    const uint8_t* xt = wt + BK * WP;
+#pragma unroll
+    for (int s = 0; s < BK / 16; ++s)
+      wgmma_m64n128k16(acc, smem_desc(xt + 256 * s, 128, 8 * 128),
+                       smem_desc(bt + 256 * s, 128, BSTRIDE));
+    wgmma_commit();
+    if (k_begin + (it + 1) * BK >= bnext && k_begin + (it + 1) * BK <= k_end) {
+      wgmma_wait<0>();
+      flush();
+    }
+  }
+  wgmma_wait<0>();
+  flush();  // the split's last, unfinished group (g past NG: nothing)
+
+  __syncthreads();
+  float* part = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int c = 0; c < 16; ++c) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+      *reinterpret_cast<float2*>(part + (16 * warp + gid + 8 * hf) * TN + 8 * c + 2 * t4) =
+          make_float2(tot[4 * c + 2 * hf], tot[4 * c + 2 * hf + 1]);
+  }
+  finish(cluster, part, rank, cs, mr, TN, m0, n0, N, out);
+}
+
+template <typename OutT>
+cudaError_t launch_wgmma(const void* x, const void* w, const void* scale, void* out, int M,
+                         int K, int N, int NG, int cs, int rows, cudaStream_t s) {
+  constexpr int smem = NSTAGE * (BK * 80 + 64 * BK * 2) + 2 * (16 * (8 * 128 + 16));
+  auto* kernel = qmm_int4_wgmma_kernel<OutT>;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  static bool configured[MAX_DEVICES] = {};
+  if (!configured[dev]) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    configured[dev] = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs, (N + 127) / 128, (M + 63) / 64);
+  cfg.blockDim = dim3(128);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  attr[1].id = cudaLaunchAttributeClusterDimension;
+  attr[1].val.clusterDim.x = cs;
+  attr[1].val.clusterDim.y = 1;
+  attr[1].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cs > 1 ? 2 : 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const __nv_bfloat16*>(x),
+                         static_cast<const uint8_t*>(w), static_cast<const float*>(scale),
+                         static_cast<OutT*>(out), M, K, N, NG, rows);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
 template <typename OutT>
 cudaError_t launch_bm(const void* x, const void* w, const void* scale, void* out, int M, int K,
                       int N, int NG, int bm, int tn, int cs, int rows, cudaStream_t s) {
   switch (bm) {
-    case 2:
-      return tn == 64 ? launch_cc<OutT, 64>(x, w, scale, out, M, K, N, NG, cs, rows, s)
-                      : launch_cc<OutT, 32>(x, w, scale, out, M, K, N, NG, cs, rows, s);
     case 8: return launch<OutT, 8>(x, w, scale, out, M, K, N, NG, tn, cs, rows, s);
     case 16: return launch<OutT, 16>(x, w, scale, out, M, K, N, NG, tn, cs, rows, s);
-    default: return launch<OutT, 64>(x, w, scale, out, M, K, N, NG, tn, cs, rows, s);
+    default:  // groups of whole stages: the warpgroup kernel
+      return tn == 128 && (K / NG) % BK == 0
+                 ? launch_wgmma<OutT>(x, w, scale, out, M, K, N, NG, cs, rows, s)
+                 : launch<OutT, 64>(x, w, scale, out, M, K, N, NG, tn, cs, rows, s);
   }
 }
 
 }  // namespace
 
 // As planned by ops/cuda/qmm.py::int4_plan: tiles of bm rows of x (8: x is
-// mma's n8 operand; 16 or 64: its m16 operand; 2: the CUDA-core kernel, M <=
-// 2, tn 32 or 64), tn (64, 128 or 256) columns, clusters of cs (1-8) blocks, `rows` rows of K per block (a multiple
+// mma's n8 operand; 16 or 64: its m16 operand), tn (64, 128 or 256) columns, clusters of cs (1-8) blocks, `rows` rows of K per block (a multiple
 // of 64, cs * rows >= K). out_f32: 1 for an fp32 output, 0 for bf16.
 extern "C" int zvt_qmm_int4(const void* x, const void* w, const void* scale, void* out, int M,
                             int K, int N, int NG, int out_f32, int bm, int tn, int cs, int rows,
                             void* stream) {
   if (M <= 0 || K <= 0 || N <= 0 || N % 32 != 0 || NG <= 0 || K % NG != 0 ||
-      (bm != 2 && bm != 8 && bm != 16 && bm != 64) ||
-      (bm == 2 ? tn != 32 && tn != 64 : tn != 64 && tn != 128 && tn != 256) || cs <= 0 ||
+      (bm != 8 && bm != 16 && bm != 64) || (tn != 64 && tn != 128 && tn != 256) || cs <= 0 ||
       cs > MAX_CLUSTER || rows <= 0 || rows % BK != 0 || (long long)cs * rows < K)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

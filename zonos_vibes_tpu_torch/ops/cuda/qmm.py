@@ -61,24 +61,23 @@ MAX_PER_SM = 3
 BLOCK_BYTES = 128 * 1024
 STAGE_BYTES = 4096
 
-# The int4 kernel's plan (`csrc/qmm_int4.cu`): a block is tn / 32 warps over
+# The int4 kernel's plan (`csrc/qmm_int4.cu`): a block is 2 tn / 32 warps over
 # tn columns (one of INT4_TILES) and a tile of bm rows of x: 8 where x is
 # mma's n8 operand (M <= INT4_XB_M), 16 or 64 where it is the m16 operand
-# (one row tile up to 16 rows, four beyond). K is split inside a cluster of
-# up to MAX_CLUSTER blocks, in whole stages of INT4_BK rows, until the grid
-# holds INT4_FILL blocks per SM at the decode's M (bytes bound) or one per
-# SM at the prefill's (operations bound), while each split keeps at least
-# INT4_MIN_ROWS rows. M <= INT4_CC_M takes the CUDA-core kernel instead
-# (bm = 2), planned as in PR 12.
+# (one row tile up to 16 rows, four beyond). Tiles of 128 columns unless even
+# clusters of MAX_CLUSTER blocks would leave SMs idle; K is then split inside
+# a cluster, in whole stages of INT4_BK rows, until the grid holds a block
+# per SM, while each split keeps at least INT4_MIN_ROWS rows. From a sweep of
+# every row tile, tile width and cluster size at the int4 shapes on an H100
+# (`tools/sweep_decode_plans.py --only qmm4`, `PERF.md`, the `qmm_int4` row):
+# within 5% of the best plan at every shape at M = 2-16, and within 7% at the
+# prefill's M; two blocks per SM or more were slower at every M (each extra
+# split adds a partial to the cluster's sum and a stage to the pipeline's
+# fill, and more blocks leave fewer registers to each).
 INT4_XB_M = 8
-INT4_CC_M = 0
 INT4_TILES = (64, 128, 256)
 INT4_BK = 64
-INT4_FILL = 2
 INT4_MIN_ROWS = 256
-INT4_CC_TILES = (32, 64)
-INT4_CC_STAGE_BYTES = 8192
-INT4_CC_BLOCK_BYTES = 64 * 1024
 
 
 @functools.cache
@@ -110,23 +109,13 @@ def int4_plan(M: int, K: int, N: int, sms: int = SMS) -> tuple[int, int, int, in
     block of a cluster without rows. A pure function of its arguments."""
     if M <= 0 or K <= 0 or N <= 0:
         raise ValueError(f"int4_plan: positive shapes expected, got {(M, K, N)}")
-    if M <= INT4_CC_M:
-        tn = next((t for t in INT4_CC_TILES if -(-N // t) <= MAX_PER_SM * sms),
-                  INT4_CC_TILES[-1])
-        cs = 1
-        while cs < MAX_CLUSTER and tn // 2 * -(-K // cs) > INT4_CC_BLOCK_BYTES:
-            cs *= 2
-        stage_rows = INT4_CC_STAGE_BYTES // (tn // 2)
-        rows = -(-(-(-K // cs)) // stage_rows) * stage_rows
-        return 2, tn, -(-K // rows), rows
     bm = 8 if M <= INT4_XB_M else 16 if M <= 16 else 64
     tiles = -(-M // bm)
     tn = INT4_TILES[1]
-    if -(-N // tn) * tiles * MAX_CLUSTER < INT4_FILL * sms:
+    if -(-N // tn) * tiles * MAX_CLUSTER < sms:
         tn = INT4_TILES[0]
-    target = (INT4_FILL if bm < 64 else 1) * sms
     cs = 1
-    while (cs < MAX_CLUSTER and -(-N // tn) * tiles * cs < target
+    while (cs < MAX_CLUSTER and -(-N // tn) * tiles * cs < sms
            and K // (2 * cs) >= INT4_MIN_ROWS):
         cs *= 2
     rows = -(-(-(-K // cs)) // INT4_BK) * INT4_BK
