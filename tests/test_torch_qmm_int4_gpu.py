@@ -182,10 +182,9 @@ def test_qmm_int4_groups_across_splits(dev, monkeypatch, K, NG, M, cs):
 @pytest.mark.parametrize("K,N,NG", [(2048, 16384, 16), (2048, 256, 32), (1152, 96, 3),
                                     (2048, 384, 1)])
 def test_qmm_int4_prefill_tiles(dev, monkeypatch, K, N, NG, M, cs):
-    """The prefill's row tile of 64 at 128 columns, which groups of whole
-    64-row stages (128-, 64- and 384-row groups, ungrouped) send to the
-    warpgroup (wgmma) kernel, with K forced into ``cs`` splits; N = 96 and
-    384 leave a tile's columns past N."""
+    """The prefill's row tile of 64 at 128 columns (the warp pair splitting
+    the n8 tiles) in 128-, 64- and 384-row groups and ungrouped, with K
+    forced into ``cs`` splits; N = 96 and 384 leave a tile's columns past N."""
     rows = -(-K // (cs * 64)) * 64
     monkeypatch.setattr(qmm_mod, "int4_plan", lambda *_: (64, 128, cs, rows))
     gen = torch.Generator(device=dev).manual_seed(K + N + M + cs)

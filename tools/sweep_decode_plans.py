@@ -16,10 +16,10 @@ shows the programmatic dependent launch's overlap behind any predecessor.
 For the Mamba step it times each column tile of ``ops/cuda/mamba_step.py::
 TILES`` at B = 2 and 16 with an fp32 and a bf16 state. For ``qmm_int4``
 at M = 2, 4, 8, 16 and 176, every (row tile, tile width, cluster size) of
-the kernel (x as mma's n8 operand at M <= 8, its m16 operand from 4 rows up;
-tiles 64/128/256; clusters 1/2/4/8), at fc1, fc2 and the attention projections in
-128-row groups, each in place of ``ops/cuda/qmm.py::int4_plan``'s, and the
-best beside the planned. Times are
+the kernel (x as mma's n8 operand at M <= 8, its m16 operand from 4 rows
+up; tiles 64/128/256; clusters 1/2/4/8), at fc1, fc2 and the attention
+projections in 128-row groups, each in place of
+``ops/cuda/qmm.py::int4_plan``'s, and the best beside the planned. Times are
 ``chip_smoke.py``'s ``device_ms`` over weights or planes cycled so that each
 launch reads from device memory (the heads' one weight, 21 MB, stays in L2,
 as in ``chip_smoke.py`` phase 4). Prints one line per plan, then one JSON
@@ -139,7 +139,7 @@ def _qmm4_plans(qmm, M: int, K: int, N: int):
             yield (bm, tn, cl, rows), blocks
 
 
-def sweep_qmm4(cs_mod, gen, card, Ms=(2, 4, 8, 16, 176)) -> dict:
+def sweep_qmm4(cs_mod, gen, card) -> dict:
     import torch
 
     from zonos_vibes_tpu_torch.ops import quant
@@ -154,7 +154,7 @@ def sweep_qmm4(cs_mod, gen, card, Ms=(2, 4, 8, 16, 176)) -> dict:
                                          group_size=K // groups)
             w, scale = leaf["weight_int4"], leaf["scale"]
             idx = itertools.cycle(range(layers))
-            for M in Ms:
+            for M in (2, 4, 8, cs_mod.POOL_M, 176):
                 x = cs_mod.randn(gen, M, K)
 
                 def call():

@@ -33,8 +33,9 @@
 // stage (the barrier, the fragment loads and widening, the mma chain, the
 // group flush) and a launch's fixed cost; at the prefill's M the mma.sync
 // work, with the copies of x, which each column tile stages again, mostly
-// not overlapped with it. wgmma with a widened bf16 tile in shared memory is
-// the next step there (ROADMAP).
+// not overlapped with it. A warpgroup version (the tile widened once into a
+// bf16 tile in shared memory, wgmma m64n128k16) was no faster: its widening
+// and barriers per stage, not the tensor cores, set its pace (PERF.md, PR 13).
 //
 // Design:
 //  * A block is 2 TN / 32 warps over TN (64, 128 or 256) columns, one tile of
@@ -167,95 +168,11 @@ __device__ __forceinline__ uint32_t widen(uint32_t v, int j) {
   return *reinterpret_cast<const uint32_t*>(&r);
 }
 
-// A shared-memory matrix descriptor for wgmma, no swizzle (K-major core
-// matrices of 8 rows x 16 bytes): lbo the bytes between the two core matrices
-// of a k16 step, sbo between consecutive 8-row groups.
-__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  return static_cast<uint64_t>((a & 0x3FFFFu) >> 4) | static_cast<uint64_t>(lbo >> 4) << 16 |
-         static_cast<uint64_t>(sbo >> 4) << 32;
-}
-
-// d[64] += A (64 x 16) x B (16 x 128), both K-major in shared memory: one
-// warpgroup's wgmma m64n128k16, bf16 in, fp32 accumulate.
-__device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
 // The bf16 pair of x at k rows (k, k + 1) of a fragment, each half kept only
 // inside rows [lo, hi).
 __device__ __forceinline__ uint32_t mask_pair(uint32_t v, int k, int lo, int hi) {
   return v & ((lo <= k && k < hi ? 0x0000FFFFu : 0u) |
               (lo <= k + 1 && k + 1 < hi ? 0xFFFF0000u : 0u));
-}
-
-// The tile's partial [mr][TN] in each block's shared memory (`part`), summed
-// over the cluster's ranks in order through distributed shared memory, block
-// `rank` taking a 1/cs share of the outputs, and rounded once into out.
-template <typename OutT>
-__device__ __forceinline__ void finish(cg::cluster_group& cluster, const float* part, int rank,
-                                       int cs, int mr, int TN, int m0, int n0, int N,
-                                       OutT* __restrict__ out) {
-  if (cs > 1) {
-    cluster_arrive();
-    cluster_wait();
-  } else {
-    __syncthreads();
-  }
-  const int total = mr * TN;
-  const int per = (total + cs - 1) / cs;
-  for (int e = rank * per + threadIdx.x; e < min(total, (rank + 1) * per); e += blockDim.x) {
-    float sum = 0.f;
-    if (cs > 1) {
-      float v[MAX_CLUSTER];
-#pragma unroll
-      for (int q = 0; q < MAX_CLUSTER; ++q)
-        v[q] = q < cs ? *cluster.map_shared_rank(const_cast<float*>(part) + e, q) : 0.f;
-#pragma unroll
-      for (int q = 0; q < MAX_CLUSTER; ++q) sum += v[q];
-    } else {
-      sum = part[e];
-    }
-    const int n = n0 + e % TN;
-    if (n < N) store(out + static_cast<size_t>(m0 + e / TN) * N + n, sum);
-  }
-  if (cs > 1) {  // no block leaves while another still reads its partial
-    cluster_arrive();
-    cluster_wait();
-  }
 }
 
 // One cluster of gridDim.x blocks per (column tile, tile of BM rows of x);
@@ -285,7 +202,7 @@ __global__ void __launch_bounds__(MAX_THREADS) qmm_int4_kernel(
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int wn = (tid >> 5) % (TN / 32);        // the warp's 32 columns
-  const int wz = (tid >> 5) / (TN / 32);        // and its half of k (or of x's rows)
+  const int wz = (tid >> 5) / (TN / 32);        // and its half of k (or of the n8 tiles)
   const int gid = lane >> 2;
   const int t4 = lane & 3;
   const int n0 = blockIdx.y * TN;
@@ -505,7 +422,7 @@ __global__ void __launch_bounds__(MAX_THREADS) qmm_int4_kernel(
   flush();  // the warp's last, unfinished group (g past NG: nothing)
 
   // The warps' partials in the drained ring ([2][BM][TN] for a k split, the
-  // pair summed in order; [BM][TN] for a row split), then the cluster's
+  // pair summed in order; [BM][TN] for an n8-tile split), then the cluster's
   // partials meet in distributed shared memory: block `rank` sums its 1/cs
   // share of the tile's outputs over the ranks in order.
   __syncthreads();
@@ -541,7 +458,33 @@ __global__ void __launch_bounds__(MAX_THREADS) qmm_int4_kernel(
   if constexpr (KSPLIT) {  // the pair's k halves, in order
     for (int e = tid; e < mr * TN; e += blockDim.x) part[e] += part[BM * TN + e];
   }
-  finish(cluster, part, rank, cs, mr, TN, m0, n0, N, out);
+  if (cs > 1) {
+    cluster_arrive();
+    cluster_wait();
+  } else {
+    __syncthreads();
+  }
+  const int total = mr * TN;
+  const int per = (total + cs - 1) / cs;
+  for (int e = rank * per + tid; e < min(total, (rank + 1) * per); e += blockDim.x) {
+    float sum = 0.f;
+    if (cs > 1) {
+      float v[MAX_CLUSTER];
+#pragma unroll
+      for (int q = 0; q < MAX_CLUSTER; ++q)
+        v[q] = q < cs ? *cluster.map_shared_rank(part + e, q) : 0.f;
+#pragma unroll
+      for (int q = 0; q < MAX_CLUSTER; ++q) sum += v[q];
+    } else {
+      sum = part[e];
+    }
+    const int n = n0 + e % TN;
+    if (n < N) store(out + static_cast<size_t>(m0 + e / TN) * N + n, sum);
+  }
+  if (cs > 1) {  // no block leaves while another still reads its partial
+    cluster_arrive();
+    cluster_wait();
+  }
 }
 
 template <typename OutT, int BM>
@@ -582,203 +525,13 @@ cudaError_t launch(const void* x, const void* w, const void* scale, void* out, i
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-// The prefill's kernel (BM = 64 rows of x, TN = 128 columns; groups of whole
-// stages): one warpgroup per block. Each stage's packed tile is widened once,
-// by all four warps (ldmatrix.trans and the nibble trick as above), into a
-// bf16 tile in shared memory, K-major in core matrices of 8 columns x 8 rows
-// of k, 8-column groups BSTRIDE bytes apart (16 bytes of padding: the
-// widening's 4-byte stores meet no bank conflict). x is staged K-major in core
-// matrices too, by its 16-byte copies. Four wgmma m64n128k16 per stage read
-// both from shared memory; the stage's products are waited for only where a
-// group ends (its sum times the scales into the totals) and before a tile or
-// ring slot is reused, two stages later.
-template <typename OutT>
-__global__ void __launch_bounds__(128) qmm_int4_wgmma_kernel(
-    const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
-    const float* __restrict__ scale, OutT* __restrict__ out, int M, int K, int N, int NG,
-    int rows) {
-  constexpr int TN = 128;
-  constexpr int WP = TN / 2 + 16;             // bytes per staged packed row
-  constexpr int STAGE = BK * WP + 64 * BK * 2;  // packed tile, then x [64][BK] in core matrices
-  constexpr int BSTRIDE = 8 * 128 + 16;       // bytes between 8-column groups of the widened tile
-  constexpr int BTILE = TN / 8 * BSTRIDE;
-  extern __shared__ __align__(128) uint8_t smem[];  // ring [NSTAGE][STAGE], widened [2][BTILE]
-
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int cs = static_cast<int>(cluster.num_blocks());
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int gid = lane >> 2;
-  const int t4 = lane & 3;
-  const int n0 = blockIdx.y * TN;
-  const int m0 = blockIdx.z * 64;
-  const int mr = min(64, M - m0);
-  const int k_begin = rank * rows;
-  const int k_end = min(K, k_begin + rows);
-  const int nk = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
-  const int gs = K / NG;
-  const size_t pitch = static_cast<size_t>(N) / 2;
-  const uint16_t* xb = reinterpret_cast<const uint16_t*>(x);
-
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-  // Stage it: 2 weight copies and 4 x copies a thread (zero past K, M, N).
-  auto load = [&](int it) {
-    uint8_t* wt = smem + (it % NSTAGE) * STAGE;
-    uint8_t* xt = wt + BK * WP;
-    const int k0 = k_begin + it * BK;
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int r = tid / 4 + 32 * q;
-      const int cb = (tid % 4) * 16;
-      const bool ok = k0 + r < k_end && n0 + 2 * cb < N;
-      cp_async16(wt + r * WP + cb, w + (ok ? (k0 + r) * pitch + n0 / 2 + cb : 0), ok);
-    }
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int c = tid + 128 * q;
-      const int r = c >> 3;
-      const int kc = c & 7;
-      const bool ok = r < mr && k0 + 8 * kc < k_end;
-      cp_async16(xt + ((r >> 3) * 8 + kc) * 128 + (r & 7) * 16,
-                 xb + (ok ? static_cast<size_t>(m0 + r) * K + k0 + 8 * kc : 0), ok);
-    }
-  };
-
-  // d[4c + e]: rows 16 warp + g (e 0, 1) and + 8 (e 2, 3), column 8c + 2t + (e & 1).
-  float acc[64], tot[64], sc[32] = {};
-#pragma unroll
-  for (int e = 0; e < 64; ++e) acc[e] = tot[e] = 0.f;
-  int g = k_begin / gs;
-  int bnext = (g + 1) * gs;
-  auto load_scales = [&]() {
-    if (g < NG) {
-#pragma unroll
-      for (int c = 0; c < 16; ++c) {
-        const int n = n0 + 8 * c + 2 * t4;
-        const float2 v = n < N ? *reinterpret_cast<const float2*>(scale + static_cast<size_t>(g) * N + n)
-                               : make_float2(0.f, 0.f);
-        sc[2 * c] = v.x;
-        sc[2 * c + 1] = v.y;
-      }
-    }
-  };
-  auto flush = [&]() {
-    if (g < NG) {
-#pragma unroll
-      for (int e = 0; e < 64; ++e) {
-        tot[e] = fmaf(acc[e], sc[2 * (e >> 2) + (e & 1)], tot[e]);
-        acc[e] = 0.f;
-      }
-    }
-    ++g;
-    bnext += gs;
-    load_scales();
-  };
-  load_scales();
-
-#pragma unroll
-  for (int s = 0; s < NSTAGE - 2; ++s) {
-    if (s < nk) load(s);
-    cp_async_commit();
-  }
-  for (int it = 0; it < nk; ++it) {
-    cp_async_wait<NSTAGE - 3>();  // this thread's copies of stage it have landed
-    wgmma_wait<1>();              // stage it - 2's products: its slot and tile are free
-    __syncthreads();
-    if (it + NSTAGE - 2 < nk) load(it + NSTAGE - 2);
-    cp_async_commit();
-    const uint8_t* wt = smem + (it % NSTAGE) * STAGE;
-    uint8_t* bt = smem + NSTAGE * STAGE + (it % 2) * BTILE;
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {  // warp: 32 columns, k rows 32q..32q+31
-      uint32_t wr[4];
-      ldmatrix_x4_trans(wr, wt + (32 * q + lane) * WP + warp * 16);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int n = warp * 32 + 4 * gid + j;
-          *reinterpret_cast<uint32_t*>(bt + (n >> 3) * BSTRIDE + (4 * q + i) * 128 +
-                                       (n & 7) * 16 + 4 * t4) = widen(wr[i], j);
-        }
-      }
-    }
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
-    wgmma_fence();
-    const uint8_t* xt = wt + BK * WP;
-#pragma unroll
-    for (int s = 0; s < BK / 16; ++s)
-      wgmma_m64n128k16(acc, smem_desc(xt + 256 * s, 128, 8 * 128),
-                       smem_desc(bt + 256 * s, 128, BSTRIDE));
-    wgmma_commit();
-    if (k_begin + (it + 1) * BK >= bnext && k_begin + (it + 1) * BK <= k_end) {
-      wgmma_wait<0>();
-      flush();
-    }
-  }
-  wgmma_wait<0>();
-  flush();  // the split's last, unfinished group (g past NG: nothing)
-
-  __syncthreads();
-  float* part = reinterpret_cast<float*>(smem);
-#pragma unroll
-  for (int c = 0; c < 16; ++c) {
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf)
-      *reinterpret_cast<float2*>(part + (16 * warp + gid + 8 * hf) * TN + 8 * c + 2 * t4) =
-          make_float2(tot[4 * c + 2 * hf], tot[4 * c + 2 * hf + 1]);
-  }
-  finish(cluster, part, rank, cs, mr, TN, m0, n0, N, out);
-}
-
-template <typename OutT>
-cudaError_t launch_wgmma(const void* x, const void* w, const void* scale, void* out, int M,
-                         int K, int N, int NG, int cs, int rows, cudaStream_t s) {
-  constexpr int smem = NSTAGE * (BK * 80 + 64 * BK * 2) + 2 * (16 * (8 * 128 + 16));
-  auto* kernel = qmm_int4_wgmma_kernel<OutT>;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  static bool configured[MAX_DEVICES] = {};
-  if (!configured[dev]) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    configured[dev] = true;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cs, (N + 127) / 128, (M + 63) / 64);
-  cfg.blockDim = dim3(128);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[2];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  attr[1].id = cudaLaunchAttributeClusterDimension;
-  attr[1].val.clusterDim.x = cs;
-  attr[1].val.clusterDim.y = 1;
-  attr[1].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = cs > 1 ? 2 : 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const __nv_bfloat16*>(x),
-                         static_cast<const uint8_t*>(w), static_cast<const float*>(scale),
-                         static_cast<OutT*>(out), M, K, N, NG, rows);
-  return e != cudaSuccess ? e : cudaGetLastError();
-}
-
 template <typename OutT>
 cudaError_t launch_bm(const void* x, const void* w, const void* scale, void* out, int M, int K,
                       int N, int NG, int bm, int tn, int cs, int rows, cudaStream_t s) {
   switch (bm) {
     case 8: return launch<OutT, 8>(x, w, scale, out, M, K, N, NG, tn, cs, rows, s);
     case 16: return launch<OutT, 16>(x, w, scale, out, M, K, N, NG, tn, cs, rows, s);
-    default:  // groups of whole stages: the warpgroup kernel
-      return tn == 128 && (K / NG) % BK == 0
-                 ? launch_wgmma<OutT>(x, w, scale, out, M, K, N, NG, cs, rows, s)
-                 : launch<OutT, 64>(x, w, scale, out, M, K, N, NG, tn, cs, rows, s);
+    default: return launch<OutT, 64>(x, w, scale, out, M, K, N, NG, tn, cs, rows, s);
   }
 }
 

@@ -71,9 +71,7 @@ STAGE_BYTES = 4096
 # every row tile, tile width and cluster size at the int4 shapes on an H100
 # (`tools/sweep_decode_plans.py --only qmm4`, `PERF.md`, the `qmm_int4` row):
 # within 5% of the best plan at every shape at M = 2-16, and within 7% at the
-# prefill's M; two blocks per SM or more were slower at every M (each extra
-# split adds a partial to the cluster's sum and a stage to the pipeline's
-# fill, and more blocks leave fewer registers to each).
+# prefill's M; splitting on to two blocks per SM or more was slower at every M.
 INT4_XB_M = 8
 INT4_TILES = (64, 128, 256)
 INT4_BK = 64
@@ -118,7 +116,8 @@ def int4_plan(M: int, K: int, N: int, sms: int = SMS) -> tuple[int, int, int, in
     while (cs < MAX_CLUSTER and -(-N // tn) * tiles * cs < sms
            and K // (2 * cs) >= INT4_MIN_ROWS):
         cs *= 2
-    rows = -(-(-(-K // cs)) // INT4_BK) * INT4_BK
+    per_block = -(-K // cs)
+    rows = -(-per_block // INT4_BK) * INT4_BK
     return bm, tn, -(-K // rows), rows
 
 
