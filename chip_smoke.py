@@ -44,7 +44,11 @@ Phases, each of which fails the run loudly:
    quantized weights at fc1, fc2 and int4full's attention shapes (128-row
    groups; fc2 also ungrouped and in 64-row groups) at M = 1, 2, 4, 8, 16,
    176 and 320, bit-equal on a second launch; ``qmm_int8`` at the hybrid's
-   Mamba and attention shapes.
+   Mamba and attention shapes. The parallel layer's rank-local shapes:
+   decode attention with 16/4 (TP 2) and 8/2 (TP 4) heads at CFG batch 2
+   and 1 and with a 13-layer pipeline stage, the prefill at those heads
+   (S = 88 and 519), ``qmm_int8`` at TP 2's widths at M = 1, 2 and 176,
+   with bf16 and fp32 (a row-parallel partial) outputs.
 3. End to end: ``ZonosPipeline.from_config(ZONOS_V01_TRANSFORMER)`` with
    random bf16 weights from a seeded generator, text -> about 5 s of codes
    -> DAC -> WAV (written to ``build/chip_smoke.wav``). The launch
@@ -108,6 +112,33 @@ Phases, each of which fails the run loudly:
    against the ring mode's from the same state; with plain attention the
    two modes must agree exactly, and with each stage-less column written
    one position off they must differ by more than the limit.
+   After the clone + continuation run, the parallel layer
+   (``zonos_vibes_tpu_torch/parallel/``) on the same seed-421 weights,
+   greedy, 431 frames with ``disable_eos``: first the solo engine's runs it
+   is held against (bf16 and int8 text, the bf16 continuation) and a
+   control (the first frame of conditioning nudged by about one bf16
+   step); (a) one NCCL rank on the card with graphs,
+   ``ParallelEngine(MeshConfig())`` on the bf16 and the int8 tree: codes
+   equal to ``DecodeEngine``'s, every step after the first replayed, the
+   solo launch counts; (b) gloo ranks spawned on the one card (NCCL
+   refuses two ranks on one device; the ranks map the parent's weight
+   trees), four spawns of two at once, then one of four, then one of two
+   alone: TP 2 (bf16, int8), DP 2, PP 2 (n_micro 1 and 2, int8 at 1), the
+   continuation on TP 2 densely (43 frames) and with the ring and the
+   Ulysses prefill (S = 519, padded to 520), TP 4 (43 frames);
+   then the TVD limits' controls (a sound TP 2 engine and three faults
+   planted in it, at depth 1 and 26), ``expert_dispatch`` over 2 experts
+   at D = 2048 against the dense product (and a capacity that drops
+   tokens), the transport's cost per call, and the heartbeat (a probe over both ranks true, one that a
+   rank joins after twice the deadline false on the other). Every rank's
+   codes equal every other's, every rank's launch counts the run's (row
+   1 26 per step under TP and DP, 13 per stage and microbatch under PP;
+   ``qmm_int8`` 105 per forward under TP, 52 per stage plus the heads
+   under PP), PP at n_micro 1 gives the solo codes, and every other run's
+   first-frame TVD against the solo engine's stays within
+   ``PAR_TVD_LIMIT``, which every structural fault exceeds (the
+   rounding fault by ``PAR_TVD1_LIMIT`` at depth 1); each run prints its share of equal codes, ms/step
+   and prefill ms. Ranks sharing one card give no scaling figure.
    Quantization: a fresh flagship transformer (seed 421) runs the quality
    gate (``tools/quality_quant_torch.py``: 86 greedy frames, one
    teacher-forced prefill per mode, TVD and margin-weighted top-8 overlap,
@@ -156,12 +187,18 @@ Phases, each of which fails the run loudly:
    16 and fc1 at the prefill's M, beside its bound, the matmul on a
    dequantized bf16 copy and PR 12's time in brackets, and the int4-MLP
    step's 52 launches summed at each of those M; the
-   int8 hybrid step's 109 ``qmm_int8`` launches at M = 2 and 16 summed.
+   int8 hybrid step's 109 ``qmm_int8`` launches at M = 2 and 16 summed;
+   rows 1 and 3 at the parallel runs' rank-local shapes (TP 2 and TP 4
+   heads and a pipeline stage at their last step, the TP 2
+   continuation's prefill) and ``qmm_int8``'s 105 launches at TP 2's
+   widths at M = 2.
 
 Before them a ``{"graphs": ...}`` line gathers each path's eager and graph
 ms/step, bound, capture time and host reads, and a ``{"quantized": ...,
 "gate": ...}`` line the quantized paths' parameter bytes, memory peaks,
-quantize seconds, RTF and bounds, and every gate mode's measures. The second-to-last line is
+quantize seconds, RTF and bounds, and every gate mode's measures, and a
+``{"parallel": ...}`` line each parallel run's figures, the controls, the
+expert dispatch, the heartbeat and the transport. The second-to-last line is
 ``{"kernels": [...]}``, the line before it the card's name and power limit,
 and the last line
 ``{"ok": true, "device": {...}}``. Each kernel's ``launches`` in the
@@ -184,7 +221,10 @@ the solo path's launches, row 10 the pool's); ``qmm_int4`` and
 ``qmm_int4_m2_step`` the int4-MLP solo path's, ``qmm_int4_m16_step`` its
 pool's pooled steps', ``qmm_int4_m176_fc1`` one prefill's 26;
 ``qmm_int8_hybrid_m2_step`` the int8 hybrid's solo path's,
-``qmm_int8_hybrid_m16_step`` its fp32-state pool's pooled steps'. Without a
+``qmm_int8_hybrid_m16_step`` its fp32-state pool's pooled steps';
+``decode_attention_tp2``/``_tp4``/``_pp2``, ``prefill_attention_tp2`` and
+``qmm_int8_tp2_step`` rank 0's counts in the TP 2, TP 4, PP 2 (n_micro 1),
+TP 2 continuation and TP 2 int8 runs. Without a
 CUDA device, or without the rest of the repository beside it, the script
 exits non-zero and prints no result. It imports nothing of JAX.
 """
@@ -196,6 +236,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 
@@ -293,11 +334,14 @@ def randn(gen, *shape):
     return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
 
 
-def decode_inputs(gen, T, Bx=B):
-    return dict(q=randn(gen, Bx, 1, HQ, D), k_cache=randn(gen, L, Bx, T, W),
-                v_cache=randn(gen, L, Bx, T, W), k_stage=randn(gen, L, Bx, STAGE, W),
-                v_stage=randn(gen, L, Bx, STAGE, W), k_cur=randn(gen, Bx, W),
-                v_cur=randn(gen, Bx, W))
+def decode_inputs(gen, T, Bx=B, heads=(HQ, HKV), layers=L):
+    """Row 1's inputs: ``heads`` (query, kv) of head dim 64 (a tensor-parallel
+    rank's are fewer), a cache of ``layers`` layers (a pipeline stage's)."""
+    hq, w = heads[0], heads[1] * D
+    return dict(q=randn(gen, Bx, 1, hq, D), k_cache=randn(gen, layers, Bx, T, w),
+                v_cache=randn(gen, layers, Bx, T, w), k_stage=randn(gen, layers, Bx, STAGE, w),
+                v_stage=randn(gen, layers, Bx, STAGE, w), k_cur=randn(gen, Bx, w),
+                v_cur=randn(gen, Bx, w))
 
 
 def check_kernels() -> dict:
@@ -1271,7 +1315,8 @@ def run_continuation(pipe, ref, card: str) -> dict:
             "decode_ms_per_step": result.decode_seconds * 1e3 / steps, "generate_s": t_gen,
             "dac_ms": t_dac * 1e3, "rtf": new_s / total_s, "launches": launches,
             "graphs": graphs, "rvq": rvq, "dsp": dsp_errs, "embed_rel": embed_rel,
-            "latent_rel": lat_rel, "errors": errors}
+            "latent_rel": lat_rel, "errors": errors, "prefix_cond": prefix_cond,
+            "prefix_codes": codes}
     log(f"continuation prefill ({card}): S = {S} positions (cond_len {cond_len} + {lp} prefix "
         f"frames + 1) at offset 0 in a cache of T = {T}, B = {B}: {cont['prefill_ms']:.2f} ms "
         f"(host, the engine's prefill with the first frame); prefill_attention {L} launches")
@@ -1401,22 +1446,29 @@ def param_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
-def first_frame_logits(pipe, prefix, kv_int8: bool):
+def first_frame_logits(model, params, prefix, kv_int8: bool = False, audio_codes=None):
     """``[1, 9, 1152]`` fp32 logits of the first frame after the prefill, as
-    the engine's prefill computes them (input column: the MASK frame)."""
+    the engine's prefill computes them: the conditioning, then the audio
+    prefix's delayed frames (if any) and the MASK column."""
     import torch
 
+    from zonos_vibes_tpu_torch.engine.generate import _find_multiple
     from zonos_vibes_tpu_torch.ops.delay_pattern import apply_delay_pattern
     from zonos_vibes_tpu_torch.ops.rope import rope_table
 
-    model, cfg = pipe.model, pipe.model.config
+    cfg = model.config
+    lp = 0 if audio_codes is None else audio_codes.shape[-1]
     with torch.inference_mode():
-        codes = torch.full((1, cfg.num_codebooks, 1), -1, dtype=torch.long, device="cuda")
-        emb = model.embed_codes(pipe.params, apply_delay_pattern(codes, cfg.masked_token_id)[..., :1])
+        codes = torch.full((1, cfg.num_codebooks, lp + 1), -1, dtype=torch.long, device="cuda")
+        if lp:
+            codes[..., :lp] = audio_codes
+        delayed = apply_delay_pattern(codes, cfg.masked_token_id)
+        emb = model.embed_codes(params, delayed[..., :lp + 1])
         hidden = torch.cat([prefix, torch.cat([emb, emb]).to(prefix.dtype)], dim=1)
-        cache = model.allocate_cache(2, 512, prefix.dtype, "cuda", kv_int8)
-        rope = rope_table(cfg.backbone.head_dim, device="cuda")
-        return model.compute_logits(pipe.params, hidden, cache, 0, 2.0, rope)
+        cache = model.allocate_cache(2, _find_multiple(hidden.shape[1] + 16, 8), prefix.dtype,
+                                     "cuda", kv_int8)
+        return model.compute_logits(params, hidden, cache, 0, 2.0,
+                                    rope_table(cfg.backbone.head_dim, device="cuda"))
 
 
 def run_quantized_solo(pipe, prefix, label: str, prefill: dict, per_step: dict,
@@ -1500,7 +1552,7 @@ def run_int8_path(pipe, cond, card: str) -> dict:
     from zonos_vibes_tpu_torch.engine.generate import DecodeEngine
 
     prefix = pipe.prepare_conditioning(cond)
-    ref = first_frame_logits(pipe, prefix, kv_int8=False)
+    ref = first_frame_logits(pipe.model, pipe.params, prefix)
     bf16_bytes, bf16_alloc = param_bytes(pipe.params), torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     pipe.quantize_int8()
@@ -1511,7 +1563,7 @@ def run_int8_path(pipe, cond, card: str) -> dict:
     log(f"quantize_int8: {t_quant:.2f} s; Zonos parameters {bf16_bytes / 2**30:.3f} GiB bf16 -> "
         f"{int8_bytes / 2**30:.3f} GiB int8; memory_allocated {bf16_alloc / 2**30:.3f} -> "
         f"{int8_alloc / 2**30:.3f} GiB (with the DAC)")
-    got = first_frame_logits(pipe, prefix, kv_int8=True)
+    got = first_frame_logits(pipe.model, pipe.params, prefix, kv_int8=True)
     tvd = 0.5 * (torch.softmax(got, -1) - torch.softmax(ref, -1)).abs().sum(-1)  # [1, 9]
     mean_tvd = tvd.mean().item()
     log(f"int8 quality: first-frame next-token TVD bf16 vs int8, mean over 9 codebooks "
@@ -2486,12 +2538,12 @@ def _write_label(held) -> str:
             "stage not written as the plain splice writes it")
 
 
-def time_decode(gen, T, fe, sl, label, card, quant=False, Bx=B):
+def time_decode(gen, T, fe, sl, label, card, quant=False, Bx=B, heads=(HQ, HKV), layers=L):
     """Row 1 (row 5 with ``quant``: an int8 prefix) at one step's scalars,
-    layer 5 of the 26-layer cache, CFG batch ``Bx``, with its stage write:
-    kernel, plain version and SDPA over the gathered (dequantized) K/V.
-    Returns (ms, plain, library, bound, by, stage write held); the bound
-    counts the stage write's bytes."""
+    layer 5 of the ``layers``-layer cache, CFG batch ``Bx``, ``heads``
+    (query, kv), with its stage write: kernel, plain version and SDPA over
+    the gathered (dequantized) K/V. Returns (ms, plain, library, bound, by,
+    stage write held); the bound counts the stage write's bytes."""
     import torch
     import torch.nn.functional as F
 
@@ -2500,18 +2552,20 @@ def time_decode(gen, T, fe, sl, label, card, quant=False, Bx=B):
         decode_attention_layered_q_plain)
     from zonos_vibes_tpu_torch.ops.quant import dequantize_rows, quantize_rows
 
-    x = decode_inputs(gen, T, Bx)
+    hq, hkv = heads
+    w = hkv * D
+    x = decode_inputs(gen, T, Bx, heads, layers)
     sc = torch.tensor([fe, sl, 5], dtype=torch.int32, device="cuda")
     n = fe + sl + 1
     parts = {}
     for name in ("k", "v"):
         prefix = x[name + "_cache"][5, :, :fe]
         if quant:
-            x[name + "_cache"], x[name + "_scale"] = quantize_rows(x[name + "_cache"], HKV)
+            x[name + "_cache"], x[name + "_scale"] = quantize_rows(x[name + "_cache"], hkv)
             prefix = dequantize_rows(x[name + "_cache"][5, :, :fe],
                                      x[name + "_scale"][5, :, :fe]).to(torch.bfloat16)
         g = torch.cat([prefix, x[name + "_stage"][5, :, :sl], x[name + "_cur"][:, None]], 1)
-        parts[name] = g.view(Bx, n, HKV, D).transpose(1, 2).contiguous()
+        parts[name] = g.view(Bx, n, hkv, D).transpose(1, 2).contiguous()
     qg = x["q"].transpose(1, 2).contiguous()
     kernel, plain = ((decode_attention_layered_q, decode_attention_layered_q_plain) if quant
                      else (decode_attention_layered, decode_attention_layered_plain))
@@ -2521,11 +2575,12 @@ def time_decode(gen, T, fe, sl, label, card, quant=False, Bx=B):
     plain_ms = device_ms(lambda: plain(**x, scalars=sc), 20)
     lib = device_ms(lambda: F.scaled_dot_product_attention(qg, parts["k"], parts["v"],
                                                            enable_gqa=True), 200)
-    per_prefix = W + HKV * 4 if quant else W * 2
-    nbytes = (2 * Bx * fe * per_prefix + 2 * Bx * (sl + 1) * W * 2 + 2 * Bx * HQ * D * 2
-              + 2 * Bx * W * 2)
-    b, by = bound(nbytes, 4 * Bx * HQ * n * D)
-    log(f"time decode_attention{'_q' if quant else ''} {label} B={Bx} T={T} flushed_end={fe} "
+    per_prefix = w + hkv * 4 if quant else w * 2
+    nbytes = (2 * Bx * fe * per_prefix + 2 * Bx * (sl + 1) * w * 2 + 2 * Bx * hq * D * 2
+              + 2 * Bx * w * 2)
+    b, by = bound(nbytes, 4 * Bx * hq * n * D)
+    log(f"time decode_attention{'_q' if quant else ''} {label} B={Bx} Hq={hq} Hkv={hkv} "
+        f"L={layers} T={T} flushed_end={fe} "
         f"stage_len={sl} ({card}): kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
         f"{lib:.4f} (SDPA, {'dequantized ' if quant else ''}gathered K/V) bound_ms {b:.5f} ({by}); "
         f"kernel / SDPA {ms / lib:.2f}; {_write_label(held)}")
@@ -2622,30 +2677,33 @@ def time_qmm(gen, G, K, N, out_dtype, layers, Ms) -> dict:
     return out
 
 
-def time_qmm_steps(gen, card, Ms=(2, POOL_M)):
+def time_qmm_steps(gen, card, Ms=(2, POOL_M), projections=PROJECTIONS, heads_shape=HEADS_SHAPE,
+                   layers=L, label=""):
     """One forward's 105 ``qmm_int8`` launches at each M of ``Ms``: M = 2
     (the solo decode step) and M = 16 (the 8-slot pool's step), each shape
-    timed alone and summed over its launches. Returns ({M: {"ms", "plain",
-    "lib", "bound"}}, {(shape name, M): (kernel, plain, library, bound ms,
-    bound_by)})."""
+    timed alone and summed over its launches; ``projections`` and
+    ``heads_shape`` (a tensor-parallel rank's are narrower) over ``layers``
+    layers. Returns ({M: {"ms", "plain", "lib", "bound"}}, {(shape name,
+    M): (kernel, plain, library, bound ms, bound_by)})."""
     import torch
 
     step = {M: dict(ms=0.0, plain=0.0, lib=0.0, bound=0.0) for M in Ms}
     per_shape = {}
-    shapes = [(name, 1, k, n, torch.bfloat16, L) for name, (k, n) in PROJECTIONS.items()]
-    shapes.append(("heads", *HEADS_SHAPE, torch.float32, 1))
+    shapes = [(name, 1, k, n, torch.bfloat16, layers) for name, (k, n) in projections.items()]
+    shapes.append(("heads", *heads_shape, torch.float32, 1))
     for name, G, K, N, out_dtype, count in shapes:
         times = time_qmm(gen, G, K, N, out_dtype, count, tuple(step))
         for M, (ms, plain, lib, b, by) in times.items():
             per_shape[name, M] = times[M]
             for key, v in zip(("ms", "plain", "lib", "bound"), (ms, plain, lib, b)):
                 step[M][key] += count * v
-            log(f"time qmm_int8 {name} M={M} G={G} {K}x{N} ({card}): kernel_ms {ms:.5f} "
+            log(f"time qmm_int8{label} {name} M={M} G={G} {K}x{N} ({card}): kernel_ms {ms:.5f} "
                 f"plain_ms {plain:.4f} library_ms {lib:.5f} (matmul, bf16 weight) bound_ms "
                 f"{b:.5f} ({by})")
     for M, t in step.items():
-        label = "one decode step" if M <= 2 else f"one step at M={M}"
-        log(f"time qmm_int8 {label} (M={M}), 105 launches ({card}): kernel_ms {t['ms']:.4f} "
+        step_label = "one decode step" if M <= 2 else f"one step at M={M}"
+        log(f"time qmm_int8{label} {step_label} (M={M}), {4 * layers + 1} launches ({card}): "
+            f"kernel_ms {t['ms']:.4f} "
             f"plain_ms {t['plain']:.3f} library_ms {t['lib']:.4f} bound_ms {t['bound']:.4f}; "
             f"kernel / library {t['ms'] / t['lib']:.3f}")
     return step, per_shape
@@ -3739,6 +3797,721 @@ def time_quant_kernels(e2e4: dict, pool4: dict, e2eh: dict, poolh: dict, errors:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The parallel layer: zonos_vibes_tpu_torch/parallel/ at full width.
+# ---------------------------------------------------------------------------
+
+# Greedy decoding, so that codes compare position by position.
+PAR_GREEDY = {"temperature": 0.0}
+PAR_PG_TIMEOUT_S = 120  # every collective of the phase's process groups
+PAR_DEADLINE_S = 600  # a spawn's ranks all report within this, or are killed
+TP2_HEADS, TP4_HEADS = (HQ // 2, HKV // 2), (HQ // 4, HKV // 4)
+TP2_PROJECTIONS = {"in_proj": (2048, 1536), "out_proj": (1024, 2048), "fc1": (2048, 8192),
+                   "fc2": (4096, 2048)}
+TP2_HEADS_SHAPE = (9, 2048, 576)
+# TP 4 (four ranks) and the dense TP 2 continuation, whose roles are the
+# rank-local kernels' shapes and launch counts and the first frame, run
+# SHORT_FRAMES: a gloo rank's step under TP is bound by the host copies
+# of its 52 all-reduces, ~0.15 s at TP 2 and ~0.37 s at TP 4 on the
+# shared card.
+SHORT_FRAMES = 43
+
+
+class ParRun(NamedTuple):
+    label: str
+    mesh: tuple  # (data, model, pipe, expert)
+    int8: bool = False
+    n_micro: int = 1
+    sp: str | None = None
+    continuation: bool = False  # the clone + continuation's inputs
+    frames: int = AUDIO_FRAMES
+
+
+PAR_RUNS = (
+    ParRun("tp2", (1, 2, 1, 1)),
+    ParRun("tp2_int8", (1, 2, 1, 1), int8=True),
+    ParRun("dp2", (2, 1, 1, 1)),
+    ParRun("pp2", (1, 1, 2, 1)),
+    ParRun("pp2_micro2", (1, 1, 2, 1), n_micro=2),
+    ParRun("pp2_int8", (1, 1, 2, 1), int8=True),
+    ParRun("tp2_continuation", (1, 2, 1, 1), continuation=True, frames=SHORT_FRAMES),
+    ParRun("sp2_ring", (1, 2, 1, 1), sp="ring", continuation=True),
+    ParRun("sp2_ulysses", (1, 2, 1, 1), sp="ulysses", continuation=True),
+    ParRun("tp4", (1, 4, 1, 1), frames=SHORT_FRAMES),
+)
+# Spawns that run at once, batch after batch: (ranks, runs, the expert
+# dispatch, transport and heartbeat checks). One TP 2 run of full length
+# per spawn; the cheap runs beside them.
+PAR_BATCHES = (
+    ((2, ("tp2", "pp2_micro2"), False), (2, ("tp2_int8", "dp2", "pp2"), False),
+     (2, ("sp2_ring", "pp2_int8"), False), (2, ("sp2_ulysses", "tp2_continuation"), False)),
+    ((4, ("tp4",), False),),
+    ((2, (), True),),  # alone, so that the transport's times are its own
+)
+# Runs whose ranks do the single card's work in its order: their codes must
+# equal the solo engine's.
+PAR_EXACT = ("pp2", "pp2_int8")
+# First-frame logits of a run against the solo engine's on the same weights
+# and inputs: mean over the 9 codebooks of the next-token distributions'
+# total-variation distance. Through 26 layers the random-weight model moves
+# that far for any perturbation of rounding size: sound runs read
+# 0.0123-0.0137, the solo engine on conditioning nudged by about one bf16
+# step 0.0144 (the phase's control), TP 2 with its partials rounded twice
+# 0.0135. The limit lies between those and the structural faults planted in
+# TP 2 (``PAR_FAULTS``: 0.298 and 0.376), which the phase requires above
+# it. With the first layer alone (depth 1) the sound TP 2 engine read 0 and
+# the rounding fault 0.00174: ``PAR_TVD1_LIMIT`` separates them, and every
+# fault must exceed it. Readings: NVIDIA H100 80GB HBM3, 700 W, PERF.md.
+PAR_TVD_LIMIT = 0.05
+PAR_TVD1_LIMIT = 5e-4
+PAR_FAULTS = ("double_rounding", "contiguous_in_proj", "dropped_out_proj")
+PAR_ROUNDING_FAULTS = ("double_rounding",)  # below PAR_TVD_LIMIT through 26 layers
+EP_TOKENS, EP_TOL = 512, 1e-3  # fp32 tokens and experts, TF32 off
+
+
+def _tvd(a, b) -> float:
+    """Mean over rows of the total-variation distance between the softmaxes
+    of two logit arrays (tensors or numpy)."""
+    import torch
+
+    a, b = (torch.as_tensor(x).float() for x in (a, b))
+    return (0.5 * (torch.softmax(a, -1) - torch.softmax(b, -1)).abs().sum(-1)).mean().item()
+
+
+def par_want(run: ParRun, steps: int) -> dict:
+    """A rank's launch counts for a run of ``steps`` decode steps."""
+    from zonos_vibes_tpu_torch.ops.cuda import build
+
+    stage = L // run.mesh[2]
+    want = dict.fromkeys(build.LAUNCHES, 0)
+    want["decode_attention"] = stage * run.n_micro * steps
+    want["prefill_attention"] = 0 if run.sp else stage * run.n_micro
+    if run.int8:  # 4 projections per layer and microbatch, the heads once, per forward
+        want["qmm_int8"] = (4 * stage * run.n_micro + 1) * (steps + 1)
+    return want
+
+
+def _par_engine(model, params, run: ParRun):
+    from zonos_vibes_tpu_torch.config import MeshConfig
+    from zonos_vibes_tpu_torch.parallel.engine import ParallelEngine, PipelineEngine
+
+    if run.mesh[2] > 1:
+        return PipelineEngine(model, MeshConfig(*run.mesh), params, n_micro=run.n_micro)
+    return ParallelEngine(model, MeshConfig(*run.mesh), params, sp_prefill=run.sp)
+
+
+def _par_generate(eng, prefix, codes_in, frames: int = AUDIO_FRAMES):
+    """A counted greedy run of ``frames`` frames after an 8-frame warm-up;
+    returns the result, the launch counts and the first-frame logits."""
+    import torch
+
+    from zonos_vibes_tpu_torch.ops.cuda import build
+
+    eng.generate(prefix, codes_in, generator=torch.Generator("cuda").manual_seed(1),
+                 max_new_tokens=8, sampling_params=PAR_GREEDY, disable_eos=True)
+    logits = first_frame_logits(eng.model, eng.params, prefix, audio_codes=codes_in)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    res = eng.generate(prefix, codes_in, generator=torch.Generator("cuda").manual_seed(421),
+                       max_new_tokens=frames, sampling_params=PAR_GREEDY, disable_eos=True)
+    torch.cuda.synchronize()
+    return res, dict(build.LAUNCHES), logits
+
+
+def _ep_check(rank: int) -> dict:
+    """``expert_dispatch`` over 2 experts at D = 2048 against the dense
+    product per token; then a capacity that drops tokens, which must pass
+    through unchanged."""
+    import torch
+
+    from zonos_vibes_tpu_torch.config import MeshConfig
+    from zonos_vibes_tpu_torch.parallel.comm import Comm
+    from zonos_vibes_tpu_torch.parallel.expert_parallel import expert_dispatch
+    from zonos_vibes_tpu_torch.parallel.sharding import make_mesh
+
+    comm = Comm(make_mesh(MeshConfig(expert=2), "cuda").get_group("expert"))
+    gen = torch.Generator("cuda").manual_seed(31)
+    tokens = torch.randn(EP_TOKENS, 2048, generator=gen, device="cuda")
+    router = torch.randn(EP_TOKENS, 2, generator=gen, device="cuda")
+    w = torch.randn(2, 2048, 2048, generator=gen, device="cuda") / 2048 ** 0.5
+
+    def expert(p, x):
+        return x @ p["w"]
+
+    out = expert_dispatch(expert, {"w": w[rank]}, tokens, router, comm)
+    choice = router.argmax(-1)
+    ref = torch.empty_like(tokens)
+    for e in range(2):
+        ref[choice == e] = tokens[choice == e] @ w[e]
+    err = (out.float() - ref.float()).abs().max().item()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        expert_dispatch(expert, {"w": w[rank]}, tokens, router, comm)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 100
+    # Capacity 64: 32 slots per (source rank, expert); the rest pass through.
+    small = expert_dispatch(expert, {"w": w[rank]}, tokens, router, comm, capacity=64)
+    half = EP_TOKENS // 2
+    keep = torch.zeros(EP_TOKENS, dtype=torch.bool, device="cuda")
+    for src in range(2):
+        rows = torch.arange(src * half, (src + 1) * half, device="cuda")
+        for e in range(2):
+            keep[rows[choice[rows] == e][:32]] = True
+    passed = torch.equal(small[~keep], tokens[~keep])
+    kept_err = (small[keep].float() - ref[keep].float()).abs().max().item()
+    return {"max_abs_err": max(err, kept_err), "ms_per_dispatch": ms, "kept": int(keep.sum()),
+            "dropped_unchanged": bool(passed)}
+
+
+def _transport(rank: int) -> dict:
+    """What one decode step's collectives cost between two gloo ranks on the
+    card through ``parallel/comm.py``, host clock per call over 200 calls:
+    the all-reduce of one row-parallel partial (CFG batch 2 x 2048 fp32, on
+    the card through gloo's own CUDA path) and a pipeline hand-off of one
+    hidden state (2 x 2048 bf16, through a host copy)."""
+    import torch
+    import torch.distributed as dist
+
+    from zonos_vibes_tpu_torch.parallel.comm import Comm
+
+    comm = Comm(dist.group.WORLD)
+    x = torch.ones(2, 1, 2048, device="cuda")
+    h = torch.ones(2, 1, 2048, device="cuda", dtype=torch.bfloat16)
+    out = {}
+    for name, fn in (("all_reduce_us", lambda: comm.all_reduce_(x)),
+                     ("send_recv_us", lambda: comm.send(h, 1) if rank == 0 else comm.recv_(h, 0))):
+        for _ in range(20):
+            fn()
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) / 200 * 1e6
+    return out
+
+
+def _heartbeat(rank: int, timeout_s: float = 2.0) -> list[bool]:
+    """A probe over both ranks; one that rank 1 joins only after twice the
+    deadline (rank 0's must return False); one together again."""
+    import torch.distributed as dist
+
+    from zonos_vibes_tpu_torch.parallel.multihost import Heartbeat
+
+    hb = Heartbeat(timeout_s=timeout_s)
+    results = [hb.probe()]
+    if rank == 1:
+        time.sleep(2 * timeout_s)
+        results.append(hb.probe())
+    else:
+        results.append(hb.probe())
+        time.sleep(3 * timeout_s)
+    dist.barrier()
+    results.append(hb.probe())
+    return results
+
+
+def _planted(eng, fault: str | None, full_params: dict):
+    """Plant ``fault`` in a tensor-parallel engine's rank; returns what
+    removes it. ``double_rounding``: the row-parallel partials rounded to
+    bf16 before the sum, which rounds again; ``dropped_out_proj``: rank 1's
+    out_proj partial left out of every layer's sum; ``contiguous_in_proj``:
+    JAX's ``P(None, None, MODEL)`` copied, a contiguous run of the fused q |
+    k | v columns where the rank's q, k and v heads belong."""
+    import itertools
+
+    import torch
+
+    bb, axis = eng.model.local_backbone, eng.model_axis
+    layers = eng.params["backbone"]["layers"]
+    reduce, in_proj = bb.reduce, layers["in_proj"]
+    if fault == "double_rounding":
+        bb.reduce = lambda t: axis.all_reduce_(t.to(torch.bfloat16).float())
+    elif fault == "dropped_out_proj":
+        calls = itertools.count()  # out_proj, then fc2, layer after layer
+
+        def dropped(t):
+            if next(calls) % 2 == 0 and axis.rank == 1:
+                t.zero_()
+            return axis.all_reduce_(t)
+
+        bb.reduce = dropped
+    elif fault == "contiguous_in_proj":
+        w = full_params["backbone"]["layers"]["in_proj"]
+        n = w["weight"].shape[-1] // axis.size
+        layers["in_proj"] = {k: t[..., axis.rank * n: (axis.rank + 1) * n].contiguous()
+                             for k, t in w.items()}
+    elif fault is not None:
+        raise ValueError(fault)
+
+    def remove():
+        bb.reduce = reduce
+        layers["in_proj"] = in_proj
+
+    return remove
+
+
+def _tp_controls(params: dict, prefix) -> dict:
+    """The TVD limits' controls: a sound TP 2 engine's first-frame TVD
+    against the solo engine's, and each of ``PAR_FAULTS`` planted in it
+    (:func:`_planted`), through the same comparison as the parallel runs,
+    with the flagship's first layer alone (``depth1``) and with all 26."""
+    import dataclasses
+
+    from zonos_vibes_tpu_torch.config import ZONOS_V01_TRANSFORMER, MeshConfig
+    from zonos_vibes_tpu_torch.models.zonos import ZonosModel
+    from zonos_vibes_tpu_torch.parallel.engine import ParallelEngine
+
+    out = {}
+    for depth in (1, L):
+        cfg = ZONOS_V01_TRANSFORMER
+        cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(cfg.backbone, n_layer=depth))
+        layers = {name: {k: t[:depth] for k, t in leaf.items()}
+                  for name, leaf in params["backbone"]["layers"].items()}
+        p = {**params, "backbone": {**params["backbone"], "layers": layers}}
+        model = ZonosModel(cfg)
+        solo = first_frame_logits(model, p, prefix)
+        eng = ParallelEngine(model, MeshConfig(model=2), p)
+        for fault in (None, *PAR_FAULTS):
+            remove = _planted(eng, fault, p)
+            logits = first_frame_logits(eng.model, eng.params, prefix)
+            remove()
+            out[f"{fault or 'sound'}_depth{depth}"] = {
+                "tvd": _tvd(logits, solo), "max_abs_diff": (logits - solo).abs().max().item()}
+        del eng
+    return out
+
+
+def parallel_jobs(rank: int, world: int, jobs: dict) -> dict:
+    """One gloo rank's share of the phase (module docstring, phase 3). The
+    parent's bf16 and int8 trees arrive as CUDA tensors shared with it
+    (``torch.multiprocessing``'s inter-process handles): every rank reads
+    the main path's weights themselves and holds only its own slices."""
+    import gc
+
+    import torch
+
+    from zonos_vibes_tpu_torch.config import ZONOS_V01_TRANSFORMER
+    from zonos_vibes_tpu_torch.models.zonos import ZonosModel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    model = ZonosModel(ZONOS_V01_TRANSFORMER)
+    for run in jobs["runs"]:
+        prefix = (jobs["cont_prefix"] if run.continuation else jobs["prefix"]).cuda()
+        codes_in = jobs["cont_codes"].cuda() if run.continuation else None
+        eng = _par_engine(model, jobs["params8" if run.int8 else "params"], run)
+        res, launches, logits = _par_generate(eng, prefix, codes_in, run.frames)
+        # numpy, pickled by value: a tensor would be shared through this
+        # process, which may have exited when the parent reads the queue.
+        out[run.label] = {"codes": res.codes.cpu().numpy(), "logits": logits.cpu().numpy(),
+                       "steps": res.steps,
+                       "valid": res.valid_length, "prefill_ms": res.prefill_seconds * 1e3,
+                       "ms_per_step": res.decode_seconds * 1e3 / res.steps,
+                       "launches": launches}
+        del eng, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    if jobs.get("extras"):
+        out["controls"] = _tp_controls(jobs["params"], jobs["prefix"].cuda())
+        out["transport"] = _transport(rank)
+        out["ep"] = _ep_check(rank)
+        out["heartbeat"] = _heartbeat(rank)
+    return out
+
+
+def parallel_rank(rank: int, world: int, store_path: str, jobs: dict, out) -> None:
+    """A spawned gloo rank on cuda:0 (the phase's ranks share the card)."""
+    import datetime
+    import traceback
+
+    try:
+        import torch
+        import torch.distributed as dist
+
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", store=dist.FileStore(store_path, world), rank=rank,
+                                world_size=world,
+                                timeout=datetime.timedelta(seconds=PAR_PG_TIMEOUT_S))
+        try:
+            out.put((rank, "ok", parallel_jobs(rank, world, jobs)))
+        finally:
+            dist.destroy_process_group()
+    except Exception:  # noqa: BLE001 (the parent fails the run with this traceback)
+        out.put((rank, "error", traceback.format_exc()))
+
+
+class RankSpawn:
+    """``world`` gloo ranks of :func:`parallel_rank` on the card, started at
+    construction; :meth:`results` joins them under the deadline (killing any
+    past it) and returns their results in rank order. A rank's error fails
+    the run. Several spawns run at once: the ranks' eager steps are bound
+    by their host's launches and gloo's transfers, not by the card."""
+
+    def __init__(self, world: int, jobs: dict):
+        import multiprocessing as mp
+        import tempfile
+
+        ctx = mp.get_context("spawn")
+        self.world = world
+        self.out = ctx.Queue()
+        self.tmp = tempfile.TemporaryDirectory(dir=ROOT / "build")
+        store = str(Path(self.tmp.name) / "store")
+        self.procs = [ctx.Process(target=parallel_rank, args=(r, world, store, jobs, self.out))
+                      for r in range(world)]
+        self.t0 = time.perf_counter()
+        for p in self.procs:
+            p.start()
+
+    def results(self) -> list[dict]:
+        import queue
+
+        results, errors = {}, []
+        deadline = time.monotonic() + PAR_DEADLINE_S
+        try:
+            while len(results) + len(errors) < self.world and time.monotonic() < deadline:
+                try:
+                    rank, status, value = self.out.get(timeout=1.0)
+                except queue.Empty:
+                    if not any(p.is_alive() for p in self.procs):
+                        break
+                    continue
+                if status == "ok":
+                    results[rank] = value
+                else:
+                    errors.append(f"rank {rank}:\n{value}")
+        finally:
+            for p in self.procs:
+                p.join(timeout=30 if len(results) == self.world else 1)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+            self.tmp.cleanup()
+        self.seconds = time.perf_counter() - self.t0
+        if errors or len(results) < self.world:
+            raise AssertionError(f"parallel ranks failed ({len(results)} of {self.world} "
+                                 f"reported): " + "\n".join(errors))
+        return [results[r] for r in range(self.world)]
+
+
+def check_parallel_kernels() -> dict:
+    """Phase 2 at the rank-local shapes the parallel layer gives rows 1, 3 and
+    4: decode attention with 16/4 (TP 2) and 8/2 (TP 4) heads at CFG batch 2
+    and 1 (a data rank's) over 528 and 960 positions, and with a pipeline
+    stage's 13-layer cache; the prefill at 16/4 and 8/2 heads at the main
+    path's S = 88 and the continuation's S = 519 (T = 960, NaN past S);
+    ``qmm_int8`` at TP 2's widths (in_proj N = 1536, out_proj K = 1024, fc1
+    N = 8192, fc2 K = 4096, heads 9 x 576) at M = 1, 2 and 176."""
+    import torch
+
+    from zonos_vibes_tpu_torch.ops import quant
+    from zonos_vibes_tpu_torch.ops.cuda.decode_attention import (
+        decode_attention_layered, decode_attention_layered_plain)
+    from zonos_vibes_tpu_torch.ops.cuda.qmm import qmm_int8, qmm_int8_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    err, cases = {}, {}
+    for name, heads, layers, batches in (("decode_attention_tp2", TP2_HEADS, L, (2, 1)),
+                                         ("decode_attention_tp4", TP4_HEADS, L, (2, 1)),
+                                         ("decode_attention_pp2", (HQ, HKV), L // 2, (2, 1))):
+        worst, n = 0.0, 0
+        for Bx in batches:
+            for T, fe, sl in ((528, 472, 54), (960, 904, 54), (960, 0, 0)):
+                x = decode_inputs(gen, T, Bx, heads, layers)
+                for layer in (0, layers - 1):
+                    sc = torch.tensor([fe, sl, layer], dtype=torch.int32, device="cuda")
+                    want = decode_attention_layered_plain(**x, scalars=sc).float()
+                    got = decode_attention_layered(**x, scalars=sc).float()
+                    e = (got - want).abs().max().item()
+                    if not torch.isfinite(got).all() or e > TOL:
+                        raise AssertionError(f"{name} B={Bx} T={T} fe={fe} sl={sl} l={layer}: "
+                                             f"err {e}")
+                    worst, n = max(worst, e), n + 1
+        err[name], cases[name] = worst, n
+    log(f"kernel decode_attention at rank-local shapes (16/4 heads, 8/2 heads, a 13-layer stage; "
+        f"B 2 and 1; T 528/960): {cases} cases, max_abs_err "
+        f"{ {k: f'{v:.3e}' for k, v in err.items()} } <= {TOL}")
+    e_pre = 0.0
+    for heads in (TP2_HEADS, TP4_HEADS):
+        for S, T in ((88, 528), (519, 960)):
+            e_pre = max(e_pre, check_prefill_case(gen, B, S, 0, T, *heads, D))
+    err["prefill_attention_tp2"] = e_pre
+    log(f"kernel prefill_attention at 16/4 and 8/2 heads, B={B}, S 88 (T 528) and 519 (T 960), "
+        f"offset 0, NaN past S: max_abs_err {e_pre:.3e} <= {TOL}")
+    worst, n = 0.0, 0
+    shapes = [(nm, 1, k, n_, torch.bfloat16) for nm, (k, n_) in TP2_PROJECTIONS.items()]
+    shapes.append(("heads", *TP2_HEADS_SHAPE, torch.float32))
+    for nm, G, K, N, out_dtype in shapes:
+        wq = quant.quantize_weight(randn(gen, G, K, N) / K ** 0.5)
+        for M in (1, 2, 176):
+            x = randn(gen, M, K)
+            for dt in (out_dtype, torch.float32):  # fp32: a row-parallel partial
+                got = qmm_int8(x, wq["weight_int8"], wq["scale"], dt)
+                want = qmm_int8_plain(x, wq["weight_int8"], wq["scale"], dt)
+                rt, at = QMM_TOL["fp32" if dt == torch.float32 else "bf16"]
+                diff = (got.float() - want.float()).abs()
+                if not torch.isfinite(got).all() or (diff > at + rt * want.float().abs()).any():
+                    raise AssertionError(f"qmm_int8 TP 2 {nm} M={M} {dt}: max |err| "
+                                         f"{diff.max().item()}")
+                worst, n = max(worst, diff.max().item()), n + 1
+    err["qmm_int8_tp2_step"] = worst
+    log(f"kernel qmm_int8 at TP 2's widths: {n} cases (in_proj/out_proj/fc1/fc2 bf16 and fp32 "
+        f"out, 9 heads x 576 fp32; M 1/2/176) max_abs_err {worst:.3e} within {QMM_TOL}")
+    return err
+
+
+def parallel_refs(pipe, prefix, cont_prefix, cont_codes) -> tuple[dict, dict]:
+    """The solo engine's greedy runs the parallel runs are held against, on
+    the main path's bf16 weights and their int8 tree: codes and first-frame
+    logits of the text path (bf16, int8 weights) and of the clone +
+    continuation (bf16), and a control (the first frame of slightly nudged
+    conditioning). Returns them and the int8 tree."""
+    import numpy as np
+    import torch
+
+    from zonos_vibes_tpu_torch.engine.generate import DecodeEngine
+    from zonos_vibes_tpu_torch.ops.quant import quantize_zonos_params
+
+    params8 = quantize_zonos_params(pipe.params)
+    refs = {}
+    for key, params, pre, codes_in in (("bf16", pipe.params, prefix, None),
+                                       ("int8", params8, prefix, None),
+                                       ("continuation", pipe.params, cont_prefix, cont_codes)):
+        eng = DecodeEngine(pipe.model)
+        res = eng.generate(params, pre, codes_in,
+                           generator=torch.Generator("cuda").manual_seed(421),
+                           max_new_tokens=AUDIO_FRAMES, sampling_params=PAR_GREEDY,
+                           disable_eos=True)
+        refs[key] = {"codes": res.codes.cpu().numpy(),
+                     "logits": first_frame_logits(pipe.model, params, pre,
+                                                  audio_codes=codes_in).cpu().numpy(),
+                     "ms_per_step": (res.decode_seconds - res.capture_seconds) * 1e3 / res.steps,
+                     "prefill_ms": res.prefill_seconds * 1e3}
+    # A control for the bound: the same first frame with the conditioning
+    # scaled by 1 + 2^-7, about one bf16 step.
+    nudged = first_frame_logits(pipe.model, pipe.params,
+                                (prefix.float() * (1 + 2 ** -7)).to(prefix.dtype)).cpu().numpy()
+    refs["control_tvd"] = _tvd(nudged, refs["bf16"]["logits"])
+    refs["control_max_abs_diff"] = float(np.abs(nudged - refs["bf16"]["logits"]).max())
+    return refs, params8
+
+
+def run_parallel_nccl(pipe, prefix, params8, refs, card: str) -> dict:
+    """(a) One NCCL rank on cuda:0 with CUDA graphs: ``ParallelEngine(MeshConfig())``
+    on the bf16 and int8 trees, codes equal to the solo engine's, the step
+    (its all-gathers of the logits included) captured and replayed."""
+    import datetime
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from zonos_vibes_tpu_torch.config import MeshConfig
+    from zonos_vibes_tpu_torch.parallel.engine import ParallelEngine
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=PAR_PG_TIMEOUT_S),
+                            device_id=torch.device("cuda", 0))
+    out = {}
+    try:
+        for key, params in (("bf16", pipe.params), ("int8", params8)):
+            eng = ParallelEngine(pipe.model, MeshConfig(), params)
+            run = ParRun(key, (1, 1, 1, 1), int8=key == "int8")
+            res, launches, logits = _par_generate(eng, prefix, None)
+            want = par_want(run, res.steps)
+            equal = np.array_equal(res.codes.cpu().numpy(), refs[key]["codes"])
+            if not equal or launches != want or res.replays != res.steps - 1:
+                raise AssertionError(f"parallel nccl {key}: codes equal {equal}, launches "
+                                     f"{launches} (expected {want}), replays {res.replays}")
+            out[key] = {"codes_equal": equal, "first_frame_tvd": _tvd(logits.cpu(),
+                                                                       refs[key]["logits"]),
+                        "ms_per_step": (res.decode_seconds - res.capture_seconds) * 1e3
+                        / res.steps, "solo_ms_per_step": refs[key]["ms_per_step"],
+                        "capture_ms": res.capture_seconds * 1e3,
+                        "prefill_ms": res.prefill_seconds * 1e3, "launches": launches}
+            log(f"parallel nccl {key} ({card}): ParallelEngine(MeshConfig()) on one NCCL rank, "
+                f"graphs on: codes equal to the solo engine's over {AUDIO_FRAMES} frames; "
+                f"{out[key]['ms_per_step']:.3f} ms/step (solo {refs[key]['ms_per_step']:.3f}), "
+                f"capture {out[key]['capture_ms']:.1f} ms, {res.replays} replays; launches "
+                f"{launches}")
+            del eng, res
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def run_parallel(pipe, cond, cont: dict, card: str) -> dict:
+    """Phase 3, the parallel layer on the main path's weights: (a) one NCCL
+    rank with graphs; (b) gloo ranks sharing the card: ``PAR_BATCHES`` of
+    concurrent spawns running the runs of ``PAR_RUNS``, the expert
+    dispatch, the transport's cost and the heartbeat. Every rank's codes
+    must equal every other's, each rank's launch counts the run's
+    (:func:`par_want`), the ``PAR_EXACT`` runs' codes the solo engine's, and
+    every other run's first-frame TVD against the solo engine's at most
+    ``PAR_TVD_LIMIT``; the planted faults of :func:`_tp_controls` must read
+    above the limits (module docstring). Every run is logged before a failed check fails the
+    phase. Processes sharing one card's SMs give no scaling figure."""
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    prefix = pipe.prepare_conditioning(cond)
+    cont_prefix, cont_codes = cont["prefix_cond"], cont["prefix_codes"]
+    refs, params8 = parallel_refs(pipe, prefix, cont_prefix, cont_codes)
+    log(f"parallel control ({card}): the solo engine's first-frame TVD after rounding the "
+        f"conditioning one bf16 step up {refs['control_tvd']:.2e}, max |logit diff| "
+        f"{refs['control_max_abs_diff']:.3e}")
+    nccl = run_parallel_nccl(pipe, prefix, params8, refs, card)
+    torch.cuda.empty_cache()
+    # The ranks map the trees in place: they must outlive every spawn.
+    jobs = {"prefix": prefix.cpu(), "cont_prefix": cont_prefix.cpu(),
+            "cont_codes": cont_codes.cpu(), "params": pipe.params, "params8": params8}
+    table = {run.label: run for run in PAR_RUNS}
+    ranks, spawn_s = {}, []
+    for batch in PAR_BATCHES:
+        spawns = [(labels, RankSpawn(world, {**jobs, "runs": [table[x] for x in labels],
+                                              "extras": extras}))
+                  for world, labels, extras in batch]
+        for labels, spawn in spawns:
+            got = spawn.results()
+            spawn_s.append((spawn.world, labels, round(spawn.seconds, 1)))
+            for label in labels:
+                ranks[label] = [r[label] for r in got]
+            if got[0].get("ep") is not None:
+                extras_out = got
+    del jobs, params8
+    torch.cuda.empty_cache()
+    runs, failures = {}, []
+    for label, run in table.items():
+        ref = refs["continuation" if run.continuation else "int8" if run.int8 else "bf16"]
+        r0 = ranks[label][0]
+        for r, got in enumerate(ranks[label]):
+            if not np.array_equal(got["codes"], r0["codes"]):
+                failures.append(f"{label}: rank {r}'s codes differ from rank 0's")
+            want = par_want(run, got["steps"])
+            if got["launches"] != want:
+                failures.append(f"{label} rank {r}: launches {got['launches']}, expected {want}")
+        # The frames after the audio prefix; a short run against the solo
+        # run's first frames.
+        start = cont["lp"] if run.continuation else 0
+        codes = r0["codes"][..., start:]
+        want_codes = ref["codes"][..., start: start + run.frames]
+        if (codes.shape != (1, 9, run.frames) or int(codes.min()) < 0
+                or int(codes.max()) > 1023):
+            failures.append(f"{label}: codes {tuple(codes.shape)} out of range")
+        share = float((codes == want_codes).mean())
+        tvd = _tvd(r0["logits"], ref["logits"])
+        diff = float(np.abs(r0["logits"] - ref["logits"]).max())
+        if label in PAR_EXACT and share != 1.0:
+            failures.append(f"{label}: codes differ from the solo engine's (equal share {share})")
+        if tvd > PAR_TVD_LIMIT:
+            failures.append(f"{label}: first-frame TVD {tvd} > {PAR_TVD_LIMIT}")
+        world = len(ranks[label])
+        runs[label] = {**run._asdict(), "ranks": world, "codes_equal_share": share,
+                       "first_frame_tvd": tvd, "first_frame_max_abs_diff": diff,
+                       "ms_per_step": r0["ms_per_step"], "prefill_ms": r0["prefill_ms"],
+                       "solo_prefill_ms": ref["prefill_ms"], "launches": r0["launches"]}
+        log(f"parallel {label} ({card}; {world} gloo ranks share the card: no scaling figure): "
+            f"mesh {run.mesh}, {'int8' if run.int8 else 'bf16'}, n_micro {run.n_micro}, sp "
+            f"{run.sp}; {run.frames} frames; greedy codes equal to the solo engine's at "
+            f"{share:.4f} of {codes.size}; first-frame TVD {tvd:.2e} (limit {PAR_TVD_LIMIT}), "
+            f"max |logit diff| {diff:.3e}; {r0['ms_per_step']:.3f} ms/step eager, prefill "
+            f"{r0['prefill_ms']:.1f} ms (solo {ref['prefill_ms']:.1f}); launches per rank "
+            f"{r0['launches']}")
+    controls = extras_out[0]["controls"]
+    for fault in (None, *PAR_FAULTS):
+        for depth, limit in ((1, PAR_TVD1_LIMIT), (L, PAR_TVD_LIMIT)):
+            tvd = controls[f"{fault or 'sound'}_depth{depth}"]["tvd"]
+            if fault is None and tvd > limit:
+                failures.append(f"control: sound TP 2 at depth {depth}: TVD {tvd} > {limit}")
+            elif (fault is not None and tvd <= limit
+                  and (depth == 1 or fault not in PAR_ROUNDING_FAULTS)):
+                failures.append(f"control: {fault} at depth {depth} passes: TVD {tvd} <= {limit}")
+    log(f"parallel controls ({card}): TP 2's first-frame TVD (max |logit diff|) against the "
+        f"solo engine's, sound and with each fault planted, at depth 1 (limit {PAR_TVD1_LIMIT}, "
+        f"every fault above) and 26 (limit {PAR_TVD_LIMIT}, the structural faults above): "
+        + "; ".join(f"{k} {v['tvd']:.4e} ({v['max_abs_diff']:.3e})"
+                    for k, v in controls.items()))
+    ep = [r["ep"] for r in extras_out]
+    hb = [r["heartbeat"] for r in extras_out]
+    transport = extras_out[0]["transport"]
+    if any(e["max_abs_err"] > EP_TOL or not e["dropped_unchanged"] for e in ep):
+        failures.append(f"expert_dispatch: {ep}")
+    if hb != [[True, False, True], [True, True, True]]:
+        failures.append(f"heartbeat probes {hb}, expected [[True, False, True], "
+                        f"[True, True, True]]")
+    log(f"parallel ep ({card}): expert_dispatch over 2 experts, {EP_TOKENS} fp32 tokens x 2048, "
+        f"max |err| vs the dense per-token product {max(e['max_abs_err'] for e in ep):.3e} "
+        f"(limit {EP_TOL}); capacity 64: {ep[0]['kept']} kept, the rest unchanged "
+        f"{all(e['dropped_unchanged'] for e in ep)}; {ep[0]['ms_per_dispatch']:.2f} ms per "
+        f"dispatch")
+    log(f"parallel heartbeat ({card}): probes per rank {hb} (rank 1 joined the second only "
+        f"after twice the 2 s deadline)")
+    log(f"parallel transport ({card}): gloo between two ranks on the card through "
+        f"parallel/comm.py, per call: all-reduce of 2 x 2048 fp32 on the card (gloo's own CUDA "
+        f"path) {transport['all_reduce_us']:.1f} us; hand-off of 2 x 2048 bf16 through a host "
+        f"copy {transport['send_recv_us']:.1f} us")
+    seconds = time.perf_counter() - t_phase
+    log(f"parallel phase: {seconds:.1f} s; spawns (ranks, runs, s): {spawn_s}")
+    if failures:
+        raise AssertionError("parallel phase: " + "; ".join(failures))
+    return {"nccl": nccl, "runs": runs, "ep": ep[0], "heartbeat": hb, "transport": transport,
+            "seconds": seconds, "tvd_limit": PAR_TVD_LIMIT, "tvd1_limit": PAR_TVD1_LIMIT,
+            "control_tvd": refs["control_tvd"], "controls": controls,
+            "cond_len": prefix.shape[1], "cont_S": cont["S"], "cont_T": cont["T"],
+            "note": "ranks share one card's SMs: no scaling figure"}
+
+
+def time_parallel_kernels(par: dict, errors: dict, card: str) -> list[dict]:
+    """Phase 4, rows 1, 3 and 4 at the parallel runs' rank-local shapes: the
+    last decode step of the TP 2, TP 4 and pipeline-stage runs, the TP 2
+    continuation's prefill (S = 519, T = 960, 16/4 heads), and the TP 2
+    int8 step's 105 ``qmm_int8`` launches at M = 2."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    runs = par["runs"]
+    rows = []
+    T, fe, sl = main_path_decode_step(par["cond_len"], runs["tp2"]["launches"]["decode_attention"]
+                                      // L)
+    for name, heads, layers, run in (("decode_attention_tp2", TP2_HEADS, L, "tp2"),
+                                     ("decode_attention_tp4", TP4_HEADS, L, "tp4"),
+                                     ("decode_attention_pp2", (HQ, HKV), L // 2, "pp2")):
+        ms, plain, lib, b, by, held = time_decode(gen, T, fe, sl, f"{run} last step", card,
+                                                  heads=heads, layers=layers)
+        require_stage_write(name, held)
+        rows.append(dict(name=name, route="cuda",
+                         source="zonos_vibes_tpu_torch/csrc/decode_attention.cu",
+                         replaces="zonos_vibes_tpu/ops/pallas/decode_attention.py:253",
+                         launches=runs[run]["launches"]["decode_attention"],
+                         max_abs_err=errors[name], ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                         library_ms=lib))
+    S, T = par["cont_S"], par["cont_T"]
+    ms, plain, lib, b, by = time_prefill(gen, *TP2_HEADS, D, S, T, card, long=())[S, 0]
+    rows.append(dict(name="prefill_attention_tp2", route="cuda",
+                     source="zonos_vibes_tpu_torch/csrc/prefill_attention.cu",
+                     replaces="zonos_vibes_tpu/ops/pallas/prefill_attention.py:111",
+                     launches=runs["tp2_continuation"]["launches"]["prefill_attention"],
+                     max_abs_err=errors["prefill_attention_tp2"], ms=ms, plain_ms=plain,
+                     bound_ms=b, bound_by=by, library_ms=lib))
+    step, _ = time_qmm_steps(gen, card, Ms=(2,), projections=TP2_PROJECTIONS,
+                             heads_shape=TP2_HEADS_SHAPE, label=" TP 2")
+    t = step[2]
+    rows.append(dict(name="qmm_int8_tp2_step", route="cuda",
+                     source="zonos_vibes_tpu_torch/csrc/qmm_int8.cu",
+                     replaces="zonos_vibes_tpu/ops/pallas/qmm.py:46",
+                     launches=runs["tp2_int8"]["launches"]["qmm_int8"],
+                     max_abs_err=errors["qmm_int8_tp2_step"], ms=t["ms"], plain_ms=t["plain"],
+                     bound_ms=t["bound"], bound_by="bytes", library_ms=t["lib"]))
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -3763,6 +4536,7 @@ def main() -> int:
     errors.update(check_pool_kernels())
     errors.update(check_server_kernels())
     errors.update(check_int4_kernels())
+    errors.update(check_parallel_kernels())
     check_decode_one_launch()
     write_errors = check_stage_write()
     check_step_kernels_one_launch()
@@ -3776,6 +4550,7 @@ def main() -> int:
     check_hybrid_backbone_against_cpu()
     cont = run_continuation(pipe, e2e["wav"], card)
     errors.update(cont["errors"])
+    par = run_parallel(pipe, cond, cont, card)
     server = run_server(pipe, card)
     for name, e in check_server_shapes(server["cond_len"]).items():
         errors[name] = max(errors.get(name, 0.0), e)
@@ -3809,7 +4584,8 @@ def main() -> int:
             + time_hybrid_kernels(hybrid, pool_hybrid, stage_less, errors, card)
             + time_server_kernels(server, server_int8, errors, card)
             + time_quant_kernels(e2e_int4, pool_int4, hybrid_int8, pool_hybrid_int8, errors,
-                                 card))
+                                 card)
+            + time_parallel_kernels(par, errors, card))
     summary = {name: {k: v for k, v in run["graphs"].items() if k != "step_launches"}
                for name, run in (("bf16", e2e), ("continuation", cont), ("int8", e2e_int8),
                                  ("hybrid", hybrid), ("int4", e2e_int4),
@@ -3826,6 +4602,7 @@ def main() -> int:
     log(json.dumps({"server": {k: v for k, v in server.items() if k not in ("launches",
                                                                             "solo_metrics")},
                     "card": card}))
+    log(json.dumps({"parallel": par, "card": card}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -169,6 +169,42 @@ def test_wrappers_reject_inconsistent_shapes():
                      torch.tensor([0], dtype=torch.int32))
 
 
+@pytest.mark.parametrize("ordinal,sms", [(0, 132), (1, 114)])
+def test_prefill_wrapper_passes_its_cards_sm_count(monkeypatch, ordinal, sms):
+    """The prefill launch plans its row tiles for the SM count of the card
+    its tensors are on (``_sm_count`` of that device, as the decode plan
+    reads it), made current for the launch, not a count fixed in the
+    source. Meta tensors stand in for a card's, the library for a recorder."""
+    import contextlib
+
+    from zonos_vibes_tpu_torch.ops.cuda import prefill_attention as pam
+
+    dev = torch.device("cuda", ordinal)
+    calls, current = [], []
+
+    class Lib:
+        def zvt_prefill_attention(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(build, "require_cuda", lambda name, *t: dev)
+    monkeypatch.setattr(build, "load", lambda: Lib())
+    monkeypatch.setattr(build, "stream_handle", lambda d: 0)
+    monkeypatch.setattr(pam, "_sm_count", lambda d: {0: 132, 1: 114}[d.index])
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: current.append(d) or contextlib.nullcontext())
+    q = torch.empty(B, 9, HQ, D, dtype=torch.bfloat16, device="meta")
+    kv = torch.empty(B, 32, W, dtype=torch.bfloat16, device="meta")
+    before = build.LAUNCHES["prefill_attention"]
+    pam.prefill_attention(q, kv, kv, 3)
+    (args,) = calls
+    # q, k, v, out, B, S, Hq, Hkv, T, head dim, offset, SM count, stream
+    assert args[4:12] == (B, 9, HQ, HKV, 32, D, 3, sms)
+    assert current == [dev]
+    assert build.LAUNCHES["prefill_attention"] == before + 1
+    build.LAUNCHES["prefill_attention"] = before
+
+
 # The pool's kernels at tests/test_pallas_decode.py's pooled shapes, plus a
 # fourth row whose ring holds STAGE - 1 rows.
 P_B, P_T, P_STAGE = 4, 256, 16

@@ -758,15 +758,22 @@ def test_compilation_cache_flag_is_documented_as_ignored(capsys):
     pytest.param(["--int4-mlp"], "int4", id="argv0-item 5"),
     pytest.param(["--heartbeat-interval-s", "5"], "item 6", id="argv1-item 6")])
 def test_unported_flags_raise(monkeypatch, pipe, hybrid, argv, item):
-    """``--heartbeat-interval-s`` names queue 1 item 6 (the parallel layer);
-    ``--int4-mlp`` quantizes every pipeline, as JAX's server does, and the
-    server answers on both."""
+    """Flags of the JAX server that later slices ported: ``--int4-mlp``
+    quantizes every pipeline, as JAX's server does; ``--heartbeat-interval-s``
+    (queue 1 item 6, the parallel layer) starts a heartbeat monitor over a
+    one-rank group, healthy. The server answers on both."""
+    srv = _main_pipelines(monkeypatch, pipe, hybrid, argv)
     if item == "item 6":
-        with pytest.raises(NotImplementedError, match=item):
-            tserver.main(["--device", "cpu", *argv])
+        from zonos_vibes_tpu_torch.parallel.multihost import HeartbeatMonitor
+
+        try:
+            assert isinstance(srv.monitor, HeartbeatMonitor)
+            assert srv.monitor.healthy and srv.monitor.probes_total >= 1
+            assert srv.monitor.interval_s == 5.0
+        finally:
+            srv.monitor.stop()
         return
-    pipes = _main_pipelines(monkeypatch, pipe, hybrid, argv)
-    for p in pipes.values():
+    for p in srv.pipelines.values():
         layers = p.params["backbone"].get("layers", p.params["backbone"].get("attn"))
         assert "weight_int4" in layers["fc1"] and "weight_int4" in layers["fc2"]
         assert "weight_int8" in layers["in_proj"] and "weight_int8" in p.params["heads"]
@@ -775,7 +782,7 @@ def test_unported_flags_raise(monkeypatch, pipe, hybrid, argv, item):
 def _main_pipelines(monkeypatch, pipe, hybrid, flags):
     """``main`` with a transformer checkpoint and a hybrid one (stand-ins for
     ``from_local``) and ``flags``; the server it builds answers a request
-    for each model. Returns the server's pipelines by model name."""
+    for each model. Returns the server (shut down)."""
     from zonos_vibes_tpu_torch import pipeline as tpipeline
 
     built = []
@@ -796,13 +803,13 @@ def _main_pipelines(monkeypatch, pipe, hybrid, flags):
             assert _frames(body) > 0
     finally:
         srv.shutdown()
-    return srv.pipelines
+    return srv
 
 
 def test_int8_on_a_hybrid_pipeline_raises(monkeypatch, pipe, hybrid):
     """``--int8`` quantizes the hybrid pipeline too (its Mamba and attention
     projections and heads to int8), and the server answers on it."""
-    pipes = _main_pipelines(monkeypatch, pipe, hybrid, ["--int8"])
+    pipes = _main_pipelines(monkeypatch, pipe, hybrid, ["--int8"]).pipelines
     bb = pipes["hybrid"].params["backbone"]
     for kind in ("mamba", "attn"):
         assert "weight_int8" in bb[kind]["in_proj"] and "weight_int8" in bb[kind]["out_proj"]

@@ -4,7 +4,7 @@ kernels at the main path's shapes, for one checkout of the port, on one
 NVIDIA GPU.
 
     python3 tools/time_torch_kernels.py [--tree DIR] [--label NAME]
-        [--only decode|qmm2|mamba] [--chunks 256,128,64,32]
+        [--only decode|qmm2|mamba|prefill] [--chunks 256,128,64,32]
 
 ``--tree`` names the checkout whose ``zonos_vibes_tpu_torch`` is imported
 (default: the one holding this script), so that two versions of the kernels
@@ -31,7 +31,9 @@ moved into decode attention does not). ``--only decode`` times the decode
 rows alone; ``--only qmm2`` the solo step's 105 ``qmm_int8``
 launches at M = 2, shape by shape (in_proj, out_proj, fc1, fc2, heads);
 ``--only mamba`` the fused Mamba step (rows 9/10, ``time_ssd``) at B = 2
-and 16 with an fp32 and a bf16 state. ``--chunks`` sets the split lengths
+and 16 with an fp32 and a bf16 state; ``--only prefill`` row 3 alone, at
+the shapes above and at the continuation's S = 519 (T = 960) with the
+flagship's 32/8 heads and a tensor-parallel rank's 16/4. ``--chunks`` sets the split lengths
 the decode-attention plan picks from (a checkout whose wrapper has the
 plan). Prints chip_smoke's timing lines, then one JSON line.
 """
@@ -58,7 +60,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=str(ROOT), help="checkout whose port is timed")
     ap.add_argument("--label", default=None, help="name printed with the result")
-    ap.add_argument("--only", choices=("decode", "qmm2", "mamba"), default=None,
+    ap.add_argument("--only", choices=("decode", "qmm2", "mamba", "prefill"), default=None,
                     help="time one family only")
     ap.add_argument("--chunks", default=None, help="decode-attention split lengths, longest first")
     args = ap.parse_args()
@@ -101,7 +103,17 @@ def main() -> int:
     if args.only == "mamba":
         for (Bs, label), (ms, _, b, _) in cs.time_ssd(gen, card).items():
             result[f"ssd_b{Bs}_{label}_ms"], result[f"ssd_b{Bs}_{label}_bound_ms"] = ms, b
-    if args.only in ("qmm2", "mamba"):
+    if args.only == "prefill":
+        for Hq, Hkv, Dh, S, T in ((cs.HQ, cs.HKV, cs.D, 88, 528),
+                                  (cs.H_HQ, cs.H_HKV, cs.H_D, 92, 536),
+                                  (cs.HQ, cs.HKV, cs.D, 519, 960),
+                                  (cs.HQ // 2, cs.HKV // 2, cs.D, 519, 960)):
+            long = cs.PREFILL_LONG if S < 512 else ()
+            for (S_, offset), (ms, _, lib, _, _) in cs.time_prefill(gen, Hq, Hkv, Dh, S, T, card,
+                                                                    long=long).items():
+                result[f"prefill_h{Hq}_d{Dh}_s{S_}_o{offset}_ms"] = ms
+                result[f"sdpa_h{Hq}_d{Dh}_s{S_}_o{offset}_ms"] = lib
+    if args.only in ("qmm2", "mamba", "prefill"):
         print(json.dumps(result))
         return 0
     if args.chunks:

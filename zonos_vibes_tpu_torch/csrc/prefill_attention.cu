@@ -85,7 +85,7 @@ constexpr int KEYS = 32;   // keys per K/V tile
 constexpr int STAGES = 4;  // K/V tiles in the ring
 constexpr float LOG2E = 1.4426950408889634f;
 
-constexpr int SMS = 132;   // SMs of an H100
+constexpr int MAX_DEVICES = 64;  // devices whose shared-memory attribute is tracked
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
@@ -450,12 +450,18 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
            int G, int T, int offset, cudaStream_t s) {
   constexpr int ROWS = WARPS * 16;
   constexpr int SMEM = smem_bytes<D, ROWS>();
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(prefill_mma_kernel<D, WARPS, SHORT>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  // The attribute belongs to the current device's context: one flag per
+  // device ordinal for each template instance.
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  static unsigned long long configured = 0;  // devices whose attribute is set
+  if (!(configured >> dev & 1ull)) {
+    e = cudaFuncSetAttribute(prefill_mma_kernel<D, WARPS, SHORT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (e != cudaSuccess) return (int)e;
-    configured = true;
+    configured |= 1ull << dev;
   }
   const dim3 grid((S * G + ROWS - 1) / ROWS, Hkv, B);
   prefill_mma_kernel<D, WARPS, SHORT><<<grid, 2 * WARPS * 32, SMEM, s>>>(
@@ -465,11 +471,12 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
   return (int)cudaGetLastError();
 }
 
-// 64-row tiles unless their grid would cover under half the SMs, then 32.
+// 64-row tiles unless their grid would cover under half of the card's sms
+// SMs, then 32.
 template <int D>
 int launch_rows(const void* q, const void* k, const void* v, void* out, int B, int S, int Hkv,
-                int G, int T, int offset, cudaStream_t s) {
-  const bool wide = 2 * ((S * G + 63) / 64 * Hkv * B) >= SMS;
+                int G, int T, int offset, int sms, cudaStream_t s) {
+  const bool wide = 2 * ((S * G + 63) / 64 * Hkv * B) >= sms;
   const bool short_chunk = offset + S <= STAGES * KEYS;
   if (wide)
     return short_chunk ? launch<D, 4, true>(q, k, v, out, B, S, Hkv, G, T, offset, s)
@@ -480,16 +487,17 @@ int launch_rows(const void* q, const void* k, const void* v, void* out, int B, i
 
 }  // namespace
 
+// sms: the launching card's SM count (the wrapper's _sm_count).
 extern "C" int zvt_prefill_attention(const void* q, const void* k, const void* v, void* out,
                                      int B, int S, int Hq, int Hkv, int T, int head_dim,
-                                     int offset, void* stream) {
-  if (Hkv <= 0 || Hq % Hkv != 0 || S <= 0 || offset < 0 || offset + S > T)
+                                     int offset, int sms, void* stream) {
+  if (Hkv <= 0 || Hq % Hkv != 0 || S <= 0 || offset < 0 || offset + S > T || sms <= 0)
     return (int)cudaErrorInvalidValue;
   const int G = Hq / Hkv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim == 64)
-    return launch_rows<64>(q, k, v, out, B, S, Hkv, G, T, offset, s);
+    return launch_rows<64>(q, k, v, out, B, S, Hkv, G, T, offset, sms, s);
   if (head_dim == 128)
-    return launch_rows<128>(q, k, v, out, B, S, Hkv, G, T, offset, s);
+    return launch_rows<128>(q, k, v, out, B, S, Hkv, G, T, offset, sms, s);
   return (int)cudaErrorInvalidValue;
 }

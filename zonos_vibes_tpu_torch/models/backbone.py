@@ -55,7 +55,7 @@ from ..ops.cuda.decode_attention import (
 from ..ops.cuda.prefill_attention import prefill_attention
 from ..ops.mlp import swiglu_mid
 from ..ops.norms import layer_norm
-from ..ops.quant import dequantize_rows, proj_matmul, quantize_rows
+from ..ops.quant import dequantize_rows, proj_matmul, proj_matmul_f32, quantize_rows
 from ..ops.rope import apply_rope
 
 # Decode-tail stage depth (the JAX package's KV_STAGE).
@@ -92,12 +92,15 @@ def init_transformer_backbone(gen: torch.Generator, cfg: BackboneConfig, dtype, 
 
 
 def allocate_kv_cache(cfg: BackboneConfig, batch_size: int, max_seqlen: int, dtype,
-                      device, kv_int8: bool = False) -> dict:
+                      device, kv_int8: bool = False, *, layers: int | None = None,
+                      kv_heads: int | None = None) -> dict:
     """Zeroed time-major cache ``[L, B, T, Hkv*Dh]`` and stage
     ``[L, B, min(KV_STAGE, T), Hkv*Dh]`` of ``dtype``. With ``kv_int8`` the
     cache is int8 and ``k_scale``/``v_scale`` ``[L, B, T, Hkv]`` fp32 start
-    at 1, as in JAX; the stage keeps ``dtype``."""
-    L, Hkv = cfg.n_layer, cfg.num_heads_kv
+    at 1, as in JAX; the stage keeps ``dtype``. ``layers`` and ``kv_heads``
+    (default: the config's) size a rank-local cache (``parallel/``)."""
+    L = cfg.n_layer if layers is None else layers
+    Hkv = cfg.num_heads_kv if kv_heads is None else kv_heads
     W = Hkv * cfg.head_dim
     stage = min(KV_STAGE, max_seqlen)
 
@@ -148,31 +151,55 @@ def _dequantized_layer(cache: dict, name: str, layer: int, offset: int,
     return out
 
 
-def _block(lp: dict, cfg: BackboneConfig, x, attend, positions, table, energy=None):
+def _row_parallel(x: torch.Tensor, p: dict, reduce) -> torch.Tensor:
+    """``x @ W`` for out_proj and fc2. Without ``reduce``, the single-card
+    product. With it (tensor parallelism: ``W`` is this rank's slice of the
+    contraction rows), trap: row-parallel rounding. The rank's fp32 partial
+    goes to ``reduce``, which sums the partials in fp32 over the group, and
+    the sum rounds once to ``x.dtype``, as the single-card product rounds
+    once; bf16 partials would round twice."""
+    if reduce is None:
+        return proj_matmul(x, p)
+    return reduce(proj_matmul_f32(x, p)).to(x.dtype)
+
+
+def _block(lp: dict, cfg: BackboneConfig, x, attend, positions, table, energy=None, *,
+           heads: tuple[int, int] | None = None, reduce=None):
     """One block over this layer's parameters ``lp``; ``attend(q, k, v)``
     returns ``[B, S, Hq, Dh]``. With a list ``energy``, the fc2 input's
-    per-channel sum of squares over (B, S) is appended to it (fp32)."""
+    per-channel sum of squares over (B, S) is appended to it (fp32).
+
+    ``heads`` ``(Hq, Hkv)`` are the heads ``lp`` holds (default: the
+    config's). Trap: a tensor-parallel rank's head counts must not come
+    from a ``BackboneConfig``, whose ``head_dim`` is ``d_model //
+    num_heads``: a config with ``num_heads / n`` would multiply the head
+    dim by ``n``. The head dim stays the full config's. ``reduce`` makes
+    out_proj and fc2 row-parallel (:func:`_row_parallel`)."""
     B, S, _ = x.shape
-    Hq, Hkv, Dh = cfg.num_heads, cfg.num_heads_kv, cfg.head_dim
+    Hq, Hkv = heads if heads is not None else (cfg.num_heads, cfg.num_heads_kv)
+    Dh = cfg.head_dim
     h = layer_norm(x, lp["norm1"]["weight"], lp["norm1"]["bias"], cfg.norm_epsilon)
     q, k, v = proj_matmul(h, lp["in_proj"]).split([Hq * Dh, Hkv * Dh, Hkv * Dh], dim=-1)
     q = apply_rope(q.reshape(B, S, Hq, Dh), positions, table)
     k = apply_rope(k.reshape(B, S, Hkv, Dh), positions, table)
     y = attend(q, k, v.reshape(B, S, Hkv, Dh))
-    x = x + proj_matmul(y.reshape(B, S, Hq * Dh), lp["out_proj"])
+    x = x + _row_parallel(y.reshape(B, S, Hq * Dh), lp["out_proj"], reduce)
     h = layer_norm(x, lp["norm2"]["weight"], lp["norm2"]["bias"], cfg.norm_epsilon)
     mid = swiglu_mid(h, lp["fc1"])
     if energy is not None:
         energy.append((mid.float() ** 2).sum(dim=(0, 1)))
-    return x + proj_matmul(mid, lp["fc2"])
+    return x + _row_parallel(mid, lp["fc2"], reduce)
 
 
-def transformer_forward(params: dict, cfg: BackboneConfig, hidden: torch.Tensor, cache: dict,
-                        offset: int | torch.Tensor, rope: torch.Tensor,
-                        stage_base: int | torch.Tensor | None = None, *,
-                        positions: torch.Tensor | None = None,
-                        pool_base: torch.Tensor | None = None, capture_fc2: bool = False):
-    """Layer stack and final LayerNorm; updates ``cache`` in place.
+def stack_forward(layers: dict, cfg: BackboneConfig, hidden: torch.Tensor, cache: dict,
+                  offset: int | torch.Tensor, rope: torch.Tensor,
+                  stage_base: int | torch.Tensor | None = None, *,
+                  positions: torch.Tensor | None = None,
+                  pool_base: torch.Tensor | None = None, capture_fc2: bool = False,
+                  heads: tuple[int, int] | None = None, layer0: int = 0, reduce=None):
+    """The layer stack (``layers``: stacked ``[L, ...]`` leaves), without the
+    final LayerNorm; updates ``cache`` in place. JAX's ``_stack_forward``,
+    which its pipeline stages call.
 
     ``hidden [B, S, D]``. With ``S > 1`` (prefill) the chunk is written at
     cache positions ``[offset, offset + S)`` and attends causally. With
@@ -204,10 +231,18 @@ def transformer_forward(params: dict, cfg: BackboneConfig, hidden: torch.Tensor,
     F]`` fp32, each layer's fc2-input sum of squares over (B, S), as JAX's
     ``capture_fc2``. During decode it raises: JAX's decode scan then
     mis-shapes the K/V columns it emits.
+
+    For the parallel layer (``parallel/``): ``heads`` ``(Hq, Hkv)`` are the
+    heads ``layers`` hold (a tensor-parallel rank's; :func:`_block`), the
+    cache holds ``Hkv`` heads, and ``reduce`` sums the row-parallel
+    partials. Layer ``l`` of ``layers`` uses cache layer ``layer0 + l``
+    (and row ``layer0 + l`` of the ``[L_cache, 3]`` device scalars, whose
+    layer column says the same): a pipeline stage's microbatches keep
+    their caches as consecutive runs of layers of one buffer.
     """
     B, S, _ = hidden.shape
-    layers = params["layers"]
-    L, Hkv = cfg.n_layer, cfg.num_heads_kv
+    L = layers["norm1"]["weight"].shape[0]
+    Hkv = heads[1] if heads is not None else cfg.num_heads_kv
     W = Hkv * cfg.head_dim
     dev = hidden.device
     kv_int8 = "k_scale" in cache
@@ -236,20 +271,21 @@ def transformer_forward(params: dict, cfg: BackboneConfig, hidden: torch.Tensor,
     if S > 1 and kv_int8:
         def attend_for(l):
             def attend(q, k, v):
-                kc, vc = (_dequantized_layer(cache, name, l, offset, offset + S)
+                kc, vc = (_dequantized_layer(cache, name, layer0 + l, offset, offset + S)
                           for name in ("k", "v"))
                 update_kv_cache(kc, vc, k, v, offset)
                 y = prefill_attention(q, kc, vc, offset)
                 for name, exact in (("k", kc), ("v", vc)):
                     qrows, scale = quantize_rows(exact[:, offset:], Hkv)
-                    cache[name][l, :, offset: offset + S] = qrows
-                    cache[name + "_scale"][l, :, offset: offset + S] = scale
+                    cache[name][layer0 + l, :, offset: offset + S] = qrows
+                    cache[name + "_scale"][layer0 + l, :, offset: offset + S] = scale
                 return y
             return attend
     elif S > 1:
         def attend_for(l):
             def attend(q, k, v):
-                kc, vc = update_kv_cache(cache["k"][l], cache["v"][l], k, v, offset)
+                kc, vc = update_kv_cache(cache["k"][layer0 + l], cache["v"][layer0 + l], k, v,
+                                         offset)
                 return prefill_attention(q, kc, vc, offset)
             return attend
     elif pooled and not ring:
@@ -261,7 +297,8 @@ def transformer_forward(params: dict, cfg: BackboneConfig, hidden: torch.Tensor,
                 k_cols[l] = k.reshape(B, W)
                 v_cols[l] = v.reshape(B, W)
                 return decode_attention_pooled_unstaged(
-                    q.contiguous(), cache["k"], cache["v"], k_cols[l], v_cols[l], prefix_ends, l)
+                    q.contiguous(), cache["k"], cache["v"], k_cols[l], v_cols[l], prefix_ends,
+                    layer0 + l)
             return attend
     elif pooled:
         # The kernel stores each row's columns in its ring slot ring_len[b];
@@ -272,10 +309,10 @@ def transformer_forward(params: dict, cfg: BackboneConfig, hidden: torch.Tensor,
                     return decode_attention_pooled_staged_q(
                         q, cache["k"], cache["v"], cache["k_scale"], cache["v_scale"],
                         cache["k_stage"], cache["v_stage"], k.reshape(B, W), v.reshape(B, W),
-                        bases, ring_len, l)
+                        bases, ring_len, layer0 + l)
                 return decode_attention_pooled_staged(
                     q, cache["k"], cache["v"], cache["k_stage"], cache["v_stage"],
-                    k.reshape(B, W), v.reshape(B, W), bases, ring_len, l)
+                    k.reshape(B, W), v.reshape(B, W), bases, ring_len, layer0 + l)
             return attend
     else:
         if stage_base is None:
@@ -283,8 +320,9 @@ def transformer_forward(params: dict, cfg: BackboneConfig, hidden: torch.Tensor,
         if isinstance(stage_base, torch.Tensor):
             scalars = stage_base
         else:
-            # (flushed_end, stage_len, layer) per layer, one copy to the device.
-            scalars = torch.tensor([[stage_base, offset - stage_base, l] for l in range(L)],
+            # (flushed_end, stage_len, layer) per cache layer, one copy to the device.
+            scalars = torch.tensor([[stage_base, offset - stage_base, c]
+                                    for c in range(cache["k"].shape[0])],
                                    dtype=torch.int32).to(dev)
         # The kernel stores the columns in stage slot stage_len.
 
@@ -294,27 +332,43 @@ def transformer_forward(params: dict, cfg: BackboneConfig, hidden: torch.Tensor,
                     return decode_attention_layered_q(
                         q, cache["k"], cache["v"], cache["k_scale"], cache["v_scale"],
                         cache["k_stage"], cache["v_stage"], k.reshape(B, W), v.reshape(B, W),
-                        scalars[l])
+                        scalars[layer0 + l])
                 return decode_attention_layered(
                     q, cache["k"], cache["v"], cache["k_stage"], cache["v_stage"],
-                    k.reshape(B, W), v.reshape(B, W), scalars[l])
+                    k.reshape(B, W), v.reshape(B, W), scalars[layer0 + l])
             return attend
 
     energy = [] if capture_fc2 else None
     for l in range(L):
         lp = {name: {k: t[l] for k, t in leaf.items()} for name, leaf in layers.items()}
-        hidden = _block(lp, cfg, hidden, attend_for(l), positions, rope, energy)
+        hidden = _block(lp, cfg, hidden, attend_for(l), positions, rope, energy, heads=heads,
+                        reduce=reduce)
 
     if pooled and not ring:
         # Each row's columns at its own position (clamped, as JAX's
         # dynamic_update_slice clamps), one indexed copy per K and V.
         rows = torch.arange(B, device=dev)
         idx = row_pos.clamp(0, cache["k"].shape[2] - 1)
-        cache["k"][:, rows, idx] = k_cols
-        cache["v"][:, rows, idx] = v_cols
+        cache["k"][layer0: layer0 + L, rows, idx] = k_cols
+        cache["v"][layer0: layer0 + L, rows, idx] = v_cols
+    return (hidden, torch.stack(energy)) if capture_fc2 else hidden
+
+
+def transformer_forward(params: dict, cfg: BackboneConfig, hidden: torch.Tensor, cache: dict,
+                        offset: int | torch.Tensor, rope: torch.Tensor,
+                        stage_base: int | torch.Tensor | None = None, *,
+                        positions: torch.Tensor | None = None,
+                        pool_base: torch.Tensor | None = None, capture_fc2: bool = False,
+                        heads: tuple[int, int] | None = None, reduce=None):
+    """Layer stack (:func:`stack_forward`, whose docstring holds the
+    arguments) and final LayerNorm; updates ``cache`` in place."""
+    out = stack_forward(params["layers"], cfg, hidden, cache, offset, rope, stage_base,
+                        positions=positions, pool_base=pool_base, capture_fc2=capture_fc2,
+                        heads=heads, reduce=reduce)
+    hidden, energy = out if capture_fc2 else (out, None)
     nf = params["norm_f"]
     out = layer_norm(hidden, nf["weight"], nf["bias"], cfg.norm_epsilon)
-    return (out, torch.stack(energy)) if capture_fc2 else out
+    return (out, energy) if capture_fc2 else out
 
 
 class TransformerBackbone:

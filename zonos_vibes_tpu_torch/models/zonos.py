@@ -136,9 +136,8 @@ class ZonosModel:
         through to the backbone, so that no host value enters the step.
         ``positions`` (and, for ring mode, ``pool_base``) go to the
         backbone's pooled decode."""
-        out = self.backbone.forward(params["backbone"], hidden, cache, offset, rope, stage_base,
-                                    positions=positions, pool_base=pool_base)
-        logits = self.apply_heads(params, out[:, -1:, :])[:, :, 0, :]
+        logits = self.forward_logits(params, hidden, cache, offset, rope, stage_base,
+                                     positions=positions, pool_base=pool_base)
         if isinstance(cfg_scale, torch.Tensor):
             cond, uncond = logits.chunk(2, dim=0)
             logits = uncond + (cond - uncond) * cfg_scale.float()[:, None, None]
@@ -148,6 +147,15 @@ class ZonosModel:
         mask_from = self.config.head_vocab_size
         logits[..., mask_from:] = NEG_INF
         return logits
+
+    def forward_logits(self, params: dict, hidden, cache: dict, offset, rope, stage_base=None, *,
+                       positions=None, pool_base=None) -> torch.Tensor:
+        """Backbone -> last position -> heads: the ``[2B, K, V]`` fp32 logits
+        of every row before the CFG mix (the parallel layer's model gathers
+        them here from its ranks)."""
+        out = self.backbone.forward(params["backbone"], hidden, cache, offset, rope, stage_base,
+                                    positions=positions, pool_base=pool_base)
+        return self.apply_heads(params, out[:, -1:, :])[:, :, 0, :]
 
     def prepare_conditioning(self, params: dict, cond_dict: dict,
                              uncond_dict: dict | None = None) -> torch.Tensor:

@@ -49,7 +49,7 @@ _SIGNATURES = {
     "zvt_decode_attention": (_I,) * 3 + (_P,) * 14 + (_I,) * 13 + (_P,),
     "zvt_stage_splice": (_P, _P, _P, _I, _I, _I, _P),
     "zvt_stage_splice_rows": (_P, _P, _P, _I, _I, _I, _I, _P),
-    "zvt_prefill_attention": (_P,) * 4 + (_I,) * 7 + (_P,),
+    "zvt_prefill_attention": (_P,) * 4 + (_I,) * 8 + (_P,),
     "zvt_qmm_int8": (_P,) * 6 + (_I,) * 6 + (_P,),
     "zvt_qmm_int8_decode": (_P,) * 4 + (_I,) * 8 + (_P,),
     "zvt_qmm_int8_tiles": (_I,) * 5,

@@ -5,9 +5,15 @@ prefill_attention_pallas``: causal GQA flash-attention of a chunk of ``S``
 queries at ``offset`` in one layer of the time-major cache. The JAX package
 takes its kernel only for chunks of 512 or more on a TPU; the port sends
 every prefill on the card through ``csrc/prefill_attention.cu``.
+
+The launch plans its row tiles for the SM count of the card it runs on
+(:func:`_sm_count`, as the decode-attention and int8 plans do), and the
+kernel sets its shared-memory attribute once per device.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -15,6 +21,11 @@ from ..attention import prefill_attention as prefill_attention_plain
 from . import build
 
 __all__ = ["prefill_attention", "prefill_attention_plain"]
+
+
+@functools.cache
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def prefill_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -38,10 +49,11 @@ def prefill_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Ten
         if t.dtype != torch.bfloat16:
             raise ValueError(f"prefill_attention: kernel takes bf16, got {t.dtype}")
     out = torch.empty_like(q)
-    rc = build.load().zvt_prefill_attention(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        B, S, Hq, W // D, T, D, int(offset), build.stream_handle(dev),
-    )
+    with torch.cuda.device(dev):  # the kernel's attribute flag is the current device's
+        rc = build.load().zvt_prefill_attention(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
+            B, S, Hq, W // D, T, D, int(offset), _sm_count(dev), build.stream_handle(dev),
+        )
     build.check_status("prefill_attention", rc)
     build.LAUNCHES["prefill_attention"] += 1
     return out

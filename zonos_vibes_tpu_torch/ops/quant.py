@@ -238,6 +238,30 @@ def proj_matmul(x: torch.Tensor, p: dict) -> torch.Tensor:
     return y.reshape(*x.shape[:-1], wq.shape[-1])
 
 
+def proj_matmul_f32(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """``x @ W`` in fp32, not rounded: a row-parallel rank's partial sum
+    (``models/backbone._row_parallel``). A float leaf's product sums in
+    fp32 (bf16 operands: every product is exact in fp32; on the card
+    ``torch.mm`` with an fp32 output), an int8 leaf's runs ``qmm_int8`` with
+    an fp32 output, the scale applied to the fp32 product: the slice of the
+    contraction a rank holds keeps every output column's whole scale, so the
+    scaled partials sum to the scaled total. int4 leaves are not split."""
+    if "weight_int4" in p:
+        raise NotImplementedError("grouped int4 weights under tensor parallelism are not "
+                                  "ported (ROADMAP.md queue 1, item 7)")
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    wq = p.get("weight_int8")
+    if wq is not None:
+        y = qmm_int8(x2, wq[None], p["scale"][None], torch.float32)[:, 0]
+    elif x2.dtype == torch.float32 and p["weight"].dtype == torch.float32:
+        y = x2 @ p["weight"]
+    elif x2.is_cuda:
+        y = torch.mm(x2, p["weight"], out_dtype=torch.float32)
+    else:
+        y = x2.float() @ p["weight"].float()
+    return y.reshape(*x.shape[:-1], y.shape[-1])
+
+
 def awq_fold(layers: dict, fc2_energy, group_size: int = 128,
              alphas=(0.0, 0.25, 0.5, 0.75, 1.0)) -> dict:
     """Activation-aware rescale of the gated MLP ahead of int4 fc2 (JAX's

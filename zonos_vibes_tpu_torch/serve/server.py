@@ -139,7 +139,7 @@ class TTSServer:
         batch_window_s: float = 0.05,
         request_timeout_s: float = 120.0,
         seed: int = DEFAULT_SEED,
-        monitor=None,  # an object whose ``healthy`` flag drives /healthz
+        monitor=None,  # parallel.multihost.HeartbeatMonitor, or any object with ``healthy``
         max_retries: int = 1,
         extra_pipelines: dict | None = None,
         max_active_jobs: int = 4,
@@ -1087,10 +1087,6 @@ def _first_tensor(tree):
     return None
 
 
-def _not_yet(flag: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{flag} is not ported yet (ROADMAP.md queue 1, item {item})")
-
-
 def main(argv: list[str] | None = None) -> None:
     """Server entry point. Without a checkpoint the flagship transformer's
     shapes get random weights (and the DAC random ones), so the whole
@@ -1120,7 +1116,8 @@ def main(argv: list[str] | None = None) -> None:
                          "compiles no programs (CUDA graphs are captured in the process, "
                          "its kernels built once under build/)")
     ap.add_argument("--heartbeat-interval-s", type=float, default=0.0,
-                    help="mesh heartbeat monitor: not ported yet (ROADMAP.md queue 1, item 6)")
+                    help="heartbeat monitor over the process group (a one-rank group without "
+                         "one): /healthz answers 503 once a probe fails (0 = off)")
     ap.add_argument("--pooled", action="store_true",
                     help="continuous batching: staggered requests share one decode pool")
     ap.add_argument("--pool-slots", type=int, default=4)
@@ -1129,9 +1126,6 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--pool-state-bf16", action="store_true",
                     help="pooled Mamba SSM state stored in bf16, fp32 compute (hybrid pools)")
     args = ap.parse_args(argv)
-
-    if args.heartbeat_interval_s > 0:
-        raise _not_yet("--heartbeat-interval-s", "6")
 
     from ..pipeline import ZonosPipeline
 
@@ -1158,9 +1152,17 @@ def main(argv: list[str] | None = None) -> None:
         elif args.int8:
             p.quantize_int8()
 
+    monitor = None
+    if args.heartbeat_interval_s > 0:
+        from ..parallel.multihost import Heartbeat, HeartbeatMonitor
+
+        monitor = HeartbeatMonitor(
+            Heartbeat().probe, interval_s=args.heartbeat_interval_s,
+            on_failure=lambda r: tracing.log_event("heartbeat_failure", reason=r)).start()
+
     srv = TTSServer(
         pipeline, host=args.host, port=args.port, max_batch=args.max_batch,
-        batch_window_s=args.batch_window_ms / 1000.0, extra_pipelines=extra,
+        batch_window_s=args.batch_window_ms / 1000.0, monitor=monitor, extra_pipelines=extra,
         pooled=args.pooled, pool_slots=args.pool_slots, pool_kv_int8=args.pool_kv_int8,
         pool_state_bf16=args.pool_state_bf16)
     if args.warmup:
