@@ -123,9 +123,9 @@ Phases, each of which fails the run loudly:
    solo launch counts; (b) gloo ranks spawned on the one card (NCCL
    refuses two ranks on one device; the ranks map the parent's weight
    trees), four spawns of two at once, then one of four, then one of two
-   alone: TP 2 (bf16, int8), DP 2, PP 2 (n_micro 1 and 2, int8 at 1), the
-   continuation on TP 2 densely (43 frames) and with the ring and the
-   Ulysses prefill (S = 519, padded to 520), TP 4 (43 frames);
+   alone: TP 2 (bf16, int8), DP 2, PP 2 (n_micro 1 and 2, int8
+   at 1), the continuation on TP 2 densely and with the ring and the
+   Ulysses prefill (S = 519, padded to 520; 43 frames), TP 4 (43 frames);
    then the TVD limits' controls (a sound TP 2 engine and three faults
    planted in it, at depth 1 and 26), ``expert_dispatch`` over 2 experts
    at D = 2048 against the dense product (and a capacity that drops
@@ -154,6 +154,20 @@ Phases, each of which fails the run loudly:
    state. Each prints ms/step (graphs and eager), the bound computed from
    its parameter bytes, capture ms, RTF, parameter bytes and the device
    memory peak.
+   The parallel layer's second slice, after the hybrid's bf16 path, on its
+   weights (and their int8 and grouped int4 trees) and on the int4-MLP
+   transformer's tree: one NCCL rank with graphs on the hybrid (the solo
+   codes over 431 frames and the solo launch counts); then gloo ranks, six
+   spawns at once, at 43 frames: the hybrid at TP 2 (bf16, int8, int4), DP
+   2 and TP 4 (bf16, int4: the padded Mamba in_proj), the int4-MLP
+   transformer at TP 2 and PP 2 (n_micro 1: the solo codes), and the
+   hybrid TVD limits' controls (a sound TP 2 hybrid and three faults
+   planted in it, at depth 1 and 48; the int4-MLP TP 2 sound and with its
+   group scales shifted, at depth 1 and 26). Every rank's launch counts
+   the run's (under TP the Mamba steps count as ``ssd_gate_step_partial``,
+   42 a step), the hybrid runs' first-frame TVD within
+   ``PAR_HYBRID_TVD_LIMIT``, the nudged-conditioning control too, and
+   every hybrid fault above its limit at both depths.
    Every solo path and every pool runs twice on the same seed and inputs:
    through its entry point, which on the card captures one decode step as
    a CUDA graph and replays it (``engine/graphs.py``), and eagerly
@@ -191,14 +205,19 @@ Phases, each of which fails the run loudly:
    rows 1 and 3 at the parallel runs' rank-local shapes (TP 2 and TP 4
    heads and a pipeline stage at their last step, the TP 2
    continuation's prefill) and ``qmm_int8``'s 105 launches at TP 2's
-   widths at M = 2.
+   widths at M = 2; the hybrid runs' rank-local kernels: the partial-norm
+   mode at HP 2048 and 1024, row 11 at 8/2 and 4/1 heads, row 3 at 8/2,
+   ``qmm_int8``'s 109 launches of the TP 2 int8 hybrid step and
+   ``qmm_int4``'s of the TP 2 int4-MLP step and the TP 4 int4 hybrid step,
+   each summed at M = 2.
 
 Before them a ``{"graphs": ...}`` line gathers each path's eager and graph
 ms/step, bound, capture time and host reads, and a ``{"quantized": ...,
 "gate": ...}`` line the quantized paths' parameter bytes, memory peaks,
 quantize seconds, RTF and bounds, and every gate mode's measures, and a
 ``{"parallel": ...}`` line each parallel run's figures, the controls, the
-expert dispatch, the heartbeat and the transport. The second-to-last line is
+expert dispatch, the heartbeat and the transport, and a
+``{"parallel_hybrid": ...}`` line the second slice's. The second-to-last line is
 ``{"kernels": [...]}``, the line before it the card's name and power limit,
 and the last line
 ``{"ok": true, "device": {...}}``. Each kernel's ``launches`` in the
@@ -224,9 +243,13 @@ pool's pooled steps', ``qmm_int4_m176_fc1`` one prefill's 26;
 ``qmm_int8_hybrid_m16_step`` its fp32-state pool's pooled steps';
 ``decode_attention_tp2``/``_tp4``/``_pp2``, ``prefill_attention_tp2`` and
 ``qmm_int8_tp2_step`` rank 0's counts in the TP 2, TP 4, PP 2 (n_micro 1),
-TP 2 continuation and TP 2 int8 runs. Without a
-CUDA device, or without the rest of the repository beside it, the script
-exits non-zero and prints no result. It imports nothing of JAX.
+TP 2 continuation and TP 2 int8 runs; ``mamba_step_partial_tp2``/``_tp4``,
+``decode_attention_unstaged_tp2``/``_tp4`` and ``prefill_attention_h128_tp2``
+rank 0's in the hybrid TP 2 and TP 4 runs, ``qmm_int8_hybrid_tp2_step``,
+``qmm_int4_tp2_step`` and ``qmm_int4_hybrid_tp4_step`` rank 0's decode
+steps' in the TP 2 int8 hybrid, TP 2 int4-MLP and TP 4 int4 hybrid runs.
+Without a CUDA device, or without the rest of the repository beside it, the
+script exits non-zero and prints no result. It imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -281,7 +304,7 @@ ISOLATION_FRAMES = 86
 # The transformer's paths launch none of the hybrid's kernels, and its solo
 # paths none of the pool's.
 NO_HYBRID_LAUNCHES = {"decode_attention_unstaged": 0, "decode_attention_pooled_unstaged": 0,
-                      "ssd_gate_step": 0, "qmm_int4": 0}
+                      "ssd_gate_step": 0, "qmm_int4": 0, "ssd_gate_step_partial": 0}
 NO_POOL_LAUNCHES = {"decode_attention_pooled": 0, "decode_attention_pooled_q": 0,
                     "stage_splice_rows": 0, **NO_HYBRID_LAUNCHES}
 # Per-row (base, ring length) pairs for the pooled kernels' checks: empty,
@@ -1803,7 +1826,8 @@ SSM_STATE_TOL = {"fp32": (1e-5, 1e-5), "bf16": (8e-3, 1e-2)}  # (rtol, atol); bf
 # about 2x from each.
 STAGELESS_LOGIT_TOL = 0.15
 NO_TRANSFORMER_LAUNCHES = {"decode_attention": 0, "decode_attention_q": 0, "stage_splice": 0,
-                           "qmm_int8": 0, "decode_attention_pooled_q": 0, "qmm_int4": 0}
+                           "qmm_int8": 0, "decode_attention_pooled_q": 0, "qmm_int4": 0,
+                           "ssd_gate_step_partial": 0}
 
 
 def within(got, want, rtol: float, atol: float) -> bool:
@@ -1814,20 +1838,21 @@ def within(got, want, rtol: float, atol: float) -> bool:
     return bool(torch.isfinite(g).all() and ((g - w).abs() <= atol + rtol * w.abs()).all())
 
 
-def ssd_inputs(gen, B: int, planes: int, state_dtype):
-    """Per-head Mamba step inputs at the hybrid's widths and a stacked state
-    whose planes are NaN (the caller fills the plane it updates)."""
+def ssd_inputs(gen, B: int, planes: int, state_dtype, hp: int = M_HP, heads: int = M_H):
+    """Per-head Mamba step inputs at the hybrid's widths (or a tensor-parallel
+    rank's ``hp`` columns of ``heads`` heads) and a stacked state whose
+    planes are NaN (the caller fills the plane it updates)."""
     import torch
     import torch.nn.functional as F
 
     def f(*shape):
         return torch.randn(*shape, generator=gen, device="cuda")
 
-    states = torch.full((planes, B, M_N, M_HP), float("nan"), device="cuda", dtype=state_dtype)
-    dt = F.softplus(f(B, M_H))
-    return states, dict(xs=f(B, M_HP).bfloat16(), dt=dt, decay=torch.exp(-dt * torch.rand(
-        M_H, generator=gen, device="cuda")), bm=f(B, M_N) * 0.3, cm=f(B, M_N) * 0.3,
-        z=f(B, M_HP).bfloat16(), d_skip=f(M_H), norm_w=(1.0 + 0.1 * f(M_HP)).bfloat16())
+    states = torch.full((planes, B, M_N, hp), float("nan"), device="cuda", dtype=state_dtype)
+    dt = F.softplus(f(B, heads))
+    return states, dict(xs=f(B, hp).bfloat16(), dt=dt, decay=torch.exp(-dt * torch.rand(
+        heads, generator=gen, device="cuda")), bm=f(B, M_N) * 0.3, cm=f(B, M_N) * 0.3,
+        z=f(B, hp).bfloat16(), d_skip=f(heads), norm_w=(1.0 + 0.1 * f(hp)).bfloat16())
 
 
 def check_hybrid_kernels(solo_T: int) -> dict:
@@ -2122,10 +2147,10 @@ def _leaves(tree):
         yield tree
 
 
-def _solo_cache_len(cond_len: int) -> int:
+def _solo_cache_len(cond_len: int, frames: int = AUDIO_FRAMES) -> int:
     from zonos_vibes_tpu_torch.engine.generate import _find_multiple
 
-    T = cond_len + AUDIO_FRAMES + 9
+    T = cond_len + frames + 9
     return _find_multiple(T, 512 if T >= 1024 else 8)
 
 
@@ -2250,9 +2275,11 @@ def run_stage_less(pipe, pool_e2e: dict, card: str) -> dict:
     return out
 
 
-def ssd_bound(B, sdt_bytes):
-    nbytes = 2 * B * M_N * M_HP * sdt_bytes + 3 * B * M_HP * 2 + 4 * B * (2 * M_H + 2 * M_N)
-    flops = 6 * B * M_N * M_HP + 12 * B * M_HP
+def ssd_bound(B, sdt_bytes, hp=M_HP, heads=M_H):
+    """The fused step's bound at ``hp`` columns of ``heads`` heads: the state
+    plane read and written, x, z and the output, dt, decay, B and C."""
+    nbytes = 2 * B * M_N * hp * sdt_bytes + 3 * B * hp * 2 + 4 * B * (2 * heads + 2 * M_N)
+    flops = 6 * B * M_N * hp + 12 * B * hp
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -2350,27 +2377,31 @@ def time_hybrid_kernels(solo: dict, pool: dict, stage_less: dict, errors: dict,
     return rows
 
 
-def time_unstaged(gen, T, seq_end, card):
+def time_unstaged(gen, T, seq_end, card, heads=(H_HQ, H_HKV)):
     """Row 11 at the hybrid's solo shapes (CFG batch 2, 16/4 heads at head
-    dim 128), layer 3 of 6, attending [0, seq_end): kernel, plain version and
-    SDPA. Returns (ms, plain, library, bound, by)."""
+    dim 128, or a tensor-parallel rank's ``heads``), layer 3 of 6, attending
+    [0, seq_end): kernel, plain version and SDPA. Returns (ms, plain,
+    library, bound, by)."""
     import torch
     import torch.nn.functional as F
 
     from zonos_vibes_tpu_torch.ops.cuda.decode_attention import (
         decode_attention_unstaged, decode_attention_unstaged_plain)
 
-    q = randn(gen, B, 1, H_HQ, H_D)
-    k, v = randn(gen, H_LA, B, T, H_W), randn(gen, H_LA, B, T, H_W)
+    hq, hkv = heads
+    W_ = hkv * H_D
+    q = randn(gen, B, 1, hq, H_D)
+    k, v = randn(gen, H_LA, B, T, W_), randn(gen, H_LA, B, T, W_)
     sc = torch.tensor([seq_end], dtype=torch.int32, device="cuda")
-    kh = k[3, :, :seq_end].view(B, seq_end, H_HKV, H_D).transpose(1, 2).contiguous()
-    vh = v[3, :, :seq_end].view(B, seq_end, H_HKV, H_D).transpose(1, 2).contiguous()
+    kh = k[3, :, :seq_end].view(B, seq_end, hkv, H_D).transpose(1, 2).contiguous()
+    vh = v[3, :, :seq_end].view(B, seq_end, hkv, H_D).transpose(1, 2).contiguous()
     qh = q.transpose(1, 2).contiguous()
     ms = device_ms(lambda: decode_attention_unstaged(q, k, v, sc, 3), 200)
     plain = device_ms(lambda: decode_attention_unstaged_plain(q, k, v, sc, 3), 20)
     lib = device_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, enable_gqa=True), 200)
-    b, by = bound(2 * B * seq_end * H_W * 2 + 2 * B * H_HQ * H_D * 2, 4 * B * H_HQ * seq_end * H_D)
-    log(f"time decode_attention_unstaged T={T} seq_end={seq_end} ({card}): kernel_ms {ms:.4f} "
+    b, by = bound(2 * B * seq_end * W_ * 2 + 2 * B * hq * H_D * 2, 4 * B * hq * seq_end * H_D)
+    log(f"time decode_attention_unstaged {hq}/{hkv} heads T={T} seq_end={seq_end} ({card}): "
+        f"kernel_ms {ms:.4f} "
         f"plain_ms {plain:.4f} library_ms {lib:.4f} (SDPA, gathered K/V) bound_ms {b:.5f} "
         f"({by}); kernel / SDPA {ms / lib:.2f}")
     return ms, plain, lib, b, by
@@ -3809,34 +3840,37 @@ TP2_HEADS, TP4_HEADS = (HQ // 2, HKV // 2), (HQ // 4, HKV // 4)
 TP2_PROJECTIONS = {"in_proj": (2048, 1536), "out_proj": (1024, 2048), "fc1": (2048, 8192),
                    "fc2": (4096, 2048)}
 TP2_HEADS_SHAPE = (9, 2048, 576)
-# TP 4 (four ranks) and the dense TP 2 continuation, whose roles are the
+# A gloo rank's step under TP is bound by the host copies of its
+# all-reduces: 0.24-0.29 s at TP 2 and 0.39 s at TP 4 on the shared card
+# (PERF.md). TP 2 bf16 and int8 decode the main path's 431 frames; the runs
+# whose roles are a prefill route (the SP routes, the dense TP 2
+# continuation), TP 4 and the hybrid and int4 runs, whose roles are the
 # rank-local kernels' shapes and launch counts and the first frame, run
-# SHORT_FRAMES: a gloo rank's step under TP is bound by the host copies
-# of its 52 all-reduces, ~0.15 s at TP 2 and ~0.37 s at TP 4 on the
-# shared card.
+# SHORT_FRAMES. The DP and PP runs keep AUDIO_FRAMES.
 SHORT_FRAMES = 43
 
 
 class ParRun(NamedTuple):
     label: str
     mesh: tuple  # (data, model, pipe, expert)
-    int8: bool = False
+    quant: str | None = None  # "int8", "int4" (every projection), "int4mlp" (--int4-mlp's)
     n_micro: int = 1
     sp: str | None = None
     continuation: bool = False  # the clone + continuation's inputs
     frames: int = AUDIO_FRAMES
+    hybrid: bool = False  # ZONOS_V01_HYBRID's weights, else the transformer's
 
 
 PAR_RUNS = (
     ParRun("tp2", (1, 2, 1, 1)),
-    ParRun("tp2_int8", (1, 2, 1, 1), int8=True),
+    ParRun("tp2_int8", (1, 2, 1, 1), quant="int8"),
     ParRun("dp2", (2, 1, 1, 1)),
     ParRun("pp2", (1, 1, 2, 1)),
     ParRun("pp2_micro2", (1, 1, 2, 1), n_micro=2),
-    ParRun("pp2_int8", (1, 1, 2, 1), int8=True),
+    ParRun("pp2_int8", (1, 1, 2, 1), quant="int8"),
     ParRun("tp2_continuation", (1, 2, 1, 1), continuation=True, frames=SHORT_FRAMES),
-    ParRun("sp2_ring", (1, 2, 1, 1), sp="ring", continuation=True),
-    ParRun("sp2_ulysses", (1, 2, 1, 1), sp="ulysses", continuation=True),
+    ParRun("sp2_ring", (1, 2, 1, 1), sp="ring", continuation=True, frames=SHORT_FRAMES),
+    ParRun("sp2_ulysses", (1, 2, 1, 1), sp="ulysses", continuation=True, frames=SHORT_FRAMES),
     ParRun("tp4", (1, 4, 1, 1), frames=SHORT_FRAMES),
 )
 # Spawns that run at once, batch after batch: (ranks, runs, the expert
@@ -3849,8 +3883,8 @@ PAR_BATCHES = (
     ((2, (), True),),  # alone, so that the transport's times are its own
 )
 # Runs whose ranks do the single card's work in its order: their codes must
-# equal the solo engine's.
-PAR_EXACT = ("pp2", "pp2_int8")
+# equal the solo engine's (pp2_int4: the int4-MLP tree, PAR_HYBRID_RUNS).
+PAR_EXACT = ("pp2", "pp2_int8", "pp2_int4")
 # First-frame logits of a run against the solo engine's on the same weights
 # and inputs: mean over the 9 codebooks of the next-token distributions'
 # total-variation distance. Through 26 layers the random-weight model moves
@@ -3882,13 +3916,39 @@ def par_want(run: ParRun, steps: int) -> dict:
     """A rank's launch counts for a run of ``steps`` decode steps."""
     from zonos_vibes_tpu_torch.ops.cuda import build
 
-    stage = L // run.mesh[2]
     want = dict.fromkeys(build.LAUNCHES, 0)
+    if run.hybrid:  # a model axis of 2 or more runs the step's partial-norm mode
+        want["prefill_attention"] = H_LA
+        want["decode_attention_unstaged"] = H_LA * steps
+        want["ssd_gate_step_partial" if run.mesh[1] > 1 else "ssd_gate_step"] = H_M * steps
+        projections = 2 * H_M + 4 * H_LA  # per forward; the heads are int8 once more
+        if run.quant == "int8":
+            want["qmm_int8"] = (projections + 1) * (steps + 1)
+        elif run.quant == "int4":
+            want["qmm_int4"] = projections * (steps + 1)
+            want["qmm_int8"] = steps + 1
+        return want
+    stage = L // run.mesh[2]
     want["decode_attention"] = stage * run.n_micro * steps
     want["prefill_attention"] = 0 if run.sp else stage * run.n_micro
-    if run.int8:  # 4 projections per layer and microbatch, the heads once, per forward
+    if run.quant == "int8":  # 4 projections per layer and microbatch, the heads once, per forward
         want["qmm_int8"] = (4 * stage * run.n_micro + 1) * (steps + 1)
+    elif run.quant == "int4mlp":  # fc1/fc2 int4, in_proj/out_proj and the heads int8
+        want["qmm_int4"] = 2 * stage * run.n_micro * (steps + 1)
+        want["qmm_int8"] = (2 * stage * run.n_micro + 1) * (steps + 1)
     return want
+
+
+def par_tree(run: ParRun) -> str:
+    """The jobs' key of the weights a run decodes."""
+    if run.hybrid:
+        return f"hybrid_{run.quant}" if run.quant else "hybrid"
+    return {None: "params", "int8": "params8", "int4mlp": "int4mlp"}[run.quant]
+
+
+def par_prefix(run: ParRun) -> str:
+    """The jobs' key of the conditioning a run decodes from."""
+    return "hybrid_prefix" if run.hybrid else "cont_prefix" if run.continuation else "prefix"
 
 
 def _par_engine(model, params, run: ParRun):
@@ -4093,16 +4153,16 @@ def parallel_jobs(rank: int, world: int, jobs: dict) -> dict:
 
     import torch
 
-    from zonos_vibes_tpu_torch.config import ZONOS_V01_TRANSFORMER
+    from zonos_vibes_tpu_torch.config import ZONOS_V01_HYBRID, ZONOS_V01_TRANSFORMER
     from zonos_vibes_tpu_torch.models.zonos import ZonosModel
 
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
-    model = ZonosModel(ZONOS_V01_TRANSFORMER)
+    models = {False: ZonosModel(ZONOS_V01_TRANSFORMER), True: ZonosModel(ZONOS_V01_HYBRID)}
     for run in jobs["runs"]:
-        prefix = (jobs["cont_prefix"] if run.continuation else jobs["prefix"]).cuda()
+        prefix = jobs[par_prefix(run)].cuda()
         codes_in = jobs["cont_codes"].cuda() if run.continuation else None
-        eng = _par_engine(model, jobs["params8" if run.int8 else "params"], run)
+        eng = _par_engine(models[run.hybrid], jobs[par_tree(run)], run)
         res, launches, logits = _par_generate(eng, prefix, codes_in, run.frames)
         # numpy, pickled by value: a tensor would be shared through this
         # process, which may have exited when the parent reads the queue.
@@ -4114,7 +4174,9 @@ def parallel_jobs(rank: int, world: int, jobs: dict) -> dict:
         del eng, res
         gc.collect()
         torch.cuda.empty_cache()
-    if jobs.get("extras"):
+    if jobs.get("extras") == "hybrid":
+        out["controls"] = _hybrid_controls(jobs)
+    elif jobs.get("extras"):
         out["controls"] = _tp_controls(jobs["params"], jobs["prefix"].cuda())
         out["transport"] = _transport(rank)
         out["ep"] = _ep_check(rank)
@@ -4298,10 +4360,11 @@ def parallel_refs(pipe, prefix, cont_prefix, cont_codes) -> tuple[dict, dict]:
     return refs, params8
 
 
-def run_parallel_nccl(pipe, prefix, params8, refs, card: str) -> dict:
+def run_parallel_nccl(model, prefix, trees, refs, card: str) -> dict:
     """(a) One NCCL rank on cuda:0 with CUDA graphs: ``ParallelEngine(MeshConfig())``
-    on the bf16 and int8 trees, codes equal to the solo engine's, the step
-    (its all-gathers of the logits included) captured and replayed."""
+    on each of ``trees`` (``(key, params, run)``), codes equal to the solo
+    engine's (``refs[key]``), the launch counts the solo path's, the step (its
+    all-gathers of the logits included) captured and replayed."""
     import datetime
     import socket
 
@@ -4320,9 +4383,8 @@ def run_parallel_nccl(pipe, prefix, params8, refs, card: str) -> dict:
                             device_id=torch.device("cuda", 0))
     out = {}
     try:
-        for key, params in (("bf16", pipe.params), ("int8", params8)):
-            eng = ParallelEngine(pipe.model, MeshConfig(), params)
-            run = ParRun(key, (1, 1, 1, 1), int8=key == "int8")
+        for key, params, run in trees:
+            eng = ParallelEngine(model, MeshConfig(), params)
             res, launches, logits = _par_generate(eng, prefix, None)
             want = par_want(run, res.steps)
             equal = np.array_equal(res.codes.cpu().numpy(), refs[key]["codes"])
@@ -4346,6 +4408,60 @@ def run_parallel_nccl(pipe, prefix, params8, refs, card: str) -> dict:
     return out
 
 
+def _hold_runs(table: dict, ranks: dict, ref_of, limit_of, lp: int,
+               card: str) -> tuple[dict, list]:
+    """Every run of ``table`` (its ranks' results in ``ranks``) against its
+    solo reference ``ref_of(run)``: every rank's codes equal to rank 0's,
+    each rank's launch counts the run's (:func:`par_want`), codes in range,
+    the ``PAR_EXACT`` runs' codes the solo engine's and every run's
+    first-frame TVD at most ``limit_of(run)``; ``lp`` is the continuation's
+    audio prefix. Logs every run; returns the runs' numbers and the
+    failures."""
+    import numpy as np
+
+    runs, failures = {}, []
+    for label, run in table.items():
+        ref = ref_of(run)
+        r0 = ranks[label][0]
+        for r, got in enumerate(ranks[label]):
+            if not np.array_equal(got["codes"], r0["codes"]):
+                failures.append(f"{label}: rank {r}'s codes differ from rank 0's")
+            want = par_want(run, got["steps"])
+            if got["launches"] != want:
+                failures.append(f"{label} rank {r}: launches {got['launches']}, expected {want}")
+        # The frames after the audio prefix; a short run against the solo
+        # run's first frames.
+        start = lp if run.continuation else 0
+        codes = r0["codes"][..., start:]
+        want_codes = ref["codes"][..., start: start + run.frames]
+        if (codes.shape != (1, 9, run.frames) or int(codes.min()) < 0
+                or int(codes.max()) > 1023):
+            failures.append(f"{label}: codes {tuple(codes.shape)} out of range")
+        share = float((codes == want_codes).mean())
+        tvd = _tvd(r0["logits"], ref["logits"])
+        diff = float(np.abs(r0["logits"] - ref["logits"]).max())
+        if label in PAR_EXACT and share != 1.0:
+            failures.append(f"{label}: codes differ from the solo engine's (equal share {share})")
+        limit = limit_of(run)
+        if tvd > limit:
+            failures.append(f"{label}: first-frame TVD {tvd} > {limit}")
+        world = len(ranks[label])
+        runs[label] = {**run._asdict(), "ranks": world, "steps": r0["steps"],
+                       "codes_equal_share": share,
+                       "first_frame_tvd": tvd, "first_frame_max_abs_diff": diff,
+                       "ms_per_step": r0["ms_per_step"], "prefill_ms": r0["prefill_ms"],
+                       "solo_prefill_ms": ref["prefill_ms"], "launches": r0["launches"]}
+        log(f"parallel {label} ({card}; {world} gloo ranks share the card: no scaling figure): "
+            f"{'hybrid' if run.hybrid else 'transformer'}, mesh {run.mesh}, "
+            f"{run.quant or 'bf16'}, n_micro {run.n_micro}, sp {run.sp}; {run.frames} frames; "
+            f"greedy codes equal to the solo engine's at {share:.4f} of {codes.size}; first-frame "
+            f"TVD {tvd:.2e} (limit {limit}), "
+            f"max |logit diff| {diff:.3e}; {r0['ms_per_step']:.3f} ms/step eager, prefill "
+            f"{r0['prefill_ms']:.1f} ms (solo {ref['prefill_ms']:.1f}); launches per rank "
+            f"{r0['launches']}")
+    return runs, failures
+
+
 def run_parallel(pipe, cond, cont: dict, card: str) -> dict:
     """Phase 3, the parallel layer on the main path's weights: (a) one NCCL
     rank with graphs; (b) gloo ranks sharing the card: ``PAR_BATCHES`` of
@@ -4357,7 +4473,6 @@ def run_parallel(pipe, cond, cont: dict, card: str) -> dict:
     ``PAR_TVD_LIMIT``; the planted faults of :func:`_tp_controls` must read
     above the limits (module docstring). Every run is logged before a failed check fails the
     phase. Processes sharing one card's SMs give no scaling figure."""
-    import numpy as np
     import torch
 
     t_phase = time.perf_counter()
@@ -4367,7 +4482,10 @@ def run_parallel(pipe, cond, cont: dict, card: str) -> dict:
     log(f"parallel control ({card}): the solo engine's first-frame TVD after rounding the "
         f"conditioning one bf16 step up {refs['control_tvd']:.2e}, max |logit diff| "
         f"{refs['control_max_abs_diff']:.3e}")
-    nccl = run_parallel_nccl(pipe, prefix, params8, refs, card)
+    nccl = run_parallel_nccl(pipe.model, prefix,
+                             [("bf16", pipe.params, ParRun("bf16", (1, 1, 1, 1))),
+                              ("int8", params8, ParRun("int8", (1, 1, 1, 1), quant="int8"))],
+                             refs, card)
     torch.cuda.empty_cache()
     # The ranks map the trees in place: they must outlive every spawn.
     jobs = {"prefix": prefix.cpu(), "cont_prefix": cont_prefix.cpu(),
@@ -4387,43 +4505,9 @@ def run_parallel(pipe, cond, cont: dict, card: str) -> dict:
                 extras_out = got
     del jobs, params8
     torch.cuda.empty_cache()
-    runs, failures = {}, []
-    for label, run in table.items():
-        ref = refs["continuation" if run.continuation else "int8" if run.int8 else "bf16"]
-        r0 = ranks[label][0]
-        for r, got in enumerate(ranks[label]):
-            if not np.array_equal(got["codes"], r0["codes"]):
-                failures.append(f"{label}: rank {r}'s codes differ from rank 0's")
-            want = par_want(run, got["steps"])
-            if got["launches"] != want:
-                failures.append(f"{label} rank {r}: launches {got['launches']}, expected {want}")
-        # The frames after the audio prefix; a short run against the solo
-        # run's first frames.
-        start = cont["lp"] if run.continuation else 0
-        codes = r0["codes"][..., start:]
-        want_codes = ref["codes"][..., start: start + run.frames]
-        if (codes.shape != (1, 9, run.frames) or int(codes.min()) < 0
-                or int(codes.max()) > 1023):
-            failures.append(f"{label}: codes {tuple(codes.shape)} out of range")
-        share = float((codes == want_codes).mean())
-        tvd = _tvd(r0["logits"], ref["logits"])
-        diff = float(np.abs(r0["logits"] - ref["logits"]).max())
-        if label in PAR_EXACT and share != 1.0:
-            failures.append(f"{label}: codes differ from the solo engine's (equal share {share})")
-        if tvd > PAR_TVD_LIMIT:
-            failures.append(f"{label}: first-frame TVD {tvd} > {PAR_TVD_LIMIT}")
-        world = len(ranks[label])
-        runs[label] = {**run._asdict(), "ranks": world, "codes_equal_share": share,
-                       "first_frame_tvd": tvd, "first_frame_max_abs_diff": diff,
-                       "ms_per_step": r0["ms_per_step"], "prefill_ms": r0["prefill_ms"],
-                       "solo_prefill_ms": ref["prefill_ms"], "launches": r0["launches"]}
-        log(f"parallel {label} ({card}; {world} gloo ranks share the card: no scaling figure): "
-            f"mesh {run.mesh}, {'int8' if run.int8 else 'bf16'}, n_micro {run.n_micro}, sp "
-            f"{run.sp}; {run.frames} frames; greedy codes equal to the solo engine's at "
-            f"{share:.4f} of {codes.size}; first-frame TVD {tvd:.2e} (limit {PAR_TVD_LIMIT}), "
-            f"max |logit diff| {diff:.3e}; {r0['ms_per_step']:.3f} ms/step eager, prefill "
-            f"{r0['prefill_ms']:.1f} ms (solo {ref['prefill_ms']:.1f}); launches per rank "
-            f"{r0['launches']}")
+    runs, failures = _hold_runs(
+        table, ranks, lambda run: refs["continuation" if run.continuation else run.quant or "bf16"],
+        lambda run: PAR_TVD_LIMIT, cont["lp"], card)
     controls = extras_out[0]["controls"]
     for fault in (None, *PAR_FAULTS):
         for depth, limit in ((1, PAR_TVD1_LIMIT), (L, PAR_TVD_LIMIT)):
@@ -4478,11 +4562,11 @@ def time_parallel_kernels(par: dict, errors: dict, card: str) -> list[dict]:
     gen = torch.Generator(device="cuda").manual_seed(43)
     runs = par["runs"]
     rows = []
-    T, fe, sl = main_path_decode_step(par["cond_len"], runs["tp2"]["launches"]["decode_attention"]
-                                      // L)
     for name, heads, layers, run in (("decode_attention_tp2", TP2_HEADS, L, "tp2"),
                                      ("decode_attention_tp4", TP4_HEADS, L, "tp4"),
                                      ("decode_attention_pp2", (HQ, HKV), L // 2, "pp2")):
+        T, fe, sl = main_path_decode_step(par["cond_len"],
+                                          runs[run]["launches"]["decode_attention"] // layers)
         ms, plain, lib, b, by, held = time_decode(gen, T, fe, sl, f"{run} last step", card,
                                                   heads=heads, layers=layers)
         require_stage_write(name, held)
@@ -4509,6 +4593,569 @@ def time_parallel_kernels(par: dict, errors: dict, card: str) -> list[dict]:
                      launches=runs["tp2_int8"]["launches"]["qmm_int8"],
                      max_abs_err=errors["qmm_int8_tp2_step"], ms=t["ms"], plain_ms=t["plain"],
                      bound_ms=t["bound"], bound_by="bytes", library_ms=t["lib"]))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# The parallel layer's second slice: the hybrid (bf16, int8, grouped int4)
+# over data x model, and the transformer's int4-MLP tree under TP and PP.
+# ---------------------------------------------------------------------------
+
+HYBRID_TP = (2, 4)  # model axes of the hybrid runs; per rank: heads / n, HP / n
+# The hybrid's projections on a rank at model axis n: (K, N, launches per
+# forward). The Mamba in_proj takes its heads' z, x and dt and all of B | C:
+# 4384 columns at TP 2, 2320 at TP 4 (int4: padded to 2336).
+HYBRID_TP_PROJECTIONS = {
+    n: {"mamba_in_proj": (2048, 2 * M_HP // n + 2 * M_N + M_H // n, H_M),
+        "mamba_out_proj": (M_HP // n, 2048, H_M),
+        "attn_in_proj": (2048, (H_HQ + 2 * H_HKV) * H_D // n, H_LA),
+        "attn_out_proj": (H_HQ * H_D // n, 2048, H_LA),
+        "fc1": (2048, 16384 // n, H_LA), "fc2": (8192 // n, 2048, H_LA)} for n in HYBRID_TP}
+HYBRID_PREFILL_S = 92  # the hybrid's prefill: 91 conditioning positions and the MASK column
+PARTIAL_SUM_RTOL = 1e-5  # the partial mode's row sums of g^2 against the plain version's
+PAR_HYBRID_RUNS = (
+    ParRun("hybrid_tp2", (1, 2, 1, 1), hybrid=True, frames=SHORT_FRAMES),
+    ParRun("hybrid_tp2_int8", (1, 2, 1, 1), hybrid=True, quant="int8", frames=SHORT_FRAMES),
+    ParRun("hybrid_tp2_int4", (1, 2, 1, 1), hybrid=True, quant="int4", frames=SHORT_FRAMES),
+    ParRun("hybrid_dp2", (2, 1, 1, 1), hybrid=True, frames=SHORT_FRAMES),
+    ParRun("hybrid_tp4", (1, 4, 1, 1), hybrid=True, frames=SHORT_FRAMES),
+    ParRun("hybrid_tp4_int4", (1, 4, 1, 1), hybrid=True, quant="int4", frames=SHORT_FRAMES),
+    ParRun("tp2_int4mlp", (1, 2, 1, 1), quant="int4mlp", frames=SHORT_FRAMES),
+    ParRun("pp2_int4", (1, 1, 2, 1), quant="int4mlp", frames=SHORT_FRAMES),
+)
+# The phase's spawns, all at once: (ranks, runs, extras); "hybrid" runs the
+# TVD limits' controls (_hybrid_controls). The two TP 4 runs take a spawn
+# each: together in one they were the phase's longest (107 s of 116).
+PAR_HYBRID_BATCHES = (
+    ((2, ("hybrid_tp2",), None), (2, ("hybrid_tp2_int8", "hybrid_dp2"), None),
+     (2, ("hybrid_tp2_int4", "pp2_int4"), None), (2, ("tp2_int4mlp",), "hybrid"),
+     (4, ("hybrid_tp4",), None), (4, ("hybrid_tp4_int4",), None)),
+)
+# First-frame TVD of the hybrid's runs against the solo hybrid on the same
+# weights, as PAR_TVD_LIMIT for the transformer. Through 48 layers the
+# random-weight hybrid moves further than the transformer for a
+# perturbation of rounding size: sound runs read 0.0148-0.0416, the solo
+# hybrid on conditioning nudged by about one bf16 step 0.0487; the faults
+# planted in hybrid_tp2 (PAR_HYBRID_FAULTS) 0.345-0.834. With layer 0
+# alone (a Mamba layer, depth 1) the sound TP 2 engine reads 0.00136 (the
+# fold rounds g * w before the norm's scale) and the faults 0.0126-0.285.
+# Each limit sits near the geometric mean of the highest sound or control
+# reading and the lowest fault. Readings: NVIDIA H100 80GB HBM3, 700 W,
+# PERF.md.
+PAR_HYBRID_TVD_LIMIT = 0.13
+PAR_HYBRID_TVD1_LIMIT = 4e-3
+PAR_HYBRID_FAULTS = ("local_norm", "contiguous_mamba_in_proj", "dropped_mamba_out_proj")
+# rank 1's fc2 rows under rank 0's group scales, in the int4-MLP TP 2 engine,
+# against the transformer's limits: 0.00985 at depth 1 (PAR_TVD1_LIMIT
+# 5e-4: required above) and 0.0538 through 26 layers, where a scale-sized
+# error nears the sound readings (0.0119-0.0137) and is reported only.
+PAR_INT4_FAULTS = ("shifted_group_scales",)
+
+
+def _rank_slice(x: dict, r: int, n: int) -> dict:
+    """Rank ``r`` of ``n``'s heads of a full-width step's inputs."""
+    out = {}
+    for k, t in x.items():
+        width = t.shape[-1] // n
+        out[k] = t[..., r * width: (r + 1) * width].contiguous() if k not in ("bm", "cm") else t
+    return out
+
+
+def check_partial_norm() -> dict:
+    """Phase 2, the fused step's partial-norm mode (row 10 on a rank's heads)
+    against ``ssd_gate_step_partial_plain``: HP 2048 (32 heads, TP 2) and
+    1024 (16 heads, TP 4), N 128, B 1 and 2, fp32 and bf16 state, plane 0
+    of 42 with the other planes NaN and untouched; ``g * w`` within
+    SSM_TOL, the state within SSM_STATE_TOL, the row sums within
+    PARTIAL_SUM_RTOL. Then the fold's identity: n ranks' partial outputs,
+    scaled by ``rsqrt(sum of their sums / 4096 + eps)``, equal the
+    full-width kernel's output within SSM_TOL."""
+    import torch
+
+    from zonos_vibes_tpu_torch.ops.cuda.mamba_step import (
+        ssd_gate_step_layered, ssd_gate_step_partial_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(51)
+    worst = worst_sum = worst_fold = 0.0
+    cases = 0
+    for n in HYBRID_TP:
+        for Bx in (1, 2):
+            for sdt, name in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+                states, x = ssd_inputs(gen, Bx, H_M, sdt, M_HP // n, M_H // n)
+                states[0].normal_(generator=gen)
+                ref = states[:1].clone()
+                gw_p, ss_p = ssd_gate_step_partial_plain(ref, 0, **x)
+                gw, ss = ssd_gate_step_layered(states, 0, **x, partial=True)
+                torch.cuda.synchronize()
+                rel = ((ss - ss_p).abs() / ss_p.abs()).max().item()
+                if (not within(gw, gw_p, *SSM_TOL) or rel > PARTIAL_SUM_RTOL
+                        or not within(states[0], ref[0], *SSM_STATE_TOL[name])
+                        or not torch.isnan(states[1:]).all()):
+                    raise AssertionError(f"ssd_gate_step partial HP={M_HP // n} B={Bx} {name}: "
+                                         f"g*w, the state, the sums (rel {rel}) or another plane")
+                worst = max(worst, (gw.float() - gw_p.float()).abs().max().item())
+                worst_sum = max(worst_sum, rel)
+                cases += 1
+                # The fold: the full-width kernel against n ranks' partials.
+                full, xf = ssd_inputs(gen, Bx, 1, sdt)
+                full.normal_(generator=gen)
+                parts = [full[..., r * M_HP // n: (r + 1) * M_HP // n].contiguous()
+                         for r in range(n)]
+                want = ssd_gate_step_layered(full, 0, **xf)
+                outs = [ssd_gate_step_layered(parts[r], 0, **_rank_slice(xf, r, n),
+                                              partial=True) for r in range(n)]
+                total = sum(o[1] for o in outs)
+                got = (torch.cat([o[0].float() for o in outs], dim=-1)
+                       * torch.rsqrt(total / M_HP + 1e-5)[:, None])
+                if not within(got, want, *SSM_TOL):
+                    raise AssertionError(f"partial-norm fold n={n} B={Bx} {name}: "
+                                         f"{(got - want.float()).abs().max().item()}")
+                worst_fold = max(worst_fold, (got - want.float()).abs().max().item())
+    log(f"kernel ssd_gate_step partial-norm mode (row 10 on a rank's heads): {cases} cases, HP "
+        f"2048/1024, B 1/2, fp32 and bf16 state, other planes NaN and untouched: g*w max_abs_err "
+        f"{worst:.3e} within {SSM_TOL}, row sums max rel err {worst_sum:.2e} <= "
+        f"{PARTIAL_SUM_RTOL}; n ranks' outputs scaled by their summed norm against the "
+        f"full-width kernel: max_abs_err {worst_fold:.3e} within {SSM_TOL}")
+    return {"ssd_gate_step_partial": max(worst, worst_fold)}
+
+
+def check_parallel_hybrid_kernels(solo_T: int) -> dict:
+    """Phase 2 at the rank-local shapes of the hybrid and int4 parallel runs:
+    the partial-norm mode (:func:`check_partial_norm`); row 11 with 8/2 and
+    4/1 heads of 128 at B 2 and 1 (NaN past seq_end); row 3 at those heads
+    (S 92, T 528, NaN past S); ``qmm_int8`` at the hybrid's TP 2 and TP 4
+    widths (Mamba in_proj N 4384 / 2320) at M 1, 2 and 184, bf16 and fp32
+    out; ``qmm_int4`` (groups of 128) at every projection of the hybrid at
+    TP 2 and TP 4, which holds the transformer's TP 2 fc1 and fc2 and the
+    padded Mamba in_proj (4384; 2336 with 16 zero columns), at M 1, 2, 176
+    and 184."""
+    import torch
+
+    from zonos_vibes_tpu_torch.ops import quant
+    from zonos_vibes_tpu_torch.ops.cuda.decode_attention import (
+        decode_attention_unstaged, decode_attention_unstaged_plain)
+    from zonos_vibes_tpu_torch.ops.cuda.qmm import (qmm_int4, qmm_int4_plain, qmm_int8,
+                                                    qmm_int8_plain)
+
+    err = check_partial_norm()
+    gen = torch.Generator(device="cuda").manual_seed(53)
+    for n in HYBRID_TP:
+        heads = (H_HQ // n, H_HKV // n)
+        W_ = heads[1] * H_D
+        worst = 0.0
+        for Bx in (2, 1):
+            q = randn(gen, Bx, 1, heads[0], H_D)
+            k, v = randn(gen, H_LA, Bx, solo_T, W_), randn(gen, H_LA, Bx, solo_T, W_)
+            for seq_end in (1, 255, 256, solo_T // 2, solo_T):
+                kk, vv = k.clone(), v.clone()
+                kk[:, :, seq_end:] = float("nan")
+                vv[:, :, seq_end:] = float("nan")
+                sc = torch.tensor([seq_end], dtype=torch.int32, device="cuda")
+                for layer in (0, H_LA - 1):
+                    got = decode_attention_unstaged(q, kk, vv, sc, layer).float()
+                    want = decode_attention_unstaged_plain(q, kk, vv, sc, layer).float()
+                    e = (got - want).abs().max().item()
+                    if not torch.isfinite(got).all() or e > TOL:
+                        raise AssertionError(f"decode_attention_unstaged TP {n} B={Bx} "
+                                             f"seq_end={seq_end}: err {e}")
+                    worst = max(worst, e)
+        err[f"decode_attention_unstaged_tp{n}"] = worst
+        e_pre = max(check_prefill_case(gen, Bx, HYBRID_PREFILL_S, 0, 528, *heads, H_D)
+                    for Bx in (2, 1))
+        err[f"prefill_attention_h128_tp{n}"] = e_pre
+        log(f"kernel decode_attention_unstaged (row 11) at TP {n}'s {heads[0]}/{heads[1]} heads "
+            f"of {H_D}, B 2/1, T {solo_T}, seq_end 1/255/256/{solo_T // 2}/{solo_T}: max_abs_err "
+            f"{worst:.3e} <= {TOL}; prefill_attention (row 3) S={HYBRID_PREFILL_S} T=528 B 2/1: "
+            f"{e_pre:.3e} <= {TOL}")
+    worst, cases = 0.0, 0
+    for n in HYBRID_TP:
+        for name, (K, N, _) in HYBRID_TP_PROJECTIONS[n].items():
+            wq = quant.quantize_weight(randn(gen, 1, K, N) / K ** 0.5)
+            for M in (1, 2, 2 * HYBRID_PREFILL_S):
+                x = randn(gen, M, K)
+                for dt in (torch.bfloat16, torch.float32):
+                    got = qmm_int8(x, wq["weight_int8"], wq["scale"], dt)
+                    want = qmm_int8_plain(x, wq["weight_int8"], wq["scale"], dt)
+                    rt, at = QMM_TOL["fp32" if dt == torch.float32 else "bf16"]
+                    diff = (got.float() - want.float()).abs()
+                    if not torch.isfinite(got).all() or (diff > at + rt * want.float().abs()).any():
+                        raise AssertionError(f"qmm_int8 hybrid TP {n} {name} M={M} {dt}: "
+                                             f"max |err| {diff.max().item()}")
+                    worst, cases = max(worst, diff.max().item()), cases + 1
+    err["qmm_int8_hybrid_tp2_step"] = worst
+    log(f"kernel qmm_int8 at the hybrid's TP 2 and TP 4 widths: {cases} cases (Mamba in_proj "
+        f"N 4384/2320, out_proj K 2048/1024, attention in_proj N 1536/768, out_proj K 1024/512, "
+        f"fc1 N 8192/4096, fc2 K 4096/2048; M 1/2/{2 * HYBRID_PREFILL_S}; bf16 and fp32 out) "
+        f"max_abs_err {worst:.3e} within {QMM_TOL}")
+    # Every qmm_int4 shape the int4 runs launch: each projection of the int4
+    # hybrid at TP 2 and TP 4 (the Mamba in_proj padded with zero columns to a
+    # multiple of 32: 2320 -> 2336 at TP 4), among them the int4-MLP
+    # transformer's TP 2 fc1 and fc2 (the hybrid's MLP has the same widths).
+    worst = {}
+    for n in HYBRID_TP:
+        for name, (K, N, _) in HYBRID_TP_PROJECTIONS[n].items():
+            padded = -(-N // 32) * 32
+            leaf = quant.quantize_weight(randn(gen, K, padded) / K ** 0.5, bits=4,
+                                         group_size=128, clip_search=True)
+            leaf["weight_int4"][:, N // 2:] = 0
+            leaf["scale"][..., N:] = 0
+            for M in (1, 2, 176, 2 * HYBRID_PREFILL_S):
+                x = randn(gen, M, K)
+                for dt in (torch.bfloat16, torch.float32):
+                    got = qmm_int4(x, leaf["weight_int4"], leaf["scale"], dt)
+                    want = qmm_int4_plain(x, leaf["weight_int4"], leaf["scale"], dt)
+                    rt, at = QMM_TOL["fp32" if dt == torch.float32 else "bf16"]
+                    diff = (got.float() - want.float()).abs()
+                    if not torch.isfinite(got).all() or (diff > at + rt * want.float().abs()).any():
+                        raise AssertionError(f"qmm_int4 {name} TP {n} {K}x{padded} M={M} {dt}: "
+                                             f"max |err| {diff.max().item()}")
+                    worst[n, name] = max(worst.get((n, name), 0.0), diff.max().item())
+    err["qmm_int4_tp2_step"] = max(worst[2, "fc1"], worst[2, "fc2"])
+    err["qmm_int4_hybrid_tp4_step"] = max(e for (n, _), e in worst.items() if n == 4)
+    log(f"kernel qmm_int4 at the int4 runs' rank-local shapes: {len(worst) * 8} cases ("
+        + ", ".join(f"{name} TP {n} {K}x{-(-N // 32) * 32}" for n in HYBRID_TP
+                    for name, (K, N, _) in HYBRID_TP_PROJECTIONS[n].items())
+        + f"; groups of 128; M 1/2/176/{2 * HYBRID_PREFILL_S}; bf16 and fp32 out) max_abs_err "
+        f"{max(worst.values()):.3e} within {QMM_TOL}")
+    return err
+
+
+def _cut_tree(tree, n: int):
+    """Every tensor of ``tree`` cut to its first ``n`` rows (layers)."""
+    if isinstance(tree, dict):
+        return {k: _cut_tree(v, n) for k, v in tree.items()}
+    return tree[:n]
+
+
+def _at_depth(model, params: dict, depth: int):
+    """The model and its parameters with only the first ``depth`` layers."""
+    import dataclasses
+
+    from zonos_vibes_tpu_torch.models.zonos import ZonosModel
+
+    bb_cfg = model.config.backbone
+    if bb_cfg.is_hybrid:
+        attn = tuple(i for i in bb_cfg.attn_layer_idx if i < depth)
+        bb_cfg = dataclasses.replace(bb_cfg, n_layer=depth, attn_layer_idx=attn)
+        bb = {"norm_f": params["backbone"]["norm_f"],
+              "mamba": _cut_tree(params["backbone"]["mamba"], depth - len(attn))}
+        if attn:
+            bb["attn"] = _cut_tree(params["backbone"]["attn"], len(attn))
+    else:
+        bb_cfg = dataclasses.replace(bb_cfg, n_layer=depth)
+        bb = {**params["backbone"], "layers": _cut_tree(params["backbone"]["layers"], depth)}
+    cfg = dataclasses.replace(model.config, backbone=bb_cfg)
+    return ZonosModel(cfg), {**params, "backbone": bb}
+
+
+def _planted_hybrid(eng, fault: str | None, full_params: dict):
+    """Plant ``fault`` in a tensor-parallel engine's rank; returns what
+    removes it. ``local_norm``: each rank normalises the gated norm over its
+    own heads (the trap the fold avoids); ``contiguous_mamba_in_proj``:
+    JAX's ``P(None, MODEL)`` copied, a contiguous run of the fused z | x |
+    B | C | dt columns where the rank's segments belong;
+    ``dropped_mamba_out_proj``: rank 1's Mamba out_proj partial left out of
+    every Mamba layer's sum; ``shifted_group_scales`` (the int4-MLP
+    transformer): rank 1's fc2 rows under rank 0's group scales."""
+    import torch
+
+    from zonos_vibes_tpu_torch.ops.quant import proj_matmul_f32
+
+    bb, axis = eng.model.local_backbone, eng.model_axis
+    bbp = eng.params["backbone"]
+    reduce = bb.reduce
+    saved = {}
+    if fault == "local_norm":
+        def local(gw, ss, out_proj, dtype):
+            scale = torch.rsqrt(ss[..., None] / bb.ssm.d_inner + bb.cfg.norm_epsilon)
+            return reduce(proj_matmul_f32(gw, out_proj) * scale).to(dtype)
+
+        bb._norm_fold = local
+    elif fault == "dropped_mamba_out_proj":
+        D = bb.cfg.d_model
+
+        def dropped(t):
+            if t.shape[-1] == D + 1 and axis.rank == 1:  # a Mamba layer's fold: keep the sums
+                t[..., :D] = 0
+            return axis.all_reduce_(t)
+
+        bb.reduce = dropped
+    elif fault == "contiguous_mamba_in_proj":
+        w = full_params["backbone"]["mamba"]["in_proj"]["weight"]
+        width = bbp["mamba"]["in_proj"]["weight"].shape[-1]
+        a = min(axis.rank * w.shape[-1] // axis.size, w.shape[-1] - width)
+        saved["mamba"] = bbp["mamba"]
+        bbp["mamba"] = {**bbp["mamba"], "in_proj": {"weight": w[..., a: a + width].contiguous()}}
+    elif fault == "shifted_group_scales":
+        fc2 = bbp["layers"]["fc2"]
+        full = full_params["backbone"]["layers"]["fc2"]["scale"]
+        saved["layers"] = bbp["layers"]
+        if axis.rank == 1:
+            g = fc2["scale"].shape[-3]
+            bbp["layers"] = {**bbp["layers"], "fc2": {**fc2, "scale": full[:, :g].contiguous()}}
+    elif fault is not None:
+        raise ValueError(fault)
+
+    def remove():
+        bb.reduce = reduce
+        bb.__dict__.pop("_norm_fold", None)
+        bbp.update(saved)
+
+    return remove
+
+
+def _hybrid_controls(jobs: dict) -> dict:
+    """The hybrid's TVD limits' controls: a sound TP 2 engine's first-frame
+    TVD against the solo engine's, and each of ``PAR_HYBRID_FAULTS`` planted
+    in it, with layer 0 alone (a Mamba layer; ``depth1``) and all 48; the
+    int4-MLP transformer's TP 2 sound and with ``shifted_group_scales``, at
+    depth 1 and 26."""
+    from zonos_vibes_tpu_torch.config import ZONOS_V01_HYBRID, ZONOS_V01_TRANSFORMER, MeshConfig
+    from zonos_vibes_tpu_torch.models.zonos import ZonosModel
+    from zonos_vibes_tpu_torch.parallel.engine import ParallelEngine
+
+    out = {}
+    for cfg, tree, prefix_key, depths, faults in (
+            (ZONOS_V01_HYBRID, "hybrid", "hybrid_prefix", (1, H_M + H_LA), PAR_HYBRID_FAULTS),
+            (ZONOS_V01_TRANSFORMER, "int4mlp", "prefix", (1, L), PAR_INT4_FAULTS)):
+        prefix = jobs[prefix_key].cuda()
+        for depth in depths:
+            model, p = _at_depth(ZonosModel(cfg), jobs[tree], depth)
+            solo = first_frame_logits(model, p, prefix)
+            eng = ParallelEngine(model, MeshConfig(model=2), p)
+            for fault in (None, *faults):
+                remove = _planted_hybrid(eng, fault, p)
+                logits = first_frame_logits(eng.model, eng.params, prefix)
+                remove()
+                out[f"{tree}_{fault or 'sound'}_depth{depth}"] = {
+                    "tvd": _tvd(logits, solo),
+                    "max_abs_diff": (logits - solo).abs().max().item()}
+            del eng
+    return out
+
+
+def hybrid_parallel_refs(hpipe, params4, prefix4) -> dict:
+    """The solo engine's greedy runs the hybrid phase's runs are held
+    against: codes and first-frame logits on the hybrid's bf16 weights (over
+    AUDIO_FRAMES, for the NCCL rank), its int8 and int4 trees and the
+    int4-MLP transformer (SHORT_FRAMES each); and the rounding-size control,
+    the solo hybrid's first frame on conditioning nudged by one bf16 step."""
+    import torch
+
+    from zonos_vibes_tpu_torch.config import ZONOS_V01_TRANSFORMER
+    from zonos_vibes_tpu_torch.engine.generate import DecodeEngine
+    from zonos_vibes_tpu_torch.models.zonos import ZonosModel
+    from zonos_vibes_tpu_torch.ops.quant import quantize_zonos_params
+
+    prefix = hpipe.prepare_conditioning(hpipe.make_cond_dict(text=TEXT, language="en-us"))
+    trees = {"hybrid": hpipe.params, "hybrid_int8": quantize_zonos_params(hpipe.params),
+             "hybrid_int4": quantize_zonos_params(hpipe.params, bits=4), "int4mlp": params4}
+    tmodel = ZonosModel(ZONOS_V01_TRANSFORMER)
+    refs = {}
+    for key, params in trees.items():
+        model, pre = (tmodel, prefix4) if key == "int4mlp" else (hpipe.model, prefix)
+        res = DecodeEngine(model).generate(
+            params, pre, generator=torch.Generator("cuda").manual_seed(421),
+            max_new_tokens=AUDIO_FRAMES if key == "hybrid" else SHORT_FRAMES,
+            sampling_params=PAR_GREEDY, disable_eos=True)
+        refs[key] = {"codes": res.codes.cpu().numpy(),
+                     "logits": first_frame_logits(model, params, pre).cpu().numpy(),
+                     "ms_per_step": (res.decode_seconds - res.capture_seconds) * 1e3 / res.steps,
+                     "prefill_ms": res.prefill_seconds * 1e3}
+    nudged = first_frame_logits(hpipe.model, hpipe.params,
+                                (prefix.float() * (1 + 2 ** -7)).to(prefix.dtype)).cpu().numpy()
+    refs["control_tvd"] = _tvd(nudged, refs["hybrid"]["logits"])
+    return refs, trees, prefix
+
+
+def run_parallel_hybrid(hpipe, params4, prefix4, card: str) -> dict:
+    """Phase 3, the parallel layer's second slice on the hybrid path's bf16
+    weights (and their int8 and grouped int4 trees) and on the int4-MLP
+    transformer's tree: (a) one NCCL rank with graphs on the hybrid, codes
+    equal to the solo engine's and its launch counts the solo hybrid's; (b)
+    gloo ranks sharing the card, ``PAR_HYBRID_BATCHES`` of concurrent spawns
+    running ``PAR_HYBRID_RUNS`` and the controls (:func:`_hybrid_controls`).
+    Held as :func:`run_parallel` holds its runs, the hybrid's first-frame
+    TVD against ``PAR_HYBRID_TVD_LIMIT``, the transformer's against
+    ``PAR_TVD_LIMIT``; every sound control within its limit and every
+    structural fault above it."""
+    import torch
+
+    t_phase = time.perf_counter()
+    refs, trees, prefix = hybrid_parallel_refs(hpipe, params4, prefix4)
+    log(f"parallel hybrid control ({card}): the solo hybrid's first-frame TVD after rounding "
+        f"the conditioning one bf16 step up {refs['control_tvd']:.2e}")
+    nccl = run_parallel_nccl(hpipe.model, prefix,
+                             [("hybrid", hpipe.params, ParRun("hybrid", (1, 1, 1, 1),
+                                                              hybrid=True))], refs, card)
+    torch.cuda.empty_cache()
+    jobs = {**trees, "hybrid_prefix": prefix.cpu(), "prefix": prefix4.cpu()}
+    table = {run.label: run for run in PAR_HYBRID_RUNS}
+    ranks, spawn_s = {}, []
+    for batch in PAR_HYBRID_BATCHES:
+        spawns = [(labels, RankSpawn(world, {**jobs, "runs": [table[x] for x in labels],
+                                              "extras": extras}))
+                  for world, labels, extras in batch]
+        for labels, spawn in spawns:
+            res = spawn.results()
+            spawn_s.append((spawn.world, labels, round(spawn.seconds, 1)))
+            for label in labels:
+                ranks[label] = [r[label] for r in res]
+            if res[0].get("controls") is not None:
+                controls = res[0]["controls"]
+    del jobs, trees
+    torch.cuda.empty_cache()
+    runs, failures = _hold_runs(
+        table, ranks, lambda run: refs[par_tree(run)],
+        lambda run: PAR_HYBRID_TVD_LIMIT if run.hybrid else PAR_TVD_LIMIT, 0, card)
+    limits = {"hybrid": (PAR_HYBRID_TVD1_LIMIT, PAR_HYBRID_TVD_LIMIT),
+              "int4mlp": (PAR_TVD1_LIMIT, PAR_TVD_LIMIT)}
+    if refs["control_tvd"] > PAR_HYBRID_TVD_LIMIT:
+        failures.append(f"control: the nudged hybrid reads {refs['control_tvd']} > "
+                        f"{PAR_HYBRID_TVD_LIMIT}, the limit is below rounding size")
+    for key, c in controls.items():
+        tree, depth = key.split("_depth")
+        tree = "int4mlp" if tree.startswith("int4mlp") else "hybrid"
+        limit = limits[tree][0 if depth == "1" else 1]
+        if "_sound" in key and c["tvd"] > limit:
+            failures.append(f"control: {key}: TVD {c['tvd']} > {limit}")
+        elif ("_sound" not in key and c["tvd"] <= limit
+              and (depth == "1" or tree == "hybrid")):
+            failures.append(f"control: {key} passes: TVD {c['tvd']} <= {limit}")
+    log(f"parallel hybrid controls ({card}): TP 2's first-frame TVD (max |logit diff|) against "
+        f"the solo engine's, sound and with each fault planted; the hybrid at depth 1 (layer 0, "
+        f"Mamba; limit {PAR_HYBRID_TVD1_LIMIT}) and 48 (limit {PAR_HYBRID_TVD_LIMIT}), the "
+        f"int4-MLP transformer at depth 1 ({PAR_TVD1_LIMIT}) and 26 ({PAR_TVD_LIMIT}); every "
+        f"fault above its limit (the int4 fault at depth 1): "
+        + "; ".join(f"{k} {v['tvd']:.4e} ({v['max_abs_diff']:.3e})"
+                    for k, v in controls.items()))
+    seconds = time.perf_counter() - t_phase
+    log(f"parallel hybrid phase: {seconds:.1f} s; spawns (ranks, runs, s): {spawn_s}")
+    if failures:
+        raise AssertionError("parallel hybrid phase: " + "; ".join(failures))
+    return {"nccl": nccl, "runs": runs, "seconds": seconds, "control_tvd": refs["control_tvd"],
+            "controls": controls, "tvd_limit": PAR_HYBRID_TVD_LIMIT,
+            "tvd1_limit": PAR_HYBRID_TVD1_LIMIT, "cond_len": prefix.shape[1],
+            "cond_len_transformer": prefix4.shape[1],
+            "note": "ranks share one card's SMs: no scaling figure"}
+
+
+def _step_launches(run: dict, kernel: str, per: int) -> int:
+    """A run's launches of ``kernel`` in its decode steps: its counted
+    launches less those of its prefill forwards (``per`` per forward)."""
+    n = run["launches"][kernel]
+    return n - per * (n // per - run["steps"])
+
+
+def time_partial(gen, n: int, card: str):
+    """The partial-norm mode at TP n's HP (fp32 state, B 2, the 42 planes
+    cycled): (kernel, plain, bound ms, bound_by)."""
+    import itertools
+
+    import torch
+
+    from zonos_vibes_tpu_torch.ops.cuda.mamba_step import (
+        ssd_gate_step_layered, ssd_gate_step_partial_plain)
+
+    hp = M_HP // n
+    states, x = ssd_inputs(gen, B, H_M, torch.float32, hp, M_H // n)
+    states.normal_(generator=gen)
+    idx = itertools.cycle(range(H_M))
+    ms = device_ms(lambda: ssd_gate_step_layered(states, next(idx), **x, partial=True), H_M * 10)
+    plain = device_ms(lambda: ssd_gate_step_partial_plain(states, next(idx), **x), H_M)
+    b, by = ssd_bound(B, 4, hp, M_H // n)
+    log(f"time ssd_gate_step partial-norm mode HP={hp} B={B} state fp32 [{H_M} planes cycled] "
+        f"({card}): kernel_ms {ms:.5f} plain_ms {plain:.4f} library_ms none bound_ms {b:.5f} "
+        f"({by}); per decode step ({H_M} launches) {H_M * ms:.4f} ms")
+    del states
+    return ms, plain, b, by
+
+
+def time_parallel_hybrid_kernels(par: dict, errors: dict, card: str) -> list[dict]:
+    """Phase 4 at the hybrid and int4 parallel runs' rank-local shapes: the
+    partial-norm mode at TP 2 and 4; row 11 at their heads over the runs'
+    last step; row 3 at TP 2's heads over the hybrid prefill; ``qmm_int8``
+    over the TP 2 int8 hybrid step's 109 launches at M = 2; ``qmm_int4`` over
+    the TP 2 int4-MLP step's 52 launches and the TP 4 int4 hybrid's padded
+    Mamba in_proj and split out_proj."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(57)
+    runs = par["runs"]
+    rows = []
+    for n in HYBRID_TP:
+        ms, plain, b, by = time_partial(gen, n, card)
+        rows.append(dict(name=f"mamba_step_partial_tp{n}", route="cuda",
+                         source="zonos_vibes_tpu_torch/csrc/mamba_step.cu",
+                         replaces="zonos_vibes_tpu/ops/pallas/mamba_step.py:116",
+                         launches=runs[f"hybrid_tp{n}"]["launches"]["ssd_gate_step_partial"],
+                         max_abs_err=errors["ssd_gate_step_partial"], ms=ms, plain_ms=plain,
+                         bound_ms=b, bound_by=by, library_ms=None))
+    cond_len = par["cond_len"]
+    for n in HYBRID_TP:
+        launches = runs[f"hybrid_tp{n}"]["launches"]["decode_attention_unstaged"]
+        seq_end = cond_len + launches // H_LA + 1  # the last step attends through its column
+        ms, plain, lib, b, by = time_unstaged(gen, _solo_cache_len(cond_len, SHORT_FRAMES),
+                                              seq_end, card, heads=(H_HQ // n, H_HKV // n))
+        rows.append(dict(name=f"decode_attention_unstaged_tp{n}", route="cuda",
+                         source="zonos_vibes_tpu_torch/csrc/decode_attention.cu",
+                         replaces="zonos_vibes_tpu/ops/pallas/decode_attention.py:1158",
+                         launches=launches, max_abs_err=errors[f"decode_attention_unstaged_tp{n}"],
+                         ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib))
+    S = cond_len + 1
+    ms, plain, lib, b, by = time_prefill(gen, H_HQ // 2, H_HKV // 2, H_D, S,
+                                         _solo_cache_len(cond_len, SHORT_FRAMES), card,
+                                         long=())[S, 0]
+    rows.append(dict(name="prefill_attention_h128_tp2", route="cuda",
+                     source="zonos_vibes_tpu_torch/csrc/prefill_attention.cu",
+                     replaces="zonos_vibes_tpu/ops/pallas/prefill_attention.py:111",
+                     launches=runs["hybrid_tp2"]["launches"]["prefill_attention"],
+                     max_abs_err=errors["prefill_attention_h128_tp2"], ms=ms, plain_ms=plain,
+                     bound_ms=b, bound_by=by, library_ms=lib))
+    step = dict(ms=0.0, plain=0.0, lib=0.0, bound=0.0)
+    for name, (K, N, count) in HYBRID_TP_PROJECTIONS[2].items():
+        ms, plain, lib, b, by = time_qmm(gen, 1, K, N, torch.bfloat16, min(count, 8), (2,))[2]
+        log(f"time qmm_int8 hybrid TP 2 {name} M=2 {K}x{N} ({card}): kernel_ms {ms:.5f} "
+            f"plain_ms {plain:.4f} library_ms {lib:.5f} bound_ms {b:.5f} ({by})")
+        for key, v in zip(("ms", "plain", "lib", "bound"), (ms, plain, lib, b)):
+            step[key] += count * v
+    ms, plain, lib, b, _ = time_qmm(gen, *TP2_HEADS_SHAPE, torch.float32, 1, (2,))[2]
+    for key, v in zip(("ms", "plain", "lib", "bound"), (ms, plain, lib, b)):
+        step[key] += v
+    per = 2 * H_M + 4 * H_LA + 1
+    log(f"time qmm_int8 one TP 2 int8 hybrid step (M=2), {per} launches ({card}): kernel_ms "
+        f"{step['ms']:.4f} plain_ms {step['plain']:.3f} library_ms {step['lib']:.4f} bound_ms "
+        f"{step['bound']:.4f}; kernel / library {step['ms'] / step['lib']:.3f}")
+    rows.append(dict(name="qmm_int8_hybrid_tp2_step", route="cuda",
+                     source="zonos_vibes_tpu_torch/csrc/qmm_int8.cu",
+                     replaces="zonos_vibes_tpu/ops/pallas/qmm.py:46",
+                     launches=_step_launches(runs["hybrid_tp2_int8"], "qmm_int8", per),
+                     max_abs_err=errors["qmm_int8_hybrid_tp2_step"], ms=step["ms"],
+                     plain_ms=step["plain"], bound_ms=step["bound"], bound_by="bytes",
+                     library_ms=step["lib"]))
+    source4 = dict(route="cuda", source="zonos_vibes_tpu_torch/csrc/qmm_int4.cu",
+                   replaces="zonos_vibes_tpu/ops/quant.py:321 (XLA s4 dot, not a Pallas kernel)")
+    for name, run, shapes in (
+            ("qmm_int4_tp2_step", "tp2_int4mlp",
+             ((2048, 8192, 16, L), (4096, 2048, 32, L))),
+            ("qmm_int4_hybrid_tp4_step", "hybrid_tp4_int4",
+             ((2048, 2336, 16, H_M), (1024, 2048, 8, H_M), (2048, 768, 16, H_LA),
+              (512, 2048, 4, H_LA), (2048, 4096, 16, H_LA), (2048, 2048, 16, H_LA)))):
+        step = dict(ms=0.0, plain=0.0, lib=0.0, bound=0.0)
+        for K, N, groups, count in shapes:
+            ms, plain, lib, b, by = time_qmm4(gen, K, N, groups, min(count, 8), (2,))[2]
+            log(f"time qmm_int4 {run} M=2 {K}x{N} in {groups} groups ({card}): kernel_ms "
+                f"{ms:.5f} plain_ms {plain:.4f} library_ms {lib:.5f} bound_ms {b:.5f} ({by})")
+            for key, v in zip(("ms", "plain", "lib", "bound"), (ms, plain, lib, b)):
+                step[key] += count * v
+        per = sum(count for *_, count in shapes)
+        launches = _step_launches(runs[run], "qmm_int4", per)
+        log(f"time qmm_int4 one {run} step (M=2), {per} launches ({card}): kernel_ms "
+            f"{step['ms']:.4f} plain_ms {step['plain']:.3f} library_ms {step['lib']:.4f} "
+            f"bound_ms {step['bound']:.4f}; kernel / library {step['ms'] / step['lib']:.3f}")
+        rows.append(dict(name=name, launches=launches, max_abs_err=errors[name], ms=step["ms"],
+                         plain_ms=step["plain"], bound_ms=step["bound"], bound_by="bytes",
+                         library_ms=step["lib"], **source4))
     return rows
 
 
@@ -4547,6 +5194,7 @@ def main() -> int:
     check_pooled_backbone_against_cpu(ring=False)
     pipe, cond, e2e = run_main_path(card)
     errors.update(check_hybrid_kernels(_solo_cache_len(e2e["cond_len"])))
+    errors.update(check_parallel_hybrid_kernels(_solo_cache_len(e2e["cond_len"])))
     check_hybrid_backbone_against_cpu()
     cont = run_continuation(pipe, e2e["wav"], card)
     errors.update(cont["errors"])
@@ -4564,9 +5212,15 @@ def main() -> int:
     gate = {"transformer": run_gate(pipe, card, GATE_MODES, "transformer")}
     e2e_int4 = run_quantized_path(pipe, card)
     pool_int4 = run_pool(pipe, card, kv_int8=False, quant="int4")
+    # --int4-mlp's tree and the text's conditioning, for the hybrid parallel phase.
+    params4 = pipe.params
+    prefix4 = pipe.prepare_conditioning(pipe.make_cond_dict(text=TEXT, language="en-us"))
     del pipe
     torch.cuda.empty_cache()
     pipe, hybrid = run_hybrid_path(card)
+    par_hybrid = run_parallel_hybrid(pipe, params4, prefix4, card)
+    del params4, prefix4
+    torch.cuda.empty_cache()
     pool_hybrid = run_pool(pipe, card, kv_int8=False, hybrid=True)
     stage_less = run_stage_less(pipe, pool_hybrid, card)
     gate["hybrid"] = run_gate(pipe, card, GATE_HYBRID_MODES, "hybrid")
@@ -4585,7 +5239,8 @@ def main() -> int:
             + time_server_kernels(server, server_int8, errors, card)
             + time_quant_kernels(e2e_int4, pool_int4, hybrid_int8, pool_hybrid_int8, errors,
                                  card)
-            + time_parallel_kernels(par, errors, card))
+            + time_parallel_kernels(par, errors, card)
+            + time_parallel_hybrid_kernels(par_hybrid, errors, card))
     summary = {name: {k: v for k, v in run["graphs"].items() if k != "step_launches"}
                for name, run in (("bf16", e2e), ("continuation", cont), ("int8", e2e_int8),
                                  ("hybrid", hybrid), ("int4", e2e_int4),
@@ -4603,6 +5258,7 @@ def main() -> int:
                                                                             "solo_metrics")},
                     "card": card}))
     log(json.dumps({"parallel": par, "card": card}))
+    log(json.dumps({"parallel_hybrid": par_hybrid, "card": card}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -800,3 +800,49 @@ def test_step_plan_fills_the_card_at_the_hybrid_shapes():
     for bad in ((2, 12, 4096, 4), (2, 128, 4000, 4), (2, 512, 4096, 4)):
         with pytest.raises(ValueError):
             msm.step_plan(*bad)
+
+
+@pytest.mark.parametrize("ordinal,sms,tile", [(0, 132, 32), (1, 114, 64)])
+@pytest.mark.parametrize("partial", [False, True], ids=["norm", "partial"])
+def test_step_wrapper_passes_its_cards_sm_count(monkeypatch, ordinal, sms, tile, partial):
+    """The fused Mamba step plans its column tile for the SM count of the
+    card its tensors are on (``_sm_count`` of that device, as the decode and
+    int8 plans read it), not a count fixed in the source: the solo step's
+    2 x 4096 columns take 32-column tiles on 132 SMs and 64-column ones on
+    114. The partial-norm mode passes its sums' buffer and counts under
+    its own name. Meta tensors stand in for a card's, the library for a
+    recorder."""
+    dev = torch.device("cuda", ordinal)
+    calls = []
+
+    class Lib:
+        def zvt_ssd_gate_step(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(build, "require_cuda", lambda name, *t: dev)
+    monkeypatch.setattr(build, "load", lambda: Lib())
+    monkeypatch.setattr(build, "stream_handle", lambda d: 0)
+    monkeypatch.setattr(msm, "_sm_count", lambda d: {0: 132, 1: 114}[d.index])
+    meta = torch.empty(1 << 16, device="meta")
+    monkeypatch.setattr(msm, "_workspace", lambda d, floats, rows: (meta, meta.int()))
+    Bx, N, HP, H = 2, 128, 4096, 64
+
+    def t(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    bf = torch.bfloat16
+    name = "ssd_gate_step_partial" if partial else "ssd_gate_step"
+    before = build.LAUNCHES[name]
+    out = msm.ssd_gate_step_layered(
+        t(3, Bx, N, HP), 1, t(Bx, HP, dtype=bf), t(Bx, H), t(Bx, H), t(Bx, N), t(Bx, N),
+        t(Bx, HP, dtype=bf), t(H), t(HP, dtype=bf), partial=partial)
+    (args,) = calls
+    # ..., R, B, N, HP, H, tile, eps, stream
+    assert args[15:21] == (3, Bx, N, HP, H, tile)
+    assert (args[12] is not None) == partial  # the sums' buffer, or null
+    if partial:
+        assert out[0].shape == (Bx, HP) and out[1].shape == (Bx,)
+        assert out[1].dtype == torch.float32
+    assert build.LAUNCHES[name] == before + 1
+    build.LAUNCHES[name] = before

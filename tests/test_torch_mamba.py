@@ -9,6 +9,9 @@ held against the Pallas kernels run with ``interpret=True``: the output
 within 1e-5, an fp32 state within 1e-6, a bf16 state within one bf16 step
 (both round the same fp32 update, which may differ in its last bit); the
 layered entry leaves every other plane of the stacked state bit-identical.
+The partial-norm mode's plain version (a tensor-parallel rank's heads),
+folded through the row-parallel out_proj, is held against the Pallas step
+followed by out_proj within 1e-5.
 """
 
 import jax.numpy as jnp
@@ -25,7 +28,11 @@ from zonos_vibes_tpu.ops.pallas.mamba_step import (
 )
 from zonos_vibes_tpu_torch.ops import mamba as tm
 from zonos_vibes_tpu_torch.ops.cuda import build
-from zonos_vibes_tpu_torch.ops.cuda.mamba_step import ssd_gate_step, ssd_gate_step_layered
+from zonos_vibes_tpu_torch.ops.cuda.mamba_step import (
+    ssd_gate_step,
+    ssd_gate_step_layered,
+    ssd_gate_step_partial_plain,
+)
 from zonos_vibes_tpu_torch.ops.norms import rms_norm
 from zonos_vibes_tpu_torch.ops.rope import apply_rope_half
 
@@ -221,3 +228,59 @@ def test_ssd_gate_step_rejects_inconsistent_inputs():
         ssd_gate_step_layered(states, 0, **{**t, "d_skip": t["d_skip"][:4]})
     with pytest.raises(ValueError):
         ssd_gate_step(states, **t)  # a stacked state where one plane is expected
+
+
+def _folded_step(port, state, out_w, n, local_norm=False, eps=1e-5):
+    """The step of ``n`` tensor-parallel ranks, each holding ``H / n`` heads
+    (their state columns, gate and norm weight, and out_proj rows), through
+    the norm fold: every rank's ``out_proj(g * w)`` and sum of ``g^2`` summed,
+    then scaled by ``rsqrt(total / HP + eps)``. ``local_norm`` plants the
+    trap instead: each rank normalises over its own heads."""
+    H = port["dt"].shape[-1]
+    HP = state.shape[-1]
+    hl, cl = H // n, HP // n
+    parts, sums, states = [], [], []
+    for r in range(n):
+        heads, cols = slice(r * hl, (r + 1) * hl), slice(r * cl, (r + 1) * cl)
+        st = _t(state[None, :, :, cols])
+        gw, ss = ssd_gate_step_partial_plain(
+            st, 0, _t(port["xs"][:, cols]), _t(port["dt"][:, heads]),
+            _t(port["decay"][:, heads]), _t(port["bm"]), _t(port["cm"]),
+            _t(port["z"][:, cols]), _t(port["d_skip"][heads]), _t(port["norm_w"][cols]))
+        part = gw @ _t(out_w[cols])
+        if local_norm:
+            part = part * torch.rsqrt(ss / cl + eps)[:, None]
+        parts.append(part)
+        sums.append(ss)
+        states.append(st[0])
+    out = sum(parts)
+    if not local_norm:
+        out = out * torch.rsqrt(sum(sums) / HP + eps)[:, None]
+    return out.numpy(), torch.cat(states, dim=-1).numpy()
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_partial_norm_fold_equals_pallas_step_and_out_proj(n):
+    """The partial-norm mode's plain version on n slices of one layer's heads,
+    combined by the fold (sum ``out_proj(g * w)`` and ``sum(g^2)``, then
+    scale), equals JAX's ``ssd_gate_step_pallas`` (interpret mode) followed
+    by out_proj within 1e-5; the rank slices' states are JAX's new state."""
+    port, pallas, state = _step_inputs(31)
+    out_w = _rng(32)(state.shape[-1], 24) / 8
+    jy, jns = ssd_gate_step_pallas(jnp.asarray(state), *pallas, eps=1e-5, interpret=True)
+    want = np.asarray(jy)[:, 0] @ out_w
+    got, new_state = _folded_step(port, state, out_w, n)
+    np.testing.assert_allclose(got, want, **TOL)
+    np.testing.assert_allclose(new_state, np.asarray(jns), rtol=1e-6, atol=1e-6)
+
+
+def test_local_norm_fault_misses_pallas():
+    """The trap the fold avoids: each rank normalising over its own heads
+    misses JAX's step by more than 1e-2, so the test above can see it."""
+    port, pallas, state = _step_inputs(31)
+    out_w = _rng(32)(state.shape[-1], 24) / 8
+    jy, _ = ssd_gate_step_pallas(jnp.asarray(state), *pallas, eps=1e-5, interpret=True)
+    want = np.asarray(jy)[:, 0] @ out_w
+    for n in (2, 4):
+        got, _ = _folded_step(port, state, out_w, n, local_norm=True)
+        assert np.abs(got - want).max() > 1e-2, n

@@ -78,7 +78,7 @@ def setup(tmp_path_factory):
     cond = jax_conditioning(cfg, np_params, PHONEMES)
     spawned = {}
     for world, runs in RUNS.items():
-        gen = [dict(mesh=m, n_micro=k, int8=q, max_new_tokens=MAX_NEW,
+        gen = [dict(mesh=m, n_micro=k, quant="int8" if q else None, max_new_tokens=MAX_NEW,
                     **({"sampling": s} if s else {})) for m, k, q, s in runs]
         tasks = [("generate_runs", (N_LAYER, HEADS, np_params, cond, gen)),
                  ("pipeline_and_experts", (world, _pipe_case() if world == 4 else None,

@@ -10,7 +10,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from torch_parallel_workers import PC
+from torch_parallel_workers import HYBRID_BACKBONE, PC
 from zonos_vibes_tpu.config import BackboneConfig, PrefixConditionerConfig, ZonosConfig, _freeze
 from zonos_vibes_tpu.models.zonos import ZonosModel as JModel
 
@@ -21,6 +21,14 @@ def jax_config(n_layer: int, heads: tuple[int, int]) -> ZonosConfig:
                                 attn_cfg=_freeze({"num_heads": heads[0],
                                                   "num_heads_kv": heads[1]})),
         prefix_conditioner=PrefixConditionerConfig.from_dict(PC))
+
+
+def jax_hybrid_config(**changes) -> ZonosConfig:
+    """JAX's twin of ``torch_parallel_workers.tiny_hybrid_config``."""
+    bb = {k: _freeze(v) if isinstance(v, dict) else v
+          for k, v in {**HYBRID_BACKBONE, **changes}.items()}
+    return ZonosConfig(backbone=BackboneConfig(**bb),
+                       prefix_conditioner=PrefixConditionerConfig.from_dict(PC))
 
 
 def random_params(cfg: ZonosConfig, seed: int) -> dict:

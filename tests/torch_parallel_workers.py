@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import datetime
 import multiprocessing as mp
+import pickle
 import queue
 import time
 import traceback
@@ -30,6 +31,23 @@ PC = {"projection": "linear",
       "conditioners": [{"type": "EspeakPhonemeConditioner", "name": "espeak"}]}
 
 
+# JAX's tests/test_parallel.py TINY_HYBRID with two changes. Attention has
+# 8/4 heads, not 4/2: JAX's GSPMD runs 2 kv heads at model 4, while the
+# port's explicit split needs the model axis to divide the kv heads. The
+# MLP is 128 wide, not 96: at group 32 a rank's 48 fc2 rows at TP 2 would
+# neither divide nor be divided by the group (a split the port refuses).
+HYBRID_BACKBONE = dict(
+    d_model=64, n_layer=3, d_intermediate=0, attn_mlp_d_intermediate=128, attn_layer_idx=(1,),
+    ssm_cfg={"layer": "Mamba2", "d_state": 16, "headdim": 16, "chunk_size": 8},
+    attn_cfg={"num_heads": 8, "num_heads_kv": 4, "rotary_emb_dim": 4},
+    rms_norm=True, residual_in_fp32=True)
+# ops/quant.quantize_zonos_params arguments by name (JAX's take the same):
+# int8; grouped int4 at JAX's test group of 32; and a mixed tree, int4 MLP
+# and int8 elsewhere (the server's --int4-mlp, at group 32).
+QUANT = {"int8": {}, "int4": {"bits": 4, "int4_group": 32},
+         "mixed": {"bits": 8, "mlp_bits": 4, "int4_group": 32}}
+
+
 def tiny_config(n_layer: int, heads: tuple[int, int]) -> tcfg.ZonosConfig:
     """The port's twin of the JAX tests' tiny fp32 configurations."""
     return tcfg.ZonosConfig(
@@ -39,9 +57,19 @@ def tiny_config(n_layer: int, heads: tuple[int, int]) -> tcfg.ZonosConfig:
         prefix_conditioner=tcfg.PrefixConditionerConfig.from_dict(PC))
 
 
-def _entry(target, rank: int, world: int, store_path: str, args: tuple, out) -> None:
+def tiny_hybrid_config(**changes) -> tcfg.ZonosConfig:
+    """The port's twin of :data:`HYBRID_BACKBONE` (with ``changes``)."""
+    bb = {**HYBRID_BACKBONE, **changes}
+    bb = {k: tcfg._freeze(v) if isinstance(v, dict) else v for k, v in bb.items()}
+    return tcfg.ZonosConfig(backbone=tcfg.BackboneConfig(**bb),
+                            prefix_conditioner=tcfg.PrefixConditionerConfig.from_dict(PC))
+
+
+def _entry(target, rank: int, world: int, store_path: str, args_path: str, out) -> None:
     torch.set_num_threads(1)
     try:
+        with open(args_path, "rb") as f:
+            args = pickle.load(f)
         dist.init_process_group("gloo", store=dist.FileStore(store_path, world), rank=rank,
                                 world_size=world,
                                 timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
@@ -62,8 +90,15 @@ class Ranks:
         ctx = mp.get_context("spawn")
         self.world = world
         self.out = ctx.Queue()
-        store = str(tmp_path / f"store-{time.monotonic_ns()}")
-        self.procs = [ctx.Process(target=_entry, args=(target, r, world, store, args, self.out))
+        stem = tmp_path / f"ranks-{time.monotonic_ns()}"
+        store, args_path = f"{stem}.store", f"{stem}.args"
+        # The arguments go through a file: a spawned child reads its start-up
+        # pipe only after importing the parent's main module, so arguments
+        # larger than the pipe's buffer would hold up every start() that long.
+        with open(args_path, "wb") as f:
+            pickle.dump(args, f)
+        self.procs = [ctx.Process(target=_entry,
+                                  args=(target, r, world, store, args_path, self.out))
                       for r in range(world)]
         for p in self.procs:
             p.start()
@@ -116,11 +151,14 @@ def run_tasks(rank: int, tasks: list[tuple[str, tuple]]) -> list:
 # -- generation --------------------------------------------------------------
 
 def generate_runs(rank: int, n_layer: int, heads: tuple[int, int], np_params: dict,
-                  np_cond: np.ndarray, runs: list[dict]) -> dict:
+                  np_cond: np.ndarray, runs: list[dict], hybrid: tuple | None = None) -> dict:
     """Each run's codes from ``ParallelEngine`` or ``PipelineEngine`` on this
-    rank: ``mesh`` (data, model, pipe, expert), ``int8`` (weights through
-    ``quantize_zonos_params``), ``n_micro``, ``sp``/``sp_threshold``,
-    ``prefix`` (audio prefix codes), ``max_new_tokens`` and ``sampling``
+    rank: ``mesh`` (data, model, pipe, expert), ``hybrid`` (the tiny hybrid
+    of :func:`tiny_hybrid_config` on ``hybrid``'s ``(np_params, np_cond)``,
+    else the transformer), ``quant`` (a :data:`QUANT` key: the weights
+    through ``quantize_zonos_params`` with its arguments; ``heads`` False
+    keeps float heads; None or absent, float), ``n_micro``,
+    ``sp``/``sp_threshold``, ``prefix`` (audio prefix codes), ``max_new_tokens`` and ``sampling``
     (default greedy; generator seed 7). Returns ``codes`` per run,
     ``sp_calls`` (how often each run took the sequence-parallel prefill)
     and ``mesh``: this rank's coordinates in each mesh shape."""
@@ -138,12 +176,17 @@ def generate_runs(rank: int, n_layer: int, heads: tuple[int, int], np_params: di
         return route(*args, **kwargs)
 
     peng.sp_prefill_last = counted
-    model = ZonosModel(tiny_config(n_layer, heads))
-    base = params_from_jax(np_params)
-    cond = torch.from_numpy(np_cond.copy())
+    models = {False: (ZonosModel(tiny_config(n_layer, heads)), params_from_jax(np_params),
+                      torch.from_numpy(np_cond.copy()))}
+    if hybrid is not None:
+        models[True] = (ZonosModel(tiny_hybrid_config()), params_from_jax(hybrid[0]),
+                        torch.from_numpy(hybrid[1].copy()))
     out = {"codes": [], "sp_calls": [], "mesh": {}}
     for run in runs:
-        params = quantize_zonos_params(base) if run.get("int8") else base
+        model, base, cond = models[run.get("hybrid", False)]
+        quant = run.get("quant")
+        params = base if quant is None else quantize_zonos_params(
+            base, heads=run.get("heads", True), **QUANT[quant])
         mesh = MeshConfig(*run["mesh"])
         if mesh.pipe > 1:
             eng = peng.PipelineEngine(model, mesh, params, n_micro=run.get("n_micro", 1),

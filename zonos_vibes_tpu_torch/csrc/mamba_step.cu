@@ -54,15 +54,25 @@
 //    (every load issued at once), writes out and resets the ticket to 0.
 //    The order of every sum is fixed, so the result does not depend on
 //    block scheduling.
+//  * The partial-norm mode (sumsq non-null) serves a head-sharded mixer
+//    under tensor parallelism, whose gated RMSNorm spans every rank's
+//    heads: no rank can normalise alone. The same update, readout and gate;
+//    the last block of a row writes bf16(g * w) for the row's columns and
+//    the row's fp32 sum of g^2 (the tiles' partials in the same fixed
+//    order) to sumsq[b], and resets the ticket. The norm's scale
+//    rsqrt(sum over ranks / d_inner + eps) is one scalar per row, so it
+//    commutes with the row-parallel out_proj: the caller sums every rank's
+//    out_proj(g * w) and sum of g^2 in one all-reduce and scales after
+//    (models/mamba_backbone.py, the norm fold).
 //  * Programmatic dependent launch: the launch may be scheduled while the
 //    previous kernel on the stream is finishing; the kernel waits for it
 //    (griddepcontrol.wait) before its first read.
 //
 // Layouts (row-major): states [R, B, N, HP] fp32 or bf16; xs, z [B, HP]
 // bf16; dt, decay [B, H] fp32; bm, cm [B, N] fp32; d_skip [H] fp32;
-// norm_w [HP] bf16; out [B, HP] bf16. Workspace: g [B, HP] fp32, then the
-// tiles' partials [B, HP / TC] fp32; tickets [B] int32, zero before the
-// first launch and left zero.
+// norm_w [HP] bf16; out [B, HP] bf16; sumsq [B] fp32 or null. Workspace:
+// g [B, HP] fp32, then the tiles' partials [B, HP / TC] fp32; tickets [B]
+// int32, zero before the first launch and left zero.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -166,7 +176,8 @@ __global__ void __launch_bounds__(THREADS) ssd_step_kernel(
     const float* __restrict__ bm, const float* __restrict__ cm,
     const __nv_bfloat16* __restrict__ z, const float* __restrict__ d_skip,
     const __nv_bfloat16* __restrict__ norm_w, __nv_bfloat16* __restrict__ out,
-    float* __restrict__ ws, int* __restrict__ tickets, int B, int N, int HP, int H, float eps) {
+    float* __restrict__ sumsq, float* __restrict__ ws, int* __restrict__ tickets, int B, int N,
+    int HP, int H, float eps) {
   using C = Chunk<StateT>;
   constexpr int E = C::E;            // columns of a chunk
   constexpr int TPR = TC / E;        // threads on a row
@@ -280,7 +291,10 @@ __global__ void __launch_bounds__(THREADS) ssd_step_kernel(
       ww[k] = *reinterpret_cast<const uint2*>(norm_w + c);
     }
   }
-  const float inv = rsqrtf(block_sum(p, scratch) / (float)HP + eps);
+  const float total = block_sum(p, scratch);
+  // Partial-norm mode: g * w unscaled, and the row's sum of g^2 beside it.
+  const float inv = sumsq != nullptr ? 1.f : rsqrtf(total / (float)HP + eps);
+  if (sumsq != nullptr && tid == 0) sumsq[b] = total;
 #pragma unroll
   for (int k = 0; k < MAX_NORM_ROUNDS; ++k) {
     const int c = (k * THREADS + tid) * NORM;
@@ -301,8 +315,8 @@ __global__ void __launch_bounds__(THREADS) ssd_step_kernel(
 template <typename StateT, int TC>
 int launch(void* states, int layer, const void* xs, const void* dt, const void* decay,
            const void* bm, const void* cm, const void* z, const void* d_skip,
-           const void* norm_w, void* out, void* ws, void* tickets, int B, int N, int HP, int H,
-           float eps, cudaStream_t s) {
+           const void* norm_w, void* out, void* sumsq, void* ws, void* tickets, int B, int N,
+           int HP, int H, float eps, cudaStream_t s) {
   constexpr int RP = THREADS / (TC / Chunk<StateT>::E);
   if (N % RP != 0 || N > MAX_ROWS || (HP / H) % Chunk<StateT>::E != 0 || HP % TC != 0 ||
       HP > MAX_NORM_ROUNDS * THREADS * 4)
@@ -323,23 +337,24 @@ int launch(void* states, int layer, const void* xs, const void* dt, const void* 
       static_cast<const float*>(bm), static_cast<const float*>(cm),
       static_cast<const __nv_bfloat16*>(z), static_cast<const float*>(d_skip),
       static_cast<const __nv_bfloat16*>(norm_w), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(ws), static_cast<int*>(tickets), B, N, HP, H, eps);
+      static_cast<float*>(sumsq), static_cast<float*>(ws), static_cast<int*>(tickets), B, N, HP,
+      H, eps);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 template <typename StateT>
 int launch_tc(int tc, void* states, int layer, const void* xs, const void* dt, const void* decay,
               const void* bm, const void* cm, const void* z, const void* d_skip,
-              const void* norm_w, void* out, void* ws, void* tickets, int B, int N, int HP, int H,
-              float eps, cudaStream_t s) {
+              const void* norm_w, void* out, void* sumsq, void* ws, void* tickets, int B, int N,
+              int HP, int H, float eps, cudaStream_t s) {
   if (tc == 128)
-    return launch<StateT, 128>(states, layer, xs, dt, decay, bm, cm, z, d_skip, norm_w, out, ws,
-                               tickets, B, N, HP, H, eps, s);
+    return launch<StateT, 128>(states, layer, xs, dt, decay, bm, cm, z, d_skip, norm_w, out,
+                               sumsq, ws, tickets, B, N, HP, H, eps, s);
   if (tc == 64)
-    return launch<StateT, 64>(states, layer, xs, dt, decay, bm, cm, z, d_skip, norm_w, out, ws,
-                              tickets, B, N, HP, H, eps, s);
-  return launch<StateT, 32>(states, layer, xs, dt, decay, bm, cm, z, d_skip, norm_w, out, ws,
-                            tickets, B, N, HP, H, eps, s);
+    return launch<StateT, 64>(states, layer, xs, dt, decay, bm, cm, z, d_skip, norm_w, out,
+                              sumsq, ws, tickets, B, N, HP, H, eps, s);
+  return launch<StateT, 32>(states, layer, xs, dt, decay, bm, cm, z, d_skip, norm_w, out, sumsq,
+                            ws, tickets, B, N, HP, H, eps, s);
 }
 
 }  // namespace
@@ -347,11 +362,14 @@ int launch_tc(int tc, void* states, int layer, const void* xs, const void* dt, c
 // Updates plane `layer` of states [R, B, N, HP] in place and writes out
 // [B, HP], with column tiles of tc (32, 64 or 128) as planned by
 // ops/cuda/mamba_step.py::step_plan. state_bf16 selects the state's storage
-// type (0: fp32, 1: bf16). ws holds B * HP + B * (HP / tc) floats.
+// type (0: fp32, 1: bf16). ws holds B * HP + B * (HP / tc) floats. sumsq
+// null: the full gated norm; else the partial-norm mode (out = g * w, the
+// rows' sums of g^2 in sumsq [B]).
 extern "C" int zvt_ssd_gate_step(void* states, int state_bf16, int layer, const void* xs,
                                  const void* dt, const void* decay, const void* bm,
                                  const void* cm, const void* z, const void* d_skip,
-                                 const void* norm_w, void* out, void* ws, void* tickets, int R,
+                                 const void* norm_w, void* out, void* sumsq, void* ws,
+                                 void* tickets, int R,
                                  int B, int N, int HP, int H, int tc, float eps, void* stream) {
   if (R <= 0 || B <= 0 || layer < 0 || layer >= R || H <= 0 || HP % H != 0 ||
       (tc != 32 && tc != 64 && tc != 128) || N <= 0)
@@ -359,7 +377,7 @@ extern "C" int zvt_ssd_gate_step(void* states, int state_bf16, int layer, const 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (state_bf16)
     return launch_tc<__nv_bfloat16>(tc, states, layer, xs, dt, decay, bm, cm, z, d_skip, norm_w,
-                                    out, ws, tickets, B, N, HP, H, eps, s);
-  return launch_tc<float>(tc, states, layer, xs, dt, decay, bm, cm, z, d_skip, norm_w, out, ws,
-                          tickets, B, N, HP, H, eps, s);
+                                    out, sumsq, ws, tickets, B, N, HP, H, eps, s);
+  return launch_tc<float>(tc, states, layer, xs, dt, decay, bm, cm, z, d_skip, norm_w, out,
+                          sumsq, ws, tickets, B, N, HP, H, eps, s);
 }

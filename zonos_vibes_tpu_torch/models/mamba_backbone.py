@@ -47,6 +47,13 @@ On a CUDA device the Mamba decode step runs the fused kernel (42 launches
 per step at the flagship), attention runs the decode-attention kernels
 (rows 11, 6 and 12 of the kernel table) and the prefill-attention kernel;
 on the CPU the same wrappers run their plain versions.
+
+Under tensor parallelism (``parallel/``) the backbone holds one model
+rank's heads: explicit attention and Mamba head counts (never a rank-local
+``BackboneConfig``) and a row-parallel ``reduce`` that sums the fp32
+partials of every Mamba out_proj, attention out_proj and fc2, rounded once.
+The Mamba mixer's gated RMSNorm spans every rank's heads, so its scale is
+folded into that one reduction (:meth:`HybridBackbone._norm_fold`).
 """
 
 from __future__ import annotations
@@ -72,15 +79,20 @@ from ..ops.mamba import (
 )
 from ..ops.mlp import swiglu_mid
 from ..ops.norms import layer_norm, rms_norm
-from ..ops.quant import proj_matmul
+from ..ops.quant import proj_matmul, proj_matmul_f32
 from ..ops.rope import apply_rope_half
-from .backbone import KV_STAGE
+from .backbone import KV_STAGE, _row_parallel
 
 
 class Mamba2Spec:
-    """Static geometry from ``ssm_cfg`` (Mamba2 module defaults)."""
+    """Static geometry from ``ssm_cfg`` (Mamba2 module defaults).
 
-    def __init__(self, d_model: int, ssm_cfg: dict):
+    ``nheads`` (default: every head) are the heads a mixer holds: a
+    tensor-parallel rank's. ``d_inner``, ``conv_dim`` and ``d_in_proj`` are
+    then the rank's widths; ``norm_dim`` stays the full ``d_inner``, over
+    which the gated RMSNorm normalises."""
+
+    def __init__(self, d_model: int, ssm_cfg: dict, nheads: int | None = None):
         self.d_model = d_model
         self.d_state = ssm_cfg.get("d_state", 128)
         self.d_conv = ssm_cfg.get("d_conv", 4)
@@ -88,14 +100,25 @@ class Mamba2Spec:
         self.headdim = ssm_cfg.get("headdim", 64)
         self.ngroups = ssm_cfg.get("ngroups", 1)
         self.chunk = ssm_cfg.get("chunk_size", 64)
-        self.d_inner = self.expand * d_model
-        if self.d_inner % self.headdim:
+        self.norm_dim = self.expand * d_model
+        if self.norm_dim % self.headdim:
             raise ValueError("d_inner must be a multiple of headdim")
         if self.ngroups != 1:
             raise NotImplementedError("ngroups > 1 is not ported (every Zonos config has 1)")
-        self.nheads = self.d_inner // self.headdim
+        self.nheads = self.norm_dim // self.headdim if nheads is None else nheads
+        self.d_inner = self.nheads * self.headdim
         self.conv_dim = self.d_inner + 2 * self.ngroups * self.d_state
         self.d_in_proj = 2 * self.d_inner + 2 * self.ngroups * self.d_state + self.nheads
+
+
+def attention_geometry(cfg: BackboneConfig) -> tuple[int, int, int, int]:
+    """The hybrid attention's ``(num_heads, num_heads_kv, head_dim,
+    rotary_dim)`` from ``attn_cfg`` (JAX's ``HybridBackbone`` defaults, which
+    differ from ``BackboneConfig``'s transformer properties)."""
+    acfg = cfg.attn_cfg_dict
+    hq = acfg.get("num_heads", 16)
+    dh = acfg.get("head_dim", cfg.d_model // hq)
+    return hq, acfg.get("num_heads_kv", hq), dh, acfg.get("rotary_emb_dim", dh // 2)
 
 
 def _layer(tree: dict, i: int) -> dict:
@@ -106,16 +129,24 @@ def _layer(tree: dict, i: int) -> dict:
 
 class HybridBackbone:
     """The hybrid stack over stacked parameters and caches (the JAX package's
-    ``HybridBackbone``)."""
+    ``HybridBackbone``).
 
-    def __init__(self, cfg: BackboneConfig):
+    For one tensor-parallel rank (``parallel/engine``): ``heads`` ``(Hq,
+    Hkv)`` and ``mamba_heads`` are the attention and Mamba heads the
+    rank's parameters hold, and ``reduce`` sums its row-parallel fp32
+    partials over the model axis (default: every head, no reduction).
+    Trap: head counts never come from a rank-local ``BackboneConfig``; the
+    attention reads its heads from ``attn_cfg`` and ``Mamba2Spec`` derives
+    ``nheads`` and ``d_inner`` from ``d_model``, so a config cut by ``n``
+    would give the rank the wrong widths."""
+
+    def __init__(self, cfg: BackboneConfig, *, heads: tuple[int, int] | None = None,
+                 mamba_heads: int | None = None, reduce=None):
         self.cfg = cfg
-        self.ssm = Mamba2Spec(cfg.d_model, cfg.ssm_cfg_dict)
-        acfg = cfg.attn_cfg_dict
-        self.num_heads = acfg.get("num_heads", 16)
-        self.num_heads_kv = acfg.get("num_heads_kv", self.num_heads)
-        self.head_dim = acfg.get("head_dim", cfg.d_model // self.num_heads)
-        self.rotary_dim = acfg.get("rotary_emb_dim", self.head_dim // 2)
+        self.ssm = Mamba2Spec(cfg.d_model, cfg.ssm_cfg_dict, mamba_heads)
+        hq, hkv, self.head_dim, self.rotary_dim = attention_geometry(cfg)
+        self.num_heads, self.num_heads_kv = heads if heads is not None else (hq, hkv)
+        self.reduce = reduce
         self.mlp_dim = cfg.attn_mlp_d_intermediate
         self.d_intermediate = cfg.d_intermediate
         attn = set(cfg.attn_layer_idx)
@@ -213,12 +244,35 @@ class HybridBackbone:
             return rms_norm(x, p["weight"], self.cfg.norm_epsilon)
         return layer_norm(x, p["weight"], p.get("bias"), self.cfg.norm_epsilon)
 
+    def _norm_fold(self, gw: torch.Tensor, ss: torch.Tensor, out_proj: dict,
+                   dtype) -> torch.Tensor:
+        """A head-sharded mixer's gated RMSNorm and row-parallel out_proj in
+        one all-reduce. Trap: the gated RMSNorm spans all heads, so no rank
+        can normalise alone. Trap: the norm's scale factors through the
+        row-parallel out_proj: ``rsqrt(mean(g^2) + eps)`` is one scalar per
+        token row, so ``out_proj(g * w * s) = s * out_proj(g * w)`` (int8 and
+        int4 column scales commute with it too). The rank's fp32 partial
+        ``[..., D]`` of ``out_proj(g * w)`` travels with its rows' sums of
+        ``g^2`` as one extra column; after the sum the rows are scaled by
+        ``rsqrt(total / d_inner + eps)`` over the full ``d_inner`` (never the
+        rank's width) and rounded once. ``g * w`` (``gw``) is rounded before
+        the scale rather than after: a rounding-size difference from the
+        single card."""
+        part = proj_matmul_f32(gw, out_proj)
+        both = self.reduce(torch.cat([part, ss[..., None]], dim=-1))
+        scale = torch.reciprocal(torch.sqrt(both[..., -1:] / self.ssm.norm_dim
+                                            + self.cfg.norm_epsilon))
+        return (both[..., :-1] * scale).to(dtype)
+
     def _mamba_mixer(self, lp: dict, x: torch.Tensor, cache: dict, m: int) -> torch.Tensor:
         """Mamba-2 mixer of plane ``m``; updates its conv and SSM state in
-        place."""
+        place. Under tensor parallelism (``reduce``) the rank's heads, with
+        the gated norm folded into the out_proj's reduction."""
         s = self.ssm
         B, S, _ = x.shape
-        z, xBC, dt = proj_matmul(x, lp["in_proj"]).split(
+        # A tensor-parallel rank's int4 in_proj may carry zero pad columns
+        # past its z | x | B | C | dt (parallel/sharding): dropped here.
+        z, xBC, dt = proj_matmul(x, lp["in_proj"])[..., :s.d_in_proj].split(
             [s.d_inner, s.conv_dim, s.nheads], dim=-1)
         dt = F.softplus(dt.float() + lp["dt_bias"])  # [B, S, H]
         A = -torch.exp(lp["A_log"].float())
@@ -228,10 +282,13 @@ class HybridBackbone:
             cache["conv"][m] = conv_state
             xs, Bm, Cm = F.silu(xBC_t).split([s.d_inner, s.d_state, s.d_state], dim=-1)
             dt0 = dt[:, 0]
-            y = ssd_gate_step_layered(
-                cache["ssm"], m, xs.contiguous(), dt0, torch.exp(dt0 * A[None, :]),
-                Bm.float().contiguous(), Cm.float().contiguous(), z[:, 0].contiguous(),
-                lp["D"], lp["ssm_norm"]["weight"], eps=self.cfg.norm_epsilon)
+            args = (cache["ssm"], m, xs.contiguous(), dt0, torch.exp(dt0 * A[None, :]),
+                    Bm.float().contiguous(), Cm.float().contiguous(), z[:, 0].contiguous(),
+                    lp["D"], lp["ssm_norm"]["weight"])
+            if self.reduce is not None:  # the kernel's partial-norm mode
+                gw, ss = ssd_gate_step_layered(*args, partial=True)
+                return self._norm_fold(gw[:, None], ss[:, None], lp["out_proj"], x.dtype)
+            y = ssd_gate_step_layered(*args, eps=self.cfg.norm_epsilon)
             return proj_matmul(y[:, None], lp["out_proj"])
         xBC_c, conv_state = causal_conv1d(xBC, conv_w, conv_b, cache["conv"][m])
         cache["conv"][m] = conv_state
@@ -242,8 +299,12 @@ class HybridBackbone:
             chunk=s.chunk, init_state=state_from_lanes(cache["ssm"][m].float(), s.nheads))
         cache["ssm"][m] = state_to_lanes(state).to(cache["ssm"].dtype)
         # Gated RMSNorm: rmsnorm(y * silu(z)) * weight (norm_before_gate=False).
-        y = rms_norm(y.reshape(B, S, s.d_inner) * F.silu(z), lp["ssm_norm"]["weight"],
-                     self.cfg.norm_epsilon)
+        g = y.reshape(B, S, s.d_inner) * F.silu(z)
+        if self.reduce is not None:  # per (row, position): the norm fold
+            gf = g.float()
+            gw = (gf * lp["ssm_norm"]["weight"].float()).to(g.dtype)
+            return self._norm_fold(gw, gf.square().sum(dim=-1), lp["out_proj"], x.dtype)
+        y = rms_norm(g, lp["ssm_norm"]["weight"], self.cfg.norm_epsilon)
         return proj_matmul(y, lp["out_proj"])
 
     def _qkv(self, lp: dict, x: torch.Tensor, rope_pos: torch.Tensor):
@@ -312,7 +373,7 @@ class HybridBackbone:
                 v_cols[j] = v.reshape(B, W)
                 y = decode_attention_pooled_unstaged(
                     q, cache["k"], cache["v"], k_cols[j], v_cols[j], prefix_ends, j)
-            return proj_matmul(y.reshape(B, S, -1), lp["out_proj"])
+            return _row_parallel(y.reshape(B, S, -1), lp["out_proj"], self.reduce)
 
         rdtype = torch.float32 if self.cfg.residual_in_fp32 else hidden.dtype
         residual = torch.zeros_like(hidden, dtype=rdtype)
@@ -327,7 +388,7 @@ class HybridBackbone:
             if "fc1" in lp:
                 residual = hidden.to(rdtype) + residual
                 normed = self._norm(lp["norm2"], residual.to(hidden.dtype))
-                hidden = proj_matmul(swiglu_mid(normed, lp["fc1"]), lp["fc2"])
+                hidden = _row_parallel(swiglu_mid(normed, lp["fc1"]), lp["fc2"], self.reduce)
 
         if S == 1 and pooled and not ring and La:
             # Each row's columns at its own position (clamped, as JAX's

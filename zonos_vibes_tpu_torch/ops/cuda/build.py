@@ -40,7 +40,7 @@ LAUNCHES = {"decode_attention": 0, "decode_attention_q": 0, "stage_splice": 0,
             "prefill_attention": 0, "qmm_int8": 0, "decode_attention_pooled": 0,
             "decode_attention_pooled_q": 0, "stage_splice_rows": 0,
             "decode_attention_unstaged": 0, "decode_attention_pooled_unstaged": 0,
-            "ssd_gate_step": 0, "qmm_int4": 0}
+            "ssd_gate_step": 0, "qmm_int4": 0, "ssd_gate_step_partial": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -55,7 +55,7 @@ _SIGNATURES = {
     "zvt_qmm_int8_tiles": (_I,) * 5,
     "zvt_qmm_int8_workspace": (_I,) * 5,
     "zvt_qmm_int4": (_P,) * 4 + (_I,) * 9 + (_P,),
-    "zvt_ssd_gate_step": (_P, _I, _I) + (_P,) * 11 + (_I,) * 6 + (_F, _P),
+    "zvt_ssd_gate_step": (_P, _I, _I) + (_P,) * 12 + (_I,) * 6 + (_F, _P),
 }
 
 

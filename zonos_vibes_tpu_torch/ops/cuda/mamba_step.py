@@ -22,6 +22,14 @@ block to arrive, from ``g`` and the tiles' sums of ``g^2`` in a per-device
 fp32 workspace, under one int32 ticket per batch row, which that block
 resets. Both are reused across calls, so every launch must stay on one
 stream (the caller's current one).
+
+The partial-norm mode (``partial=True``) serves a tensor-parallel rank that
+holds ``HP / n`` of the columns, whose gated RMSNorm spans every rank's
+heads: the same launch returns ``g * w`` unscaled and each row's fp32 sum of
+``g^2``, which the caller reduces over the ranks together with the
+row-parallel out_proj (``models/mamba_backbone``, the norm fold). It counts
+its launches under ``ssd_gate_step_partial``;
+:func:`ssd_gate_step_partial_plain` is its plain version.
 """
 
 from __future__ import annotations
@@ -29,23 +37,24 @@ from __future__ import annotations
 import torch
 
 from . import build
+from .qmm import _sm_count
 
 # The kernel's plan: the widest column tile of TILES whose grid of
-# (HP / tile) x B blocks puts a block on each of the SMS SMs (else the
+# (HP / tile) x B blocks puts a block on each of the card's SMs (else the
 # narrowest). Each block updates all N state rows of its tile; a thread
 # copies one 16-byte chunk of a state row per pass (4 fp32 or 8 bf16
 # columns), so a pass covers 256 * 16 / (tile * state bytes) rows, and a
 # block holds at most MAX_ROWS.
 TILES = (128, 64, 32)
-SMS = 132
+SMS = 132  # the H100 SXM's; a launch plans for its own card's count
 MAX_ROWS = 256
 _WORKSPACES: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
 
 
-def step_plan(B: int, N: int, HP: int, state_bytes: int) -> int:
-    """The column tile of a launch, from the shapes alone: the grid is
-    ``(HP / tile, B)`` blocks."""
-    tile = next((t for t in TILES if B * (HP // t) >= SMS), TILES[-1])
+def step_plan(B: int, N: int, HP: int, state_bytes: int, sms: int = SMS) -> int:
+    """The column tile of a launch on a card of ``sms`` SMs, from the shapes
+    alone: the grid is ``(HP / tile, B)`` blocks."""
+    tile = next((t for t in TILES if B * (HP // t) >= sms), TILES[-1])
     pass_rows = 256 * 16 // (tile * state_bytes)
     if HP % TILES[0] or N % pass_rows or N > MAX_ROWS:
         raise ValueError(f"step_plan: HP must be a multiple of {TILES[0]} and N of {pass_rows}, "
@@ -63,10 +72,9 @@ def _workspace(dev: torch.device, floats: int, rows: int) -> tuple[torch.Tensor,
     return ws, tickets
 
 
-def ssd_gate_step_layered_plain(states, layer: int, xs, dt, decay, bm, cm, z, d_skip, norm_w,
-                                eps: float = 1e-5) -> torch.Tensor:
-    """Reference: the same fp32 arithmetic in plain tensor ops; plane
-    ``layer`` of ``states`` is overwritten, the rest untouched."""
+def _gate_plain(states, layer: int, xs, dt, decay, bm, cm, z, d_skip) -> torch.Tensor:
+    """The state update of plane ``layer`` (in place), the readout and the
+    gate: ``g`` ``[B, HP]`` fp32."""
     H = dt.shape[-1]
     P = states.shape[-1] // H
     xf = xs.float()
@@ -76,15 +84,33 @@ def ssd_gate_step_layered_plain(states, layer: int, xs, dt, decay, bm, cm, z, d_
     states[layer] = new.to(states.dtype)
     y = (cm.float()[:, :, None] * new).sum(dim=1) + d_skip.float().repeat_interleave(P) * xf
     zf = z.float()
-    g = y * (zf * torch.sigmoid(zf))
+    return y * (zf * torch.sigmoid(zf))
+
+
+def ssd_gate_step_layered_plain(states, layer: int, xs, dt, decay, bm, cm, z, d_skip, norm_w,
+                                eps: float = 1e-5) -> torch.Tensor:
+    """Reference: the same fp32 arithmetic in plain tensor ops; plane
+    ``layer`` of ``states`` is overwritten, the rest untouched."""
+    g = _gate_plain(states, layer, xs, dt, decay, bm, cm, z, d_skip)
     g = g * torch.rsqrt((g * g).mean(dim=-1, keepdim=True) + eps)
     return (g * norm_w.float()).to(z.dtype)
 
 
+def ssd_gate_step_partial_plain(states, layer: int, xs, dt, decay, bm, cm, z, d_skip,
+                                norm_w) -> tuple[torch.Tensor, torch.Tensor]:
+    """The partial-norm mode's reference: plane ``layer`` updated as by
+    :func:`ssd_gate_step_layered_plain`; returns ``g * w`` rounded once to
+    ``z``'s dtype and each row's fp32 sum of ``g^2`` ``[B]``."""
+    g = _gate_plain(states, layer, xs, dt, decay, bm, cm, z, d_skip)
+    return (g * norm_w.float()).to(z.dtype), (g * g).sum(dim=-1)
+
+
 def ssd_gate_step_layered(states: torch.Tensor, layer: int, xs, dt, decay, bm, cm, z, d_skip,
-                          norm_w, eps: float = 1e-5) -> torch.Tensor:
+                          norm_w, eps: float = 1e-5, *, partial: bool = False):
     """One decode step of a Mamba-2 mixer on plane ``layer`` of a stacked
-    state, in place; returns the gated, normalised ``[B, HP]`` output.
+    state, in place; returns the gated, normalised ``[B, HP]`` output, or
+    with ``partial`` (a tensor-parallel rank's heads) ``(g * w [B, HP],
+    sum of g^2 [B] fp32)`` (module docstring).
 
     Args:
       states: ``[R, B, N, HP]`` fp32 or bf16 (``HP = H * P``); only plane
@@ -108,6 +134,9 @@ def ssd_gate_step_layered(states: torch.Tensor, layer: int, xs, dt, decay, bm, c
     if not 0 <= layer < R:
         raise ValueError(f"ssd_gate_step: layer {layer} outside [0, {R})")
     if states.device.type == "cpu":
+        if partial:
+            return ssd_gate_step_partial_plain(states, layer, xs, dt, decay, bm, cm, z, d_skip,
+                                               norm_w)
         return ssd_gate_step_layered_plain(states, layer, xs, dt, decay, bm, cm, z, d_skip,
                                            norm_w, eps)
     dev = build.require_cuda("ssd_gate_step", states, xs, dt, decay, bm, cm, z, d_skip, norm_w)
@@ -119,17 +148,20 @@ def ssd_gate_step_layered(states: torch.Tensor, layer: int, xs, dt, decay, bm, c
     for t in (dt, decay, bm, cm, d_skip):
         if t.dtype != torch.float32:
             raise ValueError(f"ssd_gate_step: dt, decay, B, C and D must be fp32, got {t.dtype}")
-    tile = step_plan(B, N, HP, states.element_size())
+    tile = step_plan(B, N, HP, states.element_size(), _sm_count(dev))
     ws, tickets = _workspace(dev, B * HP + B * HP // tile, B)
-    out = torch.empty((B, HP), dtype=z.dtype, device=dev)
+    out = z.new_empty((B, HP))
+    sumsq = dt.new_empty((B,)) if partial else None
     rc = build.load().zvt_ssd_gate_step(
         states.data_ptr(), int(states.dtype == torch.bfloat16), layer, xs.data_ptr(),
         dt.data_ptr(), decay.data_ptr(), bm.data_ptr(), cm.data_ptr(), z.data_ptr(),
-        d_skip.data_ptr(), norm_w.data_ptr(), out.data_ptr(), ws.data_ptr(), tickets.data_ptr(),
+        d_skip.data_ptr(), norm_w.data_ptr(), out.data_ptr(),
+        None if sumsq is None else sumsq.data_ptr(), ws.data_ptr(), tickets.data_ptr(),
         R, B, N, HP, H, tile, float(eps), build.stream_handle(dev))
     build.check_status("ssd_gate_step", rc)
-    build.LAUNCHES["ssd_gate_step"] += 1
-    return out
+    name = "ssd_gate_step_partial" if partial else "ssd_gate_step"
+    build.LAUNCHES[name] += 1
+    return (out, sumsq) if partial else out
 
 
 def ssd_gate_step(state: torch.Tensor, xs, dt, decay, bm, cm, z, d_skip, norm_w,

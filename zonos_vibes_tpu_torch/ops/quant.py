@@ -245,13 +245,15 @@ def proj_matmul_f32(x: torch.Tensor, p: dict) -> torch.Tensor:
     ``torch.mm`` with an fp32 output), an int8 leaf's runs ``qmm_int8`` with
     an fp32 output, the scale applied to the fp32 product: the slice of the
     contraction a rank holds keeps every output column's whole scale, so the
-    scaled partials sum to the scaled total. int4 leaves are not split."""
-    if "weight_int4" in p:
-        raise NotImplementedError("grouped int4 weights under tensor parallelism are not "
-                                  "ported (ROADMAP.md queue 1, item 7)")
+    scaled partials sum to the scaled total. An int4 leaf runs ``qmm_int4``
+    with an fp32 output over the rank's rows and the scales of the groups
+    they fall in (``parallel/sharding``): partial sums within a group
+    commute with that group's scale."""
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     wq = p.get("weight_int8")
-    if wq is not None:
+    if "weight_int4" in p:
+        y = qmm_int4(x2, p["weight_int4"], p["scale"], torch.float32)
+    elif wq is not None:
         y = qmm_int8(x2, wq[None], p["scale"][None], torch.float32)[:, 0]
     elif x2.dtype == torch.float32 and p["weight"].dtype == torch.float32:
         y = x2 @ p["weight"]

@@ -16,10 +16,15 @@ unchanged and in step on every rank. Under NCCL the decode step, its
 collectives included, is captured as one CUDA graph as on one card; under
 gloo (ranks sharing a card, or the CPU) it runs eagerly.
 
-Scope: the transformer with float or int8 weights and a float KV cache.
-The hybrid, grouped int4 trees and an int8 KV cache under the parallel
-layer raise ``NotImplementedError`` (ROADMAP.md queue 1, item 7); none runs
-on another path.
+Scope: both backbones (the hybrid through
+:class:`TensorParallelHybridBackbone`) with float, int8, int4 or
+mixed-width weights and a float KV cache, over ``data x model``; the
+transformer also over ``pipe x data``. What stays out raises, naming its
+reason, and runs on no other path: the hybrid under a pipe axis (JAX
+asserts it), the sequence-parallel prefill on the hybrid or on quantized
+weights (JAX refuses both), an int8 KV cache (JAX's engines never pass
+``kv_int8``), the pooled decode (JAX's engines have no pooled entry), and a
+model axis that does not divide the heads.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import torch.distributed as dist
 from ..config import MeshConfig
 from ..engine.generate import DecodeEngine, GenerateResult
 from ..models.backbone import transformer_forward
+from ..models.mamba_backbone import HybridBackbone, Mamba2Spec, attention_geometry
 from ..models.zonos import ZonosModel
 from ..ops.sampling import SamplingParams
 from .comm import Comm
@@ -42,7 +48,11 @@ from .sharding import (DATA, MODEL, PIPE, allocate_local_cache, check_supported,
                        shard_zonos_params)
 from .sp_generate import sp_prefill_last
 
-_ROADMAP_NEXT = "ROADMAP.md queue 1, item 7"
+# Not ported, on purpose (ROADMAP.md queue 1): JAX's ParallelEngine calls
+# generate_jit without kv_int8, and PipelineEngine inherits that call.
+_NO_KV_INT8 = ("an int8 KV cache under the parallel layer is not ported: JAX's parallel "
+               "engines never pass kv_int8 (zonos_vibes_tpu/parallel/engine.py:125-137; "
+               "ROADMAP.md queue 1, not ported on purpose)")
 
 
 def initialize_multihost(init_method: str | None = None, world_size: int | None = None,
@@ -69,11 +79,7 @@ class TensorParallelBackbone:
         self.heads = (cfg.num_heads // n, cfg.num_heads_kv // n)
         self.reduce = model_axis.all_reduce_ if n > 1 else None
 
-    def allocate_cache(self, batch: int, max_seqlen: int, dtype, device,
-                       kv_int8: bool = False) -> dict:
-        if kv_int8:
-            raise NotImplementedError(f"an int8 KV cache under tensor parallelism is not ported "
-                                      f"({_ROADMAP_NEXT})")
+    def allocate_cache(self, batch: int, max_seqlen: int, dtype, device) -> dict:
         return allocate_local_cache(self.cfg, batch, max_seqlen, dtype, device,
                                     model=self.model_axis.size)
 
@@ -84,6 +90,28 @@ class TensorParallelBackbone:
                                       "decode only")
         return transformer_forward(params, self.cfg, hidden, cache, offset, rope, stage_base,
                                    heads=self.heads, reduce=self.reduce)
+
+
+class TensorParallelHybridBackbone(HybridBackbone):
+    """The hybrid backbone over one model rank's heads: its attention heads,
+    its Mamba heads with their slice of d_inner, and every row-parallel
+    projection (Mamba and attention out_proj, fc2) summed over the model
+    axis, the Mamba gated norm folded into that sum
+    (``models/mamba_backbone``). With a model axis of one rank it is the
+    single card's backbone. Its cache is the rank's: K/V of its ``Hkv / n``
+    heads, the fp32 SSM state at its ``d_inner`` and the conv cache at its
+    ``conv_dim`` (its x channels and all of B | C). Trap: hybrid attention
+    at TP 4 holds one KV head per rank (the flagship's 16/4 heads: 8/2 at
+    TP 2, 4/1 at TP 4); a model axis that does not divide the KV heads
+    raises (``sharding.check_supported``)."""
+
+    def __init__(self, cfg, model_axis: Comm):
+        n = model_axis.size
+        hq, hkv, _, _ = attention_geometry(cfg)
+        nheads = Mamba2Spec(cfg.d_model, cfg.ssm_cfg_dict).nheads
+        # Local head counts, passed explicitly (HybridBackbone's trap).
+        super().__init__(cfg, heads=(hq // n, hkv // n), mamba_heads=nheads // n,
+                         reduce=model_axis.all_reduce_ if n > 1 else None)
 
 
 @dataclass(frozen=True, eq=False)
@@ -106,19 +134,22 @@ class ParallelZonosModel(ZonosModel):
     def allocate_cache(self, batch_size: int, max_seqlen: int, dtype, device,
                        kv_int8: bool = False, state_bf16: bool = False,
                        pool_ring: bool = False) -> dict:
+        if kv_int8:  # reached only by a DecodeEngine built by hand on this model
+            raise NotImplementedError(_NO_KV_INT8)
         if state_bf16 or pool_ring:
-            raise ValueError("the parallel layer's cache is the transformer's solo cache")
+            raise ValueError("the parallel layer's cache is the solo decode's (state_bf16 and "
+                             "the pool's rings are pool options)")
         if batch_size % self.data.size:
             raise ValueError(f"batch {batch_size} does not split over a data axis of "
                              f"{self.data.size}")
         return self.local_backbone.allocate_cache(batch_size // self.data.size, max_seqlen,
-                                                  dtype, device, kv_int8)
+                                                  dtype, device)
 
     def forward_logits(self, params: dict, hidden, cache: dict, offset, rope, stage_base=None, *,
                        positions=None, pool_base=None) -> torch.Tensor:
         if positions is not None or pool_base is not None:
             raise NotImplementedError("the pooled decode under the parallel layer is not "
-                                      "ported")
+                                      "ported: JAX's parallel engines have no pooled entry")
         b = hidden.shape[0] // self.data.size
         h = hidden[self.data.rank * b: (self.data.rank + 1) * b]
         S = h.shape[1]
@@ -150,8 +181,12 @@ class ParallelEngine:
     constructs it with the same full ``params`` and calls :meth:`generate`
     with the same arguments (a generator seeded the same).
 
-    ``sp_prefill`` (``"ring"`` or ``"ulysses"``, bf16 or fp32 weights, a
-    model axis of 2 or more) sends a first prefill of at least
+    ``model`` is either backbone: the hybrid runs through
+    :class:`TensorParallelHybridBackbone`. ``params`` may hold float,
+    int8, int4 or mixed-width projections (``ops/quant``).
+
+    ``sp_prefill`` (``"ring"`` or ``"ulysses"``; the transformer with bf16
+    or fp32 weights, a model axis of 2 or more) sends a first prefill of at least
     ``sp_threshold`` positions through the sequence-parallel route
     (:mod:`.sp_generate`); shorter prefills stay dense.
 
@@ -166,12 +201,13 @@ class ParallelEngine:
                  kv_int8: bool = False, device=None, cuda_graphs: bool | None = None):
         cfg = model.config.backbone
         if kv_int8:
-            raise NotImplementedError(f"an int8 KV cache under the parallel layer is not ported "
-                                      f"({_ROADMAP_NEXT})")
-        check_supported(params, cfg, mesh_config.model)
+            raise NotImplementedError(_NO_KV_INT8)
+        check_supported(cfg, mesh_config.model)
         if mesh_config.pipe > 1 and not self.pipelined:
             raise ValueError("a pipe axis runs through PipelineEngine")
         if sp_prefill is not None:
+            if cfg.is_hybrid:  # as JAX's ParallelEngine refuses it
+                raise ValueError("sp_prefill supports the transformer backbone, not the hybrid")
             if sp_prefill not in ("ring", "ulysses"):
                 raise ValueError(f"sp_prefill must be 'ring', 'ulysses' or None, got "
                                  f"{sp_prefill!r}")
@@ -198,6 +234,8 @@ class ParallelEngine:
         self.engine = DecodeEngine(self.model, cuda_graphs=graphs)
 
     def _backbone(self, cfg):
+        if cfg.is_hybrid:
+            return TensorParallelHybridBackbone(cfg, self.model_axis)
         return TensorParallelBackbone(cfg, self.model_axis)
 
     def generate(self, prefix_conditioning: torch.Tensor,
@@ -226,6 +264,10 @@ class PipelineEngine(ParallelEngine):
 
     def __init__(self, model: ZonosModel, mesh_config: MeshConfig, params: dict,
                  n_micro: int = 1, *, device=None, cuda_graphs: bool | None = None):
+        if model.config.backbone.is_hybrid:
+            raise ValueError("the pipelined backbone is the transformer's: JAX asserts it "
+                             "(zonos_vibes_tpu/parallel/pp_backbone.py:136, \"PP backbone "
+                             "requires empty ssm_cfg\")")
         if mesh_config.pipe < 2:
             raise ValueError("PipelineEngine needs a pipe axis >= 2")
         if mesh_config.model != 1:

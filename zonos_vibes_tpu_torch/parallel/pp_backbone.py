@@ -38,9 +38,6 @@ class PipelinedTransformerBackbone:
     over this rank's pipeline stage."""
 
     def __init__(self, cfg: BackboneConfig, pipe: Comm, n_micro: int = 1):
-        if cfg.is_hybrid:
-            raise NotImplementedError("the pipelined backbone is the transformer's "
-                                      "(ROADMAP.md queue 1, item 7)")
         if cfg.n_layer % pipe.size:
             raise ValueError(f"{cfg.n_layer} layers do not split over {pipe.size} stages")
         self.cfg = cfg
@@ -48,12 +45,8 @@ class PipelinedTransformerBackbone:
         self.n_micro = n_micro
         self.stage_layers = cfg.n_layer // pipe.size
 
-    def allocate_cache(self, batch: int, max_seqlen: int, dtype, device,
-                       kv_int8: bool = False) -> dict:
+    def allocate_cache(self, batch: int, max_seqlen: int, dtype, device) -> dict:
         """``batch`` rows (this data rank's) in ``n_micro`` microbatches."""
-        if kv_int8:
-            raise NotImplementedError("an int8 KV cache under pipeline parallelism is not "
-                                      "ported (ROADMAP.md queue 1, item 7)")
         if batch % self.n_micro:
             raise ValueError(f"batch {batch} does not split into {self.n_micro} microbatches")
         return allocate_local_cache(self.cfg, batch // self.n_micro, max_seqlen, dtype, device,
