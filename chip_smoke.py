@@ -1623,6 +1623,7 @@ def run_pool(pipe, card: str, kv_int8: bool, hybrid: bool = False, quant: str | 
     from zonos_vibes_tpu_torch.ops.cuda import build
     from zonos_vibes_tpu_torch.ops.sampling import SamplingParams
     from zonos_vibes_tpu_torch.serve.sample import wav_bytes
+    from zonos_vibes_tpu_torch.utils import tracing
 
     state = " bf16 state" if state_bf16 else ""
     label = (f"hybrid pool int8 weights{state}" if hybrid and quant == "int8" else
@@ -1671,6 +1672,8 @@ def run_pool(pipe, card: str, kv_int8: bool, hybrid: bool = False, quant: str | 
         step_qmm = dict.fromkeys(QMM_KERNELS, 0)  # each kernel's launches in the pooled steps
         t_join = t_steps = 0.0
         t_window = time.perf_counter()
+        t_spans = time.monotonic_ns()
+        tracing.enable()  # the stop test's reads are counted as read_running spans
         for seg in range(POOL_SLOTS + AUDIO_FRAMES // POOL_SEGMENT + 4):
             if seg < POOL_SLOTS:
                 t0 = time.perf_counter()
@@ -1696,14 +1699,16 @@ def run_pool(pipe, card: str, kv_int8: bool, hybrid: bool = False, quant: str | 
                 out["bases_mid"] = pool["flush_base"].tolist()
         out["launches"] = dict(build.LAUNCHES)
         out["t_window"] = time.perf_counter() - t_window
+        tracing.disable()
+        host_reads = sum(1 for sp in tracing.spans(t_spans) if sp["name"] == "read_running")
         if not all(plib.row_finished(pool, s) for s in range(POOL_SLOTS)):
             raise AssertionError(f"{label}: rows still running after {steps} steps")
         out["alloc"] = torch.cuda.memory_allocated()
         runners = pool["graphs"].values()
         out.update(joins=joins, steps=steps, step_qmm=step_qmm, t_join=t_join, t_steps=t_steps,
                    segments=segments,
-                   host_reads=pool["host_reads"], rows=[plib.extract_row(model, pool, s)
-                                                         for s in range(POOL_SLOTS)],
+                   host_reads=host_reads, rows=[plib.extract_row(model, pool, s)
+                                                for s in range(POOL_SLOTS)],
                    graphs=len(runners), replays=sum(r.replays for r in runners),
                    capture_ms=sum(r.capture_seconds for r in runners) * 1e3,
                    step_launches=[r.step_launches for r in runners])

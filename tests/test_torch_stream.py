@@ -11,6 +11,7 @@ must be equal; sampled codes are held against the port's own one-shot run.
 """
 
 import math
+import time
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +37,7 @@ from zonos_vibes_tpu_torch.models.zonos import ZonosModel
 from zonos_vibes_tpu_torch.ops.quant import quantize_zonos_params
 from zonos_vibes_tpu_torch.ops.sampling import SamplingParams
 from zonos_vibes_tpu_torch.pipeline import ZonosPipeline
+from zonos_vibes_tpu_torch.utils import tracing
 from zonos_vibes_tpu_torch.utils.checkpoint import params_from_jax
 
 DAC = dict(encoder_hidden_size=8, downsampling_ratios=(2, 4), decoder_hidden_size=32,
@@ -329,6 +331,11 @@ def test_pool_reads_at_most_ceil_steps_over_9_plus_1():
                                                              max_new_tokens=120),
                                 torch.float32, device="cpu")
     side.join(Join(0, "a", 120, seed=1))
-    before = side.pool["host_reads"]
-    assert tpool.pool_steps(side.model, side.params, side.pool, 42, 43) == 43
-    assert side.pool["host_reads"] - before <= math.ceil(43 / 9) + 1
+    t0 = time.monotonic_ns()
+    tracing.enable()
+    try:
+        assert tpool.pool_steps(side.model, side.params, side.pool, 42, 43) == 43
+    finally:
+        tracing.disable()
+    reads = [s for s in tracing.spans(t0) if s["name"] == "read_running"]
+    assert 1 <= len(reads) <= math.ceil(43 / 9) + 1

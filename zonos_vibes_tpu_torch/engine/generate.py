@@ -46,6 +46,7 @@ from ..models.zonos import ZonosModel
 from ..ops.attention import NEG_INF
 from ..ops.delay_pattern import apply_delay_pattern, revert_delay_pattern
 from ..ops.sampling import SamplingParams, sample_from_logits, sample_from_logits_dyn
+from ..utils import tracing
 from .graphs import StepGraph
 
 UNKNOWN_TOKEN = -1
@@ -297,7 +298,8 @@ def _decode_segment(s: DecodeState, runner: StepGraph, cond_len: int, disable_eo
         s.guaranteed -= n
         steps += n
         if staged and s.offset + cond_len - s.stage_base == depth:
-            flush_kv_stage(s.cache, s.stage_base, s.stage_scalars)
+            with tracing.span("flush", device=s.remaining.device):
+                flush_kv_stage(s.cache, s.stage_base, s.stage_scalars)
             s.stage_base += depth
     return steps
 
@@ -465,7 +467,8 @@ class DecodeEngine:
         _fill_logit_bias(logit_bias, cfg.eos_token_id, disable_eos)
         step = functools.partial(_decode_step, self.model, params, s, cond_len, cfg_scale,
                                  sampling_params, logit_bias, gen)
-        entry = _Entry(key, s, logit_bias, gen, StepGraph(step, dev, graphs, gen), params,
+        entry = _Entry(key, s, logit_bias, gen,
+                       StepGraph(step, dev, graphs, gen, kind="solo", rows=two_b), params,
                        _state_bytes(s, logit_bias))
         with self._lock:
             self._entries.append(entry)
@@ -534,7 +537,7 @@ class DecodeEngine:
             raise ValueError(f"chunk_steps must be positive, got {chunk_steps}")
         dev = prefix_conditioning.device
         cond_len = prefix_conditioning.shape[1]
-        with torch.inference_mode():
+        with torch.inference_mode(), tracing.span("prefill", device=dev):
             t0 = time.perf_counter()
             entry, caller = self._start(params, prefix_conditioning, audio_prefix_codes,
                                         generator, max_new_tokens, cfg_scale, sampling_params,
@@ -547,7 +550,12 @@ class DecodeEngine:
             while True:
                 with torch.inference_mode():
                     t0 = time.perf_counter()
-                    steps += _decode_segment(s, runner, cond_len, disable_eos, chunk_steps)
+                    # ``steps``: the segment's ``replay`` and ``flush`` spans
+                    # (device time) and the stop test's reads between them.
+                    with tracing.span("steps") as sp:
+                        n = _decode_segment(s, runner, cond_len, disable_eos, chunk_steps)
+                        sp.set(n=n)
+                    steps += n
                     _sync(dev)
                     decode_s += time.perf_counter() - t0
                     result = self._result(s, runner, steps, prefill_s, decode_s)

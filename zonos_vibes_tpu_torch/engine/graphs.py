@@ -37,6 +37,7 @@ import time
 import torch
 
 from ..ops.cuda import build, decode_attention, mamba_step, qmm
+from ..utils import tracing
 
 
 def _workspaces() -> tuple:
@@ -52,10 +53,12 @@ def _workspaces() -> tuple:
 class StepGraph:
     """``step`` run eagerly (``enabled=False``, and always on the CPU) or
     through one captured CUDA graph. ``generator`` is the card's
-    ``torch.Generator`` the step draws from, if any."""
+    ``torch.Generator`` the step draws from, if any; ``kind`` (``solo`` or
+    ``pool``) and ``rows`` (CFG rows included) name the step in the
+    ``graph_capture`` span."""
 
     def __init__(self, step, device: torch.device, enabled: bool,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, kind: str = "solo", rows: int = 0):
         if enabled and device.type != "cuda":
             raise ValueError(f"CUDA graphs need a CUDA device, got {device}: pass "
                              f"cuda_graphs=False (or leave it unset) on the CPU")
@@ -63,6 +66,7 @@ class StepGraph:
         self.device = device
         self.enabled = enabled
         self.generator = generator
+        self.kind, self.rows = kind, rows
         self.stream = None
         self.graph = None
         self.replays = 0  # steps run by replaying the graph
@@ -71,7 +75,13 @@ class StepGraph:
         self._pinned = ()
 
     def run(self, n: int) -> None:
-        """Run ``n`` steps on the current stream, in order."""
+        """Run ``n`` steps on the current stream, in order (a ``replay``
+        span with device time: the steps alone, without the host's reads
+        between runs)."""
+        with tracing.span("replay", device=self.device, n=n):
+            self._run(n)
+
+    def _run(self, n: int) -> None:
         if not self.enabled:
             for _ in range(n):
                 self.step()
@@ -96,7 +106,10 @@ class StepGraph:
         current.wait_stream(self.stream)
 
     def _capture(self) -> None:
+        """Capture the step (a ``graph_capture`` phase; counted in the
+        ``graph_captures`` counter: one while serving is a stall)."""
         t0 = time.perf_counter()
+        tracing.count("graph_captures")
         graph = torch.cuda.CUDAGraph()
         gen = self.generator
         if gen is not None and gen.device.type == "cuda" and (
@@ -104,7 +117,8 @@ class StepGraph:
             graph.register_generator_state(gen)
         before = dict(build.LAUNCHES)
         try:
-            with torch.cuda.graph(graph, stream=self.stream):
+            with tracing.phase("graph_capture", kind=self.kind, rows=self.rows), \
+                    torch.cuda.graph(graph, stream=self.stream):
                 self.step()
         finally:
             captured = {name: build.LAUNCHES[name] - n for name, n in before.items()}

@@ -39,8 +39,8 @@ changes. ``state_bf16`` (hybrid only) stores the SSM state in bf16.
 Pool state is a dict of tensors on one device, updated in place: every
 tensor keeps its storage for the pool's lifetime, so the graphs captured
 over them stay valid across joins, segments and flushes. Beside the
-tensors it holds the captured steps (``"graphs"``) and the count of the
-stop test's device reads (``"host_reads"``).
+tensors it holds the captured steps (``"graphs"``). The stop test's device
+reads are ``read_running`` spans (``utils/tracing``).
 """
 
 from __future__ import annotations
@@ -61,6 +61,7 @@ from ..ops.sampling import (
     pool_noise,
     sample_from_logits_dyn,
 )
+from ..utils import tracing
 from ..utils.device import resolve_device
 from .generate import (
     EOS_CASCADE,
@@ -134,7 +135,6 @@ def make_pool(model: ZonosModel, pc: PoolConfig, dtype=torch.bfloat16, kv_int8: 
         "rope": model.rope_for(dev),
         "cuda_graphs": graphs,
         "graphs": {},  # (needs_sort, base_seed, id(params)) -> StepGraph
-        "host_reads": 0,
     }
 
 
@@ -262,13 +262,13 @@ def _pool_body(model: ZonosModel, params: dict, pool: dict, base_seed: int,
 
 
 def _read_running(pool: dict) -> tuple[bool, int]:
-    """The stop test's one device read: ``(some active row sets top-p or
-    top-k, max remaining over the active rows)``."""
-    pool["host_reads"] += 1
-    knobs, active = pool["knobs"], pool["active"]
-    sort = (active & ((knobs["top_p"] > 0) | (knobs["top_k"] > 0))).any()
-    running = torch.where(active, pool["remaining"], 0).max()
-    flag, r = torch.stack([sort.long(), running]).tolist()
+    """The stop test's one device read (a ``read_running`` span): ``(some
+    active row sets top-p or top-k, max remaining over the active rows)``."""
+    with tracing.span("read_running"):
+        knobs, active = pool["knobs"], pool["active"]
+        sort = (active & ((knobs["top_p"] > 0) | (knobs["top_k"] > 0))).any()
+        running = torch.where(active, pool["remaining"], 0).max()
+        flag, r = torch.stack([sort.long(), running]).tolist()
     return bool(flag), r
 
 
@@ -298,7 +298,8 @@ def pool_steps(model: ZonosModel, params: dict, pool: dict, base_seed: int,
         # graphs, so the runner and the pool hold no reference cycle.
         tensors = {k: v for k, v in pool.items() if k != "graphs"}
         step = functools.partial(_pool_body, model, params, tensors, base_seed, needs_sort)
-        runner = StepGraph(step, pool["delayed"].device, pool["cuda_graphs"])
+        runner = StepGraph(step, pool["delayed"].device, pool["cuda_graphs"], kind="pool",
+                           rows=2 * pool["delayed"].shape[0])
         pool["graphs"][key] = runner  # the runner holds params: its id stays unique
     steps = 0
     while steps < n_steps and running > 0:
@@ -307,7 +308,8 @@ def pool_steps(model: ZonosModel, params: dict, pool: dict, base_seed: int,
         steps += n
         if steps < n_steps:
             _, running = _read_running(pool)
-    flush_pool_rings(pool)
+    with tracing.span("flush", device=pool["delayed"].device):
+        flush_pool_rings(pool)
     return steps
 
 

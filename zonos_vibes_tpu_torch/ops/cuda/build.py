@@ -27,6 +27,8 @@ from pathlib import Path
 
 import torch
 
+from ...utils import tracing
+
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "zonos_vibes_tpu_torch"
 SOURCES = ("decode_attention.cu", "stage_write.cu", "prefill_attention.cu", "qmm_int8.cu",
@@ -118,13 +120,17 @@ def build(verbose: bool = False) -> tuple[Path, float]:
 
 @functools.cache
 def load() -> ctypes.CDLL:
-    """The built kernel library with every entry's argument types set."""
-    path, _ = build()
-    lib = ctypes.CDLL(str(path))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+    """The built kernel library with every entry's argument types set: a
+    ``kernel_build`` phase (``nvcc``, where the library is not built yet),
+    then a ``kernel_load`` phase."""
+    with tracing.phase("kernel_build"):
+        path, _ = build()
+    with tracing.phase("kernel_load"):
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
     return lib
 
 

@@ -309,7 +309,6 @@ class ZonosPipeline:
                             break
                 finally:
                     it.close()
-        tracing.add_counter("audio_seconds", result.valid_length / 86.1328)
         return result
 
     def generate_stream(self, cond_dict: dict, audio_prefix_codes: torch.Tensor | None = None, *,
@@ -330,7 +329,8 @@ class ZonosPipeline:
         code frames (about 9 for the 44.1 kHz decoder)."""
         if self.dac_params is None:
             raise RuntimeError("DAC params not loaded")
-        prefix = self.prepare_conditioning(cond_dict)
+        with tracing.span("conditioning", device=self.device):
+            prefix = self.prepare_conditioning(cond_dict)
         hop = self.dac.hop
         emitted = 0  # frames whose samples have been yielded
 
@@ -342,9 +342,10 @@ class ZonosPipeline:
             c0 = max(0, start - margin_frames)
             c1 = min(avail, end + margin_frames)
             c0 = max(0, c1 - (c1 - c0 + 7) // 8 * 8)
-            with torch.inference_mode():
+            with tracing.span("vocode", device=self.device), torch.inference_mode():
                 wav = self.dac.decode(self.dac_params, codes_all[:, :, c0:c1].to(self.device))
-            wav = wav[:, 0, :].float().cpu().numpy()
+            with tracing.span("read"):
+                wav = wav[:, 0, :].float().cpu().numpy()
             off = (start - c0) * hop
             return wav[:, off: off + (end - start) * hop]
 
@@ -371,7 +372,7 @@ class ZonosPipeline:
         if self.dac_params is None:
             raise RuntimeError("DAC params not loaded")
         codes = result.codes if isinstance(result, GenerateResult) else result
-        with tracing.phase("vocode"), torch.inference_mode():
+        with tracing.phase("vocode", device=self.device), torch.inference_mode():
             wav = self.dac.decode(self.dac_params, codes.to(self.device))
             wav = wav[:, 0, :].float().cpu().numpy()
         if isinstance(result, GenerateResult):

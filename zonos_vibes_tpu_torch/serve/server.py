@@ -22,8 +22,16 @@ speaking_rate, language?}`` -> ``audio/wav``) on the standard library, with:
   by ``make_pool_emit`` on the card;
 * ``warmup``: captures the graphs of representative request shapes before
   serving;
-* ``/healthz``, ``/metrics`` (counters, RTF, queue depth and the
-  ``utils/tracing`` phases), ``/model-info`` and the web UI at ``/``.
+* ``/healthz``, ``/metrics`` (counters, RTF, queue depth, and the
+  ``utils/tracing`` phases and counters), ``/model-info`` and the web UI
+  at ``/``;
+* spans (``utils/tracing``, recorded while switched on): a ``request``
+  span per request (``rid``: the payload's ``request_id`` or a server
+  counter; ``path``: ``pool``, ``stream_job`` or ``decode_job``;
+  ``reason``: why a pooled server's request took the job path), the
+  pool's ``admit`` and ``pool_segment`` (with a ``chunk`` record per
+  streaming row), the ``stream_segment`` and ``decode_segment`` of jobs,
+  and ``worker_wait`` while the worker has nothing to do.
 
 Seeds: a request's generator (on the pipeline's device) is seeded from its
 seed (the server's, 420 as in the reference, unless the payload sets one)
@@ -39,6 +47,7 @@ from __future__ import annotations
 import base64
 import hashlib
 import io
+import itertools
 import json
 import queue
 import struct
@@ -94,6 +103,8 @@ class _Request:
     # Set by the HTTP thread when the client goes away; the worker stops
     # generating at the next segment.
     cancelled: threading.Event = field(default_factory=threading.Event)
+    rid: Any = None  # the payload's request_id, else a server-assigned id
+    span: Any = tracing.NOOP  # the request's span (utils/tracing)
 
 
 class Metrics:
@@ -187,6 +198,7 @@ class TTSServer:
         self._spk_cache: "OrderedDict[tuple, Any]" = OrderedDict()
         self._spk_lock = threading.Lock()
         self._req_counter = 0
+        self._rids = itertools.count(1)
         self._stop = threading.Event()
         self._worker = threading.Thread(target=self._worker_loop, daemon=True)
 
@@ -195,12 +207,15 @@ class TTSServer:
     SPK_CACHE_MAX = 256  # one [1, 1, 128] embedding per entry
     PREFIX_CACHE_MAX = 64  # one [1, 9, Lp] code tensor per entry
 
-    def _cached(self, key: tuple, compute):
-        """One LRU for speaker embeddings and prefix codes, under one bound."""
+    def _cached(self, key: tuple, compute, kind: str):
+        """One LRU for speaker embeddings and prefix codes, under one bound;
+        counts ``<kind>_cache_hits`` and ``<kind>_cache_misses``."""
         with self._spk_lock:
             if key in self._spk_cache:
                 self._spk_cache.move_to_end(key)
+                tracing.count(f"{kind}_cache_hits")
                 return self._spk_cache[key]
+        tracing.count(f"{kind}_cache_misses")
         val = compute()
         with self._spk_lock:
             self._spk_cache[key] = val
@@ -219,10 +234,12 @@ class TTSServer:
             load = lambda: read_wav(src)  # noqa: E731
 
         def compute():
-            wav, sr = load()
-            return self.pipelines[model].make_speaker_embedding(wav, sr)
+            pipe = self.pipelines[model]
+            with tracing.span("speaker_embed", device=pipe.device):
+                wav, sr = load()
+                return pipe.make_speaker_embedding(wav, sr)
 
-        return self._cached(key, compute)
+        return self._cached(key, compute, "speaker")
 
     def _prefix_codes(self, src, model: str = "default"):
         """DAC codes of an audio prefix (path or WAV bytes), for
@@ -238,7 +255,7 @@ class TTSServer:
             wav, sr = load()
             return self.pipelines[model].encode_audio(wav, sr)
 
-        return self._cached(key, compute)
+        return self._cached(key, compute, "prefix")
 
     # -- request processing (the worker thread) -----------------------------
 
@@ -392,7 +409,6 @@ class TTSServer:
             self.metrics.audio_seconds_total += audio_total
             self.metrics.compute_seconds_total += job.compute_s
             self.metrics.batched_requests += len(reqs) - 1
-        tracing.add_counter("audio_seconds", audio_total)
         tracing.log_event("tts_group_done", batch=len(reqs), frames=delivered,
                           compute_s=round(job.compute_s, 3), audio_s=round(audio_total, 3))
 
@@ -408,7 +424,10 @@ class TTSServer:
             # bucket 64), with and without a speaker.
             combos = [(1, 64, self._bucket(86 * 30), True),
                       (1, 64, self._bucket(86 * 30), False)]
-        uncond = tuple(sorted(DEFAULT_UNCONDITIONAL))
+        with tracing.phase("warmup"):
+            return self._warm(combos, tuple(sorted(DEFAULT_UNCONDITIONAL)))
+
+    def _warm(self, combos: list[tuple], uncond: tuple) -> int:
         n = 0
         for pipe in self.pipelines.values():
             has_speaker = any(sp.name == "speaker" for sp in pipe.model.prefix_conditioner.specs)
@@ -481,12 +500,17 @@ class TTSServer:
 
     def _try_pool(self, req: _Request, r: dict, jobs: list) -> bool:
         """Admit into the request's model's pool; False (the job path)
-        when the pool is full, the request ineligible or the admit raised."""
-        if not (self.pooled and self._pool_eligible(r)):
+        when the pool is full, the request ineligible or the admit raised
+        (the request span's ``reason``)."""
+        if not self.pooled:
+            return False
+        if not self._pool_eligible(r):
+            req.span.set(reason="ineligible")
             return False
         try:
             return self._pool_admit(req, r, jobs)
         except Exception as e:  # noqa: BLE001 (boundary: the job path serves it)
+            req.span.set(reason="admit_failed")
             tracing.log_event("pool_admit_failed", error=repr(e)[:120])
             with self.metrics.lock:
                 self.metrics.pool_admit_failures += 1
@@ -499,7 +523,12 @@ class TTSServer:
             self.metrics.queue_depth = self.queue.qsize()
         if len(jobs) >= self.max_active_jobs:
             return
-        batch = self._drain_batch(block=not jobs)
+        if jobs:
+            batch = self._drain_batch(block=False)
+        else:
+            with tracing.span("worker_wait") as sp:
+                batch = self._drain_batch(block=True)
+                sp.set(taken=len(batch))
         if not batch:
             return
 
@@ -520,11 +549,13 @@ class TTSServer:
                 # a full pool or an ineligible request takes a stream job.
                 if self._try_pool(req, out, jobs):
                     continue
+                req.span.set(path="stream_job")
                 try:
                     jobs.append(self._start_stream_job(req, out))
                 except Exception as e:  # noqa: BLE001 (boundary)
                     self._answer(req, _error(500, f"TTS stream failed: {e}"))
             elif not self._try_pool(req, out, jobs):
+                req.span.set(path="decode_job")
                 live.append(req)
                 parsed.append(out)
 
@@ -604,20 +635,29 @@ class TTSServer:
 
     # -- HTTP ---------------------------------------------------------------
 
-    def handle_tts(self, payload: dict) -> tuple[int, str, bytes]:
-        req = _Request(payload)
+    def _enqueue(self, req: _Request) -> None:
+        """Name the request, open its span, enqueue it."""
+        rid = req.payload.get("request_id")
+        req.rid = rid if rid is not None else f"srv-{next(self._rids)}"
+        req.span = tracing.begin("request", rid=req.rid, stream=req.stream_q is not None)
         with self.metrics.lock:
             self.metrics.requests_total += 1
         self.queue.put(req)
+
+    def handle_tts(self, payload: dict) -> tuple[int, str, bytes]:
+        req = _Request(payload)
+        self._enqueue(req)
         if not req.done.wait(self.request_timeout_s + 5):
+            req.span.end(status=504)
             return _error(504, "Deadline exceeded")
+        req.span.end(status=req.response[0])
         return req.response
 
     def handle_tts_stream(self, payload: dict) -> _Request:
+        """The request, enqueued; its span ends once the HTTP handler has
+        sent the stream."""
         req = _Request(payload, stream_q=queue.Queue())
-        with self.metrics.lock:
-            self.metrics.requests_total += 1
-        self.queue.put(req)
+        self._enqueue(req)
         return req
 
     def make_handler(server_self):
@@ -660,6 +700,7 @@ class TTSServer:
                 elif self.path == "/metrics":
                     snap = server_self.metrics.snapshot()
                     snap["phases"] = tracing.timings_snapshot()
+                    snap["counters"] = tracing.counters_snapshot()
                     self._send(200, "application/json", json.dumps(snap).encode())
                 else:
                     self._send(404, "application/json", b'{"error":"not found"}')
@@ -712,7 +753,11 @@ class TTSServer:
                     self._send(400, "application/json", b'{"error":"invalid JSON"}')
                     return
                 if payload.get("stream"):
-                    self._stream(server_self.handle_tts_stream(payload))
+                    req = server_self.handle_tts_stream(payload)
+                    try:
+                        self._stream(req)
+                    finally:
+                        req.span.end(cancelled=req.cancelled.is_set())
                     return
                 self._send(*server_self.handle_tts(payload))
 
@@ -760,7 +805,7 @@ class _DecodeJob:
     def advance(self) -> bool:
         t0 = time.monotonic()
         try:
-            with tracing.phase("generate"):
+            with tracing.phase("decode_segment", rids=[r.rid for r in self.reqs]):
                 self.result = next(self.it)
             return False
         except StopIteration:
@@ -787,21 +832,23 @@ class _StreamJob:
     def advance(self) -> bool:
         if self.req.cancelled.is_set():
             return True  # the client went away: stop decoding
-        t0 = time.monotonic()
-        try:
-            chunk = next(self.stream)
-        except StopIteration:
-            return True
-        finally:
-            with self.srv.metrics.lock:
-                self.srv.metrics.compute_seconds_total += time.monotonic() - t0
-        pcm = chunk[0]
-        take = min(self.budget - self.sent, pcm.shape[-1])
-        if take <= 0:
-            return True
-        data = (np.clip(pcm[:take], -1.0, 1.0) * 32767.0).astype(np.int16)
-        self.req.stream_q.put(data.tobytes())
-        self.sent += take
+        with tracing.span("stream_segment", rid=self.req.rid, parent=self.req.span) as seg:
+            t0 = time.monotonic()
+            try:
+                chunk = next(self.stream)
+            except StopIteration:
+                return True
+            finally:
+                with self.srv.metrics.lock:
+                    self.srv.metrics.compute_seconds_total += time.monotonic() - t0
+            pcm = chunk[0]
+            take = min(self.budget - self.sent, pcm.shape[-1])
+            if take <= 0:
+                return True
+            data = (np.clip(pcm[:take], -1.0, 1.0) * 32767.0).astype(np.int16)
+            self.req.stream_q.put(data.tobytes())
+            self.sent += take
+            seg.set(frames=take // self.pipe.dac.hop)
         return False
 
     def finish(self) -> None:
@@ -856,26 +903,38 @@ class _PoolJob:
     def admit(self, req: _Request, r: dict, jobs: list) -> bool:
         slot = next((i for i in range(self.pc.slots) if i not in self.rows), None)
         if slot is None:
+            req.span.set(reason="pool_full")
+            tracing.count("pool_full_fallbacks")
             return False
         t0 = time.monotonic()
         pipe = self.pipe
-        cd = pipe.make_cond_dict(**r["cond_kwargs"])
-        pad_len = self.srv._cond_bucket(int(cd["espeak"].shape[1]))
-        if pad_len > self.pc.max_cond_len:
-            return False  # longer than the pool's geometry: the job path
-        cond = pipe.merge_cond_dicts([cd], pad_len=pad_len)
-        prefix_cond = pipe.prepare_conditioning(cond)
-        gen = self.srv._generator(pipe, r["seed"])
-        prefix = r["prefix_codes"]
-        prefix_frames = int(prefix.shape[-1]) if prefix is not None else 0
-        # The request's own (bucketed) budget, so a short request frees its
-        # slot early.
-        mnt = min(self.srv._bucket(r["max_new_tokens"]), self.pc.max_new_tokens - prefix_frames)
-        req_state, knobs = self.plib.prefill_request(
-            pipe.model, pipe.params, prefix_cond, gen, mnt, r["cfg_scale"], r["sampling"],
-            kv_int8=self.kv_int8, state_bf16=self.state_bf16, audio_prefix_codes=prefix)
-        row_seed = request_seed(r["seed"], self.srv._req_counter)
-        self.plib.join(self.pool, req_state, slot, prefix_cond.shape[1], row_seed, knobs)
+        dev = pipe.device
+        with tracing.span("admit", rid=req.rid, parent=req.span, slot=slot):
+            cd = pipe.make_cond_dict(**r["cond_kwargs"])
+            pad_len = self.srv._cond_bucket(int(cd["espeak"].shape[1]))
+            if pad_len > self.pc.max_cond_len:
+                req.span.set(reason="ineligible")
+                return False  # longer than the pool's geometry: the job path
+            cond = pipe.merge_cond_dicts([cd], pad_len=pad_len)
+            with tracing.span("conditioning", device=dev):
+                prefix_cond = pipe.prepare_conditioning(cond)
+            gen = self.srv._generator(pipe, r["seed"])
+            prefix = r["prefix_codes"]
+            prefix_frames = int(prefix.shape[-1]) if prefix is not None else 0
+            # The request's own (bucketed) budget, so a short request frees
+            # its slot early.
+            mnt = min(self.srv._bucket(r["max_new_tokens"]),
+                      self.pc.max_new_tokens - prefix_frames)
+            with tracing.span("prefill", device=dev):
+                req_state, knobs = self.plib.prefill_request(
+                    pipe.model, pipe.params, prefix_cond, gen, mnt, r["cfg_scale"],
+                    r["sampling"], kv_int8=self.kv_int8, state_bf16=self.state_bf16,
+                    audio_prefix_codes=prefix)
+            row_seed = request_seed(r["seed"], self.srv._req_counter)
+            with tracing.span("join", device=dev):
+                self.plib.join(self.pool, req_state, slot, prefix_cond.shape[1], row_seed,
+                               knobs)
+        req.span.set(path="pool")
         self.rows[slot] = {"req": req, "r": r, "t0": t0, "emitted": 0, "sent": 0,
                            "prefix_frames": prefix_frames}
         with self.srv.metrics.lock:
@@ -907,8 +966,10 @@ class _PoolJob:
             c0 = max(0, c1 - W)
             win = torch.zeros((1, codes.shape[0], W), dtype=torch.long, device=self.pipe.device)
             win[0, :, : c1 - c0] = codes[:, c0:c1]
-            with torch.inference_mode():
-                wav = self.pipe.dac.decode(self.pipe.dac_params, win)[0, 0].float().cpu().numpy()
+            with tracing.span("vocode", device=self.pipe.device), torch.inference_mode():
+                wav = self.pipe.dac.decode(self.pipe.dac_params, win)[0, 0]
+            with tracing.span("read"):
+                wav = wav.float().cpu().numpy()
             off = (s - c0) * hop
             out.append(wav[off: off + (e - s) * hop])
             s = e
@@ -940,10 +1001,16 @@ class _PoolJob:
         return self._emit_fn
 
     def advance(self) -> bool:
+        with tracing.phase("pool_segment") as seg:
+            return self._advance(seg)
+
+    def _advance(self, seg) -> bool:
         t0 = time.monotonic()
-        with tracing.phase("pool_segment"):
-            self.plib.pool_steps(self.pipe.model, self.pipe.params, self.pool, self.srv.seed,
-                                 self.srv.segment_steps)
+        dev = self.pipe.device
+        with tracing.span("steps") as sp:
+            n = self.plib.pool_steps(self.pipe.model, self.pipe.params, self.pool, self.srv.seed,
+                                     self.srv.segment_steps)
+            sp.set(n=n)
         t_steps = time.monotonic() - t0
         # A cancelled stream frees its slot before the read (never decode
         # for a client that went away).
@@ -961,7 +1028,6 @@ class _PoolJob:
         # card, and the chunks come back with the counters.
         t1 = time.monotonic()
         out = None
-        dev = self.pipe.device
         if stream_slots:
             S = self.pc.slots
             emitted = torch.zeros((S,), dtype=torch.long)
@@ -969,30 +1035,28 @@ class _PoolJob:
             for slot, row in self.rows.items():
                 emitted[slot] = row["emitted"]
                 mnt_cap[slot] = row["r"]["max_new_tokens"] + row["prefix_frames"]
-            with tracing.phase("pool_emit"):
+            with tracing.span("emit", device=dev):
                 emit = self._emit(self.pipe.dac_params, self.pool, emitted.to(dev),
                                   mnt_cap.to(dev))
+            with tracing.span("read"):
                 out = {k: v.cpu().numpy() for k, v in emit.items()}
             active, remaining = out["active"], out["remaining"]
         else:
-            active, remaining = (t.numpy() for t in torch.stack(
-                [self.pool["active"].long(), self.pool["remaining"]]).cpu())
+            with tracing.span("read"):
+                active, remaining = (t.numpy() for t in torch.stack(
+                    [self.pool["active"].long(), self.pool["remaining"]]).cpu())
         t_read = time.monotonic() - t1
         with self.srv.metrics.lock:
             self.srv.metrics.compute_seconds_total += time.monotonic() - t0
 
         hop = self.pipe.dac.hop
-        now = time.monotonic()
+        shipped = {}  # streaming slot -> (its row, frames shipped before this segment)
         for slot in stream_slots:
             row = self.rows[slot]
+            shipped[slot] = (row, row["emitted"])
             take = int(out["new_emitted"][slot]) - row["emitted"]
             if take > 0:
                 row["req"].stream_q.put(out["pcm"][slot, : take * hop].tobytes())
-                if not row.get("ttfa_logged"):
-                    row["ttfa_logged"] = True
-                    tracing.log_event("pool_first_chunk", slot=slot,
-                                      ttfa_s=round(now - row["req"].enqueued_at, 3),
-                                      since_admit_s=round(now - row["t0"], 3))
                 row["emitted"] += take
                 row["sent"] += take * hop
 
@@ -1003,7 +1067,15 @@ class _PoolJob:
             if out is not None and streaming and self.rows[slot]["emitted"] >= int(out["valid"][slot]):
                 pre = (None, int(out["valid"][slot]))  # every frame already shipped
             self._finish_row(slot, pre=pre)
+        # One record per streaming row: the frames it got this segment (the
+        # tail of a row that finished included).
+        for slot, (row, before) in shipped.items():
+            tracing.mark("chunk", rid=row["req"].rid, slot=slot, frames=row["emitted"] - before,
+                         valid=int(out["valid"][slot]), emitted=row["emitted"],
+                         final=slot in done_slots)
 
+        seg.set(rows=len(self.rows), streams=len(stream_slots), finished=len(done_slots),
+                steps=n)
         tracing.log_event("pool_segment", steps_ms=round(t_steps * 1000, 1),
                           read_ms=round(t_read * 1000, 1), streams=len(stream_slots),
                           finished=len(done_slots), rows=len(self.rows))
